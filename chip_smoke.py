@@ -32,6 +32,28 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    of the same weights on the same inputs (the BASELINE contract), and the
    CLI's SSIM is finite and within 1e-4 of the f32 plain path on the card,
    its NN.bmp files exist and it printed fps.
+6. Training, with every launch count set to 0 just before it: the port's
+   train CLI on 10 synthetic seeded 512x512 BMP pairs (8 train, 2 valid) at
+   the reference defaults (bs 16, 64x64 patches, f32, --fast_train), 2
+   epochs of 32 train steps and 8 valid batches. Counts are read just
+   after: conv_valid must have launched exactly 9 times a train step (5
+   forward, 4 dx) and 5 times a valid batch. Each train step is timed (host
+   clock, synchronised before and after); the median and spread exclude
+   the first epoch's first 3 steps. Then one train step of the same
+   weights and batch through the kernels and through F.conv2d (TF32 off):
+   loss parts within 1e-5 relative, gradients within 1e-4 of the largest
+   gradient magnitude, every parameter's gradient non-zero. Then 20 steps
+   under torch.profiler on one device batch: summed kernel time against
+   the wall time of the same steps without the profiler (the device's busy
+   share), and the conv_valid, dw, loss and optimizer shares. Last, the
+   port's test CLI on the checkpoint the training wrote: its SSIM must be
+   finite.
+
+Phase 3 also holds conv_valid against its plain version (TF32 off): the 5
+forward and 4 dx launches of a train step in f32 and bf16, the valid
+step's bias+relu and bias+none epilogues, and enc1 at 1224x1024 in bf16,
+batch 2; the library time is one F.conv2d on the same pre-padded input
+(forward) or one torch.nn.grad.conv2d_input (dx).
 
 Prints the `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs one card; exits non-zero without one.
@@ -231,6 +253,257 @@ def check_kernels(torch, F, dev, timer):
     return rec
 
 
+# DeepFuse's train step at the reference defaults (bs 16, 64x64 patches):
+# (name, images, c_in, c_out, k) of the conv_valid launches. The siamese
+# fold runs the encoder once over both images of the 16 pairs.
+TRAIN_BS, PATCH = 16, 64
+VALID_FWD = [("enc0", 2 * TRAIN_BS, 1, 16, 5),
+             ("enc1", 2 * TRAIN_BS, 16, 32, 7),
+             ("dec0", TRAIN_BS, 32, 32, 7), ("dec1", TRAIN_BS, 32, 16, 5),
+             ("dec2", TRAIN_BS, 16, 1, 5)]
+# dx of every layer but enc0 (the images carry no gradient): a VALID conv
+# of the cotangent (c_out channels) zero-padded by k-1, back to c_in
+VALID_DX = [(n, b, cin, cout, k) for n, b, cin, cout, k in VALID_FWD[1:]]
+
+
+def _bound(nbytes, flops, dt):
+    t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dt]
+    return max(t_b, t_f) * 1e3, "bytes" if t_b > t_f else "operations"
+
+
+def check_conv_valid(torch, F, dev, timer):
+    """conv_valid against its plain version at the train step's launches,
+    the valid step's epilogues and one full-resolution shape, with times."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import (
+        conv_valid, conv_valid_plain)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+
+    def check(got, want, dt):
+        err, rel = _err(torch, got, want, dt)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+
+    cases = []
+    for dt in ("f32", "bf16"):
+        for name, b, cin, cout, k in VALID_FWD:
+            cases.append((f"{name}.fwd.{dt}", "fwd", dt, b, PATCH, PATCH,
+                          cin, cout, k, None, None))
+        for name, b, cin, cout, k in VALID_DX:
+            cases.append((f"{name}.dx.{dt}", "dx", dt, b, PATCH, PATCH, cin,
+                          cout, k, None, None))
+    cases += [("enc1.valid_relu.f32", "fwd", "f32", 2 * TRAIN_BS, PATCH,
+               PATCH, 16, 32, 7, "relu", True),
+              ("dec2.valid_none.f32", "fwd", "f32", TRAIN_BS, PATCH, PATCH,
+               16, 1, 5, None, True),
+              ("enc1.fwd.bf16.1224x1024", "fwd", "bf16", 2, H, W, 16, 32, 7,
+               None, None)]
+    for key, kind, dt, b, h, w, cin, cout, k, act, with_bias in cases:
+        dtype = dts[dt]
+        wt = _rand(torch, (cout, cin, k, k), 50 + k + cin, dev, torch.float32,
+                   lo=-0.5, scale=2.0 / np.sqrt(cin * k * k)).to(dtype)
+        bias = (_rand(torch, (cout,), 60 + cout, dev, torch.float32, lo=-0.5,
+                      scale=0.1) if with_bias else None)
+        if kind == "fwd":
+            x = _rand(torch, (b, h + k - 1, w + k - 1, cin), 7, dev, dtype)
+            wk = wt
+            lib_in = x.permute(0, 3, 1, 2).contiguous()
+            lib_w = wt
+
+            def library():
+                return F.conv2d(lib_in, lib_w, bias)
+            in_bytes = x.numel()
+            macs = b * h * w * cin * cout * k * k
+            out_c = cout
+        else:
+            # dx: the cotangent of a (h, w) output with c_out channels,
+            # zero-padded by k-1, through the flipped, io-swapped weight
+            dy = _rand(torch, (b, h, w, cout), 8, dev, dtype, lo=-0.5)
+            x = F.pad(dy, (0, 0, k - 1, k - 1, k - 1, k - 1))
+            wk = wt.flip(2, 3).transpose(0, 1).contiguous()
+            dy_nchw = dy.permute(0, 3, 1, 2).contiguous()
+            in_size = (b, cin, h + k - 1, w + k - 1)
+
+            def library():
+                return torch.nn.grad.conv2d_input(in_size, wt, dy_nchw)
+            in_bytes = dy.numel()
+            macs = b * h * w * cin * cout * k * k
+            out_c = cin
+            h, w = h + k - 1, w + k - 1
+
+        def run():
+            return conv_valid(x, wk, bias, act)
+
+        def plain():
+            return conv_valid_plain(x, wk, bias, act)
+        check(run(), plain(), dt)
+        esz = 2 if dt == "bf16" else 4
+        nbytes = (in_bytes + b * h * w * out_c) * esz + wt.numel() * esz
+        bound, by = _bound(nbytes, 2.0 * macs, dt)
+        r["layers"][key] = {
+            "ms": timer(run), "plain_ms": timer(plain),
+            "library_ms": timer(library), "bound_ms": bound, "bound_by": by,
+            "shape": f"{tuple(x.shape)}->{(b, h, w, out_c)} k{k} {dt}"
+                     + (f" bias+{act}" if with_bias else "")}
+        del x, wk, library, run, plain
+    return r
+
+
+def write_train_fixture(torch, root, n_pairs=10, n_test=2, size=512):
+    """Synthetic seeded BMP pairs: `n_pairs` under train/ (the CLI splits
+    them 80/20 into train and valid) and `n_test` under test/."""
+    from multi_modal_image_fusion_tpu_torch.data.io import imwrite
+    r = np.random.RandomState(11)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for split, n in (("train", n_pairs), ("test", n_test)):
+        for mod in ("vis", "ir"):
+            os.makedirs(os.path.join(root, "synthtrain", split, mod))
+        for i in range(n):
+            base = 127 + 100 * np.sin(xx / (11.0 + i)) * np.cos(yy / 19.0)
+            vis = np.clip(base + r.randn(size, size) * 12, 0, 255)
+            ir = np.clip(255 - base * 0.7 + r.randn(size, size) * 25, 0, 255)
+            for mod, img in (("vis", vis), ("ir", ir)):
+                imwrite(os.path.join(root, "synthtrain", split, mod,
+                                     f"{i + 1}.bmp"), img.astype(np.uint8))
+
+
+def train_step_check(torch, dev):
+    """One DeepFuse train step of the same weights and batch through the
+    kernels (fast_training) and through F.conv2d, TF32 off."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    from multi_modal_image_fusion_tpu_torch.train.trainer import \
+        make_loss_bundle
+    model = create_model("deepfuse",
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    x1 = _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 12, dev, torch.float32)
+    x2 = _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 13, dev, torch.float32)
+    bundle = make_loss_bundle()
+    out = {}
+    for fast in (True, False):
+        with fast_training(fast):
+            total, parts = bundle(x1, x2, model(x1, x2))
+            grads = torch.autograd.grad(total, list(model.parameters()))
+        out[fast] = ({k: float(v.detach()) for k, v in parts.items()}, grads)
+    (pf, gf), (pp, gp) = out[True], out[False]
+    for k in pf:
+        if abs(pf[k] - pp[k]) > 1e-5 * abs(pp[k]):
+            raise AssertionError(f"train step {k}: kernels {pf[k]} vs "
+                                 f"F.conv2d {pp[k]}")
+    worst = 0.0
+    for (name, _), a, b in zip(model.named_parameters(), gf, gp):
+        scale = float(b.abs().max())
+        if float(a.abs().max()) == 0.0:
+            raise AssertionError(f"train step: no gradient reaches {name}")
+        err = float((a - b).abs().max())
+        if err > 1e-4 * scale:
+            raise AssertionError(f"train step grad {name}: {err} above "
+                                 f"1e-4 x {scale}")
+        worst = max(worst, err / scale)
+    return {"loss_parts": pf, "max_grad_rel_err": worst,
+            "params": len(gf)}
+
+
+def profile_steps(torch, dev, steps=20):
+    """Busy share of the card over `steps` train steps of one device batch
+    (bs 16, 64x64, f32, fast): summed kernel time over wall time, from
+    torch.profiler; the share of the conv_valid kernel, of the dw matmuls,
+    of the loss and of the optimizer update. Also the steps' wall time
+    without the profiler."""
+    from torch.autograd import DeviceType
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.train.schedules import \
+        make_lr_schedule
+    from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
+    model = create_model("deepfuse",
+                         generator=torch.Generator().manual_seed(6)).to(dev)
+    trainer = Trainer(model, make_lr_schedule(1e-4, 32, 12), fast=True)
+    batch = (_rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 14, dev, torch.float32),
+             _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 15, dev, torch.float32))
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+    conv_ms = sum(e.device_time_total for e in kernels
+                  if "conv_valid_kernel" in e.name) / 1e3
+
+    def range_ms(name):
+        return sum(e.device_time_total for e in events
+                   if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+    # busy share against the unprofiled step: the profiler's own host cost
+    # lengthens the profiled steps, not their kernels
+    rec = {"steps": steps, "step_ms_unprofiled": plain_wall,
+           "wall_ms_profiled": wall / steps, "kernel_ms": dev_ms / steps,
+           "launches": len(kernels) / steps,
+           "busy_share": dev_ms / steps / plain_wall,
+           "busy_share_profiled": dev_ms / wall, "source": "torch.profiler"}
+    if dev_ms == 0.0:
+        # no device time in the trace: enqueue the steps behind a sleep so
+        # the card runs them back to back, and time that with CUDA events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9))
+        start.record()
+        for _ in range(steps):
+            trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        dev_ms = start.elapsed_time(end)
+        rec.update(kernel_ms=dev_ms / steps, busy_share=dev_ms / steps
+                   / plain_wall, busy_share_profiled=None,
+                   source="cuda events behind a sleep")
+    rec.update({k + "_ms": v / steps for k, v in (
+        ("conv_valid", conv_ms), ("dw", range_ms("conv_valid_dw")),
+        ("loss", range_ms("loss")), ("optimizer", range_ms("optimizer")))})
+    return rec
+
+
+def train_phase(torch, build, root):
+    """The port's train CLI at the reference defaults with --fast_train;
+    returns (launch counts, per-step seconds, checkpoint dir)."""
+    from multi_modal_image_fusion_tpu_torch.cli import train as train_cli
+    from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
+    step_s = []
+    orig = Trainer.train_step
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    Trainer.train_step = timed
+    try:
+        build.LAUNCHES.clear()
+        ckpt_dir = train_cli.main([
+            "--data", "synthtrain", "--data_root", root, "--ckpt_root",
+            os.path.join(root, "ckpt"), "--epoch", "2", "--bs",
+            str(TRAIN_BS), "--fast_train"])
+        counts = dict(build.LAUNCHES)
+    finally:
+        Trainer.train_step = orig
+    return counts, step_s, ckpt_dir
+
+
 def plain_forward(torch, model, img1, img2):
     """The f32 DeepFuse forward through the plain versions only."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
@@ -318,6 +591,7 @@ def main():
     # phase 3
     timer = Timer(torch, dev)
     rec = check_kernels(torch, F, dev, timer)
+    rec["conv_valid"] = check_conv_valid(torch, F, dev, timer)
     torch.cuda.empty_cache()
     print("kernel checks passed")
 
@@ -408,6 +682,51 @@ def main():
           f"fused max |bf16 - f32| {y_diff:.4g} (f32 max "
           f"{float(y32.abs().max()):.4g})")
 
+    # phase 6: training, counts from 0
+    del model, y32, y16, a16, b16
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        write_train_fixture(torch, root)
+        train_counts, step_s, ckpt_dir = train_phase(torch, build, root)
+        steps, valid_batches = 2 * 32, 2 * 8
+        want = {"conv_valid": 9 * steps + 5 * valid_batches,
+                "conv_valid/forward": 5 * steps, "conv_valid/dx": 4 * steps,
+                "conv_valid/valid": 5 * valid_batches}
+        if train_counts != want or len(step_s) != steps:
+            raise AssertionError(f"training launches {train_counts} over "
+                                 f"{len(step_s)} steps, want {want} over "
+                                 f"{steps}")
+        ms = np.array(step_s[3:]) * 1e3        # after epoch 1's first 3
+        step_stats = {"steps": len(ms), "median_ms": float(np.median(ms)),
+                      "p10_ms": float(np.percentile(ms, 10)),
+                      "p90_ms": float(np.percentile(ms, 90)),
+                      "min_ms": float(ms.min()), "max_ms": float(ms.max()),
+                      "patches_per_s": TRAIN_BS * 1e3 / float(np.median(ms))}
+        print(f"train CLI: {steps} steps, {valid_batches} valid batches, "
+              f"launches {train_counts}; step median "
+              f"{step_stats['median_ms']:.3f} ms (p10 "
+              f"{step_stats['p10_ms']:.3f}, p90 {step_stats['p90_ms']:.3f}, "
+              f"min {step_stats['min_ms']:.3f}, max "
+              f"{step_stats['max_ms']:.3f}), "
+              f"{step_stats['patches_per_s']:.1f} patches/s")
+        step_check = train_step_check(torch, dev)
+        print(f"train step, kernels vs F.conv2d: loss parts "
+              f"{step_check['loss_parts']}, max grad err "
+              f"{step_check['max_grad_rel_err']:.3g} of the largest "
+              f"gradient, all {step_check['params']} parameters reached")
+        busy = profile_steps(torch, dev)
+        print(f"train step profile: {json.dumps(busy)}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_ssim, _ = test_cli.main([
+                "--data", "synthtrain", "--data_root", root, "--ckpt_root",
+                os.path.dirname(ckpt_dir), "--ckpt",
+                os.path.basename(ckpt_dir)])
+        if not np.isfinite(train_ssim):
+            raise AssertionError(f"test CLI on the trained checkpoint: "
+                                 f"SSIM {train_ssim}")
+        print(f"test CLI on the trained checkpoint: ssim {train_ssim:.6f}")
+
     replaces = {
         "conv_gray_enter": "multi_modal_image_fusion_tpu/ops/pallas/"
                            "conv_kernel.py:357",
@@ -420,6 +739,7 @@ def main():
     }
     sources = {"ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu"}
     kernels = []
+    counts = {**counts, **train_counts}
     for name in ("conv_gray_enter", "conv_chain", "conv_gray_exit",
                  "ssim_maps"):
         r = rec[name]
@@ -442,10 +762,38 @@ def main():
             "library_ms": None if None in lib else sum(lib),
             "layers": r["layers"],
         })
+    # conv_valid: the sums are one train step's 9 launches in f32, the
+    # training CLI's dtype; every shape checked is under "layers"
+    r = rec["conv_valid"]
+    step = [v for key, v in r["layers"].items()
+            if key.endswith((".fwd.f32", ".dx.f32"))]
+    kernels.append({
+        "name": "conv_valid", "route": "cuda",
+        "source": "multi_modal_image_fusion_tpu_torch/csrc/conv_valid.cu",
+        "replaces": "multi_modal_image_fusion_tpu/ops/pallas/"
+                    "conv_kernel.py:161 (conv_tlane_dma), "
+                    "multi_modal_image_fusion_tpu/ops/pallas/conv_vjp.py:71 "
+                    "(conv_valid_fast)",
+        "launches": train_counts["conv_valid"],
+        "launches_by_site": {k.split("/")[1]: v for k, v in
+                             train_counts.items() if "/" in k},
+        "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+        "tolerance_rel": TOL,
+        "ms": sum(v["ms"] for v in step),
+        "plain_ms": sum(v["plain_ms"] for v in step),
+        "bound_ms": sum(v["bound_ms"] for v in step),
+        "bound_by": "operations" if any(
+            v["bound_by"] == "operations" for v in step) else "bytes",
+        "library_ms": sum(v["library_ms"] for v in step),
+        "layers": r["layers"],
+    })
     print(json.dumps({"kernels": kernels,
                       "pairs_per_sec": result["value"],
                       "cli_latency": cli_lat,
-                      "main_path_launches": counts}))
+                      "main_path_launches": counts,
+                      "training": {"step": step_stats, "profile": busy,
+                                   "step_check": step_check,
+                                   "test_cli_ssim": train_ssim}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,14 @@
 """Shared CLI plumbing (counterpart of multi_modal_image_fusion_tpu
-cli/common.py:142-237): the test parser, dataset-layout mapping, data-dir
-resolution and result-image assembly."""
+cli/common.py): the train and test parsers, dataset-layout mapping, data-dir
+resolution and result-image assembly.
+
+The reference's `type=bool` flags are always-true when passed (SURVEY.md
+5); here, as in the JAX package, booleans are on/off flag pairs with the
+same defaults.
+"""
 
 import argparse
+import ast
 import os
 from pathlib import Path
 
@@ -13,6 +19,102 @@ from ..models import MODEL_ZOO
 
 # the checkout holding the package: the CLIs' default roots live inside it
 REPO_ROOT = Path(__file__).resolve().parents[2]
+
+
+def _bool_flag(parser, name, default, help_on):
+    dest = name.replace("-", "_")
+    parser.add_argument(f"--{name}", dest=dest, action="store_true",
+                        help=help_on)
+    parser.add_argument(f"--no-{name}", dest=dest, action="store_false")
+    parser.set_defaults(**{dest: default})
+
+
+def get_train_parser():
+    """The JAX train CLI's flags and defaults, plus --device."""
+    p = argparse.ArgumentParser(description="Training")
+    p.add_argument("--lr", default=1e-4, type=float, help="learning rate")
+    p.add_argument("--bs", default=16, type=int, help="batch size")
+    p.add_argument("--epoch", default=12, type=int, help="num of epochs")
+    _bool_flag(p, "use_patches", True, "train with 64x64 patches")
+    _bool_flag(p, "fix_size", True,
+               "with --no-use_patches: crop/resize pairs to 256 (reference "
+               "train.py:192-201); --no-use_patches --no-fix_size trains on "
+               "full-resolution pairs")
+    _bool_flag(p, "warmup", False, "first-epoch lr warmup")
+    p.add_argument("--warmup_method", default="linear",
+                   choices=["linear", "constant"],
+                   help="warmup shape (reference common.py:155-163)")
+    _bool_flag(p, "clip_grad", True, "clip grad global-norm at 5")
+    p.add_argument("--data", default="roadscene", type=str,
+                   help="dataset folder name")
+    p.add_argument("--data_root", default=None, type=str,
+                   help="folder of the datasets (default: <repo>/datasets; "
+                        "falls back to the bundled sample pairs)")
+    p.add_argument("--model", default="deepfuse", type=str,
+                   choices=sorted(MODEL_ZOO), help="zoo model name")
+    p.add_argument("--ssim_mode", default="ssim",
+                   choices=["ssim", "w-ssim", "ms-ssim", "msw-ssim"])
+    p.add_argument("--ssim_weight", default=1.0, type=float)
+    p.add_argument("--pixel_mode", default="l1", choices=["l1", "l2"])
+    p.add_argument("--pixel_weight", default=0.01, type=float)
+    p.add_argument("--grad_mode", default="l1", choices=["l1", "l2"])
+    p.add_argument("--grad_weight", default=0.1, type=float)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--ckpt_root", default=None, type=str,
+                   help="folder of the checkpoints (default: "
+                        "<repo>/checkpoints)")
+    _bool_flag(p, "ae", False,
+               "autoencoder-reconstruction pretraining (two-stage training, "
+               "single-image batches)")
+    p.add_argument("--resume", default=None, type=str,
+                   help="checkpoint folder name to resume from (loads "
+                        "epoch_last.pth and its .optim)")
+    p.add_argument("--init_from", default=None, type=str,
+                   help="checkpoint folder name to initialize params from "
+                        "(fresh optimizer: stage 2 after --ae pretraining)")
+    _bool_flag(p, "profile", False,
+               "write a torch.profiler trace of the first epoch")
+    p.add_argument("--workers", default=0, type=int,
+                   help="feeder item-loading threads per batch (reference "
+                        "DataLoader num_workers, train.py:209); 0 [default] "
+                        "keeps the augmentation draws in one order")
+    _bool_flag(p, "fast_train", False,
+               "route every conv of the train and valid steps through the "
+               "hand-written conv_valid kernel (ops/cuda/conv_vjp.py); "
+               "without it the steps run F.conv2d")
+    _bool_flag(p, "multihost", False,
+               "multi-host training (not ported: ROADMAP.md queue 1 item 8)")
+    p.add_argument("--spatial", default=0, type=int,
+                   help="height-shard each image over N devices (not "
+                        "ported: ROADMAP.md queue 1 item 8); 0/1 = off")
+    p.add_argument("--amp", default=None, choices=["bf16", "f32"],
+                   help="bf16: f32 master params cast to bf16 at the model "
+                        "boundary; loss, gradients and Adam moments stay "
+                        "f32, the valid step is f32")
+    p.add_argument("--steps_per_dispatch", default=1, type=int,
+                   help="train steps per Trainer.train_steps call (the JAX "
+                        "package chains them in one dispatch; the port runs "
+                        "them one after another)")
+    p.add_argument("--model_cfg", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="model constructor overrides, repeatable, e.g. "
+                        "--model_cfg fusion_mode=mean")
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device (default: the CUDA card; the run "
+                        "fails without one unless --device cpu)")
+    return p
+
+
+def parse_model_cfg(pairs):
+    """['k=v', ...] -> kwargs dict with literal-eval'd values."""
+    out = {}
+    for item in pairs:
+        key, _, value = item.partition("=")
+        try:
+            out[key] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            out[key] = value
+    return out
 
 
 def get_test_parser():

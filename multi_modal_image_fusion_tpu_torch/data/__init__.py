@@ -1,5 +1,9 @@
-from .dataset import FusionDataset
+from .dataset import AEDataset, FusionDataset, FusionPatches
 from .io import imread_gray, imwrite
-from .transform import denorm, norm
+from .patches import extract_patches, patchify
+from .pipeline import Feeder
+from .transform import denorm, norm, transform
 
-__all__ = ["FusionDataset", "denorm", "imread_gray", "imwrite", "norm"]
+__all__ = ["AEDataset", "Feeder", "FusionDataset", "FusionPatches",
+           "denorm", "extract_patches", "imread_gray", "imwrite", "norm",
+           "patchify", "transform"]

@@ -1,6 +1,6 @@
-"""Normalization (counterpart of multi_modal_image_fusion_tpu
-data/transform.py:13-36). Host-side numpy on HW or HWC images. The
-dihedral augmentation comes with the training slice."""
+"""Normalization and the dihedral-group augmentation (counterpart of
+multi_modal_image_fusion_tpu data/transform.py). Host-side numpy on HW or
+HWC images."""
 
 import numpy as np
 
@@ -30,3 +30,24 @@ def denorm(img):
     if im.ndim == 2:
         im = im[..., None]
     return im.astype(np.uint8)
+
+
+def transform(img, mode=0):
+    """The 8 dihedral-group transforms (reference data/transform.py:38-66)."""
+    if mode == 0:
+        return img
+    if mode == 1:
+        return np.fliplr(img)
+    if mode == 2:
+        return np.rot90(img, k=2)
+    if mode == 3:
+        return np.flipud(img)
+    if mode == 4:
+        return np.rot90(img, k=1)
+    if mode == 5:
+        return np.flipud(np.rot90(img, k=1))
+    if mode == 6:
+        return np.rot90(img, k=-1)
+    if mode == 7:
+        return np.flipud(np.rot90(img, k=-1))
+    return img

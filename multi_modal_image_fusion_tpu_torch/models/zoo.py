@@ -21,13 +21,17 @@ class DeepFuse(nn.Module):
     (reference core/model.py:147-162; JAX models/zoo.py:322-556).
 
     The two shared-weight encoder passes run as ONE pass over the
-    batch-concatenated pair (the siamese fold of JAX zoo.py:62-75; the
-    model has no batch norm, so the fold is the same math). The chain runs
-    in the parameters' dtype: enc0 reads the images, cast to that dtype,
-    and writes the chain (conv_gray_enter), 'sum' fusion is folded into dec0's
-    input load (fuse_n, JAX zoo.py:457-468), 'mean'/'max' apply
-    element_fusion between the convs, and dec2 writes the (B, H, W, 1)
-    output (conv_gray_exit)."""
+    batch-concatenated pair (the siamese fold of JAX zoo.py:62-75), in
+    training too, where the JAX package runs the encoder twice
+    (zoo.py:73-75): the model has no batch norm, so the fold is the same
+    math with half the conv launches. The chain runs in the parameters'
+    dtype: enc0 reads the images, cast to that dtype, and writes the chain
+    (conv_gray_enter), 'sum' fusion is folded into dec0's input load
+    (fuse_n, JAX zoo.py:457-468; on the training routes it is
+    t[:n] + t[n:] in torch before dec0), 'mean'/'max' apply element_fusion
+    between the convs, and dec2 writes the (B, H, W, 1) output
+    (conv_gray_exit). Which conv route each layer takes is ConvLayer's
+    (ops/layers.py)."""
 
     def __init__(self, fusion_mode="sum", generator=None):
         super().__init__()

@@ -8,7 +8,9 @@ and flags, so an unchanged tree builds once and a changed one never loads a
 stale library. Nothing is downloaded and no PyTorch header is compiled.
 
 Each kernel wrapper counts its own launches in `LAUNCHES` (kernel name ->
-count), so a caller can show which kernels a run went through.
+count), so a caller can show which kernels a run went through. A wrapper
+may also count by call site (`conv_valid/forward`, `conv_valid/dx` and
+`conv_valid/valid` beside `conv_valid`).
 """
 
 import collections
@@ -107,11 +109,28 @@ def kernel_function(name, argtypes):
     return fn
 
 
-def check_launch(name, err):
-    """Raise if a launch was refused; otherwise count it."""
+def check_launch(name, err, site=None):
+    """Raise if a launch was refused; otherwise count it, under `name` and,
+    when a call site is given, also under `name/site`."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
+    if site is not None:
+        LAUNCHES[f"{name}/{site}"] += 1
+
+
+def check_no_grad(name, *tensors):
+    """Raise if autograd would need a gradient through a forward-only kernel:
+    its output carries no grad_fn, so training through it would silently
+    leave the inputs without gradients."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel is forward-only and an input requires "
+            f"grad; run it under torch.no_grad(), or train through the "
+            f"training route (ConvLayer takes it when grad is needed; "
+            f"ops/cuda/conv_vjp.conv_valid_fast is the differentiable conv)")
 
 
 def stream_handle(device):

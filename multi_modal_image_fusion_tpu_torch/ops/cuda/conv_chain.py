@@ -22,7 +22,9 @@ layers have their own loops.
 
 Each wrapper takes its plain version (`*_plain`, F.pad + F.conv2d in f32)
 only for CPU tensors. A CUDA tensor launches the kernel or raises; there is
-no fallback. The kernels are forward-only (no autograd), and are built for
+no fallback. The kernels are forward-only: on a CUDA tensor with grad mode
+on and an input, weight or bias that requires grad, the wrappers raise
+(training goes through ops/cuda/conv_vjp.py). They are built for
 what DeepFuse launches: `conv_chain` k5 and k7, `conv_gray_enter` and
 `conv_gray_exit` k5, output channels a multiple of 16 (but the exit's 1),
 input and output in one dtype. The wrappers raise on anything else.
@@ -33,7 +35,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .build import check_launch, kernel_function, ptr, stream_handle
+from .build import check_launch, check_no_grad, kernel_function, ptr, \
+    stream_handle
 
 __all__ = ["ACT_CODES", "apply_act", "conv_chain", "conv_chain_plain",
            "conv_gray_enter", "conv_gray_enter_plain", "conv_gray_exit",
@@ -43,7 +46,7 @@ __all__ = ["ACT_CODES", "apply_act", "conv_chain", "conv_chain_plain",
 # kernels' _apply_act, ops/pallas/conv_kernel.py:43)
 ACT_CODES = {None: 0, "relu": 1, "relu6": 2, "lrelu": 3, "tanh": 4}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CO_TILE = 16          # output channels per block (csrc/conv_chain.cu)
 _GRID_Z_MAX = 65535
 
@@ -95,12 +98,14 @@ def conv_gray_exit_plain(x, weight, bias=None, act=None):
     return apply_act(_conv_nhwc_f32(x, weight, bias), act).to(x.dtype)
 
 
-def _check_cuda_args(name, tensors, weight, bias, h, w, ksizes):
+def check_tensors(name, tensors):
+    """The CUDA wrappers' contract on activations: one CUDA device, f32 or
+    bf16, contiguous 4-D (NHWC), 16-byte aligned."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: all tensors must be on the same "
                              f"CUDA device")
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in DTYPE_CODES:
             raise TypeError(f"{name}: dtype {t.dtype} not supported "
                             f"(float32 or bfloat16)")
         if t.dim() != 4 or not t.is_contiguous():
@@ -110,6 +115,10 @@ def _check_cuda_args(name, tensors, weight, bias, h, w, ksizes):
             raise ValueError(f"{name}: tensor data must be 16-byte aligned")
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: tensors on different devices")
+
+
+def _check_cuda_args(name, tensors, weight, bias, h, w, ksizes):
+    check_tensors(name, tensors)
     dev = tensors[0].device
     if weight.dim() != 4 or weight.shape[2] != weight.shape[3]:
         raise ValueError(f"{name}: weight must be OIHW with square taps, "
@@ -126,14 +135,14 @@ def _check_cuda_args(name, tensors, weight, bias, h, w, ksizes):
     return k
 
 
-def _weights_f32(weight, bias):
+def weights_f32(weight, bias):
     """OIHW -> [Cin][K][K][Cout] f32 for the kernels' weight slices."""
     wk = weight.detach().permute(1, 2, 3, 0).float().contiguous()
     bk = None if bias is None else bias.detach().float().contiguous()
     return wk, bk
 
 
-def _act_code(act):
+def act_code(act):
     if act not in ACT_CODES:
         raise ValueError(f"unfusable activation {act!r}")
     return ACT_CODES[act]
@@ -145,6 +154,7 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
     x holds 2*fuse_n images and output i is conv(x[i] + x[i + fuse_n])."""
     if x.device.type == "cpu":
         return conv_chain_plain(x, weight, bias, act, fuse_n)
+    check_no_grad("conv_chain", x, weight, bias)
     b_in, h, w, cin = x.shape
     k = _check_cuda_args("conv_chain", [x], weight, bias, h, w, (5, 7))
     cout = weight.shape[0]
@@ -161,14 +171,14 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
     if b_out * (cout // _CO_TILE) > _GRID_Z_MAX:
         raise ValueError(f"conv_chain: batch {b_out} too large for one "
                          f"launch")
-    wk, bk = _weights_f32(weight, bias)
+    wk, bk = weights_f32(weight, bias)
     y = torch.empty((b_out, h, w, cout), dtype=x.dtype, device=x.device)
     fn = kernel_function("mmif_conv_chain",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P])
     with torch.cuda.device(x.device):
-        err = fn(_DTYPE_CODES[x.dtype], ptr(x), ptr(wk), ptr(bk), ptr(y),
-                 b_out, h, w, cin, cout, k, fuse_n, _act_code(act),
+        err = fn(DTYPE_CODES[x.dtype], ptr(x), ptr(wk), ptr(bk), ptr(y),
+                 b_out, h, w, cin, cout, k, fuse_n, act_code(act),
                  stream_handle(x.device))
     check_launch("conv_chain", err)
     return y
@@ -180,6 +190,7 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
     Cout) in the images' dtype, img1's batch first."""
     if img1.device.type == "cpu":
         return conv_gray_enter_plain(img1, img2, weight, bias, act)
+    check_no_grad("conv_gray_enter", img1, img2, weight, bias)
     b, h, w, c = img1.shape
     imgs = [img1] if img2 is None else [img1, img2]
     k = _check_cuda_args("conv_gray_enter", imgs, weight, bias, h, w, (5,))
@@ -198,15 +209,15 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
     if b_out * (cout // _CO_TILE) > _GRID_Z_MAX:
         raise ValueError(f"conv_gray_enter: batch {b} too large for one "
                          f"launch")
-    wk, bk = _weights_f32(weight, bias)
+    wk, bk = weights_f32(weight, bias)
     y = torch.empty((b_out, h, w, cout), dtype=img1.dtype,
                     device=img1.device)
     fn = kernel_function("mmif_conv_gray_enter",
                          [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P])
     with torch.cuda.device(img1.device):
-        err = fn(_DTYPE_CODES[img1.dtype], ptr(img1), ptr(img2), ptr(wk),
-                 ptr(bk), ptr(y), b, h, w, cout, k, _act_code(act),
+        err = fn(DTYPE_CODES[img1.dtype], ptr(img1), ptr(img2), ptr(wk),
+                 ptr(bk), ptr(y), b, h, w, cout, k, act_code(act),
                  stream_handle(img1.device))
     check_launch("conv_gray_enter", err)
     return y
@@ -217,6 +228,7 @@ def conv_gray_exit(x, weight, bias=None, act=None):
     K) -> (B, H, W, 1) in x.dtype."""
     if x.device.type == "cpu":
         return conv_gray_exit_plain(x, weight, bias, act)
+    check_no_grad("conv_gray_exit", x, weight, bias)
     b, h, w, cin = x.shape
     k = _check_cuda_args("conv_gray_exit", [x], weight, bias, h, w, (5,))
     if weight.shape[0] != 1 or weight.shape[1] != cin:
@@ -225,12 +237,12 @@ def conv_gray_exit(x, weight, bias=None, act=None):
     if b > _GRID_Z_MAX:
         raise ValueError(f"conv_gray_exit: batch {b} too large for one "
                          f"launch")
-    wk, bk = _weights_f32(weight, bias)
+    wk, bk = weights_f32(weight, bias)
     y = torch.empty((b, h, w, 1), dtype=x.dtype, device=x.device)
     fn = kernel_function("mmif_conv_gray_exit",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     with torch.cuda.device(x.device):
-        err = fn(_DTYPE_CODES[x.dtype], ptr(x), ptr(wk), ptr(bk), ptr(y),
-                 b, h, w, cin, k, _act_code(act), stream_handle(x.device))
+        err = fn(DTYPE_CODES[x.dtype], ptr(x), ptr(wk), ptr(bk), ptr(y),
+                 b, h, w, cin, k, act_code(act), stream_handle(x.device))
     check_launch("conv_gray_exit", err)
     return y

@@ -9,7 +9,9 @@ filtered moment map in shared memory (csrc/ssim.cu header).
 
 The taps are computed once in numpy (ops/ssim.gaussian_kernel, f32), so the
 kernel and the plain version use the same numbers. CPU tensors take the
-plain version; a CUDA tensor launches the kernel or raises.
+plain version; a CUDA tensor launches the kernel or raises. The kernel is
+forward-only: with grad mode on and an image that requires grad it raises
+(the training losses use the differentiable plain maps, ops/ssim.py).
 """
 
 import ctypes
@@ -20,7 +22,8 @@ import torch.nn.functional as F
 
 from ..ssim import default_sigma, gaussian_kernel
 from ..ssim import ssim_maps as ssim_maps_plain   # the plain version
-from .build import check_launch, kernel_function, ptr, stream_handle
+from .build import check_launch, check_no_grad, kernel_function, ptr, \
+    stream_handle
 
 __all__ = ["ssim_maps", "ssim_maps_plain"]
 
@@ -37,6 +40,7 @@ def ssim_maps(img1, img2, win_size=11, data_range=1.0, use_padding=False,
     taps = gaussian_kernel(ws, default_sigma(ws) if sigma is None else sigma)
     if img1.device.type == "cpu":
         return ssim_maps_plain(img1, img2, taps, data_range, use_padding)
+    check_no_grad("ssim_maps", img1, img2)
     if not (img1.is_cuda and img2.is_cuda and img1.device == img2.device):
         raise ValueError("ssim_maps: both images must be on one CUDA device")
     if img1.shape != img2.shape or img1.dim() != 4 or img1.shape[-1] != 1:

@@ -1,5 +1,6 @@
 """Conv layer of the port (counterpart of multi_modal_image_fusion_tpu
-ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d).
+ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d, and the
+fast-training scope and routes, :34-56 and :695-755).
 
 This slice carries the part DeepFuse uses: stride-1 reflect-SAME k x k
 convs with bias and one of the kernel-fusable activations (relu, relu6,
@@ -7,21 +8,52 @@ lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters are
 named as in the reference state dict (`layers.0.weight` OIHW,
 `layers.0.bias`), so reference `.pth` files load directly.
 
-On CPU tensors the conv is the plain F.pad(reflect) + F.conv2d; on CUDA
-tensors it is a hand-written kernel (ops/cuda/conv_chain.py): the c_in=1
-layer runs `conv_gray_enter`, the c_out=1 layer `conv_gray_exit`, and every
-other layer `conv_chain`.
+Routes of a conv:
+
+- serving (no `fast_training` scope and no gradient needed): the forward-only
+  kernels of ops/cuda/conv_chain.py on CUDA tensors (the c_in=1 layer runs
+  `conv_gray_enter`, the c_out=1 layer `conv_gray_exit`, every other layer
+  `conv_chain`), their plain versions on CPU tensors;
+- training (inside a `fast_training` scope, which the trainer opens around
+  its steps, or whenever a gradient is needed): reflect pad, then
+  - with `fast_training(True)`: `conv_valid_fast` (kernel forward and dx,
+    bias and activation as torch ops) when a gradient is needed, else
+    `conv_valid` with bias and activation fused (the valid step); a shape
+    the kernel does not take raises, there is no quiet F.conv2d;
+  - otherwise F.conv2d, the counterpart of the JAX package's XLA conv.
+  On CPU tensors the kernels' plain versions run in their place.
 """
 
+import contextlib
+import contextvars
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .cuda.conv_chain import (ACT_CODES, apply_act, conv_chain,
                               conv_gray_enter, conv_gray_exit)
+from .cuda.conv_valid import conv_valid
+from .cuda.conv_vjp import conv_valid_fast
 
-__all__ = ["ACT_CODES", "ConvLayer", "apply_act", "init_conv_"]
+__all__ = ["ACT_CODES", "ConvLayer", "apply_act", "fast_training",
+           "init_conv_"]
+
+# None: no trainer scope (serving); False / True: the trainer's steps, on
+# F.conv2d / on the conv_valid kernels
+_FAST_TRAINING = contextvars.ContextVar("mmif_fast_training", default=None)
+
+
+@contextlib.contextmanager
+def fast_training(enable=True):
+    """Scope of a train or valid step: every conv takes a training route,
+    through the conv_valid kernels when `enable`, else through F.conv2d."""
+    token = _FAST_TRAINING.set(bool(enable))
+    try:
+        yield
+    finally:
+        _FAST_TRAINING.reset(token)
 
 _KAIMING_FAMILY = ("relu", "relu6")
 
@@ -80,18 +112,44 @@ class ConvLayer(nn.Module):
     def bias(self):
         return self.layers[0].bias
 
+    def _needs_grad(self, *xs):
+        return torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (self.weight, self.bias, *xs))
+
+    def _train_conv(self, x):
+        """The training routes (module docstring) on an NHWC tensor."""
+        p = self.ksize // 2
+        xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
+        if not _FAST_TRAINING.get():
+            y = F.conv2d(xp, self.weight, self.bias)
+            return apply_act(y, self.act).permute(0, 2, 3, 1)
+        xp = xp.permute(0, 2, 3, 1).contiguous()
+        if self._needs_grad(xp):
+            return apply_act(conv_valid_fast(xp, self.weight) + self.bias,
+                             self.act)
+        return conv_valid(xp, self.weight, self.bias, self.act)
+
+    def _training_route(self, *xs):
+        return _FAST_TRAINING.get() is not None or self._needs_grad(*xs)
+
     def enter(self, img1, img2=None):
         """c_in=1 layer on a grayscale image or pair: (B, H, W, 1) ->
         (B or 2B, H, W, out_ch) in the layer's parameter dtype (the images
         are cast to it first)."""
         dt = self.weight.dtype
-        return conv_gray_enter(img1.to(dt),
-                               None if img2 is None else img2.to(dt),
-                               self.weight, self.bias, self.act)
+        img1 = img1.to(dt)
+        img2 = None if img2 is None else img2.to(dt)
+        if self._training_route(img1, img2):
+            return self._train_conv(
+                img1 if img2 is None else torch.cat([img1, img2], dim=0))
+        return conv_gray_enter(img1, img2, self.weight, self.bias, self.act)
 
     def forward(self, x, fuse_n=0):
         """(B, H, W, in_ch) -> (B, H, W, out_ch). fuse_n > 0: x holds two
         halves of fuse_n images and the layer convolves their sum."""
+        if self._training_route(x):
+            return self._train_conv(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
         if self.in_ch == 1 and not fuse_n:
             return self.enter(x)
         if self.out_ch == 1 and not fuse_n:

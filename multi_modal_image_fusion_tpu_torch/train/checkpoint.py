@@ -1,10 +1,12 @@
-"""Checkpoint loading (counterpart of multi_modal_image_fusion_tpu
-train/checkpoint.py:38-73, load side).
+"""Checkpoints (counterpart of multi_modal_image_fusion_tpu
+train/checkpoint.py) with the reference's best/last semantics (reference
+train.py:362-383).
 
-A checkpoint is a torch state dict, saved as the reference saves it
-(`epoch_best.pth`, else `epoch_last.pth`, SURVEY.md 3.1-3.2), with optional
-metadata beside it in `<ckpt>.json`. Saving the full training state comes
-with the training slice; `save_state_dict` writes what the test CLI reads.
+A checkpoint is the model's torch state dict, saved as the reference saves
+it (`epoch_best.pth`, `epoch_last.pth`, SURVEY.md 3.1-3.2), with metadata
+beside it in `<ckpt>.json` and, for resume, the trainer's optimizer state
+(step and Adam moments) in `<ckpt>.optim`. The test CLI and `restore` read
+the state dict alone.
 """
 
 import json
@@ -12,8 +14,8 @@ import os
 
 import torch
 
-__all__ = ["checkpoint_path", "load_checkpoint_meta", "restore",
-           "save_state_dict"]
+__all__ = ["checkpoint_path", "load_checkpoint_meta", "load_train_state",
+           "restore", "save_checkpoint", "save_state_dict"]
 
 
 def save_state_dict(path, state_dict, meta=None):
@@ -23,6 +25,18 @@ def save_state_dict(path, state_dict, meta=None):
     if meta is not None:
         with open(path + ".json", "w") as f:
             json.dump(meta, f, indent=1)
+
+
+def save_checkpoint(path, model_state, train_state, meta=None):
+    """Write `path` (model state dict), `path`.optim (the trainer's
+    state_dict(): step and Adam moments) and `path`.json (metadata)."""
+    save_state_dict(path, model_state, meta)
+    torch.save(train_state, path + ".optim")
+
+
+def load_train_state(path):
+    """The optimizer state saved beside the checkpoint at `path`."""
+    return torch.load(path + ".optim", map_location="cpu", weights_only=True)
 
 
 def load_checkpoint_meta(path):

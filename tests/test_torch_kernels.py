@@ -15,11 +15,16 @@ and a different summation order can flip that rounding).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from multi_modal_image_fusion_tpu_torch.ops.cuda import build
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
     conv_chain, conv_chain_plain, conv_gray_enter, conv_gray_enter_plain,
     conv_gray_exit, conv_gray_exit_plain)
+from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import (
+    conv_valid, conv_valid_plain)
+from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_vjp import \
+    conv_valid_fast
 from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import (
     ssim_maps, ssim_maps_plain)
 from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
@@ -44,7 +49,7 @@ def _rand(shape, seed, dev, dtype=torch.float32, lo=-0.5):
 
 
 def _close(got, want, dtype):
-    got, want = got.float(), want.float()
+    got, want = got.detach().double(), want.detach().double()
     assert got.shape == want.shape
     assert torch.isfinite(got).all()
     scale = max(float(want.abs().max()), 1.0)
@@ -173,3 +178,185 @@ def test_wrappers_raise_on_unsupported(cuda):
     with pytest.raises(ValueError):       # k7 exit is not built
         conv_gray_exit(x[..., :8].contiguous(),
                        torch.zeros((1, 8, 7, 7), device=cuda))
+
+
+# DeepFuse's train-step launches of conv_valid at 64x64 patches:
+# (c_in, c_out, k) of the five forward convs and the four dx convs
+_VALID_FWD = [(1, 16, 5), (16, 32, 7), (32, 32, 7), (32, 16, 5), (16, 1, 5)]
+_VALID_DX = [(1, 16, 5), (16, 32, 5), (32, 32, 7), (32, 16, 7)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("cin,cout,k", _VALID_FWD + _VALID_DX)
+def test_conv_valid(cuda, dt, cin, cout, k):
+    dtype = DTYPES[dt]
+    xp = _rand((3, 37 + k - 1, 70 + k - 1, cin), cin + k, cuda, dtype)
+    wt = (_rand((cout, cin, k, k), cout + k, cuda) * 0.2).to(dtype)
+    before = build.LAUNCHES["conv_valid/valid"]
+    got = conv_valid(xp, wt)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_valid/valid"] == before + 1
+    assert got.dtype == dtype
+    _close(got, conv_valid_plain(xp, wt), dtype)
+
+
+@pytest.mark.parametrize("act", ["relu", None, "lrelu", "tanh", "relu6"])
+@pytest.mark.parametrize("cout", [16, 24, 1])
+def test_conv_valid_epilogue(cuda, act, cout):
+    """The valid step's fused bias + activation, and Cout not a multiple of
+    the 16-channel tile."""
+    xp = _rand((2, 20 + 4, 33 + 4, 16), 20, cuda)
+    wt = _rand((cout, 16, 5, 5), 21, cuda) * 0.2
+    bias = _rand((cout,), 22, cuda)
+    _close(conv_valid(xp, wt, bias, act),
+           conv_valid_plain(xp, wt, bias, act), torch.float32)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("cin,cout,k", _VALID_FWD)
+def test_conv_valid_fast_grads(cuda, dt, cin, cout, k):
+    """conv_valid_fast's forward and dx (kernel launches) and dw (torch
+    matmuls) against F.conv2d's autograd on the same inputs in float64 (an
+    f32 reference through cuDNN's weight gradient was itself 1e-3 off at
+    c_in=1)."""
+    dtype = DTYPES[dt]
+    xp = _rand((4, 64 + k - 1, 64 + k - 1, cin), k, cuda, dtype)
+    wt = (_rand((cout, cin, k, k), cin, cuda) * 0.2).to(dtype)
+    cot = _rand((4, 64, 64, cout), cout, cuda, torch.float32)
+    xa, wa = xp.clone().requires_grad_(), wt.clone().requires_grad_()
+    xb, wb = (xp.double().clone().requires_grad_(),
+              wt.double().clone().requires_grad_())
+    before = dict(build.LAUNCHES)
+    ya = conv_valid_fast(xa, wa)
+    (torch.tanh(ya.float()) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_valid/forward"] == \
+        before.get("conv_valid/forward", 0) + 1
+    assert build.LAUNCHES["conv_valid/dx"] == \
+        before.get("conv_valid/dx", 0) + 1
+    yb = F.conv2d(xb.permute(0, 3, 1, 2), wb).permute(0, 2, 3, 1)
+    (torch.tanh(yb) * cot.double()).sum().backward()
+    _close(ya, yb, dtype)
+    _close(xa.grad, xb.grad, dtype)
+    _close(wa.grad, wb.grad, dtype)
+
+
+def test_conv_valid_full_resolution(cuda):
+    """enc1 at 1224x1024 in bf16, batch 2."""
+    k = 7
+    xp = _rand((2, 1224 + k - 1, 1024 + k - 1, 16), 30, cuda, torch.bfloat16)
+    wt = (_rand((32, 16, k, k), 31, cuda) * 0.1).bfloat16()
+    _close(conv_valid(xp, wt), conv_valid_plain(xp, wt), torch.bfloat16)
+
+
+def test_conv_valid_raises_on_unsupported(cuda):
+    xp = torch.zeros((1, 20, 20, 8), device=cuda)
+    with pytest.raises(ValueError):       # k3 is not built
+        conv_valid(xp, torch.zeros((8, 8, 3, 3), device=cuda))
+    with pytest.raises(TypeError):        # weight in another dtype
+        conv_valid(xp, torch.zeros((8, 8, 5, 5), device=cuda).bfloat16())
+    with pytest.raises(ValueError):       # channel mismatch
+        conv_valid(xp, torch.zeros((8, 4, 5, 5), device=cuda))
+
+
+def test_forward_only_kernels_raise_with_grad(cuda):
+    """With grad mode on and a weight or image that requires grad, the
+    forward-only wrappers raise instead of returning a tensor with no
+    grad_fn; under no_grad they run."""
+    x = _rand((1, 20, 30, 16), 40, cuda)
+    img = _rand((1, 20, 30, 1), 41, cuda, lo=0.0)
+    w16 = _rand((16, 16, 5, 5), 42, cuda).requires_grad_()
+    w_in = _rand((16, 1, 5, 5), 43, cuda).requires_grad_()
+    w_out = _rand((1, 16, 5, 5), 44, cuda).requires_grad_()
+    xp = _rand((1, 24, 34, 16), 45, cuda)
+    calls = [lambda: conv_chain(x, w16, None, "relu"),
+             lambda: conv_gray_enter(img, img, w_in, None, "relu"),
+             lambda: conv_gray_exit(x, w_out, None, None),
+             lambda: conv_valid(xp, w16),
+             lambda: ssim_maps(img.clone().requires_grad_(), img, 11)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def test_deepfuse_train_step_reaches_every_parameter(cuda):
+    """A DeepFuse train step on the card, through the kernels
+    (fast_training) and through F.conv2d: every parameter gets a non-zero
+    gradient, and the two routes agree within 1e-4 of the largest gradient
+    (f32, TF32 off)."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    from multi_modal_image_fusion_tpu_torch.train.trainer import \
+        make_loss_bundle
+    model = create_model("deepfuse",
+                         generator=torch.Generator().manual_seed(2)).to(cuda)
+    x1 = _rand((4, 64, 64, 1), 46, cuda, lo=0.0)
+    x2 = _rand((4, 64, 64, 1), 47, cuda, lo=0.0)
+    bundle = make_loss_bundle()
+    grads = {}
+    for fast in (True, False):
+        build.LAUNCHES.clear()
+        with fast_training(fast):
+            total, _ = bundle(x1, x2, model(x1, x2))
+            grads[fast] = torch.autograd.grad(total, list(model.parameters()))
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        if fast:
+            assert launches == {"conv_valid": 9, "conv_valid/forward": 5,
+                                "conv_valid/dx": 4}
+        else:
+            assert launches == {}
+    # against the largest gradient magnitude, as chip_smoke.py phase 6: a
+    # one-element bias gradient sums every output pixel with cancellation,
+    # and cuDNN's weight gradient picks its summation order per run
+    scale = max(float(b.abs().max()) for b in grads[False])
+    for a, b in zip(grads[True], grads[False]):
+        assert float(a.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("mode", ["amp_bf16", "ae"])
+def test_trainer_fast_on_card(cuda, mode):
+    """Trainer steps through the kernels on the card, 5 forward + 4 dx
+    launches a train step and 5 a valid step. amp bf16 (bf16 conv_valid
+    forward and dx on f32 master weights) keeps f32 masters and tracks the
+    f32 kernel route's loss over 5 steps within the JAX package's
+    test_amp_bf16_trains bound; autoencoder mode's loss falls."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.train.schedules import \
+        make_lr_schedule
+    from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
+    ae = mode == "ae"
+    x1 = _rand((4, 64, 64, 1), 48, cuda, lo=0.0)
+    x2 = _rand((4, 64, 64, 1), 49, cuda, lo=0.0)
+    batch = x1 if ae else (x1, x2)
+    runs = {}
+    for amp in (["bf16", None] if mode == "amp_bf16" else [None]):
+        model = create_model(
+            "deepfuse", generator=torch.Generator().manual_seed(3)).to(cuda)
+        trainer = Trainer(model, make_lr_schedule(1e-3 if ae else 1e-4,
+                                                  10, 12),
+                          fast=True, ae=ae, amp=amp)
+        losses = []
+        for _ in range(5):
+            build.LAUNCHES.clear()
+            parts, imgf = trainer.train_step(batch)
+            losses.append(float(parts["loss"]))
+        assert build.LAUNCHES["conv_valid/forward"] == 5
+        assert build.LAUNCHES["conv_valid/dx"] == 4
+        assert imgf.dtype == torch.float32 and imgf.shape == x1.shape
+        assert all(np.isfinite(losses))
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        build.LAUNCHES.clear()
+        parts, _ = trainer.valid_step(batch)
+        assert dict(build.LAUNCHES) == {"conv_valid": 5,
+                                        "conv_valid/valid": 5}
+        assert np.isfinite(float(parts["loss"]))
+        runs[amp] = losses
+    if ae:
+        assert runs[None][-1] < runs[None][0]
+    else:
+        l16, l32 = runs["bf16"][-1], runs[None][-1]
+        assert abs(l16 - l32) < 0.05 * abs(l32) + 1e-3, (runs)
