@@ -9,10 +9,11 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    versions; TF32 off, so f32 comparisons are f32.
 2. Build every kernel from the sources in multi_modal_image_fusion_tpu_torch/
    csrc/ (one nvcc per source, in parallel); print the build time.
-3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps)
-   against its plain PyTorch version on the card: at the main path's shapes
-   (1224x1024; bf16 batch 16 as the bench runs it, f32 batch 1 as the test
-   CLI runs it) and at 45x61, with tolerances relative to the plain output's
+3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
+   the convs in DeepFuse's k5/k7 instances and DenseFuse's and VIFNet's k3
+   ones) against its plain PyTorch version on the card: at the main path's
+   shapes (1224x1024; bf16 batch 16 as the bench runs it, f32 batch 1 as the
+   test CLI runs it) and at 45x61, with tolerances relative to the plain output's
    largest magnitude: f32 1e-4 (same f32 products, another summation
    order), bf16 2e-2 (both round an f32 result to bf16's 8-bit mantissa,
    ~4e-3, and another summation order can flip that rounding). Time the
@@ -53,12 +54,36 @@ Phase 3 also holds conv_valid against its plain version (TF32 off): the 5
 forward and 4 dx launches of a train step in f32 and bf16, the valid
 step's bias+relu and bias+none epilogues, and enc1 at 1224x1024 in bf16,
 batch 2; the library time is one F.conv2d on the same pre-padded input
-(forward) or one torch.nn.grad.conv2d_input (dx).
+(forward) or one torch.nn.grad.conv2d_input (dx). It holds moments against
+its five plain Gaussian filters at the four VIF scales of 1224x1024, batch
+16 (an eval chunk), f32 at 1e-4, VALID and once with use_padding (no
+library call computes the five maps: library_ms is null); and conv_multi
+against the concat of its legs and conv_chain_plain at DenseFuse's dense
+convs and dec0 and VIFNet's 8-leg dec0 at 1224x1024 (bf16 batch 16, f32
+one pair) and at k1, k5, 1-channel-leg and identity-leg cases at 45x61,
+its library time one F.conv2d on the padded concat (the concat and the
+pad timed apart).
+
+Later paths, each with every count set to 0 just before it and read just
+after, with exact counts: the eval CLI in both sheet layouts over the 51
+NN.bmp files phase 4's test CLI dumped (8 moments and 12 ssim_maps
+launches per eval_metrics call, one call per chunk of at most 16 images;
+51 rows plus mean and std; every value finite; the first 3 images' card
+values within 1e-4 relative, VIFF 1e-3, of the same function on CPU
+tensors, and so are image 16's (the last of a full chunk) and image 51's;
+its wall seconds and ms a pair); the test CLI on a seeded
+DenseFuse checkpoint with fusion_mode l1 over 11 pairs (SSIM within 1e-4
+of the f32 F.conv2d route on the card); the bench with --model densefuse
+and --model vifnet, each held to the BASELINE contract on its last batch:
+mean SSIM and Qabf within 1e-3 of the f32 forward (VIFNet too; its gap
+to the bf16 forward through F.conv2d is printed beside it). The DeepFuse
+contract of phase 5 holds Qabf too.
 
 Prints the `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs one card; exits non-zero without one.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -81,6 +106,14 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 
 
+_START = time.perf_counter()
+
+
+def stamp(what):
+    """A progress line with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _START:.1f} s] {what}", flush=True)
+
+
 def _card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,9 +123,11 @@ def _card_line():
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
-    r = np.random.RandomState(seed)
-    x = ((r.rand(*shape) + lo) * scale).astype(np.float32)
-    return torch.from_numpy(x).to(dev, dtype)
+    """Seeded uniform [lo, lo + 1) * scale, drawn on the device: the
+    1224x1024 inputs of the wide layers are gigabytes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.rand(shape, generator=g, device=dev) + lo) * scale
+    return x.to(dtype)
 
 
 class Timer:
@@ -119,6 +154,21 @@ class Timer:
         return total / reps
 
 
+def _library_parts(F, xnchw, k, cout):
+    """Batch slices of an NCHW input and their reflect-padded copies, for
+    the library conv: one F.conv2d call, or one per chunk where the padded
+    input or the output would pass 2^31 elements (torch's reflect pad
+    indexes with 32 bits)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        batch_step
+    b, c, h, w = xnchw.shape
+    step = batch_step(h, w, max(c, cout), k)
+    p = k // 2
+    parts = [slice(i, i + step) for i in range(0, b, step)]
+    return parts, [F.pad(xnchw[sl], (p, p, p, p), mode="reflect")
+                   for sl in parts]
+
+
 def _err(torch, got, want, dt):
     got, want = got.float(), want.float()
     if got.shape != want.shape:
@@ -143,12 +193,23 @@ def check_kernels(torch, F, dev, timer):
     from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
 
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    # DeepFuse's layers: (name, kernel, c_in, c_out, k, act, fuse)
+    # DeepFuse's layers, then the k3 instances of DenseFuse and VIFNet
+    # (their dense convs and concat-fed dec0 are conv_multi's, below):
+    # (name, kernel, c_in, c_out, k, act, fuse)
     layers = [("enc0", "conv_gray_enter", 1, 16, 5, "relu", False),
               ("enc1", "conv_chain", 16, 32, 7, "relu", False),
               ("dec0", "conv_chain", 32, 32, 7, "relu", True),
               ("dec1", "conv_chain", 32, 16, 5, "relu", False),
-              ("dec2", "conv_gray_exit", 16, 1, 5, None, False)]
+              ("dec2", "conv_gray_exit", 16, 1, 5, None, False),
+              ("densefuse.conv_in", "conv_gray_enter", 1, 16, 3, "relu",
+               False),
+              ("densefuse_l1.dec0", "conv_chain", 64, 64, 3, "relu", False),
+              ("densefuse.dec1", "conv_chain", 64, 32, 3, "relu", False),
+              ("densefuse.dec2", "conv_chain", 32, 16, 3, "relu", False),
+              ("densefuse.dec3", "conv_gray_exit", 16, 1, 3, None, False),
+              ("vifnet.dec1", "conv_chain", 128, 64, 3, "relu", False),
+              ("vifnet.dec2", "conv_chain", 64, 32, 3, "relu", False),
+              ("vifnet.dec3", "conv_chain", 32, 16, 3, "relu", False)]
     rec = {}
     for name, kern, cin, cout, k, act, fuse in layers:
         wt = _rand(torch, (cout, cin, k, k), 10 + k + cin, dev, torch.float32,
@@ -199,7 +260,7 @@ def check_kernels(torch, F, dev, timer):
             xn = xin[:n] + xin[n:] if fuse else xin
             p = k // 2
             xnchw = xn.permute(0, 3, 1, 2)
-            xp = F.pad(xnchw, (p, p, p, p), mode="reflect")
+            parts, xp = _library_parts(F, xnchw, k, cout)
             wb, bb = wk, bias.to(dtype)
             esz = 2
             flops = 2.0 * b_out * h * w * cin * k * k * cout
@@ -209,15 +270,21 @@ def check_kernels(torch, F, dev, timer):
                         flops / PEAK_FLOPS[dt]) * 1e3
             r["layers"][name] = {
                 "ms": timer(run), "plain_ms": timer(plain),
-                "library_ms": timer(lambda: F.conv2d(xp, wb, bb)),
-                "library_pad_ms": timer(
-                    lambda: F.pad(xnchw, (p, p, p, p), mode="reflect")),
+                "library_ms": timer(lambda: [F.conv2d(t, wb, bb)
+                                             for t in xp]),
+                "library_pad_ms": timer(lambda: [
+                    F.pad(xnchw[sl], (p, p, p, p), mode="reflect")
+                    for sl in parts]),
+                "library_calls": len(parts),
                 "bound_ms": bound,
                 "bound_by": ("bytes" if nbytes / PEAK_BYTES_S
                              > flops / PEAK_FLOPS[dt] else "operations"),
                 "shape": f"{b_in}x{h}x{w}x{cin}->{b_out}x{h}x{w}x{cout} "
                          f"k{k} {dt}"}
             del xp, xnchw, xn
+        del xin
+        torch.cuda.empty_cache()
+        stamp(f"{kern} {name} checked")
 
     # SSIM: test-CLI pairs (1, H, W, 1) f32, VALID, window 11
     ws = 11
@@ -559,6 +626,370 @@ def write_cli_fixture(torch, root, n_pairs=CLI_PAIRS):
     return model
 
 
+def vif_scales(h, w):
+    """(ws, h, w) of the moments launch at each VIF scale of an h x w image
+    (ops/metrics.calc_vif: scale s > 1 filters VALID with its own window,
+    then keeps every second row and column)."""
+    out = []
+    for scale in range(1, 5):
+        ws = 2 ** (5 - scale) + 1
+        if scale > 1:
+            h, w = (h - ws + 2) // 2, (w - ws + 2) // 2
+        out.append((ws, h, w))
+    return out
+
+
+def check_moments(torch, dev, timer):
+    """moments against its plain version (five separable Gaussian filters,
+    TF32 off) at the VIF scales of 1224x1024, batch 16 (an eval chunk), f32,
+    VALID, plus the use_padding variant at the last scale; times per
+    scale."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.moments import (
+        moments, moments_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+    for i, (ws, h, w) in enumerate(vif_scales(H, W)):
+        a = _rand(torch, (BATCH, h, w, 1), 30 + i, dev, torch.float32,
+                  scale=255.0)
+        b = (a + _rand(torch, (BATCH, h, w, 1), 40 + i, dev, torch.float32,
+                       lo=-0.5, scale=80.0)).clamp(0, 255)
+        taps = gaussian_kernel(ws, ws / 5)
+        for pad in (False, True) if ws == 3 else (False,):
+            got = moments(a, b, ws, ws / 5, pad)
+            want = moments_plain(a, b, taps, pad)
+            for g, wnt in zip(got, want):
+                err, rel = _err(torch, g, wnt, "f32")
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["max_rel_err"] = max(r["max_rel_err"], rel)
+            del got, want
+        px_in = BATCH * h * w
+        px = BATCH * (h - ws + 1) * (w - ws + 1)
+        # 3 products a pixel; 5 maps x ws taps x 2 passes x 2 flops an output
+        bound, by = _bound(px_in * 2 * 4 + px * 5 * 4,
+                           3 * px_in + 20 * ws * px, "f32")
+        r["layers"][f"scale{i + 1}.ws{ws}"] = {
+            "ms": timer(lambda: moments(a, b, ws, ws / 5)),
+            "plain_ms": timer(lambda: moments_plain(a, b, taps)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "shape": f"{BATCH}x{h}x{w}x1 pair f32 ws{ws} VALID"}
+        del a, b
+    torch.cuda.empty_cache()
+    return r
+
+
+def check_conv_multi(torch, F, dev, timer):
+    """conv_multi against its plain version (the legs' concat, then
+    conv_chain_plain): DenseFuse's dense convs and dec0 (fuse_n) and
+    VIFNet's 8-leg dec0 at 1224x1024, bf16 batch 16 (the bench) and f32 one
+    pair (the test CLI); k1, k5, 1-channel-leg and identity-leg cases at
+    45x61 in f32 and bf16. Times at the bench's shapes; the library time is
+    one F.conv2d on the padded concat, the concat and the pad timed
+    apart."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import (
+        concat_legs, conv_multi, conv_multi_plain, identity_weights)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+
+    def case(key, legs, wt, bias, fuse_n, n_out, dt, timed):
+        got = conv_multi(legs, wt, bias, "relu", fuse_n, n_out)
+        err, rel = _err(torch, got, conv_multi_plain(
+            legs, wt, bias, "relu", fuse_n, n_out), dt)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        if timed:
+            def cat():
+                x = concat_legs(legs, fuse_n, n_out)
+                return (x[:n_out] + x[n_out:] if fuse_n else x).permute(
+                    0, 3, 1, 2)
+            xn = cat()
+            k = wt.shape[-1]
+            p = k // 2
+            parts, xp = _library_parts(F, xn, k, wt.shape[0])
+            wl, bl = wt.to(dts[dt]), bias.to(dts[dt])
+            h, w = xn.shape[2:]
+            esz = 2 if dt == "bf16" else 4
+            read = sum(n_out * h * w * t.shape[-1] for t, _ in legs)
+            read *= 2 if fuse_n else 1
+            bound, by = _bound(
+                (read + n_out * h * w * wt.shape[0]) * esz + wt.numel() * 4,
+                2.0 * n_out * h * w * wt.shape[1] * wt.shape[0] * k * k, dt)
+            r["layers"][key] = {
+                "ms": timer(lambda: conv_multi(legs, wt, bias, "relu",
+                                               fuse_n, n_out)),
+                "plain_ms": timer(lambda: conv_multi_plain(
+                    legs, wt, bias, "relu", fuse_n, n_out)),
+                "library_ms": timer(lambda: [F.conv2d(t, wl, bl)
+                                             for t in xp]),
+                "library_concat_ms": timer(cat),
+                "library_pad_ms": timer(lambda: [
+                    F.pad(xn[sl], (p, p, p, p), mode="reflect")
+                    for sl in parts]),
+                "library_calls": len(parts),
+                "bound_ms": bound, "bound_by": by,
+                "shape": f"{len(legs)} legs {[t.shape[-1] for t, _ in legs]}"
+                         f" b_offs {[o for _, o in legs]} fuse_n {fuse_n} -> "
+                         f"{n_out}x{h}x{w}x{wt.shape[0]} k{k} {dt}"}
+            del xn, xp
+            stamp(f"conv_multi {key} timed")
+        del got
+
+    def weights(cout, cin, k, seed):
+        return (_rand(torch, (cout, cin, k, k), seed, dev, torch.float32,
+                      lo=-0.5, scale=2.0 / np.sqrt(cin * k * k)),
+                _rand(torch, (cout,), seed + 1, dev, torch.float32, lo=-0.5,
+                      scale=0.1))
+
+    for dt, n in (("bf16", BATCH), ("f32", 1)):
+        dtype = dts[dt]
+        timed = dt == "bf16"
+        legs = [_rand(torch, (2 * n, H, W, 16), 90, dev, dtype)]
+        for i in range(3):
+            wt, bias = weights(16, 16 * (i + 1), 3, 91 + 2 * i)
+            ls = [(t, 0) for t in legs]
+            case(f"densefuse.conv{i}", ls, wt, bias, 0, 2 * n, dt, timed)
+            legs.append(conv_multi(ls, wt, bias, "relu"))
+        wt, bias = weights(64, 64, 3, 97)
+        case("densefuse.dec0", [(t, 0) for t in legs], wt, bias, n, n, dt,
+             timed)
+        wt, bias = weights(128, 128, 3, 99)
+        case("vifnet.dec0", [(t, 0) for t in legs] + [(t, n) for t in legs],
+             wt, bias, 0, n, dt, timed)
+        del legs
+        torch.cuda.empty_cache()
+    for dt, dtype in dts.items():
+        x = [_rand(torch, (2, 45, 61, 16), 100 + i, dev, dtype)
+             for i in range(2)]
+        g = [_rand(torch, (2, 45, 61, 1), 102 + i, dev, dtype)
+             for i in range(2)]
+        wt, bias = weights(16, 32, 1, 104)
+        case("k1", [(t, 0) for t in x], wt, bias, 0, 2, dt, False)
+        wt, bias = weights(32, 32, 5, 106)
+        case("k5", [(t, 0) for t in x], wt, bias, 0, 2, dt, False)
+        wt, bias = weights(16, 2, 5, 108)
+        case("gray_legs", [(t, 0) for t in g], wt, bias, 0, 2, dt, False)
+        wt, bias = weights(16, 16, 3, 110)
+        wt = torch.cat([wt, identity_weights(3, 16).to(dev)], 1)
+        case("identity_leg", [(t, 0) for t in x], wt, bias, 0, 2, dt, False)
+    return r
+
+
+# launches of one fused forward on the serving path, per model
+FORWARD_LAUNCHES = {
+    "densefuse": {"conv_gray_enter": 1, "conv_multi": 4, "conv_chain": 2,
+                  "conv_gray_exit": 1},
+    "densefuse_l1": {"conv_gray_enter": 1, "conv_multi": 3, "conv_chain": 3,
+                     "conv_gray_exit": 1},
+    "vifnet": {"conv_gray_enter": 1, "conv_multi": 4, "conv_chain": 3,
+               "conv_gray_exit": 1},
+}
+L1_PAIRS = 11
+
+
+def bench_path(build, bench, name):
+    """The port's bench of `name` with every count set to 0 just before it;
+    the counts must be exactly FORWARD_LAUNCHES x (warmup + timed)."""
+    build.LAUNCHES.clear()
+    result, last = bench.run(seed=0, model_name=name)
+    counts = dict(build.LAUNCHES)
+    want = {k: v * (bench.ITERS + 1) for k, v in FORWARD_LAUNCHES[name].items()}
+    if counts != want:
+        raise AssertionError(f"{name} bench launches {counts}, want {want}")
+    print(f"bench {name}: {json.dumps(result)}")
+    return result, last, counts
+
+
+def ssim_qabf(torch, x1, x2, y):
+    """Per-pair (SSIM, Qabf): SSIM of the fused image against both inputs
+    through the plain maps (data_range 1), Qabf through ops/metrics."""
+    from multi_modal_image_fusion_tpu_torch.ops.metrics import calc_Qabf
+    return ((_plain_ssim(torch, x1, y) + _plain_ssim(torch, x2, y)) * 0.5,
+            calc_Qabf(x1, x2, y))
+
+
+def contract(torch, dev, name, a16, b16, y16, chunk=4):
+    """The BASELINE contract on a bench's last timed batch: its bf16 kernel
+    forward's mean SSIM and Qabf against the f32 forward of the same
+    weights on the card's F.conv2d route (TF32 off), and against the bf16
+    forward through F.conv2d (the same bf16 storage between layers, cuDNN's
+    convs). Held within 1e-3 of f32 for every model, VIFNet too; the gap
+    to the bf16 F.conv2d forward is printed beside it (for VIFNet the JAX
+    package recorded a bf16 floor of 2.1e-3 dSSIM, docs/PARITY.md)."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    m32, m16 = (create_model(name, generator=torch.Generator().manual_seed(
+        0)).to(dev, dt).eval() for dt in (torch.float32, torch.bfloat16))
+    vals = {"kernel_bf16": [], "f32": [], "conv2d_bf16": []}
+    with torch.no_grad():
+        for lo in range(0, a16.shape[0], chunk):
+            sl = slice(lo, lo + chunk)
+            x1, x2 = a16[sl].float(), b16[sl].float()
+            with fast_training(False):
+                y32 = m32(x1, x2)
+                yb = m16(a16[sl], b16[sl]).float()
+            for key, y in (("kernel_bf16", y16[sl].float()), ("f32", y32),
+                           ("conv2d_bf16", yb)):
+                vals[key].append(torch.stack(ssim_qabf(torch, x1, x2, y)))
+            del y32, yb
+    means = {k: torch.cat(v, 1).mean(1).tolist() for k, v in vals.items()}
+    gap = [abs(a - b) for a, b in zip(means["kernel_bf16"], means["f32"])]
+    d_bf16 = [abs(a - b) for a, b in zip(means["kernel_bf16"],
+                                         means["conv2d_bf16"])]
+    if not (all(np.isfinite(means["kernel_bf16"])) and max(gap) <= 1e-3):
+        raise AssertionError(f"{name} bf16 contract: {means}")
+    rec = {"ssim": {k: v[0] for k, v in means.items()},
+           "qabf": {k: v[1] for k, v in means.items()},
+           "d_f32": {"ssim": gap[0], "qabf": gap[1]},
+           "d_conv2d_bf16": {"ssim": d_bf16[0], "qabf": d_bf16[1]},
+           "held_against": "f32", "pairs": int(a16.shape[0])}
+    print(f"bf16 contract {name}: {json.dumps(rec)}")
+    return rec
+
+
+def l1_cli_path(torch, build, test_cli, root, dev):
+    """The port's test CLI on a DenseFuse checkpoint with fusion_mode l1,
+    over the first L1_PAIRS synthetic pairs, every count set to 0 just
+    before it; its SSIM against the f32 F.conv2d route on the card."""
+    import shutil
+    from multi_modal_image_fusion_tpu_torch.data.dataset import \
+        FusionDataset
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    from multi_modal_image_fusion_tpu_torch.train.checkpoint import \
+        save_state_dict
+    for mod in ("vis", "ir"):
+        dst = os.path.join(root, "data", "synth11", "test", mod)
+        os.makedirs(dst)
+        for i in range(L1_PAIRS):
+            shutil.copy(os.path.join(root, "data", "synth", "test", mod,
+                                     f"{i + 1}.bmp"), dst)
+    model = create_model("densefuse", fusion_mode="l1",
+                         generator=torch.Generator().manual_seed(4))
+    save_state_dict(os.path.join(root, "ckpt", "l1run", "epoch_best.pth"),
+                    model.state_dict(),
+                    meta={"model": "densefuse",
+                          "model_cfg": {"fusion_mode": "l1"}})
+    build.LAUNCHES.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ssim, avg = test_cli.main([
+            "--data", "synth11", "--data_root", os.path.join(root, "data"),
+            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", "l1run"])
+    counts = dict(build.LAUNCHES)
+    want = {k: v * L1_PAIRS for k, v in FORWARD_LAUNCHES["densefuse_l1"].items()}
+    want["ssim_maps"] = 2 * L1_PAIRS
+    if counts != want:
+        raise AssertionError(f"l1 test CLI launches {counts}, want {want}")
+    model = model.to(dev).eval()
+    ds = FusionDataset(os.path.join(root, "data", "synth11"), "test", "test",
+                       "ir")
+    ref = []
+    with torch.no_grad(), fast_training(False):
+        for i in range(len(ds)):
+            a, b = (torch.from_numpy(v)[None, ..., None].to(dev)
+                    for v in ds[i])
+            y = model(a, b)
+            ref.append(float((_plain_ssim(torch, a, y)
+                              + _plain_ssim(torch, b, y))[0] * 0.5))
+    ref_ssim = float(np.mean(ref))
+    if not (np.isfinite(ssim) and abs(ssim - ref_ssim) <= 1e-4):
+        raise AssertionError(f"l1 test CLI SSIM {ssim} vs f32 F.conv2d "
+                             f"{ref_ssim}")
+    rec = {"pairs": L1_PAIRS, "ssim": ssim, "ssim_f32_conv2d": ref_ssim,
+           "mean_ms": avg * 1e3}
+    print(f"test CLI densefuse l1: {json.dumps(rec)}")
+    return rec, counts
+
+
+_CELL = re.compile(r'<c r="([A-Z]+)(\d+)"(?: t="inlineStr")?>'
+                   r'(?:<v>([^<]*)</v>|<is><t>([^<]*)</t></is>)</c>')
+
+
+def read_workbook(path):
+    """{sheet name: {(column, row): str or float}} of an xlsx the eval CLI
+    wrote."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        names = re.findall(r'<sheet name="([^"]*)"',
+                           z.read("xl/workbook.xml").decode())
+        return {name: {(col, int(row)): (float(v) if v else s)
+                       for col, row, v, s in _CELL.findall(z.read(
+                           f"xl/worksheets/sheet{i + 1}.xml").decode())}
+                for i, name in enumerate(names)}
+
+
+def eval_path(torch, build, root):
+    """The port's eval CLI in both sheet layouts over the 51 NN.bmp files
+    the DeepFuse test CLI dumped, every count set to 0 just before; exact
+    moments and ssim_maps counts (per eval_metrics call, i.e. per chunk of
+    at most eval.CHUNK images: 8 moments = 2 VIF pyramids x 4 scales, 12
+    ssim_maps = 2 SSIM + 2 x 5 MS-SSIM levels); every value finite; the
+    card values of images 1-3, of the last image of the first full chunk
+    and of the last image against the same function on CPU tensors (the
+    plain versions): 1e-4 relative, VIFF 1e-3."""
+    from multi_modal_image_fusion_tpu_torch.cli import eval as eval_cli
+    from multi_modal_image_fusion_tpu_torch.data.io import imread_gray
+    from multi_modal_image_fusion_tpu_torch.ops.metrics import eval_metrics
+    args = ["--data", "synth", "--data_root", os.path.join(root, "data"),
+            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", "run"]
+    build.LAUNCHES.clear()
+    books, walls = {}, {}
+    for sheet in ("method", "metric"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            path = eval_cli.main(args + ["--methods", f"deepfuse_{sheet}",
+                                         "--sheet", sheet])
+        walls[sheet] = time.perf_counter() - t0
+        books[sheet] = read_workbook(path)
+    counts = dict(build.LAUNCHES)
+    chunks = -(-CLI_PAIRS // eval_cli.CHUNK)
+    want = {"moments": 2 * chunks * 8, "ssim_maps": 2 * chunks * 12}
+    if counts != want:
+        raise AssertionError(f"eval launches {counts}, want {want}")
+    cols = [chr(ord("B") + j) for j in range(len(eval_cli.METRIC_KEYS))]
+    rows = books["method"]["deepfuse_method"]
+    last = 3 + CLI_PAIRS
+    if rows.get(("A", last)) != f"{CLI_PAIRS}.bmp" or ("A", last + 1) in rows:
+        raise AssertionError("method workbook: not 51 image rows")
+    if sorted(books["metric"]) != sorted(eval_cli.METRIC_LABELS):
+        raise AssertionError(f"metric workbook sheets {sorted(books['metric'])}")
+    for name, sheet in books["metric"].items():
+        if sheet.get(("A", last)) != f"{CLI_PAIRS}.bmp":
+            raise AssertionError(f"metric workbook sheet {name}: rows")
+    values = [v for (c, r), v in rows.items() if r > 1 and c != "A"]
+    if len(values) != 16 * (CLI_PAIRS + 2) or not np.isfinite(values).all():
+        raise AssertionError("eval values missing or not finite")
+    data = os.path.join(root, "data", "synth", "test")
+    picks = (1, 2, 3, eval_cli.CHUNK, CLI_PAIRS)
+    imgs = [np.stack([imread_gray(p) for p in paths])[..., None]
+            for paths in ([os.path.join(data, "vis", f"{i}.bmp")
+                           for i in picks],
+                          [os.path.join(data, "ir", f"{i}.bmp")
+                           for i in picks],
+                          [os.path.join(root, "ckpt", "run", "synth",
+                                        f"{i:0>2}.bmp") for i in picks])]
+    with torch.no_grad():
+        cpu = eval_metrics(*map(torch.from_numpy, imgs))
+    worst = {}
+    for j, key in enumerate(eval_cli.METRIC_KEYS):
+        tol = 1e-3 if key == "viff" else 1e-4
+        for i, img in enumerate(picks):
+            card, want_v = rows[(cols[j], 3 + img)], float(cpu[key][i])
+            d = abs(card - want_v) / max(abs(want_v), 1e-6)
+            worst[key] = max(worst.get(key, 0.0), d)
+            if d > tol:
+                raise AssertionError(f"eval {key} image {img}: card {card} "
+                                     f"vs CPU {want_v}")
+    wall = sum(walls.values())
+    rec = {"pairs": CLI_PAIRS, "runs": 2, "wall_s": walls,
+           "ms_per_pair": wall * 1e3 / (2 * CLI_PAIRS), "chunks": chunks,
+           "card_vs_cpu_images": list(picks), "card_vs_cpu_max_rel": worst,
+           "mean": {k: rows[(cols[j], 2)]
+                    for j, k in enumerate(eval_cli.METRIC_KEYS)}}
+    print(f"eval CLI: {json.dumps(rec)}")
+    return rec, counts
+
+
+
 def main():
     import torch
 
@@ -591,8 +1022,15 @@ def main():
     # phase 3
     timer = Timer(torch, dev)
     rec = check_kernels(torch, F, dev, timer)
+    stamp("conv_chain, enter, exit and ssim checked")
     rec["conv_valid"] = check_conv_valid(torch, F, dev, timer)
     torch.cuda.empty_cache()
+    stamp("conv_valid checked")
+    rec["moments"] = check_moments(torch, dev, timer)
+    stamp("moments checked")
+    rec["conv_multi"] = check_conv_multi(torch, F, dev, timer)
+    torch.cuda.empty_cache()
+    stamp("conv_multi checked")
     print("kernel checks passed")
 
     # phase 4: main path, counts from 0
@@ -660,7 +1098,21 @@ def main():
               f"median {cli_lat['median_ms']:.3f} ms, mean "
               f"{cli_lat['mean_ms']:.3f} ms, min {cli_lat['min_ms']:.3f}, "
               f"max {cli_lat['max_ms']:.3f}")
-    del model, ds, ref
+        del model, ds, ref
+        torch.cuda.empty_cache()
+        main_counts = collections.Counter(counts)
+
+        # eval path: the eval CLI over the 51 dumped pairs, counts from 0
+        stamp("deepfuse bench and test CLI done")
+        eval_rec, eval_counts = eval_path(torch, build, root)
+        stamp("eval CLI done")
+        main_counts.update(eval_counts)
+        torch.cuda.empty_cache()
+
+        # DenseFuse 'l1' through the test CLI, counts from 0
+        l1_rec, l1_counts = l1_cli_path(torch, build, test_cli, root, dev)
+        main_counts.update(l1_counts)
+        stamp("densefuse l1 test CLI done")
     torch.cuda.empty_cache()
 
     # BASELINE contract on the bench's last timed batch: its bf16 fused
@@ -670,21 +1122,39 @@ def main():
     x1, x2, y16 = a16.float(), b16.float(), y16.float()
     with torch.no_grad():
         y32 = plain_forward(torch, model, x1, x2)
-        s32 = float(((_plain_ssim(torch, x1, y32)
-                      + _plain_ssim(torch, x2, y32)) * 0.5).mean())
-        s16 = float(((_plain_ssim(torch, x1, y16)
-                      + _plain_ssim(torch, x2, y16)) * 0.5).mean())
+        (s32, q32), (s16, q16) = (
+            [float(v.mean()) for v in ssim_qabf(torch, x1, x2, y)]
+            for y in (y32, y16))
         y_diff = float((y16 - y32).abs().max())
-    if not (np.isfinite(s16) and abs(s16 - s32) <= 1e-3):
-        raise AssertionError(f"bf16 SSIM {s16} vs f32 {s32}")
+    if not (np.isfinite(s16) and abs(s16 - s32) <= 1e-3
+            and np.isfinite(q16) and abs(q16 - q32) <= 1e-3):
+        raise AssertionError(f"bf16 SSIM {s16} vs f32 {s32}, Qabf {q16} vs "
+                             f"{q32}")
     print(f"bf16 contract ({y16.shape[0]} bench pairs): mean SSIM bf16 "
           f"{s16:.6f} vs f32 {s32:.6f} (|d| {abs(s16 - s32):.2e} <= 1e-3); "
+          f"mean Qabf bf16 {q16:.6f} vs f32 {q32:.6f} (|d| "
+          f"{abs(q16 - q32):.2e} <= 1e-3); "
           f"fused max |bf16 - f32| {y_diff:.4g} (f32 max "
           f"{float(y32.abs().max()):.4g})")
+    contracts = {"deepfuse": {"ssim": {"kernel_bf16": s16, "f32": s32},
+                              "qabf": {"kernel_bf16": q16, "f32": q32},
+                              "held_against": "f32"}}
+    del model, y32, y16, a16, b16, x1, x2
+    torch.cuda.empty_cache()
+
+    # DenseFuse and VIFNet benches, counts from 0, and their contracts
+    benches = {"deepfuse": result}
+    for name in ("densefuse", "vifnet"):
+        benches[name], (a16, b16, y16), counts = bench_path(build, bench,
+                                                             name)
+        main_counts.update(counts)
+        torch.cuda.empty_cache()
+        contracts[name] = contract(torch, dev, name, a16, b16, y16)
+        del a16, b16, y16
+        torch.cuda.empty_cache()
+        stamp(f"{name} bench and contract done")
 
     # phase 6: training, counts from 0
-    del model, y32, y16, a16, b16
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         write_train_fixture(torch, root)
         train_counts, step_s, ckpt_dir = train_phase(torch, build, root)
@@ -715,6 +1185,7 @@ def main():
               f"{step_check['max_grad_rel_err']:.3g} of the largest "
               f"gradient, all {step_check['params']} parameters reached")
         busy = profile_steps(torch, dev)
+        stamp("training done")
         print(f"train step profile: {json.dumps(busy)}")
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -736,12 +1207,18 @@ def main():
                           "conv_kernel.py:383",
         "ssim_maps": "multi_modal_image_fusion_tpu/ops/pallas/"
                      "ssim_kernel.py:86",
+        "moments": "multi_modal_image_fusion_tpu/ops/pallas/"
+                   "moments_kernel.py:50",
+        "conv_multi": "multi_modal_image_fusion_tpu/ops/pallas/"
+                      "hiw_kernel.py:619",
     }
-    sources = {"ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu"}
+    sources = {"ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu",
+               "moments": "multi_modal_image_fusion_tpu_torch/csrc/moments.cu"}
     kernels = []
-    counts = {**counts, **train_counts}
+    main_counts.update(train_counts)
+    counts = dict(main_counts)
     for name in ("conv_gray_enter", "conv_chain", "conv_gray_exit",
-                 "ssim_maps"):
+                 "ssim_maps", "moments", "conv_multi"):
         r = rec[name]
         ls = r["layers"].values()
         lib = [v["library_ms"] for v in ls]
@@ -789,7 +1266,11 @@ def main():
     })
     print(json.dumps({"kernels": kernels,
                       "pairs_per_sec": result["value"],
+                      "benches": benches,
+                      "bf16_contract": contracts,
                       "cli_latency": cli_lat,
+                      "test_cli_densefuse_l1": l1_rec,
+                      "eval": eval_rec,
                       "main_path_launches": counts,
                       "training": {"step": step_stats, "profile": busy,
                                    "step_check": step_check,

@@ -1,6 +1,6 @@
 """Shared CLI plumbing (counterpart of multi_modal_image_fusion_tpu
-cli/common.py): the train and test parsers, dataset-layout mapping, data-dir
-resolution and result-image assembly.
+cli/common.py): the train, test and eval parsers, dataset-layout mapping,
+data-dir resolution and result-image assembly.
 
 The reference's `type=bool` flags are always-true when passed (SURVEY.md
 5); here, as in the JAX package, booleans are on/off flag pairs with the
@@ -139,6 +139,23 @@ def get_test_parser():
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: the CUDA card; the run "
                         "fails without one unless --device cpu)")
+    return p
+
+
+def get_eval_parser():
+    """The test parser plus the eval CLI's flags (JAX cli/eval.py:135-140
+    adds --methods and --sheet; --spatial is the JAX test parser's)."""
+    p = get_test_parser()
+    p.description = "Evaluation"
+    p.add_argument("--methods", default=None, type=str,
+                   help="comma-separated method names (default: --model, "
+                        "else 'model')")
+    p.add_argument("--sheet", default="method", choices=["method", "metric"],
+                   help="workbook layout: one sheet per method (metric "
+                        "columns) or one sheet per metric (method columns)")
+    p.add_argument("--spatial", default=0, type=int,
+                   help="height-shard each image over N devices (not "
+                        "ported: ROADMAP.md queue 1 item 8); 0/1 = off")
     return p
 
 

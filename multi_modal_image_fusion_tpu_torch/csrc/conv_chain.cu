@@ -1,8 +1,11 @@
-// Reflect-SAME k x k convolutions of the DeepFuse chain, NHWC, f32 accumulate.
+// Reflect-SAME k x k convolutions of the serving chain (DeepFuse k5/k7;
+// DenseFuse and VIFNet k3), NHWC, f32 accumulate.
 //
-// Replaces three TPU kernels of multi_modal_image_fusion_tpu/ops/pallas/:
+// Replaces four TPU kernels of multi_modal_image_fusion_tpu/ops/pallas/:
 //   conv_chain      <- hiw_kernel.py:335 conv_hiw_chain (every chain conv,
-//                      with the fuse_n siamese-sum prologue)
+//                      with the fuse_n siamese-sum prologue), one leg
+//   conv_multi      <- hiw_kernel.py:619 conv_hiw_chain_multi: the same
+//                      kernel over up to 8 legs with batch offsets
 //   conv_gray_enter <- conv_kernel.py:357 _chain_enter_gray (via hiw_enter)
 //                      fused with the c_in=1 entry conv (enc0)
 //   conv_gray_exit  <- conv_kernel.py:383 _chain_exit_gray (via hiw_exit)
@@ -10,7 +13,9 @@
 //
 // What bounds them on an H100: enc1 and dec0 (16/32 -> 32, k7) do ~25k MACs
 // per output pixel against ~128 bytes of bf16 traffic, far above the card's
-// ~295 operations-per-byte balance, so they are bound by arithmetic. These
+// ~295 operations-per-byte balance; the k3 DenseFuse and VIFNet layers do
+// 2.3k-147k MACs against 64-512 bytes (72-576 operations per byte), far
+// above the ~20 of the f32 CUDA cores. So they are bound by arithmetic. These
 // first kernels do that arithmetic on the CUDA cores in f32 (67 TFLOP/s
 // peak, not the 989 TFLOP/s of bf16 tensor cores): each thread keeps a
 // PX-pixel x CO_T-channel block of accumulators in registers, so every
@@ -25,14 +30,38 @@
 namespace mmif {
 
 // ---------------------------------------------------------------------------
-// conv_chain: (B_in, H, W, Cin) -> (B_out, H, W, Cout), weights [Cin][K][K][Cout]
+// conv_chain: L legs (B_l, H, W, Cin_l) -> (B_out, H, W, Cout), weights
+// [sum Cin_l][K][K][Cout]
 // ---------------------------------------------------------------------------
-// One block computes a TH x TW output tile for CO_T output channels. The
-// input tile plus halo is staged in shared memory CI_C channels at a time
-// (f32, channel-major so a thread's row segment is one to three float4
-// loads), next to the matching CI_C x K x K x CO_T weight slice.
+// A conv is linear in its input channels, so the conv over the channel
+// concat of several legs is the sum of per-leg convs with the matching
+// slices of the weight (legs in concat order):
+//
+//   y[b] = act(bias + sum_l conv(x_l[b + b_off_l] (+ x_l[b + b_off_l + fuse_n]), W_l))
+//
+// One leg at b_off 0 is the plain chain conv (conv_hiw_chain). Several legs
+// replace hiw_kernel.py:619 conv_hiw_chain_multi: DenseBlock growth (the legs
+// x0, y1, y2, y3 of DenseFuse and VIFNet), concat fusion across the siamese
+// halves (VIFNet's decoder entry reads the same 4 legs at batch offsets 0 and
+// n), and, with a centre-tap identity weight on a leg, a residual add.
+//
+// One block computes a TH x TW output tile for CO_T output channels. Each
+// leg's input tile plus halo is staged in shared memory CI_C channels at a
+// time (f32, channel-major so a thread's row segment is one to three float4
+// loads), next to the matching CI_C x K x K x CO_T weight slice. The legs
+// are an outer loop around the channel chunks, each with its own base
+// pointer, channel count and batch offset; legs of any channel count work
+// (a 1-channel leg loads scalars and runs one FMA channel).
 constexpr int CH_TH = 8, CH_TW = 64, CH_PX = 4, CH_CI = 8;
 constexpr int CH_THREADS = (CH_TW / CH_PX) * CH_TH;  // 128
+constexpr int MAX_LEGS = 8;
+
+struct Legs {
+  const void* x[MAX_LEGS];
+  int cin[MAX_LEGS];
+  int b_off[MAX_LEGS];
+  int n;
+};
 
 template <int K, int CO_T>
 struct ChainSmem {
@@ -45,9 +74,8 @@ struct ChainSmem {
 
 template <typename T, int K, int CO_T>
 __global__ void __launch_bounds__(CH_THREADS)
-conv_chain_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, T* __restrict__ y, int H, int W,
-                  int Cin, int Cout, int fuse_n, int act) {
+conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restrict__ bias,
+                  T* __restrict__ y, int H, int W, int Cout, int fuse_n, int act) {
   using S = ChainSmem<K, CO_T>;
   using G = typename S::G;
   constexpr int P = K / 2;
@@ -64,92 +92,99 @@ conv_chain_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const int b = blockIdx.z / n_co;
   const int co0 = (blockIdx.z % n_co) * CO_T;
 
-  const size_t img = (size_t)H * W * Cin;
-  const T* xa = x + (size_t)b * img;
-  const T* xs = fuse_n ? x + (size_t)(b + fuse_n) * img : nullptr;
-  const bool vec = (Cin % 8) == 0;
-
   float acc[CH_PX][CO_T];
 #pragma unroll
   for (int p = 0; p < CH_PX; ++p)
 #pragma unroll
     for (int c = 0; c < CO_T; ++c) acc[p][c] = 0.f;
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += CH_CI) {
-    // stage the input tile (reflect halo, siamese sum in f32)
-    for (int idx = tid; idx < S::IN_H * G::PITCH; idx += CH_THREADS) {
-      const int r = idx / G::PITCH, c = idx % G::PITCH;
-      float v[CH_CI];
-#pragma unroll
-      for (int j = 0; j < CH_CI; ++j) v[j] = 0.f;
-      if (c < G::W_IN) {
-        const size_t off = ((size_t)reflect_index(y0 - P + r, H) * W +
-                            reflect_index(x0 - P + c, W)) * Cin + ci0;
-        if (vec) {
-          load8(xa + off, v);
-          if (xs) {
-            float u[CH_CI];
-            load8(xs + off, u);
-#pragma unroll
-            for (int j = 0; j < CH_CI; ++j) v[j] += u[j];
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < CH_CI; ++j) {
-            if (ci0 + j < Cin) {
-              v[j] = to_f32(xa[off + j]);
-              if (xs) v[j] += to_f32(xs[off + j]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < CH_CI; ++j) s_in[(j * S::IN_H + r) * G::PITCH + c] = v[j];
-    }
-    // stage the weight slice
-    for (int idx = tid; idx < S::W_FLOATS; idx += CH_THREADS) {
-      const int co = idx % CO_T;
-      const int t = idx / CO_T;  // j * K * K + tap
-      const int j = t / (K * K);
-      s_w[idx] = (ci0 + j < Cin)
-                     ? w[((size_t)(ci0 + j) * K * K + t % (K * K)) * Cout + co0 + co]
-                     : 0.f;
-    }
-    __syncthreads();
+  int wc0 = 0;  // the leg's first input channel in the concat (weight rows)
+  for (int l = 0; l < legs.n; ++l) {
+    const int Cin = legs.cin[l];
+    const size_t img = (size_t)H * W * Cin;
+    const T* base = static_cast<const T*>(legs.x[l]);
+    const T* xa = base + (size_t)(b + legs.b_off[l]) * img;
+    const T* xs = fuse_n ? base + (size_t)(b + legs.b_off[l] + fuse_n) * img : nullptr;
+    const bool vec = (Cin % 8) == 0;
 
-#pragma unroll 1
-    for (int j = 0; j < CH_CI; ++j) {
-      const float* s_in_j = s_in + j * S::IN_H * G::PITCH;
-      const float* s_w_j = s_w + j * K * K * CO_T;
+    for (int ci0 = 0; ci0 < Cin; ci0 += CH_CI) {
+      // stage the input tile (reflect halo, fuse_n sibling added in f32)
+      for (int idx = tid; idx < S::IN_H * G::PITCH; idx += CH_THREADS) {
+        const int r = idx / G::PITCH, c = idx % G::PITCH;
+        float v[CH_CI];
 #pragma unroll
-      for (int kh = 0; kh < K; ++kh) {
-        float v[4 * G::NV];
-        const float4* row =
-            reinterpret_cast<const float4*>(s_in_j + (ty + kh) * G::PITCH + tx * CH_PX);
+        for (int j = 0; j < CH_CI; ++j) v[j] = 0.f;
+        if (c < G::W_IN) {
+          const size_t off = ((size_t)reflect_index(y0 - P + r, H) * W +
+                              reflect_index(x0 - P + c, W)) * Cin + ci0;
+          if (vec) {
+            load8(xa + off, v);
+            if (xs) {
+              float u[CH_CI];
+              load8(xs + off, u);
 #pragma unroll
-        for (int q = 0; q < G::NV; ++q) {
-          const float4 t = row[q];
-          v[4 * q] = t.x; v[4 * q + 1] = t.y; v[4 * q + 2] = t.z; v[4 * q + 3] = t.w;
+              for (int j = 0; j < CH_CI; ++j) v[j] += u[j];
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < CH_CI; ++j) {
+              if (ci0 + j < Cin) {
+                v[j] = to_f32(xa[off + j]);
+                if (xs) v[j] += to_f32(xs[off + j]);
+              }
+            }
+          }
         }
 #pragma unroll
-        for (int kw = 0; kw < K; ++kw) {
-          const float4* wr = reinterpret_cast<const float4*>(s_w_j + (kh * K + kw) * CO_T);
+        for (int j = 0; j < CH_CI; ++j) s_in[(j * S::IN_H + r) * G::PITCH + c] = v[j];
+      }
+      // stage the leg's weight slice
+      for (int idx = tid; idx < S::W_FLOATS; idx += CH_THREADS) {
+        const int co = idx % CO_T;
+        const int t = idx / CO_T;  // j * K * K + tap
+        const int j = t / (K * K);
+        s_w[idx] = (ci0 + j < Cin)
+                       ? w[((size_t)(wc0 + ci0 + j) * K * K + t % (K * K)) * Cout + co0 + co]
+                       : 0.f;
+      }
+      __syncthreads();
+
+      const int nj = min(CH_CI, Cin - ci0);
+#pragma unroll 1
+      for (int j = 0; j < nj; ++j) {
+        const float* s_in_j = s_in + j * S::IN_H * G::PITCH;
+        const float* s_w_j = s_w + j * K * K * CO_T;
 #pragma unroll
-          for (int cq = 0; cq < CO_T / 4; ++cq) {
-            const float4 wv = wr[cq];
+        for (int kh = 0; kh < K; ++kh) {
+          float v[4 * G::NV];
+          const float4* row =
+              reinterpret_cast<const float4*>(s_in_j + (ty + kh) * G::PITCH + tx * CH_PX);
 #pragma unroll
-            for (int p = 0; p < CH_PX; ++p) {
-              const float xv = v[p + kw];
-              acc[p][4 * cq + 0] = fmaf(xv, wv.x, acc[p][4 * cq + 0]);
-              acc[p][4 * cq + 1] = fmaf(xv, wv.y, acc[p][4 * cq + 1]);
-              acc[p][4 * cq + 2] = fmaf(xv, wv.z, acc[p][4 * cq + 2]);
-              acc[p][4 * cq + 3] = fmaf(xv, wv.w, acc[p][4 * cq + 3]);
+          for (int q = 0; q < G::NV; ++q) {
+            const float4 t = row[q];
+            v[4 * q] = t.x; v[4 * q + 1] = t.y; v[4 * q + 2] = t.z; v[4 * q + 3] = t.w;
+          }
+#pragma unroll
+          for (int kw = 0; kw < K; ++kw) {
+            const float4* wr = reinterpret_cast<const float4*>(s_w_j + (kh * K + kw) * CO_T);
+#pragma unroll
+            for (int cq = 0; cq < CO_T / 4; ++cq) {
+              const float4 wv = wr[cq];
+#pragma unroll
+              for (int p = 0; p < CH_PX; ++p) {
+                const float xv = v[p + kw];
+                acc[p][4 * cq + 0] = fmaf(xv, wv.x, acc[p][4 * cq + 0]);
+                acc[p][4 * cq + 1] = fmaf(xv, wv.y, acc[p][4 * cq + 1]);
+                acc[p][4 * cq + 2] = fmaf(xv, wv.z, acc[p][4 * cq + 2]);
+                acc[p][4 * cq + 3] = fmaf(xv, wv.w, acc[p][4 * cq + 3]);
+              }
             }
           }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
+    wc0 += Cin;
   }
 
   // epilogue: bias + activation in f32, cast, 16-byte stores
@@ -172,9 +207,9 @@ conv_chain_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 template <typename T, int K, int CO_T>
-static int launch_chain(const void* x, const float* w, const float* bias, void* y,
-                        int b_out, int h, int wd, int cin, int cout, int fuse_n,
-                        int act, cudaStream_t stream) {
+static int launch_chain(const Legs& legs, const float* w, const float* bias, void* y,
+                        int b_out, int h, int wd, int cout, int fuse_n, int act,
+                        cudaStream_t stream) {
   constexpr size_t smem = ChainSmem<K, CO_T>::BYTES;
   // above 48 KB only as opted-in dynamic shared memory; set once per instance
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -183,23 +218,37 @@ static int launch_chain(const void* x, const float* w, const float* bias, void* 
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((wd + CH_TW - 1) / CH_TW, (h + CH_TH - 1) / CH_TH, b_out * (cout / CO_T));
   conv_chain_kernel<T, K, CO_T><<<grid, CH_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), w, bias, static_cast<T*>(y), h, wd, cin, cout, fuse_n, act);
+      legs, w, bias, static_cast<T*>(y), h, wd, cout, fuse_n, act);
   return (int)cudaGetLastError();
 }
 
-// Built for what DeepFuse launches: k5 and k7, Cout a multiple of 16.
+// Kernel sizes 1, 3, 5 and 7, as the TPU kernels take (DenseFuse and VIFNet
+// run k3, DeepFuse k5 and k7); Cout a multiple of 16.
 constexpr int CO_TILE = 16;
 
 template <typename T>
-static int chain_by_k(int k, const void* x, const float* w, const float* bias, void* y,
-                      int b_out, int h, int wd, int cin, int cout, int fuse_n, int act,
+static int chain_by_k(int k, const Legs& legs, const float* w, const float* bias, void* y,
+                      int b_out, int h, int wd, int cout, int fuse_n, int act,
                       cudaStream_t s) {
   if (cout % CO_TILE) return (int)cudaErrorInvalidValue;
   switch (k) {
-    case 5: return launch_chain<T, 5, CO_TILE>(x, w, bias, y, b_out, h, wd, cin, cout, fuse_n, act, s);
-    case 7: return launch_chain<T, 7, CO_TILE>(x, w, bias, y, b_out, h, wd, cin, cout, fuse_n, act, s);
+    case 1: return launch_chain<T, 1, CO_TILE>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+    case 3: return launch_chain<T, 3, CO_TILE>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+    case 5: return launch_chain<T, 5, CO_TILE>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+    case 7: return launch_chain<T, 7, CO_TILE>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+static int chain_launch(int dtype, int k, const Legs& legs, const float* w, const float* bias,
+                        void* y, int b_out, int h, int wd, int cout, int fuse_n, int act,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32)
+    return chain_by_k<float>(k, legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+  if (dtype == DT_BF16)
+    return chain_by_k<__nv_bfloat16>(k, legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -293,19 +342,31 @@ conv_gray_enter_kernel(const T* __restrict__ img1, const T* __restrict__ img2,
   }
 }
 
-// Built for DeepFuse's enc0: k5, Cout a multiple of 16, images already in
-// the chain dtype (f32 in the test CLI, bf16 in the bench).
-template <typename T>
-static int enter_k5(const void* img1, const void* img2, const float* w, const float* bias,
-                    void* y, int b, int h, int wd, int cout, int k, int act,
-                    cudaStream_t stream) {
-  if (k != 5 || cout % CO_TILE) return (int)cudaErrorInvalidValue;
+template <typename T, int K>
+static int launch_enter(const void* img1, const void* img2, const float* w,
+                        const float* bias, void* y, int b, int h, int wd, int cout, int act,
+                        cudaStream_t stream) {
   const int b_out = img2 ? 2 * b : b;
   const dim3 grid((wd + EN_TW - 1) / EN_TW, (h + EN_TH - 1) / EN_TH, b_out * (cout / CO_TILE));
-  conv_gray_enter_kernel<T, 5, CO_TILE><<<grid, EN_THREADS, 0, stream>>>(
+  conv_gray_enter_kernel<T, K, CO_TILE><<<grid, EN_THREADS, 0, stream>>>(
       static_cast<const T*>(img1), static_cast<const T*>(img2), w, bias, static_cast<T*>(y),
       b, h, wd, cout, act);
   return (int)cudaGetLastError();
+}
+
+// Built for the ported models' c_in=1 entry convs: k3 (DenseFuse and VIFNet
+// conv_in) and k5 (DeepFuse enc0), Cout a multiple of 16, images already in
+// the chain dtype (f32 in the test CLI, bf16 in the bench).
+template <typename T>
+static int enter_by_k(const void* img1, const void* img2, const float* w, const float* bias,
+                      void* y, int b, int h, int wd, int cout, int k, int act,
+                      cudaStream_t s) {
+  if (cout % CO_TILE) return (int)cudaErrorInvalidValue;
+  switch (k) {
+    case 3: return launch_enter<T, 3>(img1, img2, w, bias, y, b, h, wd, cout, act, s);
+    case 5: return launch_enter<T, 5>(img1, img2, w, bias, y, b, h, wd, cout, act, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -389,15 +450,25 @@ conv_gray_exit_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Built for DeepFuse's dec2: k5.
-template <typename T>
-static int exit_k5(int k, const void* x, const float* w, const float* bias, void* y, int b,
-                   int h, int wd, int cin, int act, cudaStream_t s) {
-  if (k != 5) return (int)cudaErrorInvalidValue;
+template <typename T, int K>
+static int launch_exit(const void* x, const float* w, const float* bias, void* y, int b,
+                       int h, int wd, int cin, int act, cudaStream_t s) {
   const dim3 grid((wd + EX_TW - 1) / EX_TW, (h + EX_TH - 1) / EX_TH, b);
-  conv_gray_exit_kernel<T, 5><<<grid, EX_THREADS, 0, s>>>(
+  conv_gray_exit_kernel<T, K><<<grid, EX_THREADS, 0, s>>>(
       static_cast<const T*>(x), w, bias, static_cast<T*>(y), h, wd, cin, act);
   return (int)cudaGetLastError();
+}
+
+// Built for the ported models' c_out=1 exit convs: k3 (DenseFuse dec3,
+// VIFNet dec4) and k5 (DeepFuse dec2).
+template <typename T>
+static int exit_by_k(int k, const void* x, const float* w, const float* bias, void* y, int b,
+                     int h, int wd, int cin, int act, cudaStream_t s) {
+  switch (k) {
+    case 3: return launch_exit<T, 3>(x, w, bias, y, b, h, wd, cin, act, s);
+    case 5: return launch_exit<T, 5>(x, w, bias, y, b, h, wd, cin, act, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace mmif
@@ -408,15 +479,34 @@ extern "C" {
 
 // x (b_in, h, w, cin) in dtype; w [cin][k][k][cout] f32; bias f32 or null;
 // y (b_out, h, w, cout) in dtype. fuse_n > 0: b_in == 2 * fuse_n == 2 * b_out.
+// The kernel with one leg at batch offset 0.
 int mmif_conv_chain(int dtype, const void* x, const float* w, const float* bias, void* y,
                     int b_out, int h, int wd, int cin, int cout, int k, int fuse_n,
                     int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return chain_by_k<float>(k, x, w, bias, y, b_out, h, wd, cin, cout, fuse_n, act, s);
-  if (dtype == DT_BF16)
-    return chain_by_k<__nv_bfloat16>(k, x, w, bias, y, b_out, h, wd, cin, cout, fuse_n, act, s);
-  return (int)cudaErrorInvalidValue;
+  if (cin < 1) return (int)cudaErrorInvalidValue;
+  Legs legs = {};
+  legs.x[0] = x;
+  legs.cin[0] = cin;
+  legs.n = 1;
+  return chain_launch(dtype, k, legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, stream);
+}
+
+// n_legs legs: xs[l] (B_l, h, w, cins[l]) in dtype, read at batch b + b_offs[l]
+// (and b + b_offs[l] + fuse_n when fuse_n > 0) for output image b;
+// w [sum(cins)][k][k][cout] f32; bias f32 or null; y (b_out, h, w, cout).
+int mmif_conv_multi(int dtype, int n_legs, const void* const* xs, const int* cins,
+                    const int* b_offs, const float* w, const float* bias, void* y, int b_out,
+                    int h, int wd, int cout, int k, int fuse_n, int act, void* stream) {
+  if (n_legs < 1 || n_legs > MAX_LEGS) return (int)cudaErrorInvalidValue;
+  Legs legs = {};
+  for (int l = 0; l < n_legs; ++l) {
+    if (cins[l] < 1) return (int)cudaErrorInvalidValue;
+    legs.x[l] = xs[l];
+    legs.cin[l] = cins[l];
+    legs.b_off[l] = b_offs[l];
+  }
+  legs.n = n_legs;
+  return chain_launch(dtype, k, legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, stream);
 }
 
 // img1, img2 (b, h, w, 1) in dtype (img2 may be null); w [k][k][cout] f32;
@@ -425,9 +515,10 @@ int mmif_conv_gray_enter(int dtype, const void* img1, const void* img2, const fl
                          const float* bias, void* y, int b, int h, int wd, int cout, int k,
                          int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return enter_k5<float>(img1, img2, w, bias, y, b, h, wd, cout, k, act, s);
+  if (dtype == DT_F32)
+    return enter_by_k<float>(img1, img2, w, bias, y, b, h, wd, cout, k, act, s);
   if (dtype == DT_BF16)
-    return enter_k5<__nv_bfloat16>(img1, img2, w, bias, y, b, h, wd, cout, k, act, s);
+    return enter_by_k<__nv_bfloat16>(img1, img2, w, bias, y, b, h, wd, cout, k, act, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -435,9 +526,9 @@ int mmif_conv_gray_enter(int dtype, const void* img1, const void* img2, const fl
 int mmif_conv_gray_exit(int dtype, const void* x, const float* w, const float* bias, void* y,
                         int b, int h, int wd, int cin, int k, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return exit_k5<float>(k, x, w, bias, y, b, h, wd, cin, act, s);
+  if (dtype == DT_F32) return exit_by_k<float>(k, x, w, bias, y, b, h, wd, cin, act, s);
   if (dtype == DT_BF16)
-    return exit_k5<__nv_bfloat16>(k, x, w, bias, y, b, h, wd, cin, act, s);
+    return exit_by_k<__nv_bfloat16>(k, x, w, bias, y, b, h, wd, cin, act, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
-models/zoo.py). This slice ports DeepFuse, the reference CLIs' default
-model; the other 15 models are queued in ROADMAP.md.
+models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
+DenseFuse and VIFNet; the other 13 models are queued in ROADMAP.md.
 
 Models take NHWC single-channel images:
 
@@ -8,12 +8,14 @@ Models take NHWC single-channel images:
     model(img1)         -> autoencoder reconstruction (two-stage training)
 """
 
+import torch
 from torch import nn
 
-from ..ops.fusion import element_fusion
+from ..ops.blocks import DenseBlock
+from ..ops.fusion import attention_fusion, element_fusion
 from ..ops.layers import ConvLayer
 
-__all__ = ["DeepFuse", "MODEL_ZOO", "create_model"]
+__all__ = ["DeepFuse", "DenseFuse", "MODEL_ZOO", "VIFNet", "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -64,7 +66,101 @@ class DeepFuse(nn.Module):
         return dec2(dec1(t))
 
 
-MODEL_ZOO = {"deepfuse": DeepFuse}
+def _dense_encoder(generator):
+    """conv_in (1 -> 16, k3) and a 3-conv DenseBlock: the shared encoder of
+    DenseFuse and VIFNet, at the reference's `encode.0` / `encode.1`."""
+    return nn.ModuleList([ConvLayer(1, 16, generator=generator),
+                          DenseBlock(16, 16, generator=generator)])
+
+
+class DenseFuse(nn.Module):
+    """Dense encoder (64 channels), 'sum' or 'l1' spatial-attention fusion,
+    4-conv k3 decoder (reference core/model.py:165-186; JAX models/zoo.py:
+    558-631).
+
+    Serving follows the JAX package's multi-leg path (`_hiw_forward`,
+    zoo.py:615-631): the siamese fold runs conv_in (conv_gray_enter) and the
+    dense block once over the batch-concatenated pair, the dense growth stays
+    a list of four 16-channel legs that is never concatenated (conv_multi),
+    and 'sum' fusion is dec0's fuse_n load over the legs. 'l1' has no
+    multi-leg path in the JAX package either (it runs the C-major chain,
+    zoo.py:597-612): the legs are concatenated per half and fused by
+    attention_fusion('sa', 'l1') in torch, and dec0 runs conv_chain. dec1
+    and dec2 run conv_chain, dec3 conv_gray_exit. Autoencoder mode
+    (`model(img1)`) decodes one image batch's legs. The conv routes are
+    ConvLayer's (ops/layers.py): on the training routes the legs are
+    concatenated."""
+
+    def __init__(self, fusion_mode="sum", generator=None):
+        super().__init__()
+        if fusion_mode not in ("sum", "l1"):
+            raise ValueError(f"DenseFuse fusion_mode {fusion_mode!r} not in "
+                             f"sum/l1")
+        self.fusion_mode = fusion_mode
+        g = generator
+        self.encode = _dense_encoder(g)
+        self.decode = nn.ModuleList([
+            ConvLayer(64, 64, generator=g),
+            ConvLayer(64, 32, generator=g),
+            ConvLayer(32, 16, generator=g),
+            ConvLayer(16, 1, act=None, generator=g),
+        ])
+
+    def forward(self, img1, img2=None):
+        conv_in, dense = self.encode
+        dec0, *rest = self.decode
+        legs = dense(conv_in.enter(img1, img2))
+        n = img1.shape[0]
+        if img2 is None:
+            t = dec0([(x, 0) for x in legs])
+        elif self.fusion_mode == "sum":
+            t = dec0([(x, 0) for x in legs], fuse_n=n)
+        else:
+            feat = torch.cat(legs, dim=-1)
+            t = dec0(attention_fusion(feat[:n], feat[n:], "sa",
+                                      spatial_mode="l1"))
+        for layer in rest:
+            t = layer(t)
+        return t
+
+
+class VIFNet(nn.Module):
+    """DenseFuse's encoder, concat fusion, 5-conv k3 decoder from 128
+    channels (reference core/model.py:189-206; JAX models/zoo.py:634-696).
+
+    Serving follows the JAX multi-leg path (zoo.py:678-696): the 128-channel
+    concat fusion is dec0 reading the same four dense legs at batch offsets
+    0 and n (8 legs, conv_multi); dec1-dec3 run conv_chain, dec4
+    conv_gray_exit. The model has no autoencoder mode: its decoder takes
+    both images' features."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        g = generator
+        self.encode = _dense_encoder(g)
+        self.decode = nn.ModuleList([
+            ConvLayer(128, 128, generator=g),
+            ConvLayer(128, 64, generator=g),
+            ConvLayer(64, 32, generator=g),
+            ConvLayer(32, 16, generator=g),
+            ConvLayer(16, 1, act=None, generator=g),
+        ])
+
+    def forward(self, img1, img2=None):
+        if img2 is None:
+            raise ValueError("VIFNet has no autoencoder mode: its decoder "
+                             "takes the concat of both images' features")
+        conv_in, dense = self.encode
+        dec0, *rest = self.decode
+        n = img1.shape[0]
+        legs = dense(conv_in.enter(img1, img2))
+        t = dec0([(x, 0) for x in legs] + [(x, n) for x in legs])
+        for layer in rest:
+            t = layer(t)
+        return t
+
+
+MODEL_ZOO = {"deepfuse": DeepFuse, "densefuse": DenseFuse, "vifnet": VIFNet}
 
 
 def create_model(name, **kwargs):

@@ -1,4 +1,4 @@
-"""Reflect-SAME conv kernels of the DeepFuse chain, with their plain versions.
+"""Reflect-SAME conv kernels of the serving chain, with their plain versions.
 
 Three wrappers over csrc/conv_chain.cu, all NHWC, f32 accumulation:
 
@@ -6,6 +6,8 @@ Three wrappers over csrc/conv_chain.cu, all NHWC, f32 accumulation:
   `ops/pallas/hiw_kernel.py:335 conv_hiw_chain`: a k x k reflect-SAME conv
   with bias and activation; with `fuse_n > 0` the input holds 2n images and
   the kernel convolves x[i] + x[i+n] (the siamese 'sum' fusion in the load).
+  Its kernel takes a list of input legs; `conv_multi.py` launches the same
+  kernel with several (`hiw_kernel.py:619 conv_hiw_chain_multi`).
 - `conv_gray_enter(img1, img2, weight, ...)` replaces
   `ops/pallas/conv_kernel.py:357 _chain_enter_gray` (reached by
   `hiw_enter`) together with the c_in=1 entry conv: it reads the grayscale
@@ -25,9 +27,10 @@ only for CPU tensors. A CUDA tensor launches the kernel or raises; there is
 no fallback. The kernels are forward-only: on a CUDA tensor with grad mode
 on and an input, weight or bias that requires grad, the wrappers raise
 (training goes through ops/cuda/conv_vjp.py). They are built for
-what DeepFuse launches: `conv_chain` k5 and k7, `conv_gray_enter` and
-`conv_gray_exit` k5, output channels a multiple of 16 (but the exit's 1),
-input and output in one dtype. The wrappers raise on anything else.
+what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
+and k7 (DeepFuse), `conv_gray_enter` and `conv_gray_exit` k3 and k5, output
+channels a multiple of 16 (but the exit's 1), input and output in one
+dtype. The wrappers raise on anything else.
 """
 
 import ctypes
@@ -69,13 +72,28 @@ def apply_act(y, act):
     raise ValueError(f"unfusable activation {act!r}")
 
 
+def batch_step(h, w, channels, k):
+    """Images per chunk so that one chunk's reflect-padded input and output
+    stay under 2^31 elements: torch's reflect pad indexes with 32 bits."""
+    p = k // 2
+    return max(1, (2 ** 31 - 1) // ((h + 2 * p) * (w + 2 * p) * channels))
+
+
 def _conv_nhwc_f32(x, weight, bias):
-    """f32 reflect-SAME conv of an NHWC tensor (OIHW weight)."""
-    p = weight.shape[-1] // 2
-    xn = F.pad(x.float().permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
-    y = F.conv2d(xn, weight.float(),
-                 None if bias is None else bias.float())
-    return y.permute(0, 2, 3, 1).contiguous()
+    """f32 reflect-SAME conv of an NHWC tensor (OIHW weight), in batch
+    chunks of `batch_step` images."""
+    k = weight.shape[-1]
+    p = k // 2
+    b, h, w, c = x.shape
+    step = batch_step(h, w, max(c, weight.shape[0]), k)
+    wf = weight.float()
+    bf = None if bias is None else bias.float()
+    outs = []
+    for i in range(0, b, step):
+        xn = F.pad(x[i:i + step].float().permute(0, 3, 1, 2), (p, p, p, p),
+                   mode="reflect")
+        outs.append(F.conv2d(xn, wf, bf).permute(0, 2, 3, 1))
+    return torch.cat(outs) if len(outs) > 1 else outs[0].contiguous()
 
 
 def conv_chain_plain(x, weight, bias=None, act=None, fuse_n=0):
@@ -156,7 +174,8 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
         return conv_chain_plain(x, weight, bias, act, fuse_n)
     check_no_grad("conv_chain", x, weight, bias)
     b_in, h, w, cin = x.shape
-    k = _check_cuda_args("conv_chain", [x], weight, bias, h, w, (5, 7))
+    k = _check_cuda_args("conv_chain", [x], weight, bias, h, w,
+                          (1, 3, 5, 7))
     cout = weight.shape[0]
     if weight.shape[1] != cin:
         raise ValueError(f"conv_chain: weight takes {weight.shape[1]} input "
@@ -193,7 +212,8 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
     check_no_grad("conv_gray_enter", img1, img2, weight, bias)
     b, h, w, c = img1.shape
     imgs = [img1] if img2 is None else [img1, img2]
-    k = _check_cuda_args("conv_gray_enter", imgs, weight, bias, h, w, (5,))
+    k = _check_cuda_args("conv_gray_enter", imgs, weight, bias, h, w,
+                          (3, 5))
     cout = weight.shape[0]
     if c != 1 or weight.shape[1] != 1:
         raise ValueError("conv_gray_enter: inputs and weight must have one "
@@ -230,7 +250,7 @@ def conv_gray_exit(x, weight, bias=None, act=None):
         return conv_gray_exit_plain(x, weight, bias, act)
     check_no_grad("conv_gray_exit", x, weight, bias)
     b, h, w, cin = x.shape
-    k = _check_cuda_args("conv_gray_exit", [x], weight, bias, h, w, (5,))
+    k = _check_cuda_args("conv_gray_exit", [x], weight, bias, h, w, (3, 5))
     if weight.shape[0] != 1 or weight.shape[1] != cin:
         raise ValueError(f"conv_gray_exit: weight {tuple(weight.shape)} "
                          f"does not map {cin} channels to 1")

@@ -2,18 +2,24 @@
 ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d, and the
 fast-training scope and routes, :34-56 and :695-755).
 
-This slice carries the part DeepFuse uses: stride-1 reflect-SAME k x k
-convs with bias and one of the kernel-fusable activations (relu, relu6,
-lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters are
-named as in the reference state dict (`layers.0.weight` OIHW,
+The port carries the part the ported models use: stride-1 reflect-SAME
+k x k convs with bias and one of the kernel-fusable activations (relu,
+relu6, lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters
+are named as in the reference state dict (`layers.0.weight` OIHW,
 `layers.0.bias`), so reference `.pth` files load directly.
+
+A layer takes one tensor, or a list of legs `[(tensor, b_off), ...]` whose
+channels concatenate to its input (the JAX package's multi-leg convs,
+models/zoo.py:103 `_hiw_mconv`): dense growth and concat fusion without
+building the concat.
 
 Routes of a conv:
 
 - serving (no `fast_training` scope and no gradient needed): the forward-only
-  kernels of ops/cuda/conv_chain.py on CUDA tensors (the c_in=1 layer runs
-  `conv_gray_enter`, the c_out=1 layer `conv_gray_exit`, every other layer
-  `conv_chain`), their plain versions on CPU tensors;
+  kernels of ops/cuda/ on CUDA tensors (a list of legs runs `conv_multi`;
+  on one tensor the c_in=1 layer runs `conv_gray_enter`, the c_out=1 layer
+  `conv_gray_exit`, every other layer `conv_chain`), their plain versions
+  on CPU tensors;
 - training (inside a `fast_training` scope, which the trainer opens around
   its steps, or whenever a gradient is needed): reflect pad, then
   - with `fast_training(True)`: `conv_valid_fast` (kernel forward and dx,
@@ -21,7 +27,8 @@ Routes of a conv:
     `conv_valid` with bias and activation fused (the valid step); a shape
     the kernel does not take raises, there is no quiet F.conv2d;
   - otherwise F.conv2d, the counterpart of the JAX package's XLA conv.
-  On CPU tensors the kernels' plain versions run in their place.
+  On CPU tensors the kernels' plain versions run in their place. A list of
+  legs is concatenated first (`concat_legs`), then takes the same route.
 """
 
 import contextlib
@@ -34,6 +41,7 @@ from torch import nn
 
 from .cuda.conv_chain import (ACT_CODES, apply_act, conv_chain,
                               conv_gray_enter, conv_gray_exit)
+from .cuda.conv_multi import concat_legs, conv_multi, legs_n_out
 from .cuda.conv_valid import conv_valid
 from .cuda.conv_vjp import conv_valid_fast
 
@@ -147,7 +155,14 @@ class ConvLayer(nn.Module):
 
     def forward(self, x, fuse_n=0):
         """(B, H, W, in_ch) -> (B, H, W, out_ch). fuse_n > 0: x holds two
-        halves of fuse_n images and the layer convolves their sum."""
+        halves of fuse_n images and the layer convolves their sum.
+
+        x may be a list of legs [(tensor, b_off), ...] (ops/cuda/
+        conv_multi.py): output image b convolves the channel concat of the
+        legs at batch b + b_off (plus their siblings at b + b_off + fuse_n
+        when fuse_n > 0), for as many images as every leg can feed."""
+        if isinstance(x, list):
+            return self._forward_legs(x, fuse_n)
         if self._training_route(x):
             return self._train_conv(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
         if self.in_ch == 1 and not fuse_n:
@@ -155,6 +170,14 @@ class ConvLayer(nn.Module):
         if self.out_ch == 1 and not fuse_n:
             return conv_gray_exit(x, self.weight, self.bias, self.act)
         return conv_chain(x, self.weight, self.bias, self.act, fuse_n)
+
+    def _forward_legs(self, legs, fuse_n):
+        n_out = legs_n_out(legs, fuse_n)
+        if self._training_route(*[t for t, _ in legs]):
+            x = concat_legs(legs, fuse_n, n_out)
+            return self._train_conv(x[:n_out] + x[n_out:] if fuse_n else x)
+        return conv_multi(legs, self.weight, self.bias, self.act, fuse_n,
+                          n_out)
 
     def extra_repr(self):
         return (f"{self.in_ch}, {self.out_ch}, ksize={self.ksize}, "

@@ -44,8 +44,14 @@ def _taps_on(taps, device):
 def separable_filter(img, taps_h, taps_w, reflect=False):
     """Separable filter of an NHWC image in f32: `taps_h` correlated along H,
     `taps_w` along W, per channel. VALID (shrinks by len(taps) - 1) unless
-    `reflect` (torch reflect padding, keeps the shape)."""
-    c = img.shape[-1]
+    `reflect` (torch reflect padding, keeps the shape). A VALID filter wider
+    than the image gives an empty result, as the JAX package's band-matrix
+    filter does (F.conv2d would raise)."""
+    n, h, w, c = img.shape
+    if not reflect and (h < len(taps_h) or w < len(taps_w)):
+        return img.new_zeros((n, max(h - len(taps_h) + 1, 0),
+                              max(w - len(taps_w) + 1, 0), c),
+                             dtype=torch.float32)
     x = img.float().permute(0, 3, 1, 2)
     th = _taps_on(tuple(float(t) for t in np.asarray(taps_h, np.float32)),
                   x.device)

@@ -1,6 +1,7 @@
 """Weight carry from the JAX package's variables to the port's state dict:
 the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
-(`_conv_w` :27, `_conv`/`_seq` :54-75, the DeepFuse mapping :365-367).
+(`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, the DeepFuse,
+DenseFuse and VIFNet mappings :365-377).
 
 Input is the JAX variables as a nested dict of numpy arrays,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}}` (e.g. from
@@ -19,10 +20,17 @@ import torch
 
 __all__ = ["jax_to_state_dict", "jax_train_state_to_torch"]
 
-# flax submodule -> reference state-dict prefix, per ported model
+# flax submodule path -> reference state-dict prefix, per ported model
+_DENSE_ENCODER = {"conv_in": "encode.0",
+                  **{f"dense/conv{i}": f"encode.1.layers.{i}"
+                     for i in range(3)}}
 _LAYOUTS = {
     "deepfuse": {"enc0": "encode.0", "enc1": "encode.1", "dec0": "decode.0",
                  "dec1": "decode.1", "dec2": "decode.2"},
+    "densefuse": {**_DENSE_ENCODER,
+                  **{f"dec{i}": f"decode.{i}" for i in range(4)}},
+    "vifnet": {**_DENSE_ENCODER,
+               **{f"dec{i}": f"decode.{i}" for i in range(5)}},
 }
 
 
@@ -35,10 +43,12 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
     name = model_name.lower()
     if name not in _LAYOUTS:
         raise NotImplementedError(f"no weight carry for {model_name!r} yet")
-    params = dict(variables["params"])
+    params = {k: dict(v) for k, v in variables["params"].items()}
     sd = {}
-    for flax_name, prefix in _LAYOUTS[name].items():
-        leaf = dict(params.pop(flax_name))
+    for flax_path, prefix in _LAYOUTS[name].items():
+        *outer, flax_name = flax_path.split("/")
+        parent = params[outer[0]] if outer else params
+        leaf = dict(parent.pop(flax_name))
         sd[f"{prefix}.layers.0.weight"] = torch.from_numpy(
             _oihw(np.asarray(leaf.pop("kernel"), np.float32)))
         if "bias" in leaf:
@@ -47,8 +57,9 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
         if leaf:
             raise ValueError(f"unconverted leaves under {flax_name}: "
                              f"{sorted(leaf)}")
-    if params:
-        raise ValueError(f"unconverted JAX params: {sorted(params)}")
+    left = sorted(k for k, v in params.items() if v)
+    if left:
+        raise ValueError(f"unconverted JAX params: {left}")
     return sd
 
 

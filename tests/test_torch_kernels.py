@@ -21,8 +21,12 @@ from multi_modal_image_fusion_tpu_torch.ops.cuda import build
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
     conv_chain, conv_chain_plain, conv_gray_enter, conv_gray_enter_plain,
     conv_gray_exit, conv_gray_exit_plain)
+from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import (
+    conv_multi, conv_multi_plain, identity_weights)
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import (
     conv_valid, conv_valid_plain)
+from multi_modal_image_fusion_tpu_torch.ops.cuda.moments import (
+    moments, moments_plain)
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_vjp import \
     conv_valid_fast
 from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import (
@@ -63,6 +67,9 @@ def _close(got, want, dtype):
     (7, 32, 32, 45, 61, 1),       # dec0 with the siamese-sum prologue
     (5, 32, 16, 33, 130, 0),      # dec1
     (5, 24, 16, 9, 70, 0),        # Cin not a multiple of 8
+    (3, 64, 32, 45, 61, 0),       # DenseFuse dec1 (k3)
+    (3, 128, 128, 20, 70, 0),     # VIFNet dec1's width class
+    (3, 64, 64, 33, 47, 2),       # DenseFuse 'l1' dec0 width, with fuse_n
 ])
 def test_conv_chain(cuda, dt, k, cin, cout, h, w, fuse_n):
     dtype = DTYPES[dt]
@@ -85,13 +92,14 @@ def test_conv_chain_activations(cuda, act):
     _close(got, conv_chain_plain(x, wt, None, act), torch.float32)
 
 
+@pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("pair", [True, False])
-def test_conv_gray_enter(cuda, dt, pair):
+def test_conv_gray_enter(cuda, dt, pair, k):
     img1 = _rand((2, 45, 61, 1), 5, cuda, DTYPES[dt], lo=0.0)
     img2 = _rand((2, 45, 61, 1), 6, cuda, DTYPES[dt], lo=0.0) \
         if pair else None
-    wt = _rand((16, 1, 5, 5), 7, cuda)
+    wt = _rand((16, 1, k, k), 7, cuda)
     bias = _rand((16,), 8, cuda)
     got = conv_gray_enter(img1, img2, wt, bias, "relu")
     assert got.dtype == DTYPES[dt]
@@ -99,11 +107,12 @@ def test_conv_gray_enter(cuda, dt, pair):
     _close(got, want, DTYPES[dt])
 
 
+@pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("h,w", [(45, 61), (8, 200)])
-def test_conv_gray_exit(cuda, dt, h, w):
+def test_conv_gray_exit(cuda, dt, h, w, k):
     x = _rand((3, h, w, 16), 9, cuda, DTYPES[dt])
-    wt = _rand((1, 16, 5, 5), 10, cuda) * 0.2
+    wt = _rand((1, 16, k, k), 10, cuda) * 0.2
     bias = _rand((1,), 11, cuda)
     got = conv_gray_exit(x, wt, bias, None)
     _close(got, conv_gray_exit_plain(x, wt, bias, None), DTYPES[dt])
@@ -169,8 +178,8 @@ def test_wrappers_raise_on_unsupported(cuda):
         conv_chain(x.half(), torch.zeros((16, 12, 5, 5), device=cuda))
     with pytest.raises(ValueError):
         conv_chain(x[:, :, :8], torch.zeros((16, 12, 5, 5), device=cuda))
-    with pytest.raises(ValueError):       # k3 is not built
-        conv_chain(x, torch.zeros((16, 12, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # k9 is not built
+        conv_chain(x, torch.zeros((16, 12, 9, 9), device=cuda))
     img = torch.zeros((1, 16, 16, 1), device=cuda)
     with pytest.raises(TypeError):        # img1 and img2 in one dtype
         conv_gray_enter(img, img.bfloat16(),
@@ -178,6 +187,18 @@ def test_wrappers_raise_on_unsupported(cuda):
     with pytest.raises(ValueError):       # k7 exit is not built
         conv_gray_exit(x[..., :8].contiguous(),
                        torch.zeros((1, 8, 7, 7), device=cuda))
+    legs = [(x, 0)] * 9
+    with pytest.raises(ValueError):       # at most 8 legs
+        conv_multi(legs, torch.zeros((16, 108, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # k9 is not built
+        conv_multi([(x, 0)], torch.zeros((16, 12, 9, 9), device=cuda))
+    with pytest.raises(ValueError):       # offset past the leg's batch
+        conv_multi([(x, 1)], torch.zeros((16, 12, 3, 3), device=cuda),
+                   n_out=1)
+    with pytest.raises(ValueError):       # channels do not add up
+        conv_multi([(x, 0)], torch.zeros((16, 13, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # window above 17
+        moments(img, img, 19, 3.8)
 
 
 # DeepFuse's train-step launches of conv_valid at 64x64 patches:
@@ -273,7 +294,9 @@ def test_forward_only_kernels_raise_with_grad(cuda):
              lambda: conv_gray_enter(img, img, w_in, None, "relu"),
              lambda: conv_gray_exit(x, w_out, None, None),
              lambda: conv_valid(xp, w16),
-             lambda: ssim_maps(img.clone().requires_grad_(), img, 11)]
+             lambda: ssim_maps(img.clone().requires_grad_(), img, 11),
+             lambda: conv_multi([(x, 0), (x, 0)], w16.repeat(1, 2, 1, 1)),
+             lambda: moments(img.clone().requires_grad_(), img, 9, 1.8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="forward-only"):
             call()
@@ -360,3 +383,157 @@ def test_trainer_fast_on_card(cuda, mode):
     else:
         l16, l32 = runs["bf16"][-1], runs[None][-1]
         assert abs(l16 - l32) < 0.05 * abs(l32) + 1e-3, (runs)
+
+
+@pytest.mark.parametrize("use_padding", [False, True])
+@pytest.mark.parametrize("ws", [17, 9, 5, 3])
+def test_moments(cuda, ws, use_padding):
+    """The VIF pyramid's windows, f32, against the plain filters (TF32 off);
+    a pair smaller than the window gives empty maps and no launch."""
+    a = _rand((2, 45, 61, 1), 50, cuda, lo=0.0) * 255
+    b = (a + 40 * _rand((2, 45, 61, 1), 51, cuda)).clamp(0, 255)
+    before = build.LAUNCHES["moments"]
+    got = moments(a, b, ws, ws / 5, use_padding)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["moments"] == before + 1
+    want = moments_plain(a, b, gaussian_kernel(ws, ws / 5), use_padding)
+    for g, w_ in zip(got, want):
+        _close(g, w_, torch.float32)
+    empty = moments(a[:, :2, :2], b[:, :2, :2], 3, 0.6)
+    assert build.LAUNCHES["moments"] == before + 1
+    assert all(t.shape == (2, 0, 0, 1) for t in empty)
+
+
+def _multi_cases(dev, dtype):
+    """The six multi-leg cases of tests/test_hiw.py, plus a k7 case: (legs,
+    OIHW weight, bias, fuse_n)."""
+    x40 = [_rand((2, 40, 96, c), 60 + i, dev, dtype)
+           for i, c in enumerate((16, 16, 8))]
+    x4 = _rand((4, 33, 61, 16), 63, dev, dtype)
+    f4 = [_rand((4, 32, 64, 16), 64 + i, dev, dtype) for i in range(2)]
+    g2 = [_rand((2, 40, 96, 1), 66 + i, dev, dtype, lo=0.0) for i in range(2)]
+    ident = torch.cat([_rand((16, 16, 3, 3), 68, dev) * 0.2,
+                       identity_weights(3, 16).to(dev)], 1)
+    return {
+        "dense": ([(t, 0) for t in x40], _rand((16, 40, 3, 3), 69, dev) * 0.2,
+                  _rand((16,), 70, dev), 0),
+        "cross": ([(x4, 0), (x4, 2)], _rand((32, 32, 3, 3), 71, dev) * 0.2,
+                  None, 0),
+        "fuse": ([(t, 0) for t in f4], _rand((16, 32, 3, 3), 72, dev) * 0.2,
+                 None, 2),
+        "identity": ([(x40[0], 0), (x40[1], 0)], ident, None, 0),
+        "k1": ([(x40[0], 0), (x40[1], 0)], _rand((16, 32, 1, 1), 73, dev),
+               _rand((16,), 74, dev), 0),
+        "gray": ([(t, 0) for t in g2], _rand((16, 2, 5, 5), 75, dev), None,
+                 0),
+        "k7": ([(t, 0) for t in f4], _rand((32, 32, 7, 7), 76, dev) * 0.1,
+               None, 0),
+    }
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["dense", "cross", "fuse", "identity", "k1",
+                                  "gray", "k7"])
+def test_conv_multi(cuda, dt, case):
+    legs, wt, bias, fuse_n = _multi_cases(cuda, DTYPES[dt])[case]
+    before = build.LAUNCHES["conv_multi"]
+    got = conv_multi(legs, wt, bias, "relu", fuse_n)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_multi"] == before + 1
+    assert got.dtype == DTYPES[dt]
+    _close(got, conv_multi_plain(legs, wt, bias, "relu", fuse_n), DTYPES[dt])
+
+
+def test_full_resolution_dense_layers(cuda):
+    """DenseFuse's dense convs and dec0 at 1224x1024 (one pair), and
+    VIFNet's 8-leg dec0, bf16."""
+    h, w = 1224, 1024
+    bf = torch.bfloat16
+    legs = [_rand((2, h, w, 16), 80, cuda, bf)]
+    for i in range(3):
+        wt = _rand((16, 16 * (i + 1), 3, 3), 81 + i, cuda) * 0.2
+        ls = [(t, 0) for t in legs]
+        y = conv_multi(ls, wt, None, "relu")
+        _close(y, conv_multi_plain(ls, wt, None, "relu"), bf)
+        legs.append(y)
+    ls = [(t, 0) for t in legs]
+    wt = _rand((64, 64, 3, 3), 84, cuda) * 0.1
+    _close(conv_multi(ls, wt, None, "relu", fuse_n=1),
+           conv_multi_plain(ls, wt, None, "relu", fuse_n=1), bf)
+    ls = ls + [(t, 1) for t in legs]
+    wt = _rand((128, 128, 3, 3), 85, cuda) * 0.05
+    _close(conv_multi(ls, wt, None, "relu", n_out=1),
+           conv_multi_plain(ls, wt, None, "relu", n_out=1), bf)
+
+
+# launches of one fused forward: (model, model kwargs, autoencoder) ->
+# counts; DenseFuse 'l1' fuses in torch, so its dec0 is a conv_chain
+_FORWARD_LAUNCHES = {
+    ("densefuse", "sum", False): {"conv_gray_enter": 1, "conv_multi": 4,
+                                  "conv_chain": 2, "conv_gray_exit": 1},
+    ("densefuse", "l1", False): {"conv_gray_enter": 1, "conv_multi": 3,
+                                 "conv_chain": 3, "conv_gray_exit": 1},
+    ("densefuse", "sum", True): {"conv_gray_enter": 1, "conv_multi": 4,
+                                 "conv_chain": 2, "conv_gray_exit": 1},
+    ("vifnet", None, False): {"conv_gray_enter": 1, "conv_multi": 4,
+                              "conv_chain": 3, "conv_gray_exit": 1},
+}
+
+
+@pytest.mark.parametrize("key", sorted(_FORWARD_LAUNCHES, key=str))
+def test_dense_models_on_card_match_cpu(cuda, key):
+    """DenseFuse and VIFNet through the kernels against the same weights on
+    the CPU's plain path, f32, odd size, with exact launch counts."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    name, mode, ae = key
+    kw = {} if mode is None else {"fusion_mode": mode}
+    model = create_model(name, generator=torch.Generator().manual_seed(4),
+                         **kw).eval()
+    x1 = _rand((2, 45, 61, 1), 86, "cpu", lo=0.0)
+    x2 = None if ae else _rand((2, 45, 61, 1), 87, "cpu", lo=0.0)
+    with torch.no_grad():
+        want = model(x1, x2)
+        build.LAUNCHES.clear()
+        got = model.to(cuda)(x1.to(cuda), None if x2 is None else x2.to(cuda))
+    assert dict(build.LAUNCHES) == _FORWARD_LAUNCHES[key]
+    _close(got.cpu(), want, torch.float32)
+
+
+def test_eval_metrics_on_card_match_cpu(cuda):
+    """The 16-metric bundle on the card (ssim_maps and moments kernels)
+    against the CPU's plain path: 1e-4 relative, VIFF 1e-3; 12 ssim_maps
+    and 8 moments launches a call."""
+    from multi_modal_image_fusion_tpu_torch.ops.metrics import eval_metrics
+    r = np.random.RandomState(88)
+    a = (r.rand(3, 90, 110, 1) * 255).astype(np.float32)
+    b = np.clip(255 - 0.6 * a + r.randn(3, 90, 110, 1) * 20, 0, 255)
+    f = np.clip(0.5 * a + 0.5 * b + r.randn(3, 90, 110, 1) * 5, 0, 255)
+    imgs = [torch.from_numpy(np.asarray(v, np.float32)) for v in (a, b, f)]
+    want = eval_metrics(*imgs)
+    build.LAUNCHES.clear()
+    got = eval_metrics(*[t.to(cuda) for t in imgs])
+    assert dict(build.LAUNCHES) == {"ssim_maps": 12, "moments": 8}
+    for k, w_ in want.items():
+        tol = 1e-3 if k == "viff" else 1e-4
+        np.testing.assert_allclose(got[k].cpu().numpy(), w_.numpy(),
+                                   rtol=tol, atol=tol, err_msg=k)
+
+
+def test_eval_metrics_small_image_on_card(cuda):
+    """40x40: the VIF pyramid's last scale is smaller than its window, so
+    moments gives empty maps without a launch there and the weighted VIFF
+    is NaN, as in the JAX package; every other value is finite and equals
+    the CPU's."""
+    from multi_modal_image_fusion_tpu_torch.ops.metrics import eval_metrics
+    r = np.random.RandomState(89)
+    imgs = [torch.from_numpy((r.rand(1, 40, 40, 1) * 255).astype(np.float32))
+            for _ in range(3)]
+    want = eval_metrics(*imgs)
+    build.LAUNCHES.clear()
+    got = eval_metrics(*[t.to(cuda) for t in imgs])
+    assert dict(build.LAUNCHES) == {"ssim_maps": 12, "moments": 6}
+    assert np.isnan(float(got["viff"])) and np.isnan(float(want["viff"]))
+    for k, w_ in want.items():
+        if k != "viff":
+            np.testing.assert_allclose(got[k].cpu().numpy(), w_.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=k)
