@@ -64,6 +64,23 @@ one pair) and at k1, k5, 1-channel-leg and identity-leg cases at 45x61,
 its library time one F.conv2d on the padded concat (the concat and the
 pad timed apart).
 
+Phase 3 also holds the non-local attention kernels nl_minmax and nl_apply
+against their plain two-pass version (nl_spatial_plain's passes) at the
+shapes of Res2Fusion's 112-channel attention: 1224x1024 bf16 batch 2 (one
+nl call of the res2fusion bench) and f32 batch 1 (the test CLI's), 45x61
+and a ragged 20x50, on independent centred q and k (k of zero mean, so the
+output is the attention term alone). nl_minmax is held to 1e-4 of the
+range hi - lo in both dtypes, nl_apply to 1e-4 (f32) and 5e-2 (bf16) of
+the largest attention term; at every shape a control (keys swapped within
+pairs in the value product; k's channels rolled by 8 for the range) must
+fail those tolerances. nl_apply's library time is one
+scaled_dot_product_attention(q, k, k, scale=1/(hi-lo)) (the same
+function: softmax is shift-invariant), nl_minmax has none. And conv_dw
+against F.conv2d(groups=C) in f32 at Res2Fusion's RB1 and RB2 windows (k1,
+k3, with and without the added previous group): 1224x1024 bf16 batch 4
+and f32 batch 2, and 45x61; its library time is one F.conv2d(groups=C) on
+the padded window (the window's copy and the pad timed apart).
+
 Later paths, each with every count set to 0 just before it and read just
 after, with exact counts: the eval CLI in both sheet layouts over the 51
 NN.bmp files phase 4's test CLI dumped (8 moments and 12 ssim_maps
@@ -72,12 +89,16 @@ launches per eval_metrics call, one call per chunk of at most 16 images;
 values within 1e-4 relative, VIFF 1e-3, of the same function on CPU
 tensors, and so are image 16's (the last of a full chunk) and image 51's;
 its wall seconds and ms a pair); the test CLI on a seeded
-DenseFuse checkpoint with fusion_mode l1 over 11 pairs (SSIM within 1e-4
-of the f32 F.conv2d route on the card); the bench with --model densefuse
-and --model vifnet, each held to the BASELINE contract on its last batch:
-mean SSIM and Qabf within 1e-3 of the f32 forward (VIFNet too; its gap
-to the bf16 forward through F.conv2d is printed beside it). The DeepFuse
-contract of phase 5 holds Qabf too.
+DenseFuse checkpoint with fusion_mode l1 over 11 pairs and on a seeded
+Res2Fusion checkpoint over 3 pairs (SSIM within 1e-4 of the f32 plain path
+on the card: F.conv2d for every conv, TF32 off, and the plain 'nl'
+attention); the bench with --model densefuse and --model vifnet (batch 16)
+and --model res2fusion (batch 2: 1 enter, 5 chain, 4 conv_multi, 12
+conv_dw, 2 nl_minmax, 2 nl_apply and 1 exit launches a forward), each held
+to the BASELINE contract on its last batch: mean SSIM and Qabf within
+1e-3 of the f32 forward (VIFNet too; the gap to the bf16 forward through
+F.conv2d is printed beside it). The DeepFuse contract of phase 5 holds
+Qabf too.
 
 Prints the `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs one card; exits non-zero without one.
@@ -773,6 +794,229 @@ def check_conv_multi(torch, F, dev, timer):
     return r
 
 
+NL_REPLACES = ("multi_modal_image_fusion_tpu/ops/pallas/nl_kernel.py:132 "
+               "(nl_spatial_flash; pallas_call :160, _nl_minmax_kernel :58)",
+               "multi_modal_image_fusion_tpu/ops/pallas/nl_kernel.py:132 "
+               "(nl_spatial_flash; pallas_call :183, _nl_apply_kernel :102)")
+RES2_BATCH = 2         # the res2fusion bench's pairs a forward
+
+
+# nl tolerances. nl_minmax: relative to the range hi - lo, both dtypes (the
+# products of bf16 inputs are exact in f32; only the summation order
+# differs). nl_apply: relative to the largest attention term |out - mean(k)|,
+# the part of the output that the energies decide; bf16 5e-2: the kernel
+# rounds the unnormalised weights to bf16 and the plain version the
+# normalised ones, each 2^-9 a weight, and with 35 keys the output is a
+# tenth of the keys' magnitude, so the two roundings differ by up to ~2e-2
+# of it. The controls below (keys swapped within pairs, k's channels
+# rolled) must fail these tolerances, and the smoke fails if they pass.
+NL_TOL = {"nl_minmax": {"f32": 1e-4, "bf16": 1e-4},
+          "nl_apply": {"f32": 1e-4, "bf16": 5e-2}}
+
+
+def _nl_inputs(torch, b, h, w, c, seed, dev, dtype):
+    """q (b, h*w, c) and k (b, (h//8)*(w//8), c), the shapes of the 'nl'
+    spatial pooling of a (b, h, w, c) feature map, drawn apart: q uniform in
+    [-1, 1), k uniform in [-1, 1) less its mean over the keys. Independent
+    centred q and k make the normalised energies of a query span about half
+    of [0, 1], and k's zero mean leaves only the attention term in the
+    output, so a kernel that mixes up queries, keys or channels moves the
+    whole of it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.rand((b, h * w, c), generator=g, device=dev) * 2 - 1
+    k = torch.rand((b, (h // 8) * (w // 8), c), generator=g, device=dev) * 2 - 1
+    return q.to(dtype), (k - k.mean(1, keepdim=True)).to(dtype)
+
+
+def _nl_values_plain(torch, q, k, v, lohi, block):
+    """nl_apply_plain's function with separate values v: the control of a
+    kernel that pairs the weights with the wrong keys."""
+    out = torch.empty(v.shape[0], q.shape[1], v.shape[2], dtype=torch.float32,
+                      device=q.device)
+    for i in range(0, q.shape[1], block):
+        e = torch.matmul(q[:, i:i + block].float(), k.float().transpose(1, 2))
+        a = torch.softmax((e - lohi[0]) / (lohi[1] - lohi[0]), dim=-1)
+        out[:, i:i + block] = torch.matmul(a.to(k.dtype).float(), v.float())
+    return out
+
+
+def _nl_rel(torch, name, got, want, scale, dt):
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    return err, err / scale
+
+
+def check_nl(torch, F, dev, timer):
+    """nl_minmax and nl_apply against the plain two-pass version
+    (nl_spatial_plain's passes) on the card, at the shapes of Res2Fusion's
+    112-channel attention: 1224x1024 (bf16 batch 2, one nl call of the
+    res2fusion bench; f32 batch 1, the test CLI's), 45x61 (5x7 keys) and a
+    ragged 20x50 (1000 queries, 12 keys), on _nl_inputs, at NL_TOL. Two
+    controls a shape must fail those tolerances: nl_apply's plain function
+    with the keys of the value product swapped within pairs (2j <-> 2j+1,
+    as a misordered weight fragment would), and nl_minmax's with k's
+    channels rolled by 8 (a misaddressed key fragment); a kernel that
+    ignored q and weighted the keys uniformly would output mean(k) and
+    miss by the whole attention term (1 in NL_TOL's units). Times at the
+    bench's shape; nl_apply's library time is one
+    scaled_dot_product_attention(q, k, k, scale=1/(hi-lo)), the same
+    function since softmax is shift-invariant."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        BLOCK, nl_apply, nl_apply_plain, nl_minmax, nl_minmax_plain)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rec = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                  "min_control_rel_err": float("inf"),
+                  "tolerance_rel": NL_TOL[name], "layers": {}}
+           for name in ("nl_minmax", "nl_apply")}
+
+    def note(name, key, dt, err, rel, ctl):
+        r, tol = rec[name], NL_TOL[name][dt]
+        if rel > tol:
+            raise AssertionError(f"{name} {key}: max abs err {err} is "
+                                 f"{rel:.3g} of the scale, above {tol}")
+        if ctl <= tol:
+            raise AssertionError(f"{name} {key}: the control passes "
+                                 f"({ctl:.3g} <= {tol}): the check cannot "
+                                 f"tell a wrong kernel")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        r["min_control_rel_err"] = min(r["min_control_rel_err"], ctl)
+        print(f"{name} {key}: err {rel:.3g}, control {ctl:.3g} "
+              f"(tolerance {tol})")
+
+    for dt, b, h, w, c in (("bf16", RES2_BATCH, H, W, 112),
+                           ("f32", 1, H, W, 112), ("bf16", 2, 45, 61, 112),
+                           ("f32", 2, 45, 61, 112), ("bf16", 2, 20, 50, 112),
+                           ("f32", 2, 20, 50, 112)):
+        key = f"{b}x{h}x{w}x{c} {dt}"
+        q, k = _nl_inputs(torch, b, h, w, c, 120 + h, dev, dts[dt])
+        m = k.shape[1]
+        lohi, want_lohi = nl_minmax(q, k), nl_minmax_plain(q, k)
+        span = float(want_lohi[1] - want_lohi[0])
+        ctl_lohi = nl_minmax_plain(q, torch.roll(k, 8, dims=2))
+        note("nl_minmax", key, dt,
+             *_nl_rel(torch, "nl_minmax", lohi, want_lohi, span, dt),
+             float((ctl_lohi - want_lohi).abs().max()) / span)
+        got, want = nl_apply(q, k, lohi), nl_apply_plain(q, k, want_lohi)
+        scale = float((want.float() - k.float().mean(1, keepdim=True))
+                      .abs().max())
+        swap = torch.arange(m, device=dev) ^ 1
+        swap[swap >= m] = m - 1
+        ctl = _nl_values_plain(torch, q, k, k[:, swap], want_lohi, BLOCK)
+        note("nl_apply", key, dt,
+             *_nl_rel(torch, "nl_apply", got, want, scale, dt),
+             float((ctl - want.float()).abs().max()) / scale)
+        del ctl
+        stamp(f"nl {key} checked")
+        if not (dt == "bf16" and h == H):
+            continue
+        n = q.shape[1]
+        esz = 2
+        scores = 2.0 * b * n * m * c
+        bound, by = _bound((b * n * c + b * m * c) * esz + 8, scores, dt)
+        rec["nl_minmax"]["layers"][key] = {
+            "ms": timer(lambda: nl_minmax(q, k)),
+            "plain_ms": timer(lambda: nl_minmax_plain(q, k)),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} {dt}"}
+        q4, k4 = q[:, None], k[:, None]
+        sdpa_scale = float(1.0 / (lohi[1] - lohi[0]))
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, k4,
+                                                  scale=sdpa_scale)
+        lib_err = float((library()[:, 0].float() - want.float()).abs().max())
+        bound, by = _bound((2 * b * n * c + b * m * c) * esz, 2 * scores, dt)
+        rec["nl_apply"]["layers"][key] = {
+            "ms": timer(lambda: nl_apply(q, k, lohi)),
+            "plain_ms": timer(lambda: nl_apply_plain(q, k, lohi)),
+            "library_ms": timer(library),
+            "library_rel_err": lib_err / scale,
+            "bound_ms": bound, "bound_by": by,
+            "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} {dt}"}
+        del q4, k4, library
+        stamp(f"nl {key} timed")
+    del q, k, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+# Res2Fusion's depthwise convs: (name, hexp channels, group width, k,
+# window base, with the add of the previous group's output)
+DW_LAYERS = [("RB1.dw0", 64, 16, 1, 0, False),
+             ("RB1.dw1", 64, 16, 3, 16, False),
+             ("RB1.dw3", 64, 16, 3, 48, True),
+             ("RB2.dw0", 384, 48, 1, 0, False),
+             ("RB2.dw1", 384, 48, 3, 48, False),
+             ("RB2.dw7", 384, 48, 3, 336, True)]
+
+
+def check_conv_dw(torch, F, dev, timer):
+    """conv_dw against F.conv2d(groups=C) in f32 on the window (its plain
+    version) at Res2Fusion's RB1 and RB2 windows, with and without the
+    add: 1224x1024 bf16 batch 4 (the res2fusion bench's two pairs) and f32
+    batch 2 (the test CLI's pair), and 45x61 in both dtypes. Times at the
+    bench's shape; the library time is one F.conv2d(groups=C) on the
+    reflect-padded window in the same dtype (the window's copy, the add
+    and the pad timed apart)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import (
+        conv_dw, conv_dw_plain)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+    for dt, b, h, w in (("bf16", 2 * RES2_BATCH, H, W), ("f32", 2, H, W),
+                        ("bf16", 2, 45, 61), ("f32", 2, 45, 61)):
+        dtype = dts[dt]
+        hexp = {cx: _rand(torch, (b, h, w, cx), 130 + cx, dev, dtype,
+                          scale=6.0) for cx in (64, 384)}
+        for name, cx, c, k, lo, with_add in DW_LAYERS:
+            x = hexp[cx]
+            wt = _rand(torch, (c, 1, k, k), 140 + k + c, dev, torch.float32,
+                       lo=-0.5, scale=2.0 / k).to(dtype)
+            add = (_rand(torch, (b, h, w, c), 150 + c, dev, dtype, scale=3.0)
+                   if with_add else None)
+            err, rel = _err(torch, conv_dw(x, wt, None, None, lo, add),
+                            conv_dw_plain(x, wt, None, None, lo, add), dt)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+            if not (dt == "bf16" and h == H):
+                continue
+
+            def window():
+                xw = x[..., lo:lo + c]
+                return (xw if add is None else xw + add).permute(0, 3, 1, 2)
+            xn = window()
+            p = k // 2
+            parts, xp = _library_parts(F, xn, k, c)
+            reads = 2 if with_add else 1
+            bound, by = _bound(
+                (reads + 1) * b * h * w * c * 2 + wt.numel() * 4,
+                2.0 * b * h * w * c * k * k, dt)
+            r["layers"][name] = {
+                "ms": timer(lambda: conv_dw(x, wt, None, None, lo, add)),
+                "plain_ms": timer(
+                    lambda: conv_dw_plain(x, wt, None, None, lo, add)),
+                "library_ms": timer(lambda: [F.conv2d(t, wt, groups=c)
+                                             for t in xp]),
+                "library_window_ms": timer(window),
+                "library_pad_ms": timer(lambda: [
+                    F.pad(xn[sl], (p, p, p, p), mode="reflect")
+                    for sl in parts]),
+                "library_calls": len(parts),
+                "bound_ms": bound, "bound_by": by,
+                "shape": f"{b}x{h}x{w}x{cx}[{lo}:{lo + c}]"
+                         f"{' + add' if with_add else ''} k{k} {dt}"}
+            del xn, xp
+        del hexp, x, add
+        torch.cuda.empty_cache()
+        stamp(f"conv_dw {b}x{h}x{w} {dt} checked")
+    return r
+
+
 # launches of one fused forward on the serving path, per model
 FORWARD_LAUNCHES = {
     "densefuse": {"conv_gray_enter": 1, "conv_multi": 4, "conv_chain": 2,
@@ -781,21 +1025,70 @@ FORWARD_LAUNCHES = {
                      "conv_gray_exit": 1},
     "vifnet": {"conv_gray_enter": 1, "conv_multi": 4, "conv_chain": 3,
                "conv_gray_exit": 1},
+    # conv_chain: RB1 shortcut and pwconv1 (k1, one tensor), dec0-dec2;
+    # conv_multi: RB1 pwconv2 (4 legs), RB2 shortcut and pwconv1 (legs x16,
+    # r1), RB2 pwconv2 (8 legs); conv_dw: 4 + 8 group convs; nl: one
+    # spatial pooling per modality
+    "res2fusion": {"conv_gray_enter": 1, "conv_chain": 5, "conv_multi": 4,
+                   "conv_dw": 12, "nl_minmax": 2, "nl_apply": 2,
+                   "conv_gray_exit": 1},
 }
 L1_PAIRS = 11
+RES2_PAIRS = 3        # the res2fusion test CLI's pairs (the first, warmup)
 
 
-def bench_path(build, bench, name):
-    """The port's bench of `name` with every count set to 0 just before it;
-    the counts must be exactly FORWARD_LAUNCHES x (warmup + timed)."""
+def bench_path(build, bench, name, batch=BATCH):
+    """The port's bench of `name` at `batch` pairs with every count set to 0
+    just before it; the counts must be exactly FORWARD_LAUNCHES x (warmup +
+    timed)."""
     build.LAUNCHES.clear()
-    result, last = bench.run(seed=0, model_name=name)
+    result, last = bench.run(seed=0, model_name=name, batch=batch)
     counts = dict(build.LAUNCHES)
-    want = {k: v * (bench.ITERS + 1) for k, v in FORWARD_LAUNCHES[name].items()}
+    want = {k: v * (bench.ITERS + 1)
+            for k, v in FORWARD_LAUNCHES[name].items()}
     if counts != want:
         raise AssertionError(f"{name} bench launches {counts}, want {want}")
     print(f"bench {name}: {json.dumps(result)}")
     return result, last, counts
+
+
+# kernel-name prefixes of the port's kernels (csrc/), for the forward's split
+KERNEL_GROUPS = {"nl": ("nl_",), "conv": ("conv_",)}
+
+
+def profile_forward(torch, model, a, b):
+    """Where one fused forward's device time goes: torch.profiler over the
+    forward (after one unprofiled warmup), the kernels' time summed by group
+    (the nl kernels, the conv kernels, the rest: torch's own ops such as
+    the channel attention's matmuls, the pool, the fusion's elementwise
+    passes and copies), against the forward's wall time without the
+    profiler (the device's busy share)."""
+    from torch.autograd import DeviceType
+    with torch.no_grad():
+        model(a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(a, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            model(a, b)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    split = {key: 0.0 for key in (*KERNEL_GROUPS, "other")}
+    for e in kernels:
+        name = e.name.split("<")[0].split("(")[0].split("::")[-1]
+        key = next((k for k, pre in KERNEL_GROUPS.items()
+                    if name.startswith(pre)), "other")
+        split[key] += e.device_time_total / 1e3
+    total = sum(split.values())
+    return {"wall_ms": wall, "kernel_ms": total, "busy_share": total / wall,
+            "launches": len(kernels),
+            **{f"{k}_ms": v for k, v in split.items()},
+            "source": "torch.profiler"}
 
 
 def ssim_qabf(torch, x1, x2, y):
@@ -809,8 +1102,9 @@ def ssim_qabf(torch, x1, x2, y):
 def contract(torch, dev, name, a16, b16, y16, chunk=4):
     """The BASELINE contract on a bench's last timed batch: its bf16 kernel
     forward's mean SSIM and Qabf against the f32 forward of the same
-    weights on the card's F.conv2d route (TF32 off), and against the bf16
-    forward through F.conv2d (the same bf16 storage between layers, cuDNN's
+    weights on the card's F.conv2d route (TF32 off; Res2Fusion's 'nl'
+    attention through its plain version), and against the bf16 forward
+    through F.conv2d (the same bf16 storage between layers, cuDNN's
     convs). Held within 1e-3 of f32 for every model, VIFNet too; the gap
     to the bf16 F.conv2d forward is printed beside it (for VIFNet the JAX
     package recorded a bf16 floor of 2.1e-3 dSSIM, docs/PARITY.md)."""
@@ -823,7 +1117,7 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4):
         for lo in range(0, a16.shape[0], chunk):
             sl = slice(lo, lo + chunk)
             x1, x2 = a16[sl].float(), b16[sl].float()
-            with fast_training(False):
+            with fast_training(False), plain_nl():
                 y32 = m32(x1, x2)
                 yb = m16(a16[sl], b16[sl]).float()
             for key, y in (("kernel_bf16", y16[sl].float()), ("f32", y32),
@@ -845,10 +1139,29 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4):
     return rec
 
 
-def l1_cli_path(torch, build, test_cli, root, dev):
-    """The port's test CLI on a DenseFuse checkpoint with fusion_mode l1,
-    over the first L1_PAIRS synthetic pairs, every count set to 0 just
-    before it; its SSIM against the f32 F.conv2d route on the card."""
+@contextlib.contextmanager
+def plain_nl():
+    """Route the 'nl' spatial pooling through its plain two-pass version on
+    the card too (the f32 plain path's reference)."""
+    from multi_modal_image_fusion_tpu_torch.ops import fusion
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import \
+        nl_spatial_plain
+    kernel = fusion.nl_spatial_flash
+    fusion.nl_spatial_flash = nl_spatial_plain
+    try:
+        yield
+    finally:
+        fusion.nl_spatial_flash = kernel
+
+
+def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
+                   seed):
+    """The port's test CLI on a seeded checkpoint of `name` (model_cfg
+    `cfg`) over the first `pairs` synthetic pairs, every count set to 0
+    just before it (exactly FORWARD_LAUNCHES[key] a pair, 2 ssim_maps); its
+    SSIM against the f32 plain path on the card: F.conv2d for every conv
+    (TF32 off) and the plain 'nl' attention; and each pair's fused image
+    through the kernels against that path's, within the f32 tolerance."""
     import shutil
     from multi_modal_image_fusion_tpu_torch.data.dataset import \
         FusionDataset
@@ -856,47 +1169,51 @@ def l1_cli_path(torch, build, test_cli, root, dev):
     from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
     from multi_modal_image_fusion_tpu_torch.train.checkpoint import \
         save_state_dict
+    data = f"synth{pairs}"
     for mod in ("vis", "ir"):
-        dst = os.path.join(root, "data", "synth11", "test", mod)
-        os.makedirs(dst)
-        for i in range(L1_PAIRS):
+        dst = os.path.join(root, "data", data, "test", mod)
+        os.makedirs(dst, exist_ok=True)
+        for i in range(pairs):
             shutil.copy(os.path.join(root, "data", "synth", "test", mod,
                                      f"{i + 1}.bmp"), dst)
-    model = create_model("densefuse", fusion_mode="l1",
-                         generator=torch.Generator().manual_seed(4))
-    save_state_dict(os.path.join(root, "ckpt", "l1run", "epoch_best.pth"),
-                    model.state_dict(),
-                    meta={"model": "densefuse",
-                          "model_cfg": {"fusion_mode": "l1"}})
+    model = create_model(name, generator=torch.Generator().manual_seed(seed),
+                         **cfg)
+    save_state_dict(os.path.join(root, "ckpt", f"{key}run", "epoch_best.pth"),
+                    model.state_dict(), meta={"model": name, "model_cfg": cfg})
     build.LAUNCHES.clear()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         ssim, avg = test_cli.main([
-            "--data", "synth11", "--data_root", os.path.join(root, "data"),
-            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", "l1run"])
+            "--data", data, "--data_root", os.path.join(root, "data"),
+            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", f"{key}run"])
     counts = dict(build.LAUNCHES)
-    want = {k: v * L1_PAIRS for k, v in FORWARD_LAUNCHES["densefuse_l1"].items()}
-    want["ssim_maps"] = 2 * L1_PAIRS
+    want = {k: v * pairs for k, v in FORWARD_LAUNCHES[key].items()}
+    want["ssim_maps"] = 2 * pairs
     if counts != want:
-        raise AssertionError(f"l1 test CLI launches {counts}, want {want}")
+        raise AssertionError(f"{key} test CLI launches {counts}, want {want}")
     model = model.to(dev).eval()
-    ds = FusionDataset(os.path.join(root, "data", "synth11"), "test", "test",
-                       "ir")
-    ref = []
-    with torch.no_grad(), fast_training(False):
+    ds = FusionDataset(os.path.join(root, "data", data), "test", "test", "ir")
+    ref, y_err, y_max = [], 0.0, 0.0
+    with torch.no_grad():
         for i in range(len(ds)):
             a, b = (torch.from_numpy(v)[None, ..., None].to(dev)
                     for v in ds[i])
-            y = model(a, b)
+            y_kernels = model(a, b)
+            with fast_training(False), plain_nl():
+                y = model(a, b)
+            y_err = max(y_err, float((y_kernels - y).abs().max()))
+            y_max = max(y_max, float(y.abs().max()))
             ref.append(float((_plain_ssim(torch, a, y)
                               + _plain_ssim(torch, b, y))[0] * 0.5))
     ref_ssim = float(np.mean(ref))
-    if not (np.isfinite(ssim) and abs(ssim - ref_ssim) <= 1e-4):
-        raise AssertionError(f"l1 test CLI SSIM {ssim} vs f32 F.conv2d "
-                             f"{ref_ssim}")
-    rec = {"pairs": L1_PAIRS, "ssim": ssim, "ssim_f32_conv2d": ref_ssim,
+    if not (np.isfinite(ssim) and abs(ssim - ref_ssim) <= 1e-4
+            and y_err <= TOL["f32"] * max(y_max, 1.0)):
+        raise AssertionError(f"{key} test CLI SSIM {ssim} vs the f32 plain "
+                             f"path {ref_ssim}; fused max |d| {y_err}")
+    rec = {"pairs": pairs, "ssim": ssim, "ssim_f32_plain": ref_ssim,
+           "fused_max_abs_err": y_err, "fused_max": y_max,
            "mean_ms": avg * 1e3}
-    print(f"test CLI densefuse l1: {json.dumps(rec)}")
+    print(f"test CLI {key}: {json.dumps(rec)}")
     return rec, counts
 
 
@@ -1031,6 +1348,10 @@ def main():
     rec["conv_multi"] = check_conv_multi(torch, F, dev, timer)
     torch.cuda.empty_cache()
     stamp("conv_multi checked")
+    rec.update(check_nl(torch, F, dev, timer))
+    stamp("nl_minmax and nl_apply checked")
+    rec["conv_dw"] = check_conv_dw(torch, F, dev, timer)
+    stamp("conv_dw checked")
     print("kernel checks passed")
 
     # phase 4: main path, counts from 0
@@ -1109,10 +1430,17 @@ def main():
         main_counts.update(eval_counts)
         torch.cuda.empty_cache()
 
-        # DenseFuse 'l1' through the test CLI, counts from 0
-        l1_rec, l1_counts = l1_cli_path(torch, build, test_cli, root, dev)
+        # DenseFuse 'l1' and Res2Fusion through the test CLI, counts from 0
+        l1_rec, l1_counts = model_cli_path(
+            torch, build, test_cli, root, dev, "densefuse_l1", "densefuse",
+            {"fusion_mode": "l1"}, L1_PAIRS, 4)
         main_counts.update(l1_counts)
         stamp("densefuse l1 test CLI done")
+        res2_rec, res2_counts = model_cli_path(
+            torch, build, test_cli, root, dev, "res2fusion", "res2fusion", {},
+            RES2_PAIRS, 0)
+        main_counts.update(res2_counts)
+        stamp("res2fusion test CLI done")
     torch.cuda.empty_cache()
 
     # BASELINE contract on the bench's last timed batch: its bf16 fused
@@ -1142,13 +1470,23 @@ def main():
     del model, y32, y16, a16, b16, x1, x2
     torch.cuda.empty_cache()
 
-    # DenseFuse and VIFNet benches, counts from 0, and their contracts
+    # DenseFuse, VIFNet and Res2Fusion benches, counts from 0, and their
+    # contracts
     benches = {"deepfuse": result}
-    for name in ("densefuse", "vifnet"):
+    for name, batch in (("densefuse", BATCH), ("vifnet", BATCH),
+                        ("res2fusion", RES2_BATCH)):
         benches[name], (a16, b16, y16), counts = bench_path(build, bench,
-                                                             name)
+                                                             name, batch)
         main_counts.update(counts)
         torch.cuda.empty_cache()
+        if name == "res2fusion":
+            model = create_model(name, generator=torch.Generator().manual_seed(
+                0)).to(dev, torch.bfloat16).eval()
+            benches[name]["profile"] = profile_forward(torch, model, a16, b16)
+            print(f"{name} forward profile: "
+                  f"{json.dumps(benches[name]['profile'])}")
+            del model
+            torch.cuda.empty_cache()
         contracts[name] = contract(torch, dev, name, a16, b16, y16)
         del a16, b16, y16
         torch.cuda.empty_cache()
@@ -1211,14 +1549,24 @@ def main():
                    "moments_kernel.py:50",
         "conv_multi": "multi_modal_image_fusion_tpu/ops/pallas/"
                       "hiw_kernel.py:619",
+        "nl_minmax": NL_REPLACES[0],
+        "nl_apply": NL_REPLACES[1],
+        "conv_dw": "multi_modal_image_fusion_tpu/ops/pallas/hiw_kernel.py:335 "
+                   "(conv_hiw_chain; depthwise as diagonal bands :157-185)",
     }
     sources = {"ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu",
-               "moments": "multi_modal_image_fusion_tpu_torch/csrc/moments.cu"}
+               "moments": "multi_modal_image_fusion_tpu_torch/csrc/moments.cu",
+               "nl_minmax":
+                   "multi_modal_image_fusion_tpu_torch/csrc/nl_attention.cu",
+               "nl_apply":
+                   "multi_modal_image_fusion_tpu_torch/csrc/nl_attention.cu",
+               "conv_dw": "multi_modal_image_fusion_tpu_torch/csrc/conv_dw.cu"}
     kernels = []
     main_counts.update(train_counts)
     counts = dict(main_counts)
     for name in ("conv_gray_enter", "conv_chain", "conv_gray_exit",
-                 "ssim_maps", "moments", "conv_multi"):
+                 "ssim_maps", "moments", "conv_multi", "nl_minmax", "nl_apply",
+                 "conv_dw"):
         r = rec[name]
         ls = r["layers"].values()
         lib = [v["library_ms"] for v in ls]
@@ -1230,7 +1578,9 @@ def main():
             "launches": counts.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "max_rel_err": r["max_rel_err"],
-            "tolerance_rel": TOL,
+            **({"min_control_rel_err": r["min_control_rel_err"]}
+               if "min_control_rel_err" in r else {}),
+            "tolerance_rel": r.get("tolerance_rel", TOL),
             "ms": sum(v["ms"] for v in ls),
             "plain_ms": sum(v["plain_ms"] for v in ls),
             "bound_ms": sum(v["bound_ms"] for v in ls),
@@ -1270,6 +1620,7 @@ def main():
                       "bf16_contract": contracts,
                       "cli_latency": cli_lat,
                       "test_cli_densefuse_l1": l1_rec,
+                      "test_cli_res2fusion": res2_rec,
                       "eval": eval_rec,
                       "main_path_launches": counts,
                       "training": {"step": step_stats, "profile": busy,

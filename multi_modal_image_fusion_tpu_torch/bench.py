@@ -3,13 +3,16 @@
 
 Protocol, as the root bench: a zoo model (DeepFuse, the reference CLIs'
 default, unless --model names another, as the root bench's BENCH_MODEL)
-fusing 1224x1024 grayscale pairs in bf16, batch 16, device-resident; the
-first run is excluded as warmup; every timed iteration chains on the full
-previous output (its mean feeds the next input), and the timed region ends
-with torch.cuda.synchronize() and a host fetch of the accumulated sum.
+fusing 1224x1024 grayscale pairs in bf16, batch 16 (--batch, the root
+bench's BENCH_BATCH), device-resident; the first run is excluded as warmup;
+every timed iteration (10, as BENCH_ITERS) chains on the full previous
+output (its mean feeds the next input), and the timed region ends with
+torch.cuda.synchronize() and a host fetch of the accumulated sum.
+Res2Fusion is benched at --batch 2: its 384-channel Res2 expansion takes
+~2 GB an image in bf16, so 16 pairs do not fit on an 80 GB card.
 
     python -m multi_modal_image_fusion_tpu_torch.bench [--model deepfuse]
-        [--seed 0]
+        [--batch 16] [--seed 0]
 
 Prints one JSON line: {"metric": "fusion_throughput_pairs_per_sec", ...}.
 Weights and inputs are random, made from the seed: the throughput does not
@@ -43,10 +46,10 @@ def bench_loop(model, a, b, iters):
     return last, s
 
 
-def run(seed=0, device="cuda", model_name="deepfuse"):
-    """Time the fused forward of `model_name`; returns the result dict that
-    main prints and (img1, img2, fused) of the last timed forward, so a
-    caller can check what was timed."""
+def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH):
+    """Time the fused forward of `model_name` on `batch` pairs; returns the
+    result dict that main prints and (img1, img2, fused) of the last timed
+    forward, so a caller can check what was timed."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the bench measures the CUDA card; none is "
@@ -57,15 +60,15 @@ def run(seed=0, device="cuda", model_name="deepfuse"):
     model = model.to(device=device, dtype=dt).eval()
     r = np.random.RandomState(seed)
 
-    def batch():
-        x = r.rand(BATCH, HEIGHT, WIDTH, 1).astype(np.float32)
+    def pairs():
+        x = r.rand(batch, HEIGHT, WIDTH, 1).astype(np.float32)
         return torch.from_numpy(x).to(device, dt)
 
-    a, b = batch(), batch()
+    a, b = pairs(), pairs()
     with torch.no_grad():
         _, s = bench_loop(model, a, b, 1)           # warmup (builds kernels)
         float(s)
-        a = batch()
+        a = pairs()
         torch.cuda.synchronize(device)
         start = time.perf_counter()
         last, s = bench_loop(model, a, b, ITERS)
@@ -76,10 +79,10 @@ def run(seed=0, device="cuda", model_name="deepfuse"):
         raise RuntimeError(f"bench output is not finite ({total})")
     return {
         "metric": "fusion_throughput_pairs_per_sec",
-        "value": BATCH * ITERS / elapsed,
+        "value": batch * ITERS / elapsed,
         "unit": "pairs/s",
-        "ms_per_pair": elapsed * 1e3 / (BATCH * ITERS),
-        "config": f"{model_name} {HEIGHT}x{WIDTH} bf16 b{BATCH} x{ITERS}",
+        "ms_per_pair": elapsed * 1e3 / (batch * ITERS),
+        "config": f"{model_name} {HEIGHT}x{WIDTH} bf16 b{batch} x{ITERS}",
         "device": torch.cuda.get_device_name(device),
     }, last
 
@@ -88,9 +91,13 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="fused-pair throughput")
     p.add_argument("--model", default="deepfuse", choices=sorted(MODEL_ZOO),
                    help="zoo model to time")
+    p.add_argument("--batch", default=BATCH, type=int,
+                   help="pairs a forward (root bench BENCH_BATCH)")
     p.add_argument("--seed", default=0, type=int)
     args = p.parse_args(argv)
-    result, _ = run(seed=args.seed, model_name=args.model)
+    if args.batch < 1:
+        p.error("--batch must be at least 1")
+    result, _ = run(seed=args.seed, model_name=args.model, batch=args.batch)
     print(json.dumps(result))
     return result
 

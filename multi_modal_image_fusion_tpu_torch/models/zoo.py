@@ -1,6 +1,7 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
-DenseFuse and VIFNet; the other 13 models are queued in ROADMAP.md.
+DenseFuse, VIFNet and Res2Fusion; the other 12 models are queued in
+ROADMAP.md.
 
 Models take NHWC single-channel images:
 
@@ -11,11 +12,12 @@ Models take NHWC single-channel images:
 import torch
 from torch import nn
 
-from ..ops.blocks import DenseBlock
+from ..ops.blocks import DenseBlock, Res2ConvBlock
 from ..ops.fusion import attention_fusion, element_fusion
 from ..ops.layers import ConvLayer
 
-__all__ = ["DeepFuse", "DenseFuse", "MODEL_ZOO", "VIFNet", "create_model"]
+__all__ = ["DeepFuse", "DenseFuse", "MODEL_ZOO", "Res2Fusion", "VIFNet",
+           "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -160,7 +162,66 @@ class VIFNet(nn.Module):
         return t
 
 
-MODEL_ZOO = {"deepfuse": DeepFuse, "densefuse": DenseFuse, "vifnet": VIFNet}
+class Res2Fusion(nn.Module):
+    """conv_in and two Res2 blocks with dense growth (112 channels),
+    double non-local attention fusion, 4-conv k3 decoder (reference
+    core/model.py Res2Fusion; JAX models/zoo.py:1131-1234).
+
+    Serving follows the JAX package's H-major path (`_hiw_forward`,
+    zoo.py:1193-1234): the siamese fold runs conv_in (conv_gray_enter), RB1
+    (16 -> 32) and RB2 (the legs [x16, r1], 48 -> 64) once over the
+    batch-concatenated pair; the encoder's output stays the legs [x16, r1,
+    r2]. 'attn' fusion concatenates them to 112 channels and fuses each
+    modality's half with attention_fusion('sca', spatial_mode,
+    channel_mode), by default the non-local 'nl' pair; the spatial 'nl'
+    runs once per modality, so each normalises by its own batch's energy
+    range. dec0-dec2 run conv_chain, dec3 conv_gray_exit with relu (the
+    reference keeps ConvLayer's default activation there). 'elem' fusion
+    averages each leg's halves and dec0 reads the three means as legs
+    (conv_multi); autoencoder mode (`model(img1)`) decodes one batch's legs
+    the same way. The conv routes are ConvLayer's (ops/layers.py)."""
+
+    def __init__(self, fusion_method="attn", spatial_mode="nl",
+                 channel_mode="nl", generator=None):
+        super().__init__()
+        if fusion_method not in ("elem", "attn"):
+            raise ValueError("only supported ['elem', 'attn'] mode")
+        self.fusion_method = fusion_method
+        self.spatial_mode, self.channel_mode = spatial_mode, channel_mode
+        g = generator
+        self.conv_in = ConvLayer(1, 16, generator=g)
+        self.RB1 = Res2ConvBlock(16, 32, scale=4, generator=g)
+        self.RB2 = Res2ConvBlock(48, 64, scale=8, generator=g)
+        self.decode = nn.ModuleList([
+            ConvLayer(112, 64, generator=g),
+            ConvLayer(64, 32, generator=g),
+            ConvLayer(32, 16, generator=g),
+            ConvLayer(16, 1, generator=g),
+        ])
+
+    def forward(self, img1, img2=None):
+        x16 = self.conv_in.enter(img1, img2)
+        r1 = self.RB1(x16)
+        r2 = self.RB2([(x16, 0), (r1, 0)])
+        legs = [x16, r1, r2]
+        dec0, *rest = self.decode
+        n = img1.shape[0]
+        if img2 is None:
+            t = dec0([(x, 0) for x in legs])
+        elif self.fusion_method == "elem":
+            t = dec0([(element_fusion(x[:n], x[n:], "mean"), 0)
+                      for x in legs])
+        else:
+            feat = torch.cat(legs, dim=-1)
+            t = dec0(attention_fusion(feat[:n], feat[n:], "sca",
+                                      self.spatial_mode, self.channel_mode))
+        for layer in rest:
+            t = layer(t)
+        return t
+
+
+MODEL_ZOO = {"deepfuse": DeepFuse, "densefuse": DenseFuse,
+             "res2fusion": Res2Fusion, "vifnet": VIFNet}
 
 
 def create_model(name, **kwargs):

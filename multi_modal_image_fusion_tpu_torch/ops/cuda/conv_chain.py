@@ -79,7 +79,7 @@ def batch_step(h, w, channels, k):
     return max(1, (2 ** 31 - 1) // ((h + 2 * p) * (w + 2 * p) * channels))
 
 
-def _conv_nhwc_f32(x, weight, bias):
+def _conv_nhwc_f32(x, weight, bias, groups=1):
     """f32 reflect-SAME conv of an NHWC tensor (OIHW weight), in batch
     chunks of `batch_step` images."""
     k = weight.shape[-1]
@@ -92,7 +92,7 @@ def _conv_nhwc_f32(x, weight, bias):
     for i in range(0, b, step):
         xn = F.pad(x[i:i + step].float().permute(0, 3, 1, 2), (p, p, p, p),
                    mode="reflect")
-        outs.append(F.conv2d(xn, wf, bf).permute(0, 2, 3, 1))
+        outs.append(F.conv2d(xn, wf, bf, groups=groups).permute(0, 2, 3, 1))
     return torch.cat(outs) if len(outs) > 1 else outs[0].contiguous()
 
 

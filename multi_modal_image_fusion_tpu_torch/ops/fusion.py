@@ -1,24 +1,32 @@
 """Training-free fusion strategies (counterpart of multi_modal_image_fusion_tpu
 ops/fusion.py, reference core/fusion.py) over NHWC tensors, channel axis -1.
 
-Ported: `element_fusion`, `weighted_fusion`, `concat_fusion`,
-`spatial_fusion`, the per-pixel modes of `spatial_pooling` (sum, mean, l1,
-l2, linf) and `attention_fusion` with mode 'sa'. The channel modes
-(`channel_fusion`, `channel_pooling`, attention modes ca/sca/wavg) and the
-non-local 'nl' pooling come with the models that use them (ROADMAP.md queue
-1 item 6, and queue 2 item 5 for the 'nl' kernel); they raise
-NotImplementedError.
+All of the JAX module is ported: `element_fusion`, `weighted_fusion`,
+`concat_fusion`, `attention_fusion` (sa, ca, sca, wavg), `spatial_fusion`,
+`channel_fusion`, `spatial_pooling` (sum, mean, l1, l2, linf, nl) and
+`channel_pooling` (avg, max, nuclear, nl).
+
+The non-local spatial pooling 'nl' (8x8 average pool, then attention of
+every pixel over the pooled map, then + t) runs its attention through
+ops/cuda/nl_attention.py: the hand-written kernels on CUDA tensors at every
+size (the JAX package's 2^18-pixel switch between its dense and streamed
+forms is a TPU memory choice; the function is the same), the plain two-pass
+version on CPU tensors. The channel 'nl' attention is a (C, C) Gram matrix:
+two torch.matmul products with f32 accumulation, as the JAX package leaves
+them to XLA. Both normalise their energies by the min and max over the
+whole batch of one call.
 """
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["attention_fusion", "concat_fusion", "element_fusion",
-           "spatial_fusion", "spatial_pooling", "weighted_fusion"]
+from .cuda.nl_attention import nl_spatial_flash
+
+__all__ = ["attention_fusion", "channel_fusion", "channel_pooling",
+           "concat_fusion", "element_fusion", "spatial_fusion",
+           "spatial_pooling", "weighted_fusion"]
 
 eps = 1e-7
-
-_TODO = ("not ported yet (ROADMAP.md queue 1 item 6, zoo breadth; the 'nl' "
-         "kernel is queue 2 item 5)")
 
 
 def element_fusion(t1, t2, mode="sum"):
@@ -45,11 +53,18 @@ def concat_fusion(tensors, dim=-1):
 
 def attention_fusion(t1, t2, mode="sca", spatial_mode="l1",
                      channel_mode="avg"):
-    """reference core/fusion.py:42-59; mode 'sa' is ported."""
-    if mode != "sa":
-        raise NotImplementedError(f"attention_fusion mode {mode!r} (channel "
-                                  f"attention) is {_TODO}")
-    return spatial_fusion(t1, t2, spatial_mode, softmax=False)
+    """reference core/fusion.py:42-59"""
+    if mode not in ("sa", "ca", "sca", "wavg"):
+        raise ValueError("only supported ['sa', 'ca', 'sca', 'wavg'] mode")
+    f_spatial = spatial_fusion(t1, t2, spatial_mode, softmax=False)
+    if mode == "sa":
+        return f_spatial
+    f_channel = channel_fusion(t1, t2, channel_mode, softmax=False)
+    if mode == "ca":
+        return f_channel
+    if mode == "sca":
+        return element_fusion(f_spatial, f_channel, "mean")
+    return weighted_fusion(f_spatial, f_channel, f_spatial, f_channel)
 
 
 def spatial_fusion(t1, t2, mode="l1", softmax=True):
@@ -62,9 +77,19 @@ def spatial_fusion(t1, t2, mode="l1", softmax=True):
     return weighted_fusion(t1, t2, s1, s2)
 
 
+def channel_fusion(t1, t2, mode="avg", softmax=True):
+    """reference core/fusion.py:73-81"""
+    c1 = channel_pooling(t1, mode)
+    c2 = channel_pooling(t2, mode)
+    if softmax:
+        c1 = torch.exp(c1)
+        c2 = torch.exp(c2)
+    return weighted_fusion(t1, t2, c1, c2)
+
+
 def spatial_pooling(t, mode="l1"):
-    """Per-pixel channel pooling -> (N, H, W, 1) map (reference
-    core/fusion.py:84-117)."""
+    """Per-pixel channel pooling -> (N, H, W, 1) map, or the 'nl' non-local
+    spatial attention -> (N, H, W, C) (reference core/fusion.py:84-117)."""
     if mode == "sum":
         return t.sum(dim=-1, keepdim=True)
     if mode == "mean":
@@ -76,6 +101,37 @@ def spatial_pooling(t, mode="l1"):
     if mode == "linf":
         return t.amax(dim=-1, keepdim=True)
     if mode == "nl":
-        raise NotImplementedError(f"spatial_pooling mode 'nl' is {_TODO}")
+        b, h, w, c = t.shape
+        # VALID 8x8 average pool: the remainder rows and columns drop out
+        pooled = F.avg_pool2d(t.permute(0, 3, 1, 2), 8).permute(0, 2, 3, 1)
+        attn = nl_spatial_flash(t.reshape(b, h * w, c),
+                                pooled.reshape(b, -1, c).contiguous())
+        return attn.reshape(b, h, w, c) + t
     raise ValueError(
         "only supported ['sum', 'mean', 'l1', 'l2', 'linf', 'nl'] mode")
+
+
+def channel_pooling(t, mode="avg"):
+    """Per-channel spatial pooling -> (N, 1, 1, C) vector, or the 'nuclear'
+    ((1, 1, 1, C), first image only) and 'nl' ((N, H, W, C)) attention
+    variants (reference core/fusion.py:120-153)."""
+    b, h, w, c = t.shape
+    if mode == "avg":
+        return t.mean(dim=(1, 2), keepdim=True)
+    if mode == "max":
+        return t.amax(dim=(1, 2), keepdim=True)
+    if mode == "nuclear":
+        # per-channel nuclear norm (sum of singular values) of image 0
+        mats = torch.clamp(t[0], min=eps).permute(2, 0, 1).float()
+        vec = torch.linalg.svdvals(mats).sum(dim=-1)
+        return vec.to(t.dtype).reshape(1, 1, 1, c)
+    if mode == "nl":
+        # Gram-matrix channel attention: energy (B, C, C) in f32
+        q = t.permute(0, 3, 1, 2).reshape(b, c, h * w)
+        qf = q.float()
+        energy = torch.matmul(qf, qf.transpose(1, 2))
+        energy = (energy - energy.min()) / (energy.max() - energy.min())
+        attn_w = torch.softmax(energy, dim=-1).to(t.dtype)
+        attn = torch.matmul(attn_w.float(), qf)
+        return attn.to(t.dtype).reshape(b, c, h, w).permute(0, 2, 3, 1) + t
+    raise ValueError("only supported ['avg', 'max', 'nuclear', 'nl'] mode")

@@ -3,10 +3,11 @@ ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d, and the
 fast-training scope and routes, :34-56 and :695-755).
 
 The port carries the part the ported models use: stride-1 reflect-SAME
-k x k convs with bias and one of the kernel-fusable activations (relu,
-relu6, lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters
-are named as in the reference state dict (`layers.0.weight` OIHW,
-`layers.0.bias`), so reference `.pth` files load directly.
+k x k convs, dense or depthwise (groups == in_ch == out_ch), with or without
+bias, and one of the kernel-fusable activations (relu, relu6, lrelu 0.2,
+tanh, none). Tensors are NHWC at the boundary. Parameters are named as in
+the reference state dict (`layers.0.weight` OIHW, `layers.0.bias`; no bias
+key when use_bias=False), so reference `.pth` files load directly.
 
 A layer takes one tensor, or a list of legs `[(tensor, b_off), ...]` whose
 channels concatenate to its input (the JAX package's multi-leg convs,
@@ -19,16 +20,20 @@ Routes of a conv:
   kernels of ops/cuda/ on CUDA tensors (a list of legs runs `conv_multi`;
   on one tensor the c_in=1 layer runs `conv_gray_enter`, the c_out=1 layer
   `conv_gray_exit`, every other layer `conv_chain`), their plain versions
-  on CPU tensors;
+  on CPU tensors; a depthwise layer runs `conv_dw`, which reads a channel
+  window of a wider tensor in place (`depthwise`);
 - training (inside a `fast_training` scope, which the trainer opens around
   its steps, or whenever a gradient is needed): reflect pad, then
   - with `fast_training(True)`: `conv_valid_fast` (kernel forward and dx,
     bias and activation as torch ops) when a gradient is needed, else
     `conv_valid` with bias and activation fused (the valid step); a shape
     the kernel does not take raises, there is no quiet F.conv2d;
-  - otherwise F.conv2d, the counterpart of the JAX package's XLA conv.
+  - otherwise F.conv2d (groups=C for a depthwise layer), the counterpart
+    of the JAX package's XLA conv.
   On CPU tensors the kernels' plain versions run in their place. A list of
-  legs is concatenated first (`concat_legs`), then takes the same route.
+  legs is concatenated first (`concat_legs`), a depthwise window sliced,
+  then takes the same route. conv_valid has no depthwise instance, so a
+  depthwise layer raises under `fast_training(True)`.
 """
 
 import contextlib
@@ -41,6 +46,7 @@ from torch import nn
 
 from .cuda.conv_chain import (ACT_CODES, apply_act, conv_chain,
                               conv_gray_enter, conv_gray_exit)
+from .cuda.conv_dw import conv_dw
 from .cuda.conv_multi import concat_legs, conv_multi, legs_n_out
 from .cuda.conv_valid import conv_valid
 from .cuda.conv_vjp import conv_valid_fast
@@ -90,26 +96,35 @@ def init_conv_(weight, bias, act, generator=None):
 
 
 class _Conv(nn.Module):
-    """Parameter holder of one conv: weight (O, I, K, K), bias (O,)."""
+    """Parameter holder of one conv: weight (O, I / groups, K, K), bias (O,)
+    or None."""
 
-    def __init__(self, in_ch, out_ch, ksize):
+    def __init__(self, in_ch, out_ch, ksize, groups=1, use_bias=True):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, ksize, ksize))
-        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, ksize,
+                                               ksize))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
 
 
 class ConvLayer(nn.Module):
-    """Stride-1 reflect-SAME conv + bias + activation, NHWC."""
+    """Stride-1 reflect-SAME conv (+ bias) + activation, NHWC. groups is 1
+    or, for a depthwise layer, in_ch == out_ch."""
 
-    def __init__(self, in_ch, out_ch, ksize=3, act="relu", generator=None):
+    def __init__(self, in_ch, out_ch, ksize=3, act="relu", groups=1,
+                 use_bias=True, generator=None):
         super().__init__()
         if act not in ACT_CODES:
             raise ValueError(f"activation {act!r} not ported (one of "
                              f"{sorted(a for a in ACT_CODES if a)} or None)")
         if ksize % 2 == 0:
             raise ValueError("reflect-SAME needs an odd kernel size")
+        if groups != 1 and not groups == in_ch == out_ch:
+            raise ValueError(f"groups={groups}: only dense (1) or depthwise "
+                             f"(groups == in_ch == out_ch) convs are ported")
         self.in_ch, self.out_ch, self.ksize, self.act = in_ch, out_ch, ksize, act
-        self.layers = nn.ModuleList([_Conv(in_ch, out_ch, ksize)])
+        self.groups = groups
+        self.layers = nn.ModuleList([_Conv(in_ch, out_ch, ksize, groups,
+                                           use_bias)])
         init_conv_(self.layers[0].weight, self.layers[0].bias, act, generator)
 
     @property
@@ -130,11 +145,15 @@ class ConvLayer(nn.Module):
         p = self.ksize // 2
         xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
         if not _FAST_TRAINING.get():
-            y = F.conv2d(xp, self.weight, self.bias)
+            y = F.conv2d(xp, self.weight, self.bias, groups=self.groups)
             return apply_act(y, self.act).permute(0, 2, 3, 1)
+        if self.groups != 1:
+            raise NotImplementedError(
+                "fast_training(True): conv_valid has no depthwise instance")
         xp = xp.permute(0, 2, 3, 1).contiguous()
         if self._needs_grad(xp):
-            return apply_act(conv_valid_fast(xp, self.weight) + self.bias,
+            y = conv_valid_fast(xp, self.weight)
+            return apply_act(y if self.bias is None else y + self.bias,
                              self.act)
         return conv_valid(xp, self.weight, self.bias, self.act)
 
@@ -163,6 +182,8 @@ class ConvLayer(nn.Module):
         when fuse_n > 0), for as many images as every leg can feed."""
         if isinstance(x, list):
             return self._forward_legs(x, fuse_n)
+        if self.groups != 1:
+            return self.depthwise(x)
         if self._training_route(x):
             return self._train_conv(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
         if self.in_ch == 1 and not fuse_n:
@@ -170,6 +191,15 @@ class ConvLayer(nn.Module):
         if self.out_ch == 1 and not fuse_n:
             return conv_gray_exit(x, self.weight, self.bias, self.act)
         return conv_chain(x, self.weight, self.bias, self.act, fuse_n)
+
+    def depthwise(self, x, lo=0, add=None):
+        """Depthwise layer over channels [lo, lo + in_ch) of x (B, H, W,
+        Cx), read in place, with `add` (B, H, W, in_ch) summed into its
+        input first: (B, H, W, in_ch)."""
+        if self._training_route(x, add):
+            xw = x[..., lo:lo + self.in_ch]
+            return self._train_conv(xw if add is None else xw + add)
+        return conv_dw(x, self.weight, self.bias, self.act, lo, add)
 
     def _forward_legs(self, legs, fuse_n):
         n_out = legs_n_out(legs, fuse_n)
@@ -181,4 +211,5 @@ class ConvLayer(nn.Module):
 
     def extra_repr(self):
         return (f"{self.in_ch}, {self.out_ch}, ksize={self.ksize}, "
-                f"act={self.act!r}")
+                f"act={self.act!r}, groups={self.groups}, "
+                f"bias={self.bias is not None}")

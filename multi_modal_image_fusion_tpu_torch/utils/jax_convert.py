@@ -1,7 +1,8 @@
 """Weight carry from the JAX package's variables to the port's state dict:
 the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
-(`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, the DeepFuse,
-DenseFuse and VIFNet mappings :365-377).
+(`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, `_res2_block`
+:109-119, the DeepFuse, DenseFuse, VIFNet and Res2Fusion mappings
+:365-377 and :441-445).
 
 Input is the JAX variables as a nested dict of numpy arrays,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}}` (e.g. from
@@ -20,6 +21,15 @@ import torch
 
 __all__ = ["jax_to_state_dict", "jax_train_state_to_torch"]
 
+
+def _res2_block(name, scale):
+    """A Res2ConvBlock's convs (their biases absent: use_bias=False); the
+    dead `dwconv` set is carried too."""
+    return {f"{name}/{conv}": f"{name}.{conv}"
+            for conv in ("pwconv1", "dwconv", "pwconv2", "shortcut")} | {
+        f"{name}/dwconv{i}": f"{name}.dwconvs.{i}" for i in range(scale)}
+
+
 # flax submodule path -> reference state-dict prefix, per ported model
 _DENSE_ENCODER = {"conv_in": "encode.0",
                   **{f"dense/conv{i}": f"encode.1.layers.{i}"
@@ -31,6 +41,9 @@ _LAYOUTS = {
                   **{f"dec{i}": f"decode.{i}" for i in range(4)}},
     "vifnet": {**_DENSE_ENCODER,
                **{f"dec{i}": f"decode.{i}" for i in range(5)}},
+    "res2fusion": {"conv_in": "conv_in",
+                   **_res2_block("RB1", 4), **_res2_block("RB2", 8),
+                   **{f"dec{i}": f"decode.{i}" for i in range(4)}},
 }
 
 

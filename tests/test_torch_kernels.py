@@ -537,3 +537,176 @@ def test_eval_metrics_small_image_on_card(cuda):
         if k != "viff":
             np.testing.assert_allclose(got[k].cpu().numpy(), w_.numpy(),
                                        rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+# nl tolerances (chip_smoke.NL_TOL): nl_minmax relative to the range hi -
+# lo in both dtypes (bf16 products are exact in f32); nl_apply relative to
+# the largest attention term |out - mean(k)|, bf16 5e-2 (the kernel rounds
+# the unnormalised weights to bf16, the plain version the normalised ones).
+# Keys swapped within pairs in the value product miss by more than the
+# whole term (checked here as the control).
+NL_TOL = {"nl_minmax": {torch.float32: 1e-4, torch.bfloat16: 1e-4},
+          "nl_apply": {torch.float32: 1e-4, torch.bfloat16: 5e-2}}
+
+
+def _nl_inputs(b, n, m, c, seed, dev, dtype):
+    """Independent centred q (b, n, c) and k (b, m, c), k of zero mean over
+    the keys: the output is the attention term alone."""
+    r = np.random.RandomState(seed)
+    q = r.rand(b, n, c).astype(np.float32) * 2 - 1
+    k = r.rand(b, m, c).astype(np.float32) * 2 - 1
+    k -= k.mean(1, keepdims=True)
+    return (torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(k).to(dev, dtype))
+
+
+def _nl_close(name, got, want, scale, dtype):
+    got, want = got.detach().double(), want.detach().double()
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= NL_TOL[name][dtype] * scale, (name, err, scale)
+
+
+def _nl_check(q, k, lohi, got, dtype):
+    """lohi and got (nl_apply's output) against the plain passes at
+    NL_TOL, and the swapped-keys control outside it."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply_plain, nl_minmax_plain)
+    want_lohi = nl_minmax_plain(q, k)
+    _nl_close("nl_minmax", lohi, want_lohi,
+              float(want_lohi[1] - want_lohi[0]), dtype)
+    want = nl_apply_plain(q, k, want_lohi)
+    scale = float((want.double() - k.double().mean(1, keepdim=True))
+                  .abs().max())
+    _nl_close("nl_apply", got, want, scale, dtype)
+    m = k.shape[1]
+    swap = torch.arange(m, device=k.device) ^ 1
+    swap[swap >= m] = m - 1
+    ctl_err = 0.0
+    for i in range(0, q.shape[1], 4096):
+        e = (torch.matmul(q[:, i:i + 4096].float(), k.float().transpose(1, 2))
+             - want_lohi[0]) / (want_lohi[1] - want_lohi[0])
+        ctl = torch.matmul(torch.softmax(e, -1).to(dtype).float(),
+                           k[:, swap].float())
+        ctl_err = max(ctl_err, float((ctl - want[:, i:i + 4096].float())
+                                     .abs().max()))
+    assert ctl_err > NL_TOL["nl_apply"][dtype] * scale
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,w,c", [
+    (2, 45, 61, 112),     # Res2Fusion's features at an odd size (5x7 pool)
+    (1, 64, 200, 112),    # several key tiles, a ragged last one
+    (2, 20, 50, 112),     # ragged query tile, 12 keys
+    (1, 9, 130, 112)])    # one pooled row
+def test_nl_kernels(cuda, dt, b, h, w, c):
+    """nl_minmax's batch-global (lo, hi) and nl_apply's output against the
+    plain two-pass version on q and k of the 'nl' pooling's shapes; one
+    launch each."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply, nl_minmax, nl_spatial_flash)
+    dtype = DTYPES[dt]
+    q, k = _nl_inputs(b, h * w, (h // 8) * (w // 8), c, h + w, cuda, dtype)
+    before = dict(build.LAUNCHES)
+    lohi = nl_minmax(q, k)
+    got = nl_apply(q, k, lohi)
+    torch.cuda.synchronize()
+    for name in ("nl_minmax", "nl_apply"):
+        assert build.LAUNCHES[name] == before.get(name, 0) + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _nl_check(q, k, lohi, got, dtype)
+    _nl_check(q, k, lohi, nl_spatial_flash(q, k), dtype)
+
+
+def test_nl_full_resolution(cuda):
+    """One modality's nl call of the test CLI: 1224x1024, 112 channels,
+    f32."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply, nl_minmax)
+    q, k = _nl_inputs(1, 1224 * 1024, 153 * 128, 112, 90, cuda,
+                      torch.float32)
+    lohi = nl_minmax(q, k)
+    _nl_check(q, k, lohi, nl_apply(q, k, lohi), torch.float32)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("cx,c,k,lo,with_add,act", [
+    (64, 16, 1, 0, False, None), (64, 16, 3, 16, False, None),
+    (64, 16, 3, 48, True, None), (384, 48, 3, 336, True, None),
+    (384, 48, 1, 0, False, "relu6"), (24, 8, 3, 8, True, "relu")])
+def test_conv_dw(cuda, dt, cx, c, k, lo, with_add, act):
+    """The depthwise kernel on Res2Fusion's windows (and a bias and
+    activation) against F.conv2d(groups=C) in f32; one launch."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import (
+        conv_dw, conv_dw_plain)
+    dtype = DTYPES[dt]
+    x = _rand((2, 37, 70, cx), cx + lo, cuda, dtype)
+    wt = _rand((c, 1, k, k), c + k, cuda).to(dtype)
+    bias = None if act is None else _rand((c,), c, cuda)
+    add = _rand((2, 37, 70, c), lo, cuda, dtype) if with_add else None
+    before = build.LAUNCHES["conv_dw"]
+    got = conv_dw(x, wt, bias, act, lo, add)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_dw"] == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    _close(got, conv_dw_plain(x, wt, bias, act, lo, add), dtype)
+
+
+def test_new_wrappers_raise(cuda):
+    """Shapes the nl and depthwise kernels are not built for, and inputs
+    that need a gradient, raise on the card; under no_grad they run."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import conv_dw
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply, nl_minmax)
+    q = _rand((1, 64, 129), 91, cuda)
+    with pytest.raises(ValueError):       # only C = 112 is built
+        nl_minmax(q, q[:, :8].contiguous())
+    q = _rand((1, 64, 16), 91, cuda, torch.bfloat16)
+    with pytest.raises(ValueError):
+        nl_minmax(q, q[:, :8].contiguous())
+    x = _rand((1, 20, 30, 64), 92, cuda)
+    with pytest.raises(ValueError):       # k5 is not built
+        conv_dw(x, torch.zeros((16, 1, 5, 5), device=cuda))
+    with pytest.raises(ValueError):       # window past the channels
+        conv_dw(x, torch.zeros((16, 1, 3, 3), device=cuda), lo=56)
+    q, k = _rand((1, 64, 112), 93, cuda), _rand((1, 8, 112), 94, cuda)
+    wdw = _rand((16, 1, 3, 3), 95, cuda).requires_grad_()
+    calls = [lambda: nl_minmax(q.clone().requires_grad_(), k),
+             lambda: nl_apply(q, k.clone().requires_grad_(), nl_minmax(q, k)),
+             lambda: conv_dw(x, wdw, lo=16)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+# launches of one Res2Fusion forward: (fusion_method, autoencoder) -> counts
+_RES2_LAUNCHES = {
+    ("attn", False): {"conv_gray_enter": 1, "conv_chain": 5, "conv_multi": 4,
+                      "conv_dw": 12, "nl_minmax": 2, "nl_apply": 2,
+                      "conv_gray_exit": 1},
+    ("elem", False): {"conv_gray_enter": 1, "conv_chain": 4, "conv_multi": 5,
+                      "conv_dw": 12, "conv_gray_exit": 1},
+    ("attn", True): {"conv_gray_enter": 1, "conv_chain": 4, "conv_multi": 5,
+                     "conv_dw": 12, "conv_gray_exit": 1},
+}
+
+
+@pytest.mark.parametrize("key", sorted(_RES2_LAUNCHES, key=str))
+def test_res2fusion_on_card_matches_cpu(cuda, key):
+    """Res2Fusion through the kernels against the same weights on the CPU's
+    plain path, f32, odd size, with exact launch counts."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    method, ae = key
+    model = create_model("res2fusion", fusion_method=method,
+                         generator=torch.Generator().manual_seed(5)).eval()
+    x1 = _rand((2, 45, 61, 1), 96, "cpu", lo=0.0)
+    x2 = None if ae else _rand((2, 45, 61, 1), 97, "cpu", lo=0.0)
+    with torch.no_grad():
+        want = model(x1, x2)
+        build.LAUNCHES.clear()
+        got = model.to(cuda)(x1.to(cuda), None if x2 is None else x2.to(cuda))
+    assert dict(build.LAUNCHES) == _RES2_LAUNCHES[key]
+    _close(got.cpu(), want, torch.float32)
