@@ -81,6 +81,18 @@ k3, with and without the added previous group): 1224x1024 bf16 batch 4
 and f32 batch 2, and 45x61; its library time is one F.conv2d(groups=C) on
 the padded window (the window's copy and the pad timed apart).
 
+Phase 3 also holds conv_wide (the wide chain conv of UNFusion and DBNet)
+against its plain version (the legs' concat, F.conv2d in f32, TF32 off) on
+centred independent inputs: UNFusion's DB3_1 conv1 (legs 256 + 1024 ->
+640, 306x256, batch 2), DB1_3 conv1 (legs 16 x 3 + 64 -> 56, 1224x1024,
+batch 2), an odd 45x61 case and DBNet's dec0 with fuse_n at 1224x1024, in
+f32 (1e-4 of max|y|) and bf16 (1e-3 of max|y| beyond one bf16 ulp of each
+output), each with controls that must miss by 10x (the taps transposed;
+two legs of one width swapped); then every conv_wide launch of a UNFusion
+and a DBNet forward at 1224x1024, bf16 at the bench's 16 pairs and f32 at
+the test CLI's pair, checked and timed beside the plain version and one
+F.conv2d on the padded concat (the concat and the pad timed apart).
+
 Later paths, each with every count set to 0 just before it and read just
 after, with exact counts: the eval CLI in both sheet layouts over the 51
 NN.bmp files phase 4's test CLI dumped (8 moments and 12 ssim_maps
@@ -92,13 +104,17 @@ its wall seconds and ms a pair); the test CLI on a seeded
 DenseFuse checkpoint with fusion_mode l1 over 11 pairs and on a seeded
 Res2Fusion checkpoint over 3 pairs (SSIM within 1e-4 of the f32 plain path
 on the card: F.conv2d for every conv, TF32 off, and the plain 'nl'
-attention); the bench with --model densefuse and --model vifnet (batch 16)
-and --model res2fusion (batch 2: 1 enter, 5 chain, 4 conv_multi, 12
-conv_dw, 2 nl_minmax, 2 nl_apply and 1 exit launches a forward), each held
-to the BASELINE contract on its last batch: mean SSIM and Qabf within
-1e-3 of the f32 forward (VIFNet too; the gap to the bf16 forward through
-F.conv2d is printed beside it). The DeepFuse contract of phase 5 holds
-Qabf too.
+attention); the test CLI on seeded DBNet and UNFusion checkpoints over 3
+pairs each (f32; SSIM within 1e-4 of the f32 plain path, each fused image
+within 1e-4 relative); the bench with --model densefuse and --model vifnet (batch
+16), --model res2fusion (batch 2: 1 enter, 5 chain, 4 conv_multi, 12
+conv_dw, 2 nl_minmax, 2 nl_apply and 1 exit launches a forward), --model
+dbnet and --model unfusion (batch 16; FORWARD_LAUNCHES; their peak device
+memory), each held to the BASELINE contract on its last batch: mean SSIM
+and Qabf within 1e-3 of the f32 forward (VIFNet too; the gap to the bf16
+forward through F.conv2d is printed beside it), Res2Fusion, DBNet and
+UNFusion with a profiled forward split by kernel group. The DeepFuse
+contract of phase 5 holds Qabf too.
 
 Prints the `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs one card; exits non-zero without one.
@@ -1017,6 +1033,178 @@ def check_conv_dw(torch, F, dev, timer):
     return r
 
 
+WIDE_REPLACES = ("multi_modal_image_fusion_tpu/ops/pallas/conv_kernel.py:719 "
+                 "(conv_tlane_chain; pallas_call :799)")
+# conv_wide tolerances, relative to max|y| of the plain version on the same
+# inputs (bf16 weights and inputs in bf16): f32 1e-4; bf16 1e-3 beyond one
+# bf16 ulp of each output (both round an f32 sum to bf16; a sum taken in
+# another order can land on the neighbouring value, 2^-7 of it). Each check
+# at WIDE_CHECKS has controls that must miss by 10x: the kernel with the
+# kh/kw taps transposed, and with two legs of one width swapped.
+WIDE_TOL = {"f32": 1e-4, "bf16": 1e-3}
+# (name, legs' channels, c_out, k, fuse_n, images out, h, w)
+WIDE_CHECKS = [("DB3_1.conv1", [256, 1024], 640, 3, 0, 2, 306, 256),
+               ("DB1_3.conv1", [16, 16, 16, 64], 56, 3, 0, 2, H, W),
+               ("odd", [40, 24, 40], 40, 3, 0, 2, 45, 61),
+               ("dbnet.dec0", [16, 16, 16, 16, 64], 64, 3, 2, 2, H, W)]
+# every conv_wide launch of one fused forward: (name, legs' channels, c_out,
+# k, fuse_n, scale, images per pair). UNFusion's ECB k1 convs run on the
+# siamese fold's 2 images a pair.
+_S = [(H, W)]
+for _ in range(3):
+    _S.append(((_S[-1][0] + 1) // 2, (_S[-1][1] + 1) // 2))
+WIDE_LAYERS = [
+    ("unfusion.EB2_1.conv1", [32, 16], 24, 1, 0, 1, 2),
+    ("unfusion.EB3_1.conv1", [48, 32], 40, 1, 0, 2, 2),
+    ("unfusion.EB4_1.conv1", [64, 48], 56, 1, 0, 3, 2),
+    ("unfusion.EB3_2.conv1", [48, 96, 64], 104, 1, 0, 2, 2),
+    ("unfusion.EB4_2.conv1", [64, 128, 96], 144, 1, 0, 3, 2),
+    ("unfusion.EB4_3.conv1", [64, 128, 304, 256], 376, 1, 0, 3, 2),
+    ("unfusion.DB1_1.conv1", [16, 64], 40, 3, 0, 0, 1),
+    ("unfusion.DB1_1.conv2", [40], 16, 3, 0, 0, 1),
+    ("unfusion.DB2_1.conv1", [64, 256], 160, 3, 0, 1, 1),
+    ("unfusion.DB2_1.conv2", [160], 64, 3, 0, 1, 1),
+    ("unfusion.DB3_1.conv1", [256, 1024], 640, 3, 0, 2, 1),
+    ("unfusion.DB3_1.conv2", [640], 256, 3, 0, 2, 1),
+    ("unfusion.DB1_2.conv1", [16, 16, 64], 48, 3, 0, 0, 1),
+    ("unfusion.DB1_2.conv2", [48], 16, 3, 0, 0, 1),
+    ("unfusion.DB2_2.conv1", [64, 64, 256], 192, 3, 0, 1, 1),
+    ("unfusion.DB2_2.conv2", [192], 64, 3, 0, 1, 1),
+    ("unfusion.DB1_3.conv1", [16, 16, 16, 64], 56, 3, 0, 0, 1),
+    ("unfusion.DB1_3.conv2", [56], 16, 3, 0, 0, 1),
+    ("dbnet.dec0", [16, 16, 16, 16, 64], 64, 3, 1, 0, 1),
+    ("dbnet.dec1", [64], 32, 3, 0, 0, 1),
+    ("dbnet.dec2", [32], 16, 3, 0, 0, 1),
+]
+
+
+def _wide_rel(torch, got, want, dt):
+    """max |got - want| relative to max|want|; in bf16 beyond one bf16 ulp of
+    each output."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite kernel output")
+    d = (got - want).abs()
+    if dt == "bf16":
+        d = (d - torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp(min=1e-30))) - 7)).clamp(min=0)
+    scale = float(want.abs().max())
+    return float(d.max()), float(d.max()) / scale
+
+
+def check_conv_wide(torch, F, dev, timer):
+    """conv_wide against its plain version (the legs' concat, reflect pad,
+    F.conv2d in f32, TF32 off) on centred independent inputs: at
+    WIDE_CHECKS with the controls, and at every launch of a UNFusion and a
+    DBNet forward (WIDE_LAYERS) at 1224x1024, bf16 at the bench's 16 pairs
+    and f32 at the test CLI's one pair, with times: the kernel, the plain
+    version, and one F.conv2d on the padded concat in the same dtype (the
+    concat and the pad timed apart)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import \
+        concat_legs
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
+        conv_wide, conv_wide_plain)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+         "min_control_rel_err": float("inf"), "tolerance_rel": WIDE_TOL,
+         "layers": {}}
+
+    def inputs(cins, cout, k, b, h, w, dt, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        legs = [((torch.rand((b, h, w, c), generator=g, device=dev) * 2 - 1)
+                 .to(dts[dt]), 0) for c in cins]
+        cin = sum(cins)
+        wt = ((torch.rand((cout, cin, k, k), generator=g, device=dev) * 2 - 1)
+              / np.sqrt(cin * k * k)).to(dts[dt])
+        bias = (torch.rand((cout,), generator=g, device=dev) * 2 - 1) * 0.1
+        return legs, wt, bias
+
+    def check(key, got, want, dt):
+        err, rel = _wide_rel(torch, got, want, dt)
+        if rel > WIDE_TOL[dt]:
+            raise AssertionError(f"conv_wide {key}: max err {err} is "
+                                 f"{rel:.3g} of max|y|, above {WIDE_TOL[dt]}")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        return rel
+
+    for name, cins, cout, k, fuse_n, n, h, w in WIDE_CHECKS:
+        for dt in ("f32", "bf16"):
+            key = f"{name} {dt}"
+            legs, wt, bias = inputs(cins, cout, k, 2 * n if fuse_n else n,
+                                    h, w, dt, 160 + len(cins))
+            want = conv_wide_plain(legs, wt, bias, "relu", fuse_n)
+            rel = check(key, conv_wide(legs, wt, bias, "relu", fuse_n), want,
+                        dt)
+            same = [(i, j) for i in range(len(cins))
+                    for j in range(i + 1, len(cins)) if cins[i] == cins[j]]
+            ctls = {"taps transposed": conv_wide(legs, wt.transpose(2, 3),
+                                                 bias, "relu", fuse_n)}
+            if same:
+                i, j = same[0]
+                sw = list(legs)
+                sw[i], sw[j] = legs[j], legs[i]
+                ctls[f"legs {i} and {j} swapped"] = conv_wide(
+                    sw, wt, bias, "relu", fuse_n)
+            for what, y in ctls.items():
+                c = _wide_rel(torch, y, want, dt)[1]
+                if c <= 10 * WIDE_TOL[dt]:
+                    raise AssertionError(f"conv_wide {key}: the control "
+                                         f"({what}) misses by {c:.3g} only")
+                r["min_control_rel_err"] = min(r["min_control_rel_err"], c)
+                print(f"conv_wide {key}: err {rel:.3g}, control ({what}) "
+                      f"{c:.3g} (tolerance {WIDE_TOL[dt]})")
+            del legs, want, ctls
+        torch.cuda.empty_cache()
+        stamp(f"conv_wide {name} checked")
+
+    for dt, pairs in (("bf16", BATCH), ("f32", 1)):
+        for name, cins, cout, k, fuse_n, s, per_pair in WIDE_LAYERS:
+            h, w = _S[s]
+            n = pairs * per_pair
+            legs, wt, bias = inputs(cins, cout, k, 2 * n if fuse_n else n,
+                                    h, w, dt, 170 + cout)
+
+            def run():
+                return conv_wide(legs, wt, bias, "relu", fuse_n)
+
+            def plain():
+                return conv_wide_plain(legs, wt, bias, "relu", fuse_n)
+            check(f"{name} {dt}", run(), plain(), dt)
+
+            def cat():
+                x = concat_legs(legs, fuse_n, n)
+                return (x[:n] + x[n:] if fuse_n else x).permute(0, 3, 1, 2)
+            xn = cat()
+            p = k // 2
+            parts, xp = _library_parts(F, xn, k, cout)
+            bl = bias.to(dts[dt])
+            esz = 2 if dt == "bf16" else 4
+            read = sum(cins) * (2 if fuse_n else 1)
+            bound, by = _bound((read + cout) * n * h * w * esz
+                               + wt.numel() * esz,
+                               2.0 * n * h * w * sum(cins) * cout * k * k, dt)
+            r["layers"][f"{name} {dt}"] = {
+                "ms": timer(run), "plain_ms": timer(plain),
+                "library_ms": timer(lambda: [F.conv2d(t, wt, bl)
+                                             for t in xp]),
+                "library_concat_ms": timer(cat),
+                "library_pad_ms": timer(lambda: [
+                    F.pad(xn[sl], (p, p, p, p), mode="reflect")
+                    for sl in parts]),
+                "library_calls": len(parts),
+                "bound_ms": bound, "bound_by": by,
+                "shape": f"legs {cins} fuse_n {fuse_n} -> {n}x{h}x{w}x{cout}"
+                         f" k{k} {dt}"}
+            del legs, xn, xp, run, plain, cat
+            torch.cuda.empty_cache()
+        stamp(f"conv_wide {dt} layers timed")
+    return r
+
+
 # launches of one fused forward on the serving path, per model
 FORWARD_LAUNCHES = {
     "densefuse": {"conv_gray_enter": 1, "conv_multi": 4, "conv_chain": 2,
@@ -1032,9 +1220,19 @@ FORWARD_LAUNCHES = {
     "res2fusion": {"conv_gray_enter": 1, "conv_chain": 5, "conv_multi": 4,
                    "conv_dw": 12, "nl_minmax": 2, "nl_apply": 2,
                    "conv_gray_exit": 1},
+    # conv_chain: detail0; conv_multi: the dense growth; conv_wide: dec0
+    # (fuse_n over the 5 legs) to dec2; the stride-2 convs are F.conv2d
+    "dbnet": {"conv_gray_enter": 1, "conv_chain": 1, "conv_multi": 3,
+              "conv_wide": 3, "conv_gray_exit": 1},
+    # conv_chain: CB2_0-CB4_0 and the 6 ECBs' k3 convs; conv_wide: the 6
+    # ECBs' k1 convs and the nested decoder's 12 k3 convs; conv_gray_exit:
+    # conv_out (k1)
+    "unfusion": {"conv_gray_enter": 1, "conv_chain": 9, "conv_wide": 18,
+                 "conv_gray_exit": 1},
 }
 L1_PAIRS = 11
 RES2_PAIRS = 3        # the res2fusion test CLI's pairs (the first, warmup)
+WIDE_PAIRS = 3        # the dbnet and unfusion test CLIs' pairs
 
 
 def bench_path(build, bench, name, batch=BATCH):
@@ -1053,7 +1251,8 @@ def bench_path(build, bench, name, batch=BATCH):
 
 
 # kernel-name prefixes of the port's kernels (csrc/), for the forward's split
-KERNEL_GROUPS = {"nl": ("nl_",), "conv": ("conv_",)}
+KERNEL_GROUPS = {"nl": ("nl_",), "conv_wide": ("conv_wide",),
+                 "conv": ("conv_",)}
 
 
 def profile_forward(torch, model, a, b):
@@ -1080,7 +1279,8 @@ def profile_forward(torch, model, a, b):
                and not getattr(e, "is_user_annotation", False)]
     split = {key: 0.0 for key in (*KERNEL_GROUPS, "other")}
     for e in kernels:
-        name = e.name.split("<")[0].split("(")[0].split("::")[-1]
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("<")[0].split("(")[0].split("::")[-1]
         key = next((k for k, pre in KERNEL_GROUPS.items()
                     if name.startswith(pre)), "other")
         split[key] += e.device_time_total / 1e3
@@ -1352,6 +1552,9 @@ def main():
     stamp("nl_minmax and nl_apply checked")
     rec["conv_dw"] = check_conv_dw(torch, F, dev, timer)
     stamp("conv_dw checked")
+    rec["conv_wide"] = check_conv_wide(torch, F, dev, timer)
+    stamp("conv_wide checked")
+    print(f"conv_wide layers: {json.dumps(rec['conv_wide']['layers'])}")
     print("kernel checks passed")
 
     # phase 4: main path, counts from 0
@@ -1441,6 +1644,13 @@ def main():
             RES2_PAIRS, 0)
         main_counts.update(res2_counts)
         stamp("res2fusion test CLI done")
+        wide_cli = {}
+        for name in ("dbnet", "unfusion"):
+            wide_cli[name], counts = model_cli_path(
+                torch, build, test_cli, root, dev, name, name, {}, WIDE_PAIRS,
+                0)
+            main_counts.update(counts)
+            stamp(f"{name} test CLI done")
     torch.cuda.empty_cache()
 
     # BASELINE contract on the bench's last timed batch: its bf16 fused
@@ -1474,12 +1684,16 @@ def main():
     # contracts
     benches = {"deepfuse": result}
     for name, batch in (("densefuse", BATCH), ("vifnet", BATCH),
-                        ("res2fusion", RES2_BATCH)):
+                        ("res2fusion", RES2_BATCH), ("dbnet", BATCH),
+                        ("unfusion", BATCH)):
+        torch.cuda.reset_peak_memory_stats()
         benches[name], (a16, b16, y16), counts = bench_path(build, bench,
                                                              name, batch)
+        benches[name]["peak_memory_gb"] = (torch.cuda.max_memory_allocated()
+                                           / 2 ** 30)
         main_counts.update(counts)
         torch.cuda.empty_cache()
-        if name == "res2fusion":
+        if name in ("res2fusion", "dbnet", "unfusion"):
             model = create_model(name, generator=torch.Generator().manual_seed(
                 0)).to(dev, torch.bfloat16).eval()
             benches[name]["profile"] = profile_forward(torch, model, a16, b16)
@@ -1554,21 +1768,27 @@ def main():
         "conv_dw": "multi_modal_image_fusion_tpu/ops/pallas/hiw_kernel.py:335 "
                    "(conv_hiw_chain; depthwise as diagonal bands :157-185)",
     }
+    replaces["conv_wide"] = WIDE_REPLACES
     sources = {"ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu",
                "moments": "multi_modal_image_fusion_tpu_torch/csrc/moments.cu",
                "nl_minmax":
                    "multi_modal_image_fusion_tpu_torch/csrc/nl_attention.cu",
                "nl_apply":
                    "multi_modal_image_fusion_tpu_torch/csrc/nl_attention.cu",
-               "conv_dw": "multi_modal_image_fusion_tpu_torch/csrc/conv_dw.cu"}
+               "conv_dw": "multi_modal_image_fusion_tpu_torch/csrc/conv_dw.cu",
+               "conv_wide":
+                   "multi_modal_image_fusion_tpu_torch/csrc/conv_wide.cu"}
     kernels = []
     main_counts.update(train_counts)
     counts = dict(main_counts)
     for name in ("conv_gray_enter", "conv_chain", "conv_gray_exit",
                  "ssim_maps", "moments", "conv_multi", "nl_minmax", "nl_apply",
-                 "conv_dw"):
+                 "conv_dw", "conv_wide"):
         r = rec[name]
-        ls = r["layers"].values()
+        # conv_wide: the sums are one bf16 bench forward of each model (16
+        # pairs); its f32 launches at the test CLI's pair are under "layers"
+        ls = [v for key, v in r["layers"].items()
+              if name != "conv_wide" or key.endswith(" bf16")]
         lib = [v["library_ms"] for v in ls]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1621,6 +1841,8 @@ def main():
                       "cli_latency": cli_lat,
                       "test_cli_densefuse_l1": l1_rec,
                       "test_cli_res2fusion": res2_rec,
+                      "test_cli_dbnet": wide_cli["dbnet"],
+                      "test_cli_unfusion": wide_cli["unfusion"],
                       "eval": eval_rec,
                       "main_path_launches": counts,
                       "training": {"step": step_stats, "profile": busy,

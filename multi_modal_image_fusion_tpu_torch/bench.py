@@ -8,8 +8,10 @@ bench's BENCH_BATCH), device-resident; the first run is excluded as warmup;
 every timed iteration (10, as BENCH_ITERS) chains on the full previous
 output (its mean feeds the next input), and the timed region ends with
 torch.cuda.synchronize() and a host fetch of the accumulated sum.
-Res2Fusion is benched at --batch 2: its 384-channel Res2 expansion takes
-~2 GB an image in bf16, so 16 pairs do not fit on an 80 GB card.
+The models are the port's zoo: deepfuse, densefuse, vifnet, dbnet and
+unfusion at batch 16; Res2Fusion is benched at --batch 2: its 384-channel
+Res2 expansion takes ~2 GB an image in bf16, so 16 pairs do not fit on an
+80 GB card.
 
     python -m multi_modal_image_fusion_tpu_torch.bench [--model deepfuse]
         [--batch 16] [--seed 0]
@@ -90,7 +92,7 @@ def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH):
 def main(argv=None):
     p = argparse.ArgumentParser(description="fused-pair throughput")
     p.add_argument("--model", default="deepfuse", choices=sorted(MODEL_ZOO),
-                   help="zoo model to time")
+                   help="zoo model to time: " + ", ".join(sorted(MODEL_ZOO)))
     p.add_argument("--batch", default=BATCH, type=int,
                    help="pairs a forward (root bench BENCH_BATCH)")
     p.add_argument("--seed", default=0, type=int)

@@ -6,6 +6,8 @@
 // launch. Activation codes match ops/cuda/conv_chain.py ACT_CODES.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -75,6 +77,34 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// ---- warp-level bf16 tensor-core helpers (mma.sync m16n8k16) ----
+// Fragments of one lane (g = lane / 4, t = lane % 4): A (16 x 16, row-major)
+// a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];
+// B (16 x 8, k x n) b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]; the f32
+// accumulator d0, d1 = D[g][2t..2t+1], d2, d3 = D[g+8][2t..2t+1].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two 8x8 b16 matrices from rows given by lanes 0-15, transposed: the B
+// fragment (k = 2t, 2t+1; n = g) of a k-major (row = k) tile.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16

@@ -245,29 +245,6 @@ nl_apply_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int NL_MMA_THREADS = 128;  // 4 warps x 16 query rows
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two 8x8 b16 matrices from rows given by lanes 0-15, transposed: the B
-// fragment (k = 2t, 2t+1; n = g) of a k-major (row = k) tile.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Rows [r0, r0 + 64) of a (rows, C) bf16 matrix into t[r][0..C) (pitch C + 8),
 // zeros past `rows`, as 32-bit words.
 __device__ __forceinline__ void stage_rows_bf16(uint32_t* t, const __nv_bfloat16* src, int r0,

@@ -1,7 +1,7 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
-DenseFuse, VIFNet and Res2Fusion; the other 12 models are queued in
-ROADMAP.md.
+DenseFuse, VIFNet, DBNet, UNFusion and Res2Fusion; the other 10 models are
+queued in ROADMAP.md.
 
 Models take NHWC single-channel images:
 
@@ -12,12 +12,13 @@ Models take NHWC single-channel images:
 import torch
 from torch import nn
 
-from ..ops.blocks import DenseBlock, Res2ConvBlock
+from ..ops.blocks import (DenseBlock, NestDecoder, NestEncoder, Res2ConvBlock,
+                          down, upsample)
 from ..ops.fusion import attention_fusion, element_fusion
 from ..ops.layers import ConvLayer
 
-__all__ = ["DeepFuse", "DenseFuse", "MODEL_ZOO", "Res2Fusion", "VIFNet",
-           "create_model"]
+__all__ = ["DBNet", "DeepFuse", "DenseFuse", "MODEL_ZOO", "Res2Fusion",
+           "UNFusion", "VIFNet", "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -220,8 +221,123 @@ class Res2Fusion(nn.Module):
         return t
 
 
-MODEL_ZOO = {"deepfuse": DeepFuse, "densefuse": DenseFuse,
-             "res2fusion": Res2Fusion, "vifnet": VIFNet}
+class DBNet(nn.Module):
+    """Dual-branch encoder: a detail branch (conv + dense block) and a
+    semantic branch (three stride-2 convs, x8 bilinear upsample repaired to
+    the input size), 'sum' or 'avg' fusion, 4-conv k3 decoder (reference
+    core/model.py:209-244; JAX models/zoo.py:699-772).
+
+    Serving follows the JAX package's chain route (zoo.py:753-772): the
+    encoder runs once over the batch-concatenated pair (conv_in through
+    conv_gray_enter, detail0 conv_chain, the dense growth conv_multi, the
+    stride-2 convs F.conv2d) and its output stays the legs [x, y1, y2, y3,
+    s]; 'sum' fusion is dec0's fuse_n load over the legs; 'avg' concatenates
+    them and fuses the halves with attention_fusion('ca', channel_mode=
+    'avg'). dec0-dec2 are the chain's conv_tlane_chain call sites and run
+    conv_wide, dec3 conv_gray_exit. Autoencoder mode (`model(img1)`)
+    decodes one batch's legs."""
+
+    def __init__(self, fusion_mode="sum", generator=None):
+        super().__init__()
+        if fusion_mode not in ("sum", "avg"):
+            raise ValueError("only supported ['sum', 'avg'] mode")
+        self.fusion_mode = fusion_mode
+        g = generator
+        self.encode = ConvLayer(1, 32, generator=g)
+        self.detail = nn.ModuleList([ConvLayer(32, 16, generator=g),
+                                     DenseBlock(16, 16, generator=g)])
+        self.semantic = nn.ModuleList([
+            ConvLayer(32, 64, stride=2, generator=g),
+            ConvLayer(64, 128, stride=2, generator=g),
+            ConvLayer(128, 64, stride=2, generator=g)])
+        self.decode = nn.ModuleList([
+            ConvLayer(128, 64, wide=True, generator=g),
+            ConvLayer(64, 32, wide=True, generator=g),
+            ConvLayer(32, 16, wide=True, generator=g),
+            ConvLayer(16, 1, act=None, generator=g)])
+
+    def forward(self, img1, img2=None):
+        feat = self.encode.enter(img1, img2)
+        legs = self.detail[1](self.detail[0](feat))
+        s = feat
+        for layer in self.semantic:
+            s = layer(s)
+        legs.append(upsample(s, 8, "bilinear", feat.shape[1:3]))
+        dec0, *rest = self.decode
+        n = img1.shape[0]
+        if img2 is None:
+            t = dec0([(x, 0) for x in legs])
+        elif self.fusion_mode == "sum":
+            t = dec0([(x, 0) for x in legs], fuse_n=n)
+        else:
+            f = torch.cat(legs, dim=-1)
+            t = dec0(attention_fusion(f[:n], f[n:], "ca", channel_mode="avg"))
+        for layer in rest:
+            t = layer(t)
+        return t
+
+
+class UNFusion(nn.Module):
+    """Dense multi-scale encoder grid, per-scale attention fusion, U-Net++
+    nested decoder (reference core/model.py:387-439; JAX models/zoo.py:
+    1024-1100).
+
+    Serving follows the JAX package's chain route (zoo.py:1081-1100): the
+    encoder runs once over the batch-concatenated pair (CB1_0 through
+    conv_gray_enter, CB2_0-CB4_0 and the ECBs' k3 convs conv_chain, the
+    ECBs' k1 convs over their legs conv_wide, the stride-2 downs F.conv2d);
+    each scale's halves are fused by attention_fusion (`fusion_mode`,
+    'wavg' by default); the nested decoder's 12 k3 convs, the chain's
+    conv_tlane_chain call sites, run conv_wide over their legs; conv_out
+    (k1, 16 -> 1) runs conv_gray_exit. `down_mode` 'stride' or 'maxpool',
+    `up_mode` 'bilinear' or 'nearest'. Autoencoder mode (`model(img1)`)
+    decodes one batch's features."""
+
+    enc_ch = (16, 32, 48, 64)
+    dec_ch = (16, 64, 256, 1024)
+
+    def __init__(self, down_mode="stride", up_mode="bilinear",
+                 fusion_mode="wavg", generator=None):
+        super().__init__()
+        if down_mode not in ("stride", "maxpool"):
+            raise ValueError(f"down_mode {down_mode!r} not in stride/maxpool")
+        if up_mode not in ("bilinear", "nearest"):
+            raise ValueError(f"up_mode {up_mode!r} not in bilinear/nearest")
+        if fusion_mode not in ("sa", "ca", "sca", "wavg"):
+            raise ValueError("only supported ['sa', 'ca', 'sca', 'wavg'] "
+                             "mode")
+        self.down_mode, self.fusion_mode = down_mode, fusion_mode
+        g, e = generator, self.enc_ch
+        self.CB1_0 = ConvLayer(1, e[0], generator=g)
+        self.CB2_0 = ConvLayer(e[0], e[1], generator=g)
+        self.CB3_0 = ConvLayer(e[1], e[2], generator=g)
+        self.CB4_0 = ConvLayer(e[2], e[3], generator=g)
+        if down_mode == "stride":
+            for i in (1, 2, 3):
+                setattr(self, f"down{i}", ConvLayer(e[i - 1], e[i - 1],
+                                                    stride=2, generator=g))
+        self.encode = NestEncoder(e, self.dec_ch, down_mode, g)
+        self.decode = NestDecoder(self.dec_ch, up_mode, g)
+        self.conv_out = ConvLayer(self.dec_ch[0], 1, ksize=1, generator=g)
+
+    def forward(self, img1, img2=None):
+        x1_0 = self.CB1_0.enter(img1, img2)
+        d1_0 = down(self, 1, x1_0)
+        x2_0 = self.CB2_0(d1_0)
+        d2_0 = down(self, 2, x2_0)
+        x3_0 = self.CB3_0(d2_0)
+        d3_0 = down(self, 3, x3_0)
+        x4_0 = self.CB4_0(d3_0)
+        feats = self.encode((x1_0, (x2_0, d1_0), (x3_0, d2_0), (x4_0, d3_0)))
+        if img2 is not None:
+            n = img1.shape[0]
+            feats = [attention_fusion(f[:n], f[n:], self.fusion_mode)
+                     for f in feats]
+        return self.conv_out(self.decode(feats))
+
+
+MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
+             "res2fusion": Res2Fusion, "unfusion": UNFusion, "vifnet": VIFNet}
 
 
 def create_model(name, **kwargs):

@@ -1,15 +1,19 @@
 """Network blocks of the port (counterpart of multi_modal_image_fusion_tpu
-ops/blocks.py, reference core/block.py). Ported: `DenseBlock`, for DenseFuse
-and VIFNet, and `Res2ConvBlock`, for Res2Fusion; the other blocks come with
-the models that use them (ROADMAP.md queue 1 item 6)."""
+ops/blocks.py, reference core/block.py). Ported: `DenseBlock`, for DenseFuse,
+VIFNet and DBNet; `Res2ConvBlock`, for Res2Fusion; `ConvBlock`, `ECB`,
+`DCB`, `NestEncoder`, `NestDecoder`, `upsample` and `pad_to`, for UNFusion
+(and DBNet's x8 upsample); the other blocks come with the models that use
+them (ROADMAP.md queue 1 item 6)."""
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .cuda.conv_multi import concat_legs
-from .layers import ConvLayer
+from .layers import ConvLayer, interpolate
 
-__all__ = ["DenseBlock", "Res2ConvBlock"]
+__all__ = ["ConvBlock", "DCB", "DenseBlock", "ECB", "NestDecoder",
+           "NestEncoder", "Res2ConvBlock", "pad_to", "upsample"]
 
 
 class DenseBlock(nn.Module):
@@ -88,3 +92,155 @@ class Res2ConvBlock(nn.Module):
         else:
             res = concat_legs(x) if isinstance(x, list) else x
         return torch.clamp(out + res, 0.0, 6.0)
+
+
+def pad_to(feat, hw):
+    """Reflect-pad (or crop) NHWC `feat` to (h, w) (JAX ops/blocks.py:813,
+    reference block.py:954-962): the size difference splits as torch
+    ReflectionPad2d's (lo = d // 2), a negative pad crops, crop first, then
+    pad. DBNet's x8 upsample at odd sizes crops (6 x 8 = 48 -> 45)."""
+    th, tw = hw
+    fh, fw = feat.shape[1:3]
+    if (fh, fw) == (th, tw):
+        return feat
+
+    def split(d, size):
+        lo, hi = d // 2, d - d // 2
+        crop_lo, crop_hi = max(-lo, 0), max(-hi, 0)
+        return crop_lo, size - crop_hi, max(lo, 0), max(hi, 0)
+    h0, h1, ph_lo, ph_hi = split(th - fh, fh)
+    w0, w1, pw_lo, pw_hi = split(tw - fw, fw)
+    feat = feat[:, h0:h1, w0:w1]
+    if ph_lo or ph_hi or pw_lo or pw_hi:
+        feat = F.pad(feat.permute(0, 3, 1, 2), (pw_lo, pw_hi, ph_lo, ph_hi),
+                     mode="reflect").permute(0, 2, 3, 1)
+    return feat.contiguous()
+
+
+def upsample(feat, scale, mode="bilinear", hw=None):
+    """The Upsample block (JAX ops/blocks.py:797): interpolate by `scale`,
+    then pad_to `hw` when given (the shape repair of odd sizes)."""
+    out = interpolate(feat, scale, mode)
+    return out if hw is None else pad_to(out, hw)
+
+
+class ConvBlock(nn.Module):
+    """Two-conv block, hidden width in_ch // 2 (reference block.py:708-722;
+    JAX ops/blocks.py:640): conv1 (`ksize1`) then conv2 (`ksize2`), relu
+    both. The first conv takes one tensor or a list of legs (the parts of a
+    concat, never built). `wide` = (conv1, conv2): which of them take the
+    conv_wide route (ops/layers.py). State-dict names are the reference's
+    (`layers.{0,1}.layers.0.*`)."""
+
+    def __init__(self, in_ch, out_ch, ksize1=3, ksize2=1, wide=(False, False),
+                 generator=None):
+        super().__init__()
+        hid = in_ch // 2
+        self.layers = nn.ModuleList([
+            ConvLayer(in_ch, hid, ksize1, wide=wide[0], generator=generator),
+            ConvLayer(hid, out_ch, ksize2, wide=wide[1], generator=generator)])
+
+    def forward(self, x):
+        return self.layers[1](self.layers[0](x))
+
+
+class ECB(ConvBlock):
+    """1x1 -> 3x3 (UNFusion's encoder block, JAX ops/blocks.py:678): the k1
+    conv over the legs takes conv_wide's k1 instance, the k3 conv over its
+    one tensor keeps ConvLayer's chain route."""
+
+    def __init__(self, in_ch, out_ch, generator=None):
+        super().__init__(in_ch, out_ch, 1, 3, (True, False), generator)
+
+
+class DCB(ConvBlock):
+    """3x3 -> 3x3 (UNFusion's decoder block, JAX ops/blocks.py:684): both
+    convs take conv_wide (the JAX chain route's conv_tlane_chain)."""
+
+    def __init__(self, in_ch, out_ch, generator=None):
+        super().__init__(in_ch, out_ch, 3, 3, (True, True), generator)
+
+
+def _legs(*tensors):
+    return [(t, 0) for t in tensors]
+
+
+class NestEncoder(nn.Module):
+    """UNFusion's dense multi-scale encoder grid (JAX ops/blocks.py:748,
+    reference block.py:762-797): ECB blocks EB2_1 ... EB4_3 over concats of
+    the scale's features and stride-2 (or max-pooled) features of the scale
+    above. Every concat is a list of legs, never built. `in_ch` / `out_ch`
+    are UNFusion's (16, 32, 48, 64) / (16, 64, 256, 1024). forward takes
+    (x1_0, (x2_0, d1_0), (x3_0, d2_0), (x4_0, d3_0)) and returns the
+    per-scale features (x1_0, x2_1, x3_2, x4_3)."""
+
+    def __init__(self, in_ch, out_ch, down_mode="stride", generator=None):
+        super().__init__()
+        g = generator
+        self.down_mode = down_mode
+        self.EB2_1 = ECB(in_ch[1] + in_ch[0], out_ch[1], g)
+        self.EB3_1 = ECB(in_ch[2] + in_ch[1], in_ch[2] * 2, g)
+        self.EB4_1 = ECB(in_ch[3] + in_ch[2], in_ch[3] * 2, g)
+        self.EB3_2 = ECB(in_ch[2] + in_ch[2] * 2 + out_ch[1], out_ch[2], g)
+        self.EB4_2 = ECB(in_ch[3] + in_ch[3] * 2 + in_ch[2] * 2,
+                         in_ch[3] * 4 + in_ch[2], g)
+        self.EB4_3 = ECB(in_ch[3] + in_ch[3] * 2 + in_ch[3] * 4 + in_ch[2]
+                         + out_ch[2], out_ch[3], g)
+        if down_mode == "stride":
+            self.down1 = ConvLayer(out_ch[1], out_ch[1], stride=2, generator=g)
+            self.down2 = ConvLayer(in_ch[2] * 2, in_ch[2] * 2, stride=2,
+                                   generator=g)
+            self.down3 = ConvLayer(out_ch[2], out_ch[2], stride=2, generator=g)
+
+    def forward(self, feats):
+        x1_0, f2, f3, f4 = feats
+        x2_1 = self.EB2_1(_legs(*f2))
+        x3_1 = self.EB3_1(_legs(*f3))
+        x4_1 = self.EB4_1(_legs(*f4))
+        x3_2 = self.EB3_2(_legs(f3[0], x3_1, down(self, 1, x2_1)))
+        x4_2 = self.EB4_2(_legs(f4[0], x4_1, down(self, 2, x3_1)))
+        x4_3 = self.EB4_3(_legs(f4[0], x4_1, x4_2, down(self, 3, x3_2)))
+        return x1_0, x2_1, x3_2, x4_3
+
+
+def down(owner, which, x):
+    """UNFusion's downsample `which` of `owner` (the model or its
+    NestEncoder): its stride-2 conv `down{which}`, or with down_mode
+    'maxpool' a 2x2 max pool, stride 2, VALID, NHWC (JAX
+    ops/layers.max_pool(x, 2, 2))."""
+    if owner.down_mode == "maxpool":
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(
+            0, 2, 3, 1).contiguous()
+    return getattr(owner, f"down{which}")(x)
+
+
+class NestDecoder(nn.Module):
+    """UNFusion's U-Net++ nested decoder (JAX ops/blocks.py:882, its chain
+    route :941-966; reference block.py:836-867): DCB blocks DB1_1 ... DB1_3,
+    each over the legs of its concat (never built), each scale change an x2
+    upsample of the coarser feature repaired to the finer one's size
+    (`upsample`, the chain route's chain_upsample). `num_ch` is UNFusion's
+    (16, 64, 256, 1024)."""
+
+    def __init__(self, num_ch, up_mode="bilinear", generator=None):
+        super().__init__()
+        g, c = generator, num_ch
+        self.up_mode = up_mode
+        self.DB1_1 = DCB(c[0] + c[1], c[0], g)
+        self.DB2_1 = DCB(c[1] + c[2], c[1], g)
+        self.DB3_1 = DCB(c[2] + c[3], c[2], g)
+        self.DB1_2 = DCB(c[0] * 2 + c[1], c[0], g)
+        self.DB2_2 = DCB(c[1] * 2 + c[2], c[1], g)
+        self.DB1_3 = DCB(c[0] * 3 + c[1], c[0], g)
+
+    def forward(self, feats):
+        f0, f1, f2, f3 = feats
+
+        def up(x, like):
+            return upsample(x, 2, self.up_mode, like.shape[1:3])
+        x1_1 = self.DB1_1(_legs(f0, up(f1, f0)))
+        x2_1 = self.DB2_1(_legs(f1, up(f2, f1)))
+        x3_1 = self.DB3_1(_legs(f2, up(f3, f2)))
+        x1_2 = self.DB1_2(_legs(f0, x1_1, up(x2_1, f0)))
+        x2_2 = self.DB2_2(_legs(f1, x2_1, up(x3_1, f1)))
+        return self.DB1_3(_legs(f0, x1_1, x1_2, up(x2_2, f0)))

@@ -28,9 +28,9 @@ no fallback. The kernels are forward-only: on a CUDA tensor with grad mode
 on and an input, weight or bias that requires grad, the wrappers raise
 (training goes through ops/cuda/conv_vjp.py). They are built for
 what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
-and k7 (DeepFuse), `conv_gray_enter` and `conv_gray_exit` k3 and k5, output
-channels a multiple of 16 (but the exit's 1), input and output in one
-dtype. The wrappers raise on anything else.
+and k7 (DeepFuse), `conv_gray_enter` k3 and k5, `conv_gray_exit` k1
+(UNFusion), k3 and k5, output channels a multiple of 16 (but the exit's 1),
+input and output in one dtype. The wrappers raise on anything else.
 """
 
 import ctypes
@@ -250,7 +250,8 @@ def conv_gray_exit(x, weight, bias=None, act=None):
         return conv_gray_exit_plain(x, weight, bias, act)
     check_no_grad("conv_gray_exit", x, weight, bias)
     b, h, w, cin = x.shape
-    k = _check_cuda_args("conv_gray_exit", [x], weight, bias, h, w, (3, 5))
+    k = _check_cuda_args("conv_gray_exit", [x], weight, bias, h, w,
+                          (1, 3, 5))
     if weight.shape[0] != 1 or weight.shape[1] != cin:
         raise ValueError(f"conv_gray_exit: weight {tuple(weight.shape)} "
                          f"does not map {cin} channels to 1")

@@ -31,7 +31,7 @@ from .build import check_launch, check_no_grad, kernel_function, ptr, \
 from .conv_chain import (DTYPE_CODES, act_code, check_tensors,
                          conv_chain_plain, weights_f32)
 
-__all__ = ["concat_legs", "conv_multi", "conv_multi_plain",
+__all__ = ["check_legs", "concat_legs", "conv_multi", "conv_multi_plain",
            "identity_weights", "legs_n_out"]
 
 MAX_LEGS = 8
@@ -78,8 +78,10 @@ def conv_multi_plain(legs, weight, bias=None, act=None, fuse_n=0,
                             act, n_out if fuse_n else 0)
 
 
-def _check(legs, weight, bias, fuse_n, n_out):
-    name = "conv_multi"
+def check_legs(legs, weight, bias, fuse_n, n_out, name="conv_multi",
+               ksizes=(1, 3, 5, 7), co_tile=_CO_TILE):
+    """The multi-leg kernels' contract (conv_multi; conv_wide with its own
+    kernel sizes and output-channel multiple); returns (k, c_out)."""
     if not 1 <= len(legs) <= MAX_LEGS:
         raise ValueError(f"{name}: 1 to {MAX_LEGS} legs, got {len(legs)}")
     tensors = [t for t, _ in legs]
@@ -97,8 +99,8 @@ def _check(legs, weight, bias, fuse_n, n_out):
         raise ValueError(f"{name}: weight must be OIHW with square taps, got "
                          f"{tuple(weight.shape)}")
     k = weight.shape[-1]
-    if k not in (1, 3, 5, 7):
-        raise ValueError(f"{name}: kernel size {k} not built (1, 3, 5, 7)")
+    if k not in ksizes:
+        raise ValueError(f"{name}: kernel size {k} not built {ksizes}")
     if h <= k // 2 or w <= k // 2:
         raise ValueError(f"{name}: reflect padding {k // 2} needs H and W "
                          f"above it, got {h}x{w}")
@@ -107,10 +109,10 @@ def _check(legs, weight, bias, fuse_n, n_out):
         raise ValueError(f"{name}: weight takes {weight.shape[1]} input "
                          f"channels, the legs have {cin}")
     cout = weight.shape[0]
-    if cout % _CO_TILE:
-        raise ValueError(f"{name}: Cout must be a multiple of {_CO_TILE}, "
+    if cout % co_tile:
+        raise ValueError(f"{name}: Cout must be a multiple of {co_tile}, "
                          f"got {cout}")
-    if n_out < 1 or n_out * (cout // _CO_TILE) > _GRID_Z_MAX:
+    if n_out < 1 or n_out * (cout // co_tile) > _GRID_Z_MAX:
         raise ValueError(f"{name}: {n_out} output images in one launch")
     dev = x0.device
     if weight.device != dev or (bias is not None and bias.device != dev):
@@ -128,7 +130,7 @@ def conv_multi(legs, weight, bias=None, act=None, fuse_n=0, n_out=None):
     if legs[0][0].device.type == "cpu":
         return conv_multi_plain(legs, weight, bias, act, fuse_n, n_out)
     check_no_grad("conv_multi", *[t for t, _ in legs], weight, bias)
-    k, cout = _check(legs, weight, bias, fuse_n, n_out)
+    k, cout = check_legs(legs, weight, bias, fuse_n, n_out)
     x0 = legs[0][0]
     h, w = x0.shape[1:3]
     wk, bk = weights_f32(weight, bias)

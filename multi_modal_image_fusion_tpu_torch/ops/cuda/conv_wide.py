@@ -1,0 +1,125 @@
+"""The wide reflect-SAME conv of the C-major chain (csrc/conv_wide.cu) with
+its plain version.
+
+Replaces the TPU kernel `ops/pallas/conv_kernel.py:719 conv_tlane_chain`
+(halo=True): a k x k reflect-SAME conv over the channel concat of several
+input legs, without building the concat, with bias and activation applied
+once in the epilogue, as the JAX package's ConvLayer chain route sums its
+per-part convs (`ops/layers.py:579-591`). A leg is a pair `(tensor, b_off)`:
+an NHWC tensor (B_l, H, W, c_l) read at batch `b + b_off` for output image
+b; with `fuse_n > 0` every leg first adds its sibling at `b + b_off + fuse_n`
+(the siamese 'sum' fusion in the load, rounded to the legs' dtype as a sum
+in that dtype is). The weight is OIHW with its input channels in leg-concat
+order; the output is (n_out, H, W, c_out) in the legs' dtype.
+
+bf16 runs warp-level mma.sync on the tensor cores (bf16 products, f32
+sums); f32 runs f32 FMAs (the conv_chain body), never TF32. Built for k1 and
+k3, c_out a multiple of 8, any channel count per leg, 1 to 8 legs; the
+wrapper raises on anything else, and when an input needs a gradient (the
+kernel is forward-only; the training routes concatenate the legs,
+ops/layers.py).
+
+The plain version (`conv_wide_plain`) is the concat of the legs in batch
+chunks (their fuse_n sum in the legs' dtype), reflect pad and F.conv2d in
+f32, the activation, the cast. CPU tensors take it; a CUDA tensor launches
+the kernel or raises.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .build import check_launch, check_no_grad, kernel_function, stream_handle
+from .conv_chain import DTYPE_CODES, act_code, conv_chain_plain, weights_f32
+from .conv_multi import check_legs, concat_legs, legs_n_out
+
+__all__ = ["conv_wide", "conv_wide_plain", "pack_weights_bf16", "pick_bn"]
+
+KSIZES = (1, 3)
+CO_MULTIPLE = 8
+_CK = 16                   # input channels a staged chunk (csrc/conv_wide.cu)
+_BNS = (64, 32, 16)        # output channels a block, bf16
+_PLAIN_CHUNK = 2 ** 29     # elements of one chunk's padded f32 input
+
+
+def pick_bn(cout):
+    """The bf16 kernel's output-channel block: the one of 16, 32 and 64 that
+    pads c_out least, the larger on a tie."""
+    return min(_BNS, key=lambda bn: -(-cout // bn) * bn)
+
+
+def pack_weights_bf16(weight, cins, bn):
+    """OIHW (c_out, sum cins, k, k) -> (k*k, c_out_pad, cin_pad) bf16: the
+    bf16 kernel's weight rows, each leg's channel block zero-padded to a
+    multiple of 16 and c_out to a multiple of bn."""
+    cout, _, k, _ = weight.shape
+    wf = weight.detach().float()
+    blocks, ofs = [], 0
+    for c in cins:
+        blocks.append(F.pad(wf[:, ofs:ofs + c], (0, 0, 0, 0, 0, -c % _CK)))
+        ofs += c
+    wp = F.pad(torch.cat(blocks, 1), (0, 0, 0, 0, 0, 0, 0, -cout % bn))
+    return wp.permute(2, 3, 0, 1).reshape(k * k, *wp.shape[:2]).to(
+        torch.bfloat16).contiguous()
+
+
+def conv_wide_plain(legs, weight, bias=None, act=None, fuse_n=0, n_out=None):
+    """Plain version of conv_wide: the legs' concat (fuse_n sum in their
+    dtype), then conv_chain_plain (f32 conv, cast back), in batch chunks of
+    at most 2^29 padded input elements."""
+    if n_out is None:
+        n_out = legs_n_out(legs, fuse_n)
+    h, w = legs[0][0].shape[1:3]
+    k = weight.shape[-1]
+    px = (h + k - 1) * (w + k - 1) * max(weight.shape[:2])
+    step = max(1, _PLAIN_CHUNK // px)
+    outs = []
+    for i in range(0, n_out, step):
+        n = min(step, n_out - i)
+        x = concat_legs([(t, off + i) for t, off in legs], fuse_n, n)
+        if fuse_n:
+            x = x[:n] + x[n:]
+        outs.append(conv_chain_plain(x, weight, bias, act))
+        del x
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def conv_wide(legs, weight, bias=None, act=None, fuse_n=0, n_out=None):
+    """Reflect-SAME conv over the channel concat of `legs` = [(x_l, b_off_l),
+    ...]; weight OIHW (c_out, sum c_l, k, k). Output (n_out, H, W, c_out) in
+    the legs' dtype; n_out defaults to `legs_n_out(legs, fuse_n)`."""
+    legs = [(t, int(off)) for t, off in legs]
+    if n_out is None:
+        n_out = legs_n_out(legs, fuse_n)
+    if legs[0][0].device.type == "cpu":
+        return conv_wide_plain(legs, weight, bias, act, fuse_n, n_out)
+    check_no_grad("conv_wide", *[t for t, _ in legs], weight, bias)
+    k, cout = check_legs(legs, weight, bias, fuse_n, n_out, "conv_wide",
+                         KSIZES, CO_MULTIPLE)
+    x0 = legs[0][0]
+    h, w = x0.shape[1:3]
+    cins = [t.shape[-1] for t, _ in legs]
+    if x0.dtype == torch.bfloat16:
+        bn = pick_bn(cout)
+        wk = pack_weights_bf16(weight, cins, bn)
+        bk = None if bias is None else bias.detach().float().contiguous()
+    else:
+        bn = 0
+        wk, bk = weights_f32(weight, bias)
+    y = torch.empty((n_out, h, w, cout), dtype=x0.dtype, device=x0.device)
+    nl = len(legs)
+    xs = (ctypes.c_void_p * nl)(*[t.data_ptr() for t, _ in legs])
+    cin_arr = (ctypes.c_int * nl)(*cins)
+    offs = (ctypes.c_int * nl)(*[off for _, off in legs])
+    I, P = ctypes.c_int, ctypes.c_void_p
+    fn = kernel_function("mmif_conv_wide",
+                         [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
+    with torch.cuda.device(x0.device):
+        err = fn(DTYPE_CODES[x0.dtype], nl, ctypes.cast(xs, P),
+                 ctypes.cast(cin_arr, P), ctypes.cast(offs, P),
+                 P(wk.data_ptr()), None if bk is None else P(bk.data_ptr()),
+                 P(y.data_ptr()), n_out, h, w, cout, k, bn, fuse_n,
+                 act_code(act), stream_handle(x0.device))
+    check_launch("conv_wide", err)
+    return y

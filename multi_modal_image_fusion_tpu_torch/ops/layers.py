@@ -1,13 +1,14 @@
 """Conv layer of the port (counterpart of multi_modal_image_fusion_tpu
-ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d, and the
-fast-training scope and routes, :34-56 and :695-755).
+ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d, 842-898
+interpolate, and the fast-training scope and routes, :34-56 and :695-755).
 
-The port carries the part the ported models use: stride-1 reflect-SAME
-k x k convs, dense or depthwise (groups == in_ch == out_ch), with or without
-bias, and one of the kernel-fusable activations (relu, relu6, lrelu 0.2,
-tanh, none). Tensors are NHWC at the boundary. Parameters are named as in
-the reference state dict (`layers.0.weight` OIHW, `layers.0.bias`; no bias
-key when use_bias=False), so reference `.pth` files load directly.
+The port carries the part the ported models use: reflect-SAME k x k convs,
+dense or depthwise (groups == in_ch == out_ch), stride 1 or (dense) 2, with
+or without bias, and one of the kernel-fusable activations (relu, relu6,
+lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters are
+named as in the reference state dict (`layers.0.weight` OIHW,
+`layers.0.bias`; no bias key when use_bias=False), so reference `.pth`
+files load directly.
 
 A layer takes one tensor, or a list of legs `[(tensor, b_off), ...]` whose
 channels concatenate to its input (the JAX package's multi-leg convs,
@@ -16,11 +17,16 @@ building the concat.
 
 Routes of a conv:
 
+- a stride-2 layer: reflect pad, then F.conv2d(stride=2) on every route,
+  as the JAX package runs it on XLA's conv (ops/layers.py:747-755);
 - serving (no `fast_training` scope and no gradient needed): the forward-only
-  kernels of ops/cuda/ on CUDA tensors (a list of legs runs `conv_multi`;
-  on one tensor the c_in=1 layer runs `conv_gray_enter`, the c_out=1 layer
-  `conv_gray_exit`, every other layer `conv_chain`), their plain versions
-  on CPU tensors; a depthwise layer runs `conv_dw`, which reads a channel
+  kernels of ops/cuda/ on CUDA tensors, their plain versions on CPU tensors.
+  A `wide` layer (a call site of the JAX package's C-major chain conv
+  conv_tlane_chain: UNFusion's nested decoder and encoder k1 convs, DBNet's
+  decoder) runs `conv_wide` on one tensor or a list of legs. Otherwise a
+  list of legs runs `conv_multi`; on one tensor the c_in=1 layer runs
+  `conv_gray_enter`, the c_out=1 layer `conv_gray_exit`, every other layer
+  `conv_chain`; a depthwise layer runs `conv_dw`, which reads a channel
   window of a wider tensor in place (`depthwise`);
 - training (inside a `fast_training` scope, which the trainer opens around
   its steps, or whenever a gradient is needed): reflect pad, then
@@ -44,15 +50,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .cuda.conv_chain import (ACT_CODES, apply_act, conv_chain,
+from .cuda.conv_chain import (ACT_CODES, apply_act, batch_step, conv_chain,
                               conv_gray_enter, conv_gray_exit)
 from .cuda.conv_dw import conv_dw
 from .cuda.conv_multi import concat_legs, conv_multi, legs_n_out
 from .cuda.conv_valid import conv_valid
 from .cuda.conv_vjp import conv_valid_fast
+from .cuda.conv_wide import conv_wide
 
 __all__ = ["ACT_CODES", "ConvLayer", "apply_act", "fast_training",
-           "init_conv_"]
+           "init_conv_", "interpolate"]
+
+INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
 
 # None: no trainer scope (serving); False / True: the trainer's steps, on
 # F.conv2d / on the conv_valid kernels
@@ -107,11 +116,12 @@ class _Conv(nn.Module):
 
 
 class ConvLayer(nn.Module):
-    """Stride-1 reflect-SAME conv (+ bias) + activation, NHWC. groups is 1
-    or, for a depthwise layer, in_ch == out_ch."""
+    """Reflect-SAME conv (+ bias) + activation, NHWC. groups is 1 or, for a
+    depthwise layer, in_ch == out_ch; stride 1, or 2 for a dense layer;
+    `wide` sends the serving route to conv_wide (module docstring)."""
 
     def __init__(self, in_ch, out_ch, ksize=3, act="relu", groups=1,
-                 use_bias=True, generator=None):
+                 use_bias=True, generator=None, stride=1, wide=False):
         super().__init__()
         if act not in ACT_CODES:
             raise ValueError(f"activation {act!r} not ported (one of "
@@ -121,8 +131,11 @@ class ConvLayer(nn.Module):
         if groups != 1 and not groups == in_ch == out_ch:
             raise ValueError(f"groups={groups}: only dense (1) or depthwise "
                              f"(groups == in_ch == out_ch) convs are ported")
+        if stride not in (1, 2) or (stride == 2 and (groups != 1 or wide)):
+            raise ValueError(f"stride={stride}: only stride 1, or 2 for a "
+                             f"dense layer off the wide route, is ported")
         self.in_ch, self.out_ch, self.ksize, self.act = in_ch, out_ch, ksize, act
-        self.groups = groups
+        self.groups, self.stride, self.wide = groups, stride, wide
         self.layers = nn.ModuleList([_Conv(in_ch, out_ch, ksize, groups,
                                            use_bias)])
         init_conv_(self.layers[0].weight, self.layers[0].bias, act, generator)
@@ -184,8 +197,13 @@ class ConvLayer(nn.Module):
             return self._forward_legs(x, fuse_n)
         if self.groups != 1:
             return self.depthwise(x)
+        if self.stride != 1:
+            return self._strided(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
         if self._training_route(x):
             return self._train_conv(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
+        if self.wide:
+            return conv_wide([(x, 0)], self.weight, self.bias, self.act,
+                             fuse_n)
         if self.in_ch == 1 and not fuse_n:
             return self.enter(x)
         if self.out_ch == 1 and not fuse_n:
@@ -201,15 +219,53 @@ class ConvLayer(nn.Module):
             return self._train_conv(xw if add is None else xw + add)
         return conv_dw(x, self.weight, self.bias, self.act, lo, add)
 
+    def _strided(self, x):
+        """The stride-2 conv: reflect pad k // 2, F.conv2d in x's dtype,
+        bias and activation, in batch chunks of `batch_step` images."""
+        p = self.ksize // 2
+        b, h, w, c = x.shape
+        step = batch_step(h, w, max(c, self.out_ch), self.ksize)
+        wt = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        outs = []
+        for i in range(0, b, step):
+            xp = F.pad(x[i:i + step].permute(0, 3, 1, 2), (p, p, p, p),
+                       mode="reflect")
+            y = F.conv2d(xp, wt, bias, stride=self.stride)
+            outs.append(apply_act(y, self.act).permute(0, 2, 3, 1))
+        return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
+
     def _forward_legs(self, legs, fuse_n):
         n_out = legs_n_out(legs, fuse_n)
-        if self._training_route(*[t for t, _ in legs]):
+        if self.stride != 1 or self._training_route(*[t for t, _ in legs]):
             x = concat_legs(legs, fuse_n, n_out)
-            return self._train_conv(x[:n_out] + x[n_out:] if fuse_n else x)
-        return conv_multi(legs, self.weight, self.bias, self.act, fuse_n,
-                          n_out)
+            return self(x[:n_out] + x[n_out:] if fuse_n else x)
+        kernel = conv_wide if self.wide else conv_multi
+        return kernel(legs, self.weight, self.bias, self.act, fuse_n, n_out)
 
     def extra_repr(self):
         return (f"{self.in_ch}, {self.out_ch}, ksize={self.ksize}, "
                 f"act={self.act!r}, groups={self.groups}, "
+                f"stride={self.stride}, wide={self.wide}, "
                 f"bias={self.bias is not None}")
+
+
+def interpolate(x, scale_factor, mode="nearest"):
+    """torch nn.Upsample on NHWC: 'nearest' (each pixel repeated) or
+    'bilinear' with align_corners=True (JAX ops/layers.py:842-898, reference
+    core/block.py:965-973). The bilinear weights stay f32 whatever x's dtype
+    (the JAX package rounds them to it)."""
+    if mode == "nearest":
+        return x.repeat_interleave(scale_factor, dim=1).repeat_interleave(
+            scale_factor, dim=2)
+    if mode == "bilinear":
+        # torch's NHWC bilinear kernel takes outputs under 2^31 elements:
+        # batch chunks (DBNet's x8 upsample of 32 images is 2.6e9)
+        b, h, w, c = x.shape
+        step = max(1, INT32_ELEMS // (h * w * c * scale_factor ** 2))
+        outs = [F.interpolate(x[i:i + step].permute(0, 3, 1, 2),
+                              scale_factor=scale_factor, mode="bilinear",
+                              align_corners=True).permute(0, 2, 3, 1)
+                for i in range(0, b, step)]
+        return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
+    raise ValueError(f"unknown interpolate mode {mode!r}")

@@ -1,10 +1,11 @@
 """Weight carry from the JAX package's variables to the port's state dict:
 the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
-(`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, `_res2_block`
-:109-119, the DeepFuse, DenseFuse, VIFNet and Res2Fusion mappings
-:365-377 and :441-445).
+(`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, `_conv_block`
+:92-95, `_res2_block` :109-119, `_nest_decoder` :223-225, the DeepFuse,
+DenseFuse, VIFNet, DBNet, Res2Fusion and UNFusion mappings :365-384,
+:441-445 and :464-478).
 
-Input is the JAX variables as a nested dict of numpy arrays,
+Input is the JAX variables as a nested dict of numpy arrays, to any depth,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}}` (e.g. from
 `flax.serialization.msgpack_restore` of a JAX checkpoint). Output is a
 `{name: torch.Tensor}` state dict with the reference names and OIHW conv
@@ -30,10 +31,33 @@ def _res2_block(name, scale):
         f"{name}/dwconv{i}": f"{name}.dwconvs.{i}" for i in range(scale)}
 
 
+def _dense_block(name, prefix):
+    return {f"{name}/conv{i}": f"{prefix}.layers.{i}" for i in range(3)}
+
+
+def _conv_block(name, prefix):
+    """ConvBlock / ECB / DCB: conv1, conv2 -> layers.0, layers.1."""
+    return {f"{name}/conv{i + 1}": f"{prefix}.layers.{i}" for i in range(2)}
+
+
+def _unfusion():
+    """UNFusion in stride mode (maxpool mode has no down convs: their
+    entries are skipped when the JAX tree lacks them)."""
+    m = {"conv_out": "conv_out",
+         **{f"CB{i}_0": f"CB{i}_0" for i in range(1, 5)},
+         **{f"down{i}": f"down{i}" for i in (1, 2, 3)},
+         **{f"encode/down{i}": f"encode.down{i}" for i in (1, 2, 3)}}
+    for n in ("EB2_1", "EB3_1", "EB4_1", "EB3_2", "EB4_2", "EB4_3"):
+        m |= _conv_block(f"encode/{n}", f"encode.{n}")
+    for n in ("DB1_1", "DB2_1", "DB3_1", "DB1_2", "DB2_2", "DB1_3"):
+        m |= _conv_block(f"decode/{n}", f"decode.{n}")
+    return m
+
+
 # flax submodule path -> reference state-dict prefix, per ported model
-_DENSE_ENCODER = {"conv_in": "encode.0",
-                  **{f"dense/conv{i}": f"encode.1.layers.{i}"
-                     for i in range(3)}}
+_DENSE_ENCODER = {"conv_in": "encode.0", **_dense_block("dense", "encode.1")}
+_OPTIONAL = {"unfusion": {f"{p}down{i}" for p in ("", "encode/")
+                          for i in (1, 2, 3)}}
 _LAYOUTS = {
     "deepfuse": {"enc0": "encode.0", "enc1": "encode.1", "dec0": "decode.0",
                  "dec1": "decode.1", "dec2": "decode.2"},
@@ -44,6 +68,11 @@ _LAYOUTS = {
     "res2fusion": {"conv_in": "conv_in",
                    **_res2_block("RB1", 4), **_res2_block("RB2", 8),
                    **{f"dec{i}": f"decode.{i}" for i in range(4)}},
+    "dbnet": {"conv_in": "encode", "detail0": "detail.0",
+              **_dense_block("detail1", "detail.1"),
+              **{f"semantic{i}": f"semantic.{i}" for i in range(3)},
+              **{f"dec{i}": f"decode.{i}" for i in range(4)}},
+    "unfusion": _unfusion(),
 }
 
 
@@ -56,12 +85,16 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
     name = model_name.lower()
     if name not in _LAYOUTS:
         raise NotImplementedError(f"no weight carry for {model_name!r} yet")
-    params = {k: dict(v) for k, v in variables["params"].items()}
+    params = _copy_tree(variables["params"])
     sd = {}
     for flax_path, prefix in _LAYOUTS[name].items():
         *outer, flax_name = flax_path.split("/")
-        parent = params[outer[0]] if outer else params
-        leaf = dict(parent.pop(flax_name))
+        parent = params
+        for key in outer:
+            parent = parent[key]
+        if flax_name not in parent and flax_path in _OPTIONAL.get(name, ()):
+            continue
+        leaf = parent.pop(flax_name)
         sd[f"{prefix}.layers.0.weight"] = torch.from_numpy(
             _oihw(np.asarray(leaf.pop("kernel"), np.float32)))
         if "bias" in leaf:
@@ -70,10 +103,26 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
         if leaf:
             raise ValueError(f"unconverted leaves under {flax_name}: "
                              f"{sorted(leaf)}")
-    left = sorted(k for k, v in params.items() if v)
+    left = _leaf_paths(params)
     if left:
         raise ValueError(f"unconverted JAX params: {left}")
     return sd
+
+
+def _copy_tree(tree):
+    """The nested dicts of a JAX tree copied (the arrays shared)."""
+    return {k: _copy_tree(v) if hasattr(v, "items") else v
+            for k, v in tree.items()}
+
+
+def _leaf_paths(tree, prefix=""):
+    """Slash-joined paths of the arrays left in a nested dict."""
+    out = []
+    for k, v in sorted(tree.items()):
+        path = f"{prefix}{k}"
+        out += (_leaf_paths(v, path + "/") if hasattr(v, "items")
+                else [path])
+    return out
 
 
 def jax_train_state_to_torch(state, model_name="deepfuse"):

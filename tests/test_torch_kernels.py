@@ -710,3 +710,152 @@ def test_res2fusion_on_card_matches_cpu(cuda, key):
         got = model.to(cuda)(x1.to(cuda), None if x2 is None else x2.to(cuda))
     assert dict(build.LAUNCHES) == _RES2_LAUNCHES[key]
     _close(got.cpu(), want, torch.float32)
+
+
+# conv_wide (csrc/conv_wide.cu). Tolerances relative to max|y| of the plain
+# version on the same inputs (bf16 weights and inputs for bf16): f32 1e-4;
+# bf16 1e-3 beyond one bf16 ulp of each output (both round an f32 sum to
+# bf16, and a sum taken in another order can land on the neighbouring
+# value, 2^-7 of it). A control must miss by 10x that: the kernel with the
+# kh/kw taps transposed, with two legs of one width swapped, and with leg
+# 0's images in reverse order.
+WIDE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# (name, legs' channels, c_out, k, fuse_n, images out, h, w)
+WIDE_CASES = [
+    ("DB3_1.conv1", [256, 1024], 640, 3, 0, 2, 306, 256),
+    ("DB1_3.conv1", [16, 16, 16, 64], 56, 3, 0, 1, 1224, 1024),
+    ("odd", [40, 24, 40], 40, 3, 0, 2, 45, 61),
+    ("EB4_3.conv1.k1", [64, 128, 304, 256], 376, 1, 0, 2, 19, 16),
+    ("dbnet.dec0", [16, 16, 16, 16, 64], 64, 3, 2, 2, 45, 61),
+    ("cout8", [24, 24], 8, 3, 0, 2, 20, 70),
+]
+
+
+def _drand(shape, seed, dev, dtype):
+    """Centred uniform [-1, 1), drawn on the device."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(shape, generator=g, device=dev) * 2 - 1).to(dtype)
+
+
+def _wide_rel(got, want, dtype):
+    """max |got - want| relative to max|want|; in bf16, beyond one bf16 ulp
+    of each output."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    d = (got - want).abs()
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(
+            min=1e-30))) - 7)
+        d = (d - ulp).clamp(min=0)
+    return float(d.max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
+def test_conv_wide(cuda, case, dt):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
+        conv_wide, conv_wide_plain)
+    name, cins, cout, k, fuse_n, n, h, w = case
+    dtype = DTYPES[dt]
+    b = 2 * n if fuse_n else n
+    legs = [(_drand((b, h, w, c), 200 + i, cuda, dtype), 0)
+            for i, c in enumerate(cins)]
+    cin = sum(cins)
+    wt = (_drand((cout, cin, k, k), 210, cuda, torch.float32)
+          / np.sqrt(cin * k * k)).to(dtype)
+    bias = _drand((cout,), 211, cuda, torch.float32) * 0.1
+    before = build.LAUNCHES["conv_wide"]
+    got = conv_wide(legs, wt, bias, "relu", fuse_n)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_wide"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, h, w, cout)
+    want = conv_wide_plain(legs, wt, bias, "relu", fuse_n)
+    tol = WIDE_TOL[dtype]
+    assert _wide_rel(got, want, dtype) <= tol
+    controls = []
+    if k > 1:
+        controls.append(conv_wide(legs, wt.transpose(2, 3), bias, "relu",
+                                  fuse_n))
+    same = [(i, j) for i in range(len(cins)) for j in range(i + 1, len(cins))
+            if cins[i] == cins[j]]
+    if same:
+        i, j = same[0]
+        swapped = list(legs)
+        swapped[i], swapped[j] = legs[j], legs[i]
+        controls.append(conv_wide(swapped, wt, bias, "relu", fuse_n))
+    if b > 1:                             # leg 0 read at the other images
+        controls.append(conv_wide([(legs[0][0].flip(0), 0)] + legs[1:], wt,
+                                  bias, "relu", fuse_n))
+    assert controls
+    for ctl in controls:
+        assert _wide_rel(ctl, want, dtype) > 10 * tol
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["relu6", "lrelu", "tanh", None])
+def test_conv_wide_activations(cuda, act, dt):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
+        conv_wide, conv_wide_plain)
+    dtype = DTYPES[dt]
+    legs = [(_drand((2, 17, 70, 40), 220, cuda, dtype), 0),
+            (_drand((2, 17, 70, 24), 221, cuda, dtype), 0)]
+    wt = (_drand((48, 64, 3, 3), 222, cuda, torch.float32) / 24).to(dtype)
+    bias = _drand((48,), 223, cuda, torch.float32)
+    got = conv_wide(legs, wt, bias, act)
+    assert _wide_rel(got, conv_wide_plain(legs, wt, bias, act),
+                     dtype) <= WIDE_TOL[dtype]
+
+
+def test_conv_wide_raises(cuda):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
+        conv_wide
+    x = _drand((2, 16, 16, 16), 230, cuda, torch.float32)
+    with pytest.raises(ValueError):       # k5 is not built
+        conv_wide([(x, 0)], torch.zeros((16, 16, 5, 5), device=cuda))
+    with pytest.raises(ValueError):       # Cout not a multiple of 8
+        conv_wide([(x, 0)], torch.zeros((12, 16, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # at most 8 legs
+        conv_wide([(x, 0)] * 9, torch.zeros((16, 144, 3, 3), device=cuda))
+    with pytest.raises(TypeError):
+        conv_wide([(x.half(), 0)], torch.zeros((16, 16, 3, 3), device=cuda))
+    wt = torch.zeros((16, 16, 3, 3), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        conv_wide([(x, 0)], wt)
+    with torch.no_grad():
+        conv_wide([(x, 0)], wt)
+
+
+# launches of one forward: (model, config, autoencoder) -> counts
+_WIDE_MODEL_LAUNCHES = {
+    ("dbnet", "sum", False): {"conv_gray_enter": 1, "conv_chain": 1,
+                              "conv_multi": 3, "conv_wide": 3,
+                              "conv_gray_exit": 1},
+    ("dbnet", "avg", False): {"conv_gray_enter": 1, "conv_chain": 1,
+                              "conv_multi": 3, "conv_wide": 3,
+                              "conv_gray_exit": 1},
+    ("dbnet", "sum", True): {"conv_gray_enter": 1, "conv_chain": 1,
+                             "conv_multi": 3, "conv_wide": 3,
+                             "conv_gray_exit": 1},
+    ("unfusion", "wavg", False): {"conv_gray_enter": 1, "conv_chain": 9,
+                                  "conv_wide": 18, "conv_gray_exit": 1},
+    ("unfusion", "wavg", True): {"conv_gray_enter": 1, "conv_chain": 9,
+                                 "conv_wide": 18, "conv_gray_exit": 1},
+}
+
+
+@pytest.mark.parametrize("key", sorted(_WIDE_MODEL_LAUNCHES, key=str))
+def test_wide_models_on_card_match_cpu(cuda, key):
+    """DBNet and UNFusion through the kernels against the same weights on
+    the CPU's plain path, f32, odd size, with exact launch counts."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    name, mode, ae = key
+    model = create_model(name, fusion_mode=mode,
+                         generator=torch.Generator().manual_seed(6)).eval()
+    x1 = _rand((2, 45, 57, 1), 98, "cpu", lo=0.0)
+    x2 = None if ae else _rand((2, 45, 57, 1), 99, "cpu", lo=0.0)
+    with torch.no_grad():
+        want = model(x1, x2)
+        build.LAUNCHES.clear()
+        got = model.to(cuda)(x1.to(cuda), None if x2 is None else x2.to(cuda))
+    assert dict(build.LAUNCHES) == _WIDE_MODEL_LAUNCHES[key]
+    _close(got.cpu(), want, torch.float32)
