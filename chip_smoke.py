@@ -93,6 +93,20 @@ and a DBNet forward at 1224x1024, bf16 at the bench's 16 pairs and f32 at
 the test CLI's pair, checked and timed beside the plain version and one
 F.conv2d on the padded concat (the concat and the pad timed apart).
 
+Phase 3 also holds the int8 kernels (rows 11 and 12) against their plain
+versions (the exact integer conv in float64 and the same one-rounding
+epilogue): conv_int8_chain at DeepFuse's chain legs (enc1 to an
+int8-resident output, dec0 on int8 input with fuse_n to int8, dec1 on int8
+input; enc1 and dec0 without resident hops) at 1224x1024, bf16 16 pairs
+and f32 one pair; conv_int8 at DeepFuse's five layers, DenseFuse's eight
+and UNFusion's DB3_1 conv1 (bf16 16 pairs; DeepFuse also f32 one pair).
+int8 outputs must be equal, f32 within 1e-6 of max|y|, bf16 within one
+bf16 ulp of each output; controls (taps transposed, the fold left out of
+the weights, one fuse_n half's images in reverse order) must miss by more
+than 1e-2 of max|y|. Input channel ranges span 100x so the fold matters.
+Times beside the plain version, one torch._int_mm on the im2col'd int8
+input (the unfold timed apart) and one bf16 F.conv2d on the padded input.
+
 Later paths, each with every count set to 0 just before it and read just
 after, with exact counts: the eval CLI in both sheet layouts over the 51
 NN.bmp files phase 4's test CLI dumped (8 moments and 12 ssim_maps
@@ -114,7 +128,16 @@ memory), each held to the BASELINE contract on its last batch: mean SSIM
 and Qabf within 1e-3 of the f32 forward (VIFNet too; the gap to the bf16
 forward through F.conv2d is printed beside it), Res2Fusion, DBNet and
 UNFusion with a profiled forward split by kernel group. The DeepFuse
-contract of phase 5 holds Qabf too.
+contract of phase 5 holds Qabf too. Then int8: the test CLI --int8 on the
+51 pairs (f32; the calibration line; 4 calibration forwards on the float
+kernels, then 1 enter + 3 conv_int8_chain + 1 exit a pair; the kernel
+path equal to the plain int8 path on the card over 6 pairs, within 2e-2
+max and 1e-4 mean of max|y|), and the bench --int8 of DeepFuse, DenseFuse
+and UNFusion (16 pairs; its calibration forward counted apart, then
+exactly 1 enter + 3 conv_int8_chain + 1 exit, 8 and 29 conv_int8 a
+forward; peak memory), each with its quality gap (mean SSIM and Qabf of
+int8 against the f32 and the bf16 forwards; DeepFuse with
+MMIF_HIW_INT8_RES=1 and 0), reported and not gated.
 
 Prints the `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs one card; exits non-zero without one.
@@ -139,7 +162,7 @@ REPS = 3
 CLI_PAIRS = 51        # the first is the CLI's warmup
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 
 
@@ -1507,6 +1530,475 @@ def eval_path(torch, build, root):
 
 
 
+# ---------------------------------------------------------------------------
+# int8 inference (rows 11 and 12): conv_int8 and conv_int8_chain
+# ---------------------------------------------------------------------------
+
+INT8_REPLACES = {
+    "conv_int8": "multi_modal_image_fusion_tpu/ops/pallas/conv_int8.py:219 "
+                 "(conv_tlane_dma_q; pallas_call :263)",
+    "conv_int8_chain": "multi_modal_image_fusion_tpu/ops/pallas/"
+                       "hiw_int8.py:260 (conv_hiw_chain_q; pallas_call :354)"}
+# int8 checks against the plain versions: int8 outputs equal; f32 within
+# 1e-6 of max|y|; bf16 within one bf16 ulp of each output (the integer dot
+# is exact on both sides and both round the multiply-add once). A control
+# (taps transposed; the fold left out of the weights; one fuse_n half's
+# images in reverse order) must miss by more than 1e-2 of max|y|: 10x the
+# 1e-3 quality budget.
+INT8_TOL = {"f32": 1e-6, "bf16": 0.0, "int8": 0.0}
+INT8_CONTROL = 1e-2
+# DeepFuse's chain legs: (name, c_in, c_out, k, fuse, input, output);
+# input/output "int8" is an int8-resident hop
+CHAIN_CASES = [("enc1", 16, 32, 7, False, "float", "int8"),
+               ("dec0", 32, 32, 7, True, "int8", "int8"),
+               ("dec1", 32, 16, 5, False, "int8", "float"),
+               ("enc1.nonres", 16, 32, 7, False, "float", "float"),
+               ("dec0.nonres", 32, 32, 7, True, "float", "float")]
+# ConvLayer-route layers: (name, c_in, c_out, k, act, images per pair, h, w)
+ROW11_CASES = [
+    ("deepfuse.enc0", 1, 16, 5, "relu", 2, H, W),
+    ("deepfuse.enc1", 16, 32, 7, "relu", 2, H, W),
+    ("deepfuse.dec0", 32, 32, 7, "relu", 1, H, W),
+    ("deepfuse.dec1", 32, 16, 5, "relu", 1, H, W),
+    ("deepfuse.dec2", 16, 1, 5, None, 1, H, W),
+    ("densefuse.conv_in", 1, 16, 3, "relu", 2, H, W),
+    ("densefuse.dense0", 16, 16, 3, "relu", 2, H, W),
+    ("densefuse.dense1", 32, 16, 3, "relu", 2, H, W),
+    ("densefuse.dense2", 48, 16, 3, "relu", 2, H, W),
+    ("densefuse.dec0", 64, 64, 3, "relu", 1, H, W),
+    ("densefuse.dec1", 64, 32, 3, "relu", 1, H, W),
+    ("densefuse.dec2", 32, 16, 3, "relu", 1, H, W),
+    ("densefuse.dec3", 16, 1, 3, None, 1, H, W),
+    ("unfusion.DB3_1.conv1", 1280, 640, 3, "relu", 1, 306, 256)]
+
+
+def _int8_err(torch, got, want, kind):
+    """(max abs err, max err / max|want|) of kernel against plain; bf16
+    beyond one bf16 ulp of each output."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite kernel output")
+    d = (g - w).abs()
+    if kind == "bf16":
+        d = (d - torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp(min=1e-30))) - 7)).clamp(min=0)
+    err = float(d.max())
+    return err, err / max(float(w.abs().max()), 1e-30)
+
+
+def _channel_spread(torch, c, dev):
+    """Per-channel input scales spanning 100x (10^-1.5 to 10^0.5, in a
+    fixed shuffled order), as feature channels do: with equal channel
+    ranges the smooth fold is nearly constant, and a check could not tell
+    a folded from an unfolded weight."""
+    s = torch.logspace(-1.5, 0.5, c, device=dev)
+    return s[torch.randperm(c, generator=torch.Generator().manual_seed(c))
+             .to(dev)]
+
+
+def _int_mm_library(torch, F, timer, q, qw):
+    """One torch._int_mm on the im2col'd int8 input (K and N padded to
+    multiples of 8), in chunks of whole images of at most 2^30 int8
+    elements: (summed _int_mm ms, summed unfold ms, calls)."""
+    cout, cin, k, _ = qw.shape
+    p = k // 2
+    b, h, w, _ = q.shape
+    kk = cin * k * k
+    kp, npad = -(-kk // 8) * 8, max(8, -(-cout // 8) * 8)
+    wm = torch.zeros((kp, npad), dtype=torch.int8, device=q.device)
+    wm[:kk, :cout] = qw.reshape(cout, kk).t()
+    step = max(1, 2 ** 30 // (h * w * kp))
+
+    def unfold(sl):
+        x = q[sl].permute(0, 3, 1, 2).to(torch.bfloat16)   # exact: |q| <= 127
+        if p:
+            x = F.pad(x, (p, p, p, p), mode="reflect")
+        a = F.unfold(x, k).permute(0, 2, 1).reshape(-1, kk)
+        return F.pad(a, (0, kp - kk)).to(torch.int8).contiguous()
+    mm_ms = unfold_ms = 0.0
+    calls = 0
+    for i in range(0, b, step):
+        sl = slice(i, i + step)
+        a = unfold(sl)
+        mm_ms += timer(lambda: torch._int_mm(a, wm))
+        unfold_ms += timer(lambda: unfold(sl))
+        calls += 1
+        del a
+    return mm_ms, unfold_ms, calls
+
+
+def check_int8(torch, F, dev, timer):
+    """Phase 3 for rows 11 and 12: conv_int8_chain at DeepFuse's chain legs
+    and conv_int8 at DeepFuse's five, DenseFuse's eight and UNFusion's
+    DB3_1 conv1 layers, against their plain versions (the exact integer
+    conv) at 1224x1024 (bf16, the bench's 16 pairs; f32, the test CLI's
+    pair), with the controls, and timed at the bench's shapes beside the
+    plain version, one torch._int_mm on the im2col'd input (the unfold
+    timed apart) and one bf16 F.conv2d on the padded input (the pad timed
+    apart). Returns {kernel: record}."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8, conv_int8_chain, conv_int8_chain_plain, conv_int8_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.quant import (
+        choose_fold, fold_weights, quantize_weights)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    recs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                   "min_control_rel_err": float("inf"),
+                   "tolerance_rel": INT8_TOL,
+                   "control_must_exceed_rel": INT8_CONTROL, "layers": {}}
+            for name in ("conv_int8", "conv_int8_chain")}
+
+    def layer(cin, cout, k, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w = (torch.rand((cout, cin, k, k), generator=g, device=dev) * 2 - 1) \
+            / np.sqrt(cin * k * k)
+        bias = (torch.rand((cout,), generator=g, device=dev) * 2 - 1) * 0.1
+        return w, bias
+
+    def note(kern, key, got, want, kind, controls):
+        r = recs[kern]
+        err, rel = _int8_err(torch, got, want, kind)
+        if rel > INT8_TOL[kind]:
+            raise AssertionError(f"{kern} {key}: max err {err} is {rel:.3g} "
+                                 f"of max|y|, above {INT8_TOL[kind]}")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        for what, y in controls.items():
+            c = _int8_err(torch, y, want, "f32")[1]
+            if c <= INT8_CONTROL:
+                raise AssertionError(f"{kern} {key}: the control ({what}) "
+                                     f"misses by {c:.3g} only")
+            r["min_control_rel_err"] = min(r["min_control_rel_err"], c)
+        print(f"{kern} {key}: err {rel:.3g}; controls "
+              f"{ {k: round(_int8_err(torch, y, want, 'f32')[1], 4) for k, y in controls.items()} }",
+              flush=True)
+
+    def timing(kern, key, run, plain, q, qw, x_float, bias, nbytes, ops):
+        k = qw.shape[-1]
+        mm_ms, unfold_ms, calls = _int_mm_library(torch, F, timer, q, qw)
+        xn = x_float.permute(0, 3, 1, 2)
+        parts, xp = _library_parts(F, xn, k, qw.shape[0])
+        wb = qw.to(torch.bfloat16)
+        bb = None if bias is None else bias.to(torch.bfloat16)
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_FLOPS["int8"]
+        recs[kern]["layers"][key] = {
+            "ms": timer(run), "plain_ms": timer(plain),
+            "library_ms": mm_ms, "library_unfold_ms": unfold_ms,
+            "library_calls": calls,
+            "library_conv_bf16_ms": timer(lambda: [F.conv2d(t, wb, bb)
+                                                   for t in xp]),
+            "library_pad_ms": timer(lambda: [
+                F.pad(xn[sl], (k // 2,) * 4, mode="reflect")
+                for sl in parts]),
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b > t_o else "operations",
+            "tops": ops / 1e12}
+        del xp
+
+    # row 12: DeepFuse's chain legs
+    for dt, pairs in (("bf16", BATCH), ("f32", 1)):
+        dtype = dts[dt]
+        for name, cin, cout, k, fuse, src, dst in CHAIN_CASES:
+            n = pairs
+            b_in = 2 * n if (fuse or name.startswith("enc1")) else n
+            b_out = n if fuse else b_in
+            w, bias = layer(cin, cout, k, 200 + cin + k)
+            g = torch.Generator(device=dev).manual_seed(210 + cout)
+            xf = ((torch.rand((b_in, H, W, cin), generator=g, device=dev)
+                   * 2 - 0.5) * _channel_spread(torch, cin, dev)).to(dtype)
+            amax = (xf[:n].float() + xf[n:].float() if fuse
+                    else xf.float()).abs().amax(dim=(0, 1, 2))
+            f = choose_fold(amax, w)
+            qw, sw = quantize_weights(fold_weights(w, f))
+            invf = 1.0 / f
+            if src == "int8":
+                x = torch.randint(-127, 128, (b_in, H, W, cin), generator=g,
+                                  device=dev, dtype=torch.int8)
+            else:
+                x = xf
+            out_int8 = dst == "int8"
+            dq, b = sw, bias
+            if out_int8:    # requant onto a grid that spans the outputs
+                y = conv_int8_chain_plain(x, qw, sw, bias, "relu", invf,
+                                          n if fuse else 0, out_dtype=dtype)
+                f_next = y.float().abs().amax(dim=(0, 1, 2)).clamp(
+                    min=1e-3) / 127.0
+                dq, b = sw / f_next, bias / f_next
+                del y
+            fuse_n = n if fuse else 0
+
+            def run(qw=qw, x=x):
+                return conv_int8_chain(x, qw, dq, b, "relu", invf, fuse_n,
+                                       out_int8, dtype)
+
+            def plain():
+                return conv_int8_chain_plain(x, qw, dq, b, "relu", invf,
+                                             fuse_n, out_int8, dtype)
+            want = plain()
+            qw0, _ = quantize_weights(w)
+            ctl = {"taps transposed": run(qw.transpose(2, 3).contiguous()),
+                   "fold left out": run(qw0)}
+            if fuse and n > 1:
+                ctl["one half reversed"] = run(x=torch.cat(
+                    [x[:n], x[n:].flip(0)]))
+            note("conv_int8_chain", f"{name} {dt}", run(), want,
+                 "int8" if out_int8 else dt, ctl)
+            del ctl, want
+            if dt == "bf16":
+                if src == "int8":
+                    q = (torch.clamp(x[:n].int() + x[n:].int(), -127, 127)
+                         if fuse else x).to(torch.int8)
+                else:
+                    xs = x[:n] + x[n:] if fuse else x
+                    q = torch.clamp(torch.round(xs.float() * invf), -127,
+                                    127).to(torch.int8)
+                esz_in = 1 if src == "int8" else 2
+                esz_out = 1 if out_int8 else 2
+                nbytes = (b_in * cin * esz_in + b_out * cout * esz_out) \
+                    * H * W + qw.numel()
+                ops = 2.0 * b_out * H * W * cin * cout * k * k
+                timing("conv_int8_chain", f"{name} {dt}", run, plain, q, qw,
+                       xf[:n] + xf[n:] if fuse else xf, bias, nbytes, ops)
+                del q
+            del x, xf
+            torch.cuda.empty_cache()
+        stamp(f"conv_int8_chain {dt} checked")
+
+    # row 11: the ConvLayer route's layers
+    for dt, pairs in (("bf16", BATCH), ("f32", 1)):
+        dtype = dts[dt]
+        for name, cin, cout, k, act, per_pair, h, w_ in ROW11_CASES:
+            if dt == "f32" and not name.startswith("deepfuse"):
+                continue
+            b_in = pairs * per_pair
+            w, bias = layer(cin, cout, k, 300 + cin + k)
+            g = torch.Generator(device=dev).manual_seed(310 + cout)
+            x = ((torch.rand((b_in, h, w_, cin), generator=g, device=dev)
+                  * 2 - 0.5) * _channel_spread(torch, cin, dev)).to(dtype)
+            f = choose_fold(x.float().abs().amax(dim=(0, 1, 2)), w)
+            qw, sw = quantize_weights(fold_weights(w, f))
+
+            def run(qw=qw, sw=sw):
+                return conv_int8(x, qw, sw, f, bias, act)
+
+            def plain():
+                return conv_int8_plain(x, qw, sw, f, bias, act)
+            want = plain()
+            qw0, sw0 = quantize_weights(w)
+            ctl = {"fold left out": run(qw0, sw0)}
+            if k > 1:
+                ctl["taps transposed"] = run(qw.transpose(2, 3).contiguous())
+            note("conv_int8", f"{name} {dt}", run(), want, dt, ctl)
+            del ctl, want
+            if dt == "bf16":
+                q = torch.clamp(torch.round(x.float() / f), -127, 127).to(
+                    torch.int8)
+                nbytes = (b_in * cin + b_in * cout) * h * w_ * 2 + qw.numel()
+                ops = 2.0 * b_in * h * w_ * cin * cout * k * k
+                timing("conv_int8", f"{name} {dt}", run, plain, q, qw, x,
+                       bias, nbytes, ops)
+                del q
+            del x
+            torch.cuda.empty_cache()
+        stamp(f"conv_int8 {dt} checked")
+    return recs
+
+
+# launches of one int8 forward (under quantized_inference), per model
+INT8_FORWARD_LAUNCHES = {
+    "deepfuse": {"conv_gray_enter": 1, "conv_int8_chain": 3,
+                 "conv_gray_exit": 1},
+    # every stride-1 conv: conv_in, the dense block's 3, dec0-dec3
+    "densefuse": {"conv_int8": 8},
+    # CB1_0-CB4_0, the 6 ECBs' and 6 DCBs' two convs, conv_out; the 6
+    # stride-2 downs are F.conv2d
+    "unfusion": {"conv_int8": 29},
+}
+
+
+def int8_bench_path(torch, build, bench, name):
+    """The port's bench --int8 of `name` (16 pairs), every count set to 0
+    just before it. Its calibration forward is counted apart first (the
+    same call on the same crop), so the counts must be exactly that plus
+    INT8_FORWARD_LAUNCHES x (warmup + timed)."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.quant import calibrate
+    model = create_model(name, generator=torch.Generator().manual_seed(
+        0)).to("cuda", torch.bfloat16).eval()
+    r = np.random.RandomState(0)
+    a, b = (torch.from_numpy(r.rand(1, 256, 256, 1).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(2))
+    build.LAUNCHES.clear()
+    calibrate(model, [(a, b)])
+    cal = collections.Counter(build.LAUNCHES)
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    result, last = bench.run(seed=0, model_name=name, int8=True)
+    counts = dict(build.LAUNCHES)
+    want = collections.Counter({k: v * (bench.ITERS + 1) for k, v in
+                                INT8_FORWARD_LAUNCHES[name].items()})
+    want.update(cal)
+    if counts != dict(want):
+        raise AssertionError(f"{name} int8 bench launches {counts}, want "
+                             f"{dict(want)}")
+    result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    result["calibration_launches"] = dict(cal)
+    print(f"bench {name} --int8: {json.dumps(result)}")
+    return result, last, counts
+
+
+def int8_quality(torch, dev, name, a16, b16, y_int8, chunk=4):
+    """The int8 gap to the BASELINE contract on the int8 bench's last batch,
+    reported and not gated: mean SSIM and Qabf of the int8 forward against
+    the f32 forward (F.conv2d, TF32 off) and the bf16 kernel forward of the
+    same weights. DeepFuse also with MMIF_HIW_INT8_RES=0 (calibrated as the
+    bench calibrates, on the first pair's 256x256 crop of this batch)."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    from multi_modal_image_fusion_tpu_torch.ops.quant import (
+        calibrate, quantized_inference)
+    m32, m16 = (create_model(name, generator=torch.Generator().manual_seed(
+        0)).to(dev, dt).eval() for dt in (torch.float32, torch.bfloat16))
+    variants = {"int8": None}
+    if name == "deepfuse":
+        amax = calibrate(m16, [(a16[:1, :256, :256], b16[:1, :256, :256])])
+        variants = {"int8_res1": "1", "int8_res0": "0"}
+    vals = {k: [] for k in (*variants, "f32", "bf16")}
+    old = os.environ.get("MMIF_HIW_INT8_RES")
+    try:
+        with torch.no_grad():
+            for lo in range(0, a16.shape[0], chunk):
+                sl = slice(lo, lo + chunk)
+                x1, x2 = a16[sl].float(), b16[sl].float()
+                with fast_training(False):
+                    ys = {"f32": m32(x1, x2)}
+                ys["bf16"] = m16(a16[sl], b16[sl]).float()
+                for key, flag in variants.items():
+                    if flag is None:
+                        ys[key] = y_int8[sl].float()
+                        continue
+                    os.environ["MMIF_HIW_INT8_RES"] = flag
+                    with quantized_inference(amax):
+                        ys[key] = m16(a16[sl], b16[sl]).float()
+                for key, y in ys.items():
+                    vals[key].append(torch.stack(ssim_qabf(torch, x1, x2,
+                                                           y)))
+                del ys
+    finally:
+        if old is None:
+            os.environ.pop("MMIF_HIW_INT8_RES", None)
+        else:
+            os.environ["MMIF_HIW_INT8_RES"] = old
+    means = {k: torch.cat(v, 1).mean(1).tolist() for k, v in vals.items()}
+    rec = {"ssim": {k: v[0] for k, v in means.items()},
+           "qabf": {k: v[1] for k, v in means.items()},
+           "pairs": int(a16.shape[0]), "gated": False}
+    for key in variants:
+        if not all(np.isfinite(means[key])):
+            raise AssertionError(f"{name} {key}: non-finite quality {means}")
+        for ref in ("f32", "bf16"):
+            rec[f"{key}_vs_{ref}"] = {
+                "d_ssim": abs(means[key][0] - means[ref][0]),
+                "d_qabf": abs(means[key][1] - means[ref][1])}
+    print(f"int8 quality {name}: {json.dumps(rec)}")
+    return rec
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Route ConvLayer's int8 kernels through their plain versions on the
+    card too (the plain int8 path, the CLI check's reference)."""
+    from multi_modal_image_fusion_tpu_torch.ops import layers
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8_chain_plain, conv_int8_plain)
+    kernels = layers.conv_int8, layers.conv_int8_chain
+    layers.conv_int8 = conv_int8_plain
+    layers.conv_int8_chain = conv_int8_chain_plain
+    try:
+        yield
+    finally:
+        layers.conv_int8, layers.conv_int8_chain = kernels
+
+
+INT8_CLI_PLAIN_PAIRS = 6   # pairs held against the plain int8 path
+
+
+def int8_cli_path(torch, build, test_cli, root, dev, float_ssim):
+    """The port's test CLI --int8 (DeepFuse, f32) on the phase-4 fixture's
+    51 pairs, every count set to 0 just before it: the calibrated count it
+    prints, ms a pair, its SSIM beside the float run's, exact launch counts
+    (4 calibration forwards through the float kernels, then 1 enter + 3
+    conv_int8_chain + 1 exit a pair, 2 ssim_maps a pair); then the kernel
+    path against the plain int8 path on the card over the first pairs,
+    within tests/test_int8.py:121-128's model tolerance (max <= 2e-2, mean
+    <= 1e-4 of max|y|), on the CLI's calibration."""
+    from multi_modal_image_fusion_tpu_torch.data.dataset import \
+        FusionDataset
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.quant import (
+        calibrate, quantized_inference)
+    from multi_modal_image_fusion_tpu_torch.train.checkpoint import restore
+    build.LAUNCHES.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ssim, avg = test_cli.main([
+            "--data", "synth", "--data_root", os.path.join(root, "data"),
+            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", "run",
+            "--int8"])
+    counts = dict(build.LAUNCHES)
+    text = out.getvalue()
+    m = re.search(r"^int8: calibrated (\d+) conv layers on (\d+) image "
+                  r"pairs$", text, re.M)
+    if m is None or m.groups() != ("5", "4"):
+        raise AssertionError(f"test CLI --int8 printed no (or another) "
+                             f"calibration line: {m and m.group(0)}")
+    want = {"conv_gray_enter": 4 + CLI_PAIRS, "conv_chain": 3 * 4,
+            "conv_gray_exit": 4 + CLI_PAIRS,
+            "conv_int8_chain": 3 * CLI_PAIRS, "ssim_maps": 2 * CLI_PAIRS}
+    if counts != want:
+        raise AssertionError(f"test CLI --int8 launches {counts}, want "
+                             f"{want}")
+    iter_ms = [float(v) for v in re.findall(
+        r"^iter: \d+, .*time: ([\d.]+)ms$", text, re.M)][1:]
+    model = create_model("deepfuse",
+                         generator=torch.Generator().manual_seed(0))
+    restore(model, os.path.join(root, "ckpt", "run", "epoch_best.pth"))
+    model = model.to(dev).eval()
+    ds = FusionDataset(os.path.join(root, "data", "synth"), "test", "test",
+                       "ir")
+    pairs = [tuple(torch.from_numpy(v)[None, ..., None].to(dev)
+                   for v in ds[i]) for i in range(INT8_CLI_PLAIN_PAIRS)]
+    amax = calibrate(model, pairs[:4])
+    worst_max = worst_mean = 0.0
+    with torch.no_grad(), quantized_inference(amax):
+        for a, b in pairs:
+            y = model(a, b)
+            with plain_int8():
+                yp = model(a, b)
+            scale = float(yp.abs().max())
+            d = (y - yp).abs()
+            worst_max = max(worst_max, float(d.max()) / scale)
+            worst_mean = max(worst_mean, float(d.mean()) / scale)
+    if not (np.isfinite(ssim) and worst_max <= 2e-2
+            and worst_mean <= 1e-4):
+        raise AssertionError(f"test CLI --int8: SSIM {ssim}; kernel vs "
+                             f"plain int8 max {worst_max}, mean "
+                             f"{worst_mean} of max|y|")
+    rec = {"pairs": CLI_PAIRS, "calibrated_layers": 5,
+           "calibration_pairs": 4, "ssim": ssim, "ssim_float": float_ssim,
+           "d_ssim_float": abs(ssim - float_ssim), "mean_ms": avg * 1e3,
+           "median_ms": float(np.median(iter_ms)),
+           "kernel_vs_plain_max_rel": worst_max,
+           "kernel_vs_plain_mean_rel": worst_mean,
+           "plain_checked_pairs": INT8_CLI_PLAIN_PAIRS}
+    print(f"test CLI --int8: {json.dumps(rec)}")
+    return rec, counts
+
+
 def main():
     import torch
 
@@ -1555,6 +2047,9 @@ def main():
     rec["conv_wide"] = check_conv_wide(torch, F, dev, timer)
     stamp("conv_wide checked")
     print(f"conv_wide layers: {json.dumps(rec['conv_wide']['layers'])}")
+    rec.update(check_int8(torch, F, dev, timer))
+    for name in ("conv_int8", "conv_int8_chain"):
+        print(f"{name} layers: {json.dumps(rec[name]['layers'])}")
     print("kernel checks passed")
 
     # phase 4: main path, counts from 0
@@ -1651,6 +2146,11 @@ def main():
                 0)
             main_counts.update(counts)
             stamp(f"{name} test CLI done")
+        # the test CLI --int8 on the same 51 pairs, counts from 0
+        int8_cli, counts = int8_cli_path(torch, build, test_cli, root, dev,
+                                         cli_ssim)
+        main_counts.update(counts)
+        stamp("test CLI --int8 done")
     torch.cuda.empty_cache()
 
     # BASELINE contract on the bench's last timed batch: its bf16 fused
@@ -1705,6 +2205,20 @@ def main():
         del a16, b16, y16
         torch.cuda.empty_cache()
         stamp(f"{name} bench and contract done")
+
+    # int8 benches (rows 11 and 12), counts from 0 before each, and the
+    # int8 quality gap (reported, not gated)
+    int8_benches, int8_gap = {}, {}
+    for name in ("deepfuse", "densefuse", "unfusion"):
+        int8_benches[name], (a16, b16, y8), counts = int8_bench_path(
+            torch, build, bench, name)
+        int8_benches[name]["bf16_pairs_per_sec"] = benches[name]["value"]
+        main_counts.update(counts)
+        torch.cuda.empty_cache()
+        int8_gap[name] = int8_quality(torch, dev, name, a16, b16, y8)
+        del a16, b16, y8
+        torch.cuda.empty_cache()
+        stamp(f"{name} int8 bench and quality done")
 
     # phase 6: training, counts from 0
     with tempfile.TemporaryDirectory() as root:
@@ -1809,6 +2323,30 @@ def main():
             "library_ms": None if None in lib else sum(lib),
             "layers": r["layers"],
         })
+    # conv_int8: the sums are the bf16 layers checked at the benches' 16
+    # pairs (DeepFuse's five with MMIF_HIW_INT8=0, DenseFuse's eight,
+    # UNFusion's DB3_1 conv1); conv_int8_chain: one DeepFuse int8 forward's
+    # three legs (enc1, dec0, dec1 with resident hops), bf16, 16 pairs
+    for name in ("conv_int8", "conv_int8_chain"):
+        r = rec[name]
+        ls = [v for key, v in r["layers"].items() if key.endswith(" bf16")
+              and ".nonres" not in key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multi_modal_image_fusion_tpu_torch/csrc/conv_int8.cuh",
+            "replaces": INT8_REPLACES[name],
+            "launches": counts.get(name, 0),
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "min_control_rel_err": r["min_control_rel_err"],
+            "tolerance_rel": r["tolerance_rel"],
+            "ms": sum(v["ms"] for v in ls),
+            "plain_ms": sum(v["plain_ms"] for v in ls),
+            "bound_ms": sum(v["bound_ms"] for v in ls),
+            "bound_by": "operations" if any(
+                v["bound_by"] == "operations" for v in ls) else "bytes",
+            "library_ms": sum(v["library_ms"] for v in ls),
+            "layers": r["layers"],
+        })
     # conv_valid: the sums are one train step's 9 launches in f32, the
     # training CLI's dtype; every shape checked is under "layers"
     r = rec["conv_valid"]
@@ -1843,6 +2381,9 @@ def main():
                       "test_cli_res2fusion": res2_rec,
                       "test_cli_dbnet": wide_cli["dbnet"],
                       "test_cli_unfusion": wide_cli["unfusion"],
+                      "int8_benches": int8_benches,
+                      "int8_quality": int8_gap,
+                      "test_cli_int8": int8_cli,
                       "eval": eval_rec,
                       "main_path_launches": counts,
                       "training": {"step": step_stats, "profile": busy,

@@ -14,7 +14,13 @@ Res2 expansion takes ~2 GB an image in bf16, so 16 pairs do not fit on an
 80 GB card.
 
     python -m multi_modal_image_fusion_tpu_torch.bench [--model deepfuse]
-        [--batch 16] [--seed 0]
+        [--batch 16] [--seed 0] [--int8]
+
+--int8 (the root bench's BENCH_INT8) times post-training int8 inference
+(ops/quant.py): the model is calibrated on the first pair's top-left
+256x256 crop in bf16, as the root bench calibrates, and the timed forwards
+run under quantized_inference (DeepFuse's int8 chain, every other model's
+eligible convs on conv_int8).
 
 Prints one JSON line: {"metric": "fusion_throughput_pairs_per_sec", ...}.
 Weights and inputs are random, made from the seed: the throughput does not
@@ -22,6 +28,7 @@ depend on them. There is no CPU mode: a measurement needs the card.
 """
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from .models import MODEL_ZOO, create_model
+from .ops.quant import calibrate, default_skip, quantized_inference
 
 HEIGHT, WIDTH = 1224, 1024
 BATCH, ITERS = 16, 10
@@ -48,9 +56,11 @@ def bench_loop(model, a, b, iters):
     return last, s
 
 
-def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH):
-    """Time the fused forward of `model_name` on `batch` pairs; returns the
-    result dict that main prints and (img1, img2, fused) of the last timed
+def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH,
+        int8=False):
+    """Time the fused forward of `model_name` on `batch` pairs (int8: under
+    quantized_inference after a calibration forward); returns the result
+    dict that main prints and (img1, img2, fused) of the last timed
     forward, so a caller can check what was timed."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -67,7 +77,11 @@ def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH):
         return torch.from_numpy(x).to(device, dt)
 
     a, b = pairs(), pairs()
-    with torch.no_grad():
+    qctx = contextlib.nullcontext()
+    if int8:
+        amax = calibrate(model, [(a[:1, :256, :256], b[:1, :256, :256])])
+        qctx = quantized_inference(amax, skip=default_skip(model_name))
+    with torch.no_grad(), qctx:
         _, s = bench_loop(model, a, b, 1)           # warmup (builds kernels)
         float(s)
         a = pairs()
@@ -84,7 +98,8 @@ def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH):
         "value": batch * ITERS / elapsed,
         "unit": "pairs/s",
         "ms_per_pair": elapsed * 1e3 / (batch * ITERS),
-        "config": f"{model_name} {HEIGHT}x{WIDTH} bf16 b{batch} x{ITERS}",
+        "config": f"{model_name} {HEIGHT}x{WIDTH} "
+                  f"{'int8' if int8 else 'bf16'} b{batch} x{ITERS}",
         "device": torch.cuda.get_device_name(device),
     }, last
 
@@ -96,10 +111,14 @@ def main(argv=None):
     p.add_argument("--batch", default=BATCH, type=int,
                    help="pairs a forward (root bench BENCH_BATCH)")
     p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--int8", action="store_true",
+                   help="post-training int8 inference (root bench "
+                        "BENCH_INT8)")
     args = p.parse_args(argv)
     if args.batch < 1:
         p.error("--batch must be at least 1")
-    result, _ = run(seed=args.seed, model_name=args.model, batch=args.batch)
+    result, _ = run(seed=args.seed, model_name=args.model, batch=args.batch,
+                    int8=args.int8)
     print(json.dumps(result))
     return result
 

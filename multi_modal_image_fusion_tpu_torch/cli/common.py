@@ -139,6 +139,11 @@ def get_test_parser():
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: the CUDA card; the run "
                         "fails without one unless --device cpu)")
+    _bool_flag(p, "int8", False,
+               "post-training int8 inference (ops/quant.py): calibrate "
+               "per-layer activation scales on the first min(4, N) test "
+               "pairs, then run eligible convs as int8 tensor-core dots "
+               "with f32 dequant epilogues (JAX cli/common.py:177)")
     return p
 
 

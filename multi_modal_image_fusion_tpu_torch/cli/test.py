@@ -4,7 +4,10 @@ reports per-image SSIM (data_range 1.0) and latency/fps with the first
 iteration excluded as warmup (reference test.py:41-48), dumps the fused
 images as NN.bmp into <ckpt_root>/<ckpt>/<data>/ (default root
 <repo>/checkpoints, data from <repo>/datasets), and appends the results
-to train.log when it exists.
+to train.log when it exists. With --int8 it first calibrates the model's
+conv layers on the first min(4, N) pairs (batch 1, the model's dtype; JAX
+cli/test.py:229-243), prints `int8: calibrated N conv layers on M image
+pairs`, then serves under ops/quant.quantized_inference.
 
 Runs on the CUDA card (conv and SSIM kernels of ops/cuda/) unless asked
 for the CPU:
@@ -13,6 +16,7 @@ for the CPU:
         --ckpt <timestamp-dir> --ckpt_root <dir> [--device cpu]
 """
 
+import contextlib
 import os
 import time
 
@@ -25,6 +29,7 @@ from ..data.io import imwrite
 from ..device import resolve_device
 from ..models import create_model
 from ..ops.metrics import calc_ssim
+from ..ops.quant import calibrate, default_skip, quantized_inference
 from ..train.checkpoint import checkpoint_path, load_checkpoint_meta, restore
 from ..utils.meters import AverageMeter
 from .common import ckpt_root, dataset_layout, get_test_parser, \
@@ -110,11 +115,24 @@ def main(argv=None):
     save_dir = os.path.join(ckpt_dir, args.data)
     os.makedirs(save_dir, exist_ok=True)
 
+    qctx = contextlib.nullcontext()
+    if args.int8:
+        cal = [tuple(torch.from_numpy(v)[None, ..., None].to(device)
+                     for v in dataset[i])
+               for i in range(min(4, len(dataset)))]
+        amax = calibrate(model, cal)
+        skip = default_skip(model_name)
+        print(f"int8: calibrated {len(amax)} conv layers on {len(cal)} "
+              f"image pairs" + (f"; float-skip {','.join(skip)}"
+                                if skip else ""))
+        qctx = quantized_inference(amax, skip=skip)
+
     log_path = os.path.join(ckpt_dir, "train.log")
     log_file = open(log_path, "a") if os.path.isfile(log_path) else None
     try:
-        ssim, avg_time = test_model(model, dataset, device, save_dir,
-                                    log_file, pad_bucket=args.pad_bucket)
+        with qctx:
+            ssim, avg_time = test_model(model, dataset, device, save_dir,
+                                        log_file, pad_bucket=args.pad_bucket)
         line = (f"ssim: {ssim:.4f}, time: {avg_time * 1000:.3f}ms, "
                 f"fps: {1.0 / avg_time:.3f}")
         print(line)

@@ -15,7 +15,10 @@ from torch import nn
 from ..ops.blocks import (DenseBlock, NestDecoder, NestEncoder, Res2ConvBlock,
                           down, upsample)
 from ..ops.fusion import attention_fusion, element_fusion
-from ..ops.layers import ConvLayer
+from ..ops.layers import ConvLayer, int8_ctx
+from ..ops.quant import (chain_hop_ok, chain_leg_ok, hiw_int8_enabled,
+                         hiw_res_enabled, name_layers, quant_off,
+                         quant_skipped)
 
 __all__ = ["DBNet", "DeepFuse", "DenseFuse", "MODEL_ZOO", "Res2Fusion",
            "UNFusion", "VIFNet", "create_model"]
@@ -36,7 +39,19 @@ class DeepFuse(nn.Module):
     t[:n] + t[n:] in torch before dec0), 'mean'/'max' apply element_fusion
     between the convs, and dec2 writes the (B, H, W, 1) output
     (conv_gray_exit). Which conv route each layer takes is ConvLayer's
-    (ops/layers.py)."""
+    (ops/layers.py).
+
+    Under ops/quant.quantized_inference a fused pair runs the int8 chain
+    (JAX zoo.py:348-468, ops/pallas/hiw_int8.py): the legs that
+    `chain_leg_ok` admits and that have a calibrated amax (enc1, dec0 and
+    dec1) run conv_int8_chain, the gray entry and exit stay on their float
+    kernels; the hops enc1 -> dec0 ('sum' only: the siamese sum then rides
+    the int8 grid in dec0's load) and dec0 -> dec1 stay int8 between the
+    legs unless MMIF_HIW_INT8_RES=0. MMIF_HIW_INT8=0, and autoencoder
+    mode, send every layer to ConvLayer's int8 route instead. The JAX
+    package's opt-in MMIF_CHAIN_PAIR route (row 10) is not ported yet
+    (ROADMAP): under int8 the port ignores the switch, where the JAX
+    chain would leave the int8 legs for its float pair kernel."""
 
     def __init__(self, fusion_mode="sum", generator=None):
         super().__init__()
@@ -58,6 +73,9 @@ class DeepFuse(nn.Module):
     def forward(self, img1, img2=None):
         enc0, enc1 = self.encode
         dec0, dec1, dec2 = self.decode
+        qc = int8_ctx()
+        if qc is not None and img2 is not None and hiw_int8_enabled():
+            return self._int8_chain(img1, img2, qc)
         t = enc1(enc0.enter(img1, img2))
         if img2 is None:
             t = dec0(t)
@@ -67,6 +85,47 @@ class DeepFuse(nn.Module):
             n = img1.shape[0]
             t = dec0(element_fusion(t[:n], t[n:], self.fusion_mode))
         return dec2(dec1(t))
+
+    def _int8_chain(self, img1, img2, qc):
+        enc0, enc1 = self.encode
+        dec0, dec1, dec2 = self.decode
+        n = img1.shape[0]
+
+        def leg_amax(layer):
+            """The calibrated amax if this leg runs int8, else None."""
+            a = qc.amax.get(layer.qpath)
+            if (a is None or not chain_leg_ok(layer.in_ch, layer.out_ch)
+                    or quant_skipped(layer.qpath)):
+                return None
+            a = torch.as_tensor(a, dtype=torch.float32)
+            return a if a.shape == (layer.in_ch,) and a.max() > 0 else None
+        amax = {m: leg_amax(m) for m in (enc0, enc1, dec0, dec1, dec2)}
+
+        def hop(prod, cons):
+            """cons, if prod's output stays int8 on cons's fold grid."""
+            if (hiw_res_enabled() and amax[prod] is not None
+                    and amax[cons] is not None and chain_hop_ok(prod.act)):
+                return cons
+            return None
+
+        def leg(layer, t, fuse_n=0, out_to=None):
+            if amax[layer] is None:
+                with quant_off():
+                    return layer(t, fuse_n)
+            return layer.chain_int8(
+                t, amax[layer], fuse_n, out_to,
+                None if out_to is None else amax[out_to])
+
+        with quant_off():
+            t = enc0.enter(img1, img2)
+        if self.fusion_mode == "sum":
+            t = leg(enc1, t, out_to=hop(enc1, dec0))
+            t = leg(dec0, t, n, out_to=hop(dec0, dec1))
+        else:
+            t = leg(enc1, t)
+            t = leg(dec0, element_fusion(t[:n], t[n:], self.fusion_mode),
+                    out_to=hop(dec0, dec1))
+        return leg(dec2, leg(dec1, t))
 
 
 def _dense_encoder(generator):
@@ -347,4 +406,4 @@ def create_model(name, **kwargs):
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ported: {sorted(MODEL_ZOO)}); "
             f"the queue of models to port is in ROADMAP.md")
-    return MODEL_ZOO[key](**kwargs)
+    return name_layers(MODEL_ZOO[key](**kwargs))

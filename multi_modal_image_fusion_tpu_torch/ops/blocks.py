@@ -11,6 +11,7 @@ from torch import nn
 
 from .cuda.conv_multi import concat_legs
 from .layers import ConvLayer, interpolate
+from .quant import record
 
 __all__ = ["ConvBlock", "DCB", "DenseBlock", "ECB", "NestDecoder",
            "NestEncoder", "Res2ConvBlock", "pad_to", "upsample"]
@@ -81,6 +82,9 @@ class Res2ConvBlock(nn.Module):
 
     def forward(self, x):
         hexp = self.pwconv1(x)
+        # the reference computes the dead dwconv on hexp: calibration
+        # records its input as the JAX package's eager route does
+        record(self.dwconv.qpath, hexp)
         outs, y = [], None
         for i, conv in enumerate(self.dwconvs):
             y = conv.depthwise(hexp, lo=i * self.in_ch,

@@ -39,12 +39,25 @@ Routes of a conv:
   On CPU tensors the kernels' plain versions run in their place. A list of
   legs is concatenated first (`concat_legs`), a depthwise window sliced,
   then takes the same route. conv_valid has no depthwise instance, so a
-  depthwise layer raises under `fast_training(True)`.
+  depthwise layer raises under `fast_training(True)`;
+- int8 (inside ops/quant.quantized_inference, outside a `fast_training`
+  scope): a stride-1 dense layer that the skip set does not name runs
+  `conv_int8` (the JAX package's `ops/layers.py:624-691`): its effective
+  input (a list of legs concatenated, a fuse_n sum taken in the input's
+  dtype) is quantized on the fold of its calibrated amax, or of the
+  dynamic per-channel max of that input when the layer was not
+  calibrated. Depthwise and stride-2 layers keep their float routes. The
+  route is forward-only: it raises when a gradient is needed.
+
+During ops/quant.calibrate every layer records the per-channel max |x| of
+its effective input under its flax path (`qpath`, set by
+ops/quant.name_layers).
 """
 
 import contextlib
 import contextvars
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -53,13 +66,16 @@ from torch import nn
 from .cuda.conv_chain import (ACT_CODES, apply_act, batch_step, conv_chain,
                               conv_gray_enter, conv_gray_exit)
 from .cuda.conv_dw import conv_dw
+from .cuda.conv_int8 import conv_int8, conv_int8_chain
 from .cuda.conv_multi import concat_legs, conv_multi, legs_n_out
 from .cuda.conv_valid import conv_valid
 from .cuda.conv_vjp import conv_valid_fast
 from .cuda.conv_wide import conv_wide
+from .quant import (calibrating, choose_fold, fold_weights, hiw_fold_scale,
+                    quant_ctx, quant_skipped, quantize_weights, record)
 
 __all__ = ["ACT_CODES", "ConvLayer", "apply_act", "fast_training",
-           "init_conv_", "interpolate"]
+           "init_conv_", "int8_ctx", "interpolate"]
 
 INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
 
@@ -77,6 +93,33 @@ def fast_training(enable=True):
         yield
     finally:
         _FAST_TRAINING.reset(token)
+
+
+def int8_ctx():
+    """The active quantized_inference, unless a trainer scope is open (the
+    JAX package's int8 route is for train=False only)."""
+    return quant_ctx() if _FAST_TRAINING.get() is None else None
+
+
+def concat_sum(legs, fuse_n, n_out):
+    """The effective input of a layer over legs: their channel concat at
+    their batch offsets, with fuse_n each leg's sum with its sibling taken
+    in its dtype. Written leg by leg into one tensor (copies and adds split
+    past 2^31 elements, so no batch chunks are needed)."""
+    t0 = legs[0][0]
+    out = t0.new_empty((n_out, *t0.shape[1:3],
+                        sum(t.shape[-1] for t, _ in legs)))
+    ofs = 0
+    for t, off in legs:
+        dst = out[..., ofs:ofs + t.shape[-1]]
+        if fuse_n:
+            torch.add(t[off:off + n_out], t[off + fuse_n:off + fuse_n + n_out],
+                      out=dst)
+        else:
+            dst.copy_(t[off:off + n_out])
+        ofs += t.shape[-1]
+    return out
+
 
 _KAIMING_FAMILY = ("relu", "relu6")
 
@@ -136,6 +179,7 @@ class ConvLayer(nn.Module):
                              f"dense layer off the wide route, is ported")
         self.in_ch, self.out_ch, self.ksize, self.act = in_ch, out_ch, ksize, act
         self.groups, self.stride, self.wide = groups, stride, wide
+        self.qpath = None     # flax path (ops/quant.name_layers)
         self.layers = nn.ModuleList([_Conv(in_ch, out_ch, ksize, groups,
                                            use_bias)])
         init_conv_(self.layers[0].weight, self.layers[0].bias, act, generator)
@@ -154,7 +198,16 @@ class ConvLayer(nn.Module):
             for t in (self.weight, self.bias, *xs))
 
     def _train_conv(self, x):
-        """The training routes (module docstring) on an NHWC tensor."""
+        """The training routes (module docstring) on an NHWC tensor, in
+        batch chunks of `batch_step` images: torch's reflect pad refuses a
+        padded tensor of 2^31 elements or more ("input tensor must fit
+        into 32-bit index math", e.g. DenseFuse's 64-channel concat of 32
+        full-resolution images)."""
+        step = batch_step(*x.shape[1:3], max(x.shape[-1], self.out_ch),
+                          self.ksize)
+        if x.shape[0] > step:
+            return torch.cat([self._train_conv(x[i:i + step])
+                              for i in range(0, x.shape[0], step)])
         p = self.ksize // 2
         xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
         if not _FAST_TRAINING.get():
@@ -173,6 +226,11 @@ class ConvLayer(nn.Module):
     def _training_route(self, *xs):
         return _FAST_TRAINING.get() is not None or self._needs_grad(*xs)
 
+    def _whole_input(self):
+        """True when the layer needs its effective input as one tensor: to
+        record it (calibration) or to quantize it (an int8 context)."""
+        return calibrating() or int8_ctx() is not None
+
     def enter(self, img1, img2=None):
         """c_in=1 layer on a grayscale image or pair: (B, H, W, 1) ->
         (B or 2B, H, W, out_ch) in the layer's parameter dtype (the images
@@ -180,9 +238,9 @@ class ConvLayer(nn.Module):
         dt = self.weight.dtype
         img1 = img1.to(dt)
         img2 = None if img2 is None else img2.to(dt)
-        if self._training_route(img1, img2):
-            return self._train_conv(
-                img1 if img2 is None else torch.cat([img1, img2], dim=0))
+        if self._training_route(img1, img2) or self._whole_input():
+            return self(img1 if img2 is None
+                        else torch.cat([img1, img2], dim=0))
         return conv_gray_enter(img1, img2, self.weight, self.bias, self.act)
 
     def forward(self, x, fuse_n=0):
@@ -197,23 +255,93 @@ class ConvLayer(nn.Module):
             return self._forward_legs(x, fuse_n)
         if self.groups != 1:
             return self.depthwise(x)
+        if fuse_n and (self.stride != 1 or self._training_route(x)
+                       or self._whole_input()):
+            x, fuse_n = x[:fuse_n] + x[fuse_n:], 0
+        record(self.qpath, x)
+        qc = self._int8_route()
+        if qc is not None:
+            return self._int8(x, qc)
         if self.stride != 1:
-            return self._strided(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
+            return self._strided(x)
         if self._training_route(x):
-            return self._train_conv(x[:fuse_n] + x[fuse_n:] if fuse_n else x)
+            return self._train_conv(x)
         if self.wide:
             return conv_wide([(x, 0)], self.weight, self.bias, self.act,
                              fuse_n)
         if self.in_ch == 1 and not fuse_n:
-            return self.enter(x)
+            return conv_gray_enter(x.to(self.weight.dtype), None,
+                                   self.weight, self.bias, self.act)
         if self.out_ch == 1 and not fuse_n:
             return conv_gray_exit(x, self.weight, self.bias, self.act)
         return conv_chain(x, self.weight, self.bias, self.act, fuse_n)
+
+    def _int8_route(self):
+        """The quantized_inference this layer runs int8 under now, or None:
+        a stride-1 dense layer that the skip set does not name."""
+        qc = int8_ctx()
+        if (qc is None or self.stride != 1 or self.groups != 1
+                or quant_skipped(self.qpath)):
+            return None
+        return qc
+
+    def _forward_only(self, x):
+        if self._needs_grad(x):
+            raise RuntimeError(
+                "int8 inference is forward-only: run the model under "
+                "torch.no_grad() inside quantized_inference")
+
+    def _int8(self, x, qc):
+        """The int8 route: the fold of the calibrated (else the dynamic)
+        per-channel amax, the folded weights quantized per output channel,
+        then conv_int8 (JAX ops/layers.py:644-691)."""
+        self._forward_only(x)
+        amax = qc.amax.get(self.qpath)
+
+        def prepare(a_in):
+            f = choose_fold(a_in, self.weight,
+                            mode=os.environ.get("MMIF_INT8_FOLD", "smooth"))
+            qw, sw = quantize_weights(fold_weights(self.weight, f))
+            return f, qw, sw
+        if amax is None:
+            f, qw, sw = prepare(x.abs().amax(dim=(0, 1, 2)).float())
+        else:
+            f, qw, sw = qc.cached((id(self), "conv_int8"),
+                                  lambda: prepare(amax))
+        return conv_int8(x, qw, sw, f, self.bias, self.act)
+
+    def chain_int8(self, x, amax, fuse_n=0, out_to=None, out_amax=None):
+        """DeepFuse's int8 chain leg (JAX ops/pallas/hiw_int8.py:260-365):
+        the smooth fold of `amax`, x quantized by the reciprocal in the
+        kernel (or int8-resident), fuse_n on the int8 grid for an int8 x.
+        With `out_to` (the next leg, its amax `out_amax`) the output is
+        int8 on that leg's fold grid: the dequant scale and the bias are
+        divided by its fold in f32 before the kernel. Otherwise the output
+        is in the chain dtype (the parameters')."""
+        qc = quant_ctx()
+        self._forward_only(x)
+
+        def prepare():
+            f = choose_fold(amax, self.weight, "smooth")
+            qw, sw = quantize_weights(fold_weights(self.weight, f))
+            b = None if self.bias is None else self.bias.detach().float()
+            if out_to is not None:
+                f_next = hiw_fold_scale(out_amax, out_to.weight)
+                sw = sw / f_next
+                b = None if b is None else b / f_next
+            return qw, sw, b, 1.0 / f
+        qw, dq, b, invf = qc.cached((id(self), "chain", id(out_to)), prepare)
+        return conv_int8_chain(x, qw, dq, b, self.act, invf, fuse_n,
+                               out_int8=out_to is not None,
+                               out_dtype=self.weight.dtype)
 
     def depthwise(self, x, lo=0, add=None):
         """Depthwise layer over channels [lo, lo + in_ch) of x (B, H, W,
         Cx), read in place, with `add` (B, H, W, in_ch) summed into its
         input first: (B, H, W, in_ch)."""
+        if calibrating():
+            xw = x[..., lo:lo + self.in_ch]
+            record(self.qpath, xw if add is None else xw + add)
         if self._training_route(x, add):
             xw = x[..., lo:lo + self.in_ch]
             return self._train_conv(xw if add is None else xw + add)
@@ -237,6 +365,8 @@ class ConvLayer(nn.Module):
 
     def _forward_legs(self, legs, fuse_n):
         n_out = legs_n_out(legs, fuse_n)
+        if self._whole_input():
+            return self(concat_sum(legs, fuse_n, n_out))
         if self.stride != 1 or self._training_route(*[t for t, _ in legs]):
             x = concat_legs(legs, fuse_n, n_out)
             return self(x[:n_out] + x[n_out:] if fuse_n else x)

@@ -20,7 +20,7 @@ optimizer state (`Trainer.load_state_dict`).
 import numpy as np
 import torch
 
-__all__ = ["jax_to_state_dict", "jax_train_state_to_torch"]
+__all__ = ["flax_paths", "jax_to_state_dict", "jax_train_state_to_torch"]
 
 
 def _res2_block(name, scale):
@@ -74,6 +74,16 @@ _LAYOUTS = {
               **{f"dec{i}": f"decode.{i}" for i in range(4)}},
     "unfusion": _unfusion(),
 }
+
+
+def flax_paths(model_name):
+    """{port module name: '/'-joined flax path} of a model's conv layers,
+    the inverse of its layout: the keys int8 calibration records under
+    (ops/quant.py), as the JAX package's `calibrate` does."""
+    name = model_name.lower()
+    if name not in _LAYOUTS:
+        raise NotImplementedError(f"no layout for {model_name!r} yet")
+    return {prefix: path for path, prefix in _LAYOUTS[name].items()}
 
 
 def _oihw(kernel_hwio):

@@ -859,3 +859,208 @@ def test_wide_models_on_card_match_cpu(cuda, key):
         got = model.to(cuda)(x1.to(cuda), None if x2 is None else x2.to(cuda))
     assert dict(build.LAUNCHES) == _WIDE_MODEL_LAUNCHES[key]
     _close(got.cpu(), want, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# int8 inference: conv_int8 (row 11) and conv_int8_chain (row 12)
+# ---------------------------------------------------------------------------
+
+
+def _int8_layer(cin, cout, k, seed, dev):
+    from multi_modal_image_fusion_tpu_torch.ops.quant import (
+        choose_fold, fold_weights, quantize_weights)
+    w = _rand((cout, cin, k, k), seed, dev) / np.sqrt(cin * k * k)
+    bias = _rand((cout,), seed + 1, dev) * 0.2
+    # channel ranges spanning 100x, so the fold is far from constant
+    spread = torch.logspace(-1.5, 0.5, cin)[torch.randperm(
+        cin, generator=torch.Generator().manual_seed(seed))].to(dev)
+    x = _rand((4, 33, 70, cin), seed + 2, dev, lo=-0.3) * 2 * spread
+    f = choose_fold(x.abs().amax(dim=(0, 1, 2)), w)
+    qw, sw = quantize_weights(fold_weights(w, f))
+    qw0, _ = quantize_weights(w)
+    return x, w, bias, f, qw, sw, qw0
+
+
+def _int8_rel(got, want):
+    """max |got - want| / max|want| in f32 (int8 outputs as integers)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k,cin,cout,act", [
+    (1, 24, 16, "relu"), (3, 1, 16, "relu"), (3, 40, 24, "relu6"),
+    (5, 16, 1, None), (7, 32, 32, "relu"), (3, 72, 130, "lrelu"),
+    (3, 64, 64, "tanh")])
+def test_conv_int8(cuda, dt, k, cin, cout, act):
+    """conv_int8 equals its plain version (the same integers; one rounding
+    of the multiply-add on both sides): f32 bit for bit, bf16 too. The
+    controls (taps transposed, the fold left out of the weights) miss by
+    more than 1e-2 of max|y|."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8, conv_int8_plain)
+    x, _, bias, f, qw, sw, qw0 = _int8_layer(cin, cout, k, 600 + k + cin,
+                                             cuda)
+    x = x.to(DTYPES[dt])
+    before = build.LAUNCHES["conv_int8"]
+    want = conv_int8_plain(x, qw, sw, f, bias, act)
+    got = conv_int8(x, qw, sw, f, bias, act)
+    assert build.LAUNCHES["conv_int8"] == before + 1
+    assert _int8_rel(got, want) <= (1e-6 if dt == "f32" else 2 ** -8)
+    # with one input channel the fold is a scalar the weight quantizer
+    # absorbs, so leaving it out changes nothing
+    controls = [conv_int8(x, qw0, sw, f, bias, act)] if cin > 1 else []
+    if k > 1:
+        controls.append(conv_int8(x, qw.transpose(2, 3).contiguous(), sw, f,
+                                  bias, act))
+    for y in controls:
+        assert _int8_rel(y, want) > 1e-2
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k,cin,cout", [(7, 16, 32), (7, 32, 32),
+                                        (5, 32, 16)])
+@pytest.mark.parametrize("src,dst,fuse", [
+    ("float", "float", False), ("float", "float", True),
+    ("float", "int8", False), ("int8", "int8", True),
+    ("int8", "float", True), ("int8", "float", False)])
+def test_conv_int8_chain(cuda, dt, k, cin, cout, src, dst, fuse):
+    """conv_int8_chain equals its plain version on float (quantized by the
+    reciprocal) and int8-resident inputs, with and without fuse_n, writing
+    the chain dtype or int8; the controls (taps transposed, the fold left
+    out, one fuse_n half's images in reverse order) miss by more than
+    1e-2 of max|y|."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8_chain, conv_int8_chain_plain)
+    dtype = DTYPES[dt]
+    x, _, bias, f, qw, sw, qw0 = _int8_layer(cin, cout, k, 700 + k + cin,
+                                             cuda)
+    x = x.to(dtype)
+    if src == "int8":
+        x = torch.clamp(torch.round(x.float() / f), -127, 127).to(torch.int8)
+    fuse_n = 2 if fuse else 0
+    dq, b = sw, bias
+    out_int8 = dst == "int8"
+    if out_int8:
+        y = conv_int8_chain_plain(x, qw, sw, bias, "relu", 1.0 / f, fuse_n,
+                                  out_dtype=dtype)
+        f_next = y.float().abs().amax(dim=(0, 1, 2)).clamp(min=1e-3) / 127
+        dq, b = sw / f_next, bias / f_next
+
+    def run(w=qw, xx=x):
+        return conv_int8_chain(xx, w, dq, b, "relu", 1.0 / f, fuse_n,
+                               out_int8, dtype)
+    want = conv_int8_chain_plain(x, qw, dq, b, "relu", 1.0 / f, fuse_n,
+                                 out_int8, dtype)
+    before = build.LAUNCHES["conv_int8_chain"]
+    got = run()
+    assert build.LAUNCHES["conv_int8_chain"] == before + 1
+    if out_int8:
+        assert got.dtype == torch.int8 and torch.equal(got, want)
+    else:
+        assert _int8_rel(got, want) <= (1e-6 if dt == "f32" else 2 ** -8)
+    controls = [run(qw.transpose(2, 3).contiguous()), run(qw0)]
+    if fuse:
+        controls.append(run(xx=torch.cat([x[:2], x[2:].flip(0)])))
+    for y in controls:
+        assert _int8_rel(y, want) > 1e-2
+
+
+def test_int8_raises_with_grad_and_on_unsupported(cuda):
+    """The int8 wrappers and ConvLayer's int8 route are forward-only: a CUDA
+    input or bias that needs a gradient raises (under no_grad they run);
+    shapes outside the instances raise."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops import quant
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8, conv_int8_chain)
+    x, _, bias, f, qw, sw, _ = _int8_layer(16, 32, 7, 800, cuda)
+    bg = bias.clone().requires_grad_()
+    calls = [lambda: conv_int8(x.clone().requires_grad_(), qw, sw, f),
+             lambda: conv_int8(x, qw, sw, f, bg),
+             lambda: conv_int8_chain(x, qw, sw, bg, "relu", 1.0 / f)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            call()
+    with pytest.raises(ValueError):             # k3 has no chain instance
+        conv_int8_chain(x, qw[..., 2:5, 2:5].contiguous(), sw, bias, "relu",
+                        1.0 / f)
+    with pytest.raises(ValueError):             # relu6 on an int8 output
+        conv_int8_chain(x, qw, sw, bias, "relu6", 1.0 / f, out_int8=True)
+    img = _rand((1, 20, 30, 1), 801, cuda, lo=0.0)
+    for name in ("deepfuse", "densefuse"):
+        model = create_model(name,
+                             generator=torch.Generator().manual_seed(0)).to(
+            cuda)
+        amax = quant.calibrate(model, [(img, img)])
+        with quant.quantized_inference(amax), \
+                pytest.raises(RuntimeError, match="forward-only"):
+            model(img, img)
+
+
+# launches of one int8 forward: model -> counts (ops/quant.py routes)
+_INT8_MODEL_LAUNCHES = {
+    "deepfuse": {"conv_gray_enter": 1, "conv_int8_chain": 3,
+                 "conv_gray_exit": 1},
+    "densefuse": {"conv_int8": 8},
+    "dbnet": {"conv_int8": 9},
+    "unfusion": {"conv_int8": 29},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_INT8_MODEL_LAUNCHES))
+def test_int8_models_on_card_match_plain(cuda, name):
+    """An int8 forward through the kernels against the plain int8 path on
+    the card (ConvLayer's int8 wrappers swapped for their plain versions,
+    every float layer on the same kernels), same weights and amax, f32,
+    odd size: equal, with exact launch counts. (Against the CPU the float
+    layers differ by f32 rounding, and a value that lands on a rounding
+    boundary flips a quantum that spreads downstream.)"""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops import layers, quant
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8_chain_plain, conv_int8_plain)
+    model = create_model(name, generator=torch.Generator().manual_seed(
+        8)).to(cuda).eval()
+    x1 = _rand((2, 45, 57, 1), 96, cuda, lo=0.0)
+    x2 = _rand((2, 45, 57, 1), 97, cuda, lo=0.0)
+    amax = quant.calibrate(model, [(x1, x2)])
+    with torch.no_grad(), quant.quantized_inference(amax):
+        build.LAUNCHES.clear()
+        got = model(x1, x2)
+        assert dict(build.LAUNCHES) == _INT8_MODEL_LAUNCHES[name]
+        kernels = layers.conv_int8, layers.conv_int8_chain
+        layers.conv_int8 = conv_int8_plain
+        layers.conv_int8_chain = conv_int8_chain_plain
+        try:
+            want = model(x1, x2)
+        finally:
+            layers.conv_int8, layers.conv_int8_chain = kernels
+    assert torch.equal(got, want)
+
+
+def test_train_conv_reflect_pad_past_int32(cuda):
+    """The training route pads the whole batch in one call
+    (ConvLayer._train_conv): at DenseFuse's 64-channel concat of 32
+    images at 1224x1024 the padded tensor holds 2.58e9 elements, past
+    2^31. It must give the batch-chunked result (within the bf16
+    tolerance: cuDNN may pick another algorithm for another batch)."""
+    from multi_modal_image_fusion_tpu_torch.ops.layers import (ConvLayer,
+                                                               fast_training)
+    layer = ConvLayer(64, 64, generator=torch.Generator().manual_seed(0)).to(
+        cuda, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((32, 1224, 1024, 64), generator=g, device=cuda).to(
+        torch.bfloat16)
+    assert 32 * 64 * 1226 * 1026 > 2 ** 31
+    with torch.no_grad(), fast_training(False):
+        got = layer._train_conv(x)
+        want = torch.cat([layer._train_conv(x[i:i + 8])
+                          for i in range(0, 32, 8)])
+    assert got.shape == (32, 1224, 1024, 64)
+    for i in range(0, 32, 4):             # f64 copies of 2.6e9 elements
+        _close(got[i:i + 4], want[i:i + 4], torch.bfloat16)

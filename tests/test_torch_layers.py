@@ -140,3 +140,34 @@ def test_conv_layer_rejects_unported():
         ConvLayer(4, 8, act="gelu")
     with pytest.raises(ValueError):
         ConvLayer(4, 8, ksize=4)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_train_conv_pads_in_batch_chunks(monkeypatch, fast):
+    """The training routes pad and convolve in batch chunks of
+    `batch_step` images (torch's reflect pad refuses 2^31 elements; the
+    card test `test_train_conv_reflect_pad_past_int32` hits it): with a
+    step of 2 images the output and the gradients equal one whole-batch
+    call's."""
+    from multi_modal_image_fusion_tpu_torch.ops import layers
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    layer = ConvLayer(8, 16, ksize=5,
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(0).rand(5, 9, 11, 8).astype(
+        np.float32))
+
+    def run():
+        layer.zero_grad()
+        xg = x.clone().requires_grad_()
+        with fast_training(fast):
+            y = layer(xg)
+        (y * y).sum().backward()
+        return y.detach(), xg.grad, layer.weight.grad.clone()
+    want = run()
+    calls = []
+    monkeypatch.setattr(layers, "batch_step",
+                        lambda *a: calls.append(a) or 2)
+    got = run()
+    assert calls and calls[0] == (9, 11, 16, 5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
