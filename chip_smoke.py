@@ -139,6 +139,30 @@ forward; peak memory), each with its quality gap (mean SSIM and Qabf of
 int8 against the f32 and the bf16 forwards; DeepFuse with
 MMIF_HIW_INT8_RES=1 and 0), reported and not gated.
 
+DeepFuse's opt-in chain routes (rows 10, 13, 14 and row 9's s2d mode):
+phase 3 holds conv_pair_enter and conv_pair_exit (the fused enc0 + enc1
+and dec1 + dec2), conv_wide's s2d mode at DeepFuse's five packed layers
+(k3 and k5, c_in 4, c_out 4) and s2d_enter / s2d_exit against their plain
+versions at 1224x1024, bf16 at the bench's 16 pairs and f32 at the test
+CLI's pair: the pair and the packed conv within conv_wide's tolerance
+(f32 1e-4 of max|y|, bf16 1e-3 beyond one ulp of each output), each with
+a control that must miss by 10x (the mid's halo computed over the
+extended input; the phase-blind reflect of the packed tensor); the pack
+and unpack bit for bit, with a pack whose px phases are swapped as the
+control. Times beside the plain versions and the library: two F.conv2d a
+pair, one F.conv2d on the per-phase padded packed input,
+F.pixel_unshuffle / F.pixel_shuffle (the pads, concats and NHWC permutes
+timed apart). Later paths, counts from 0 before each: the DeepFuse bench
+(bf16, 16 pairs) under MMIF_CHAIN_PAIR=1 (exactly 1 conv_pair_enter + 1
+conv_chain + 1 conv_pair_exit a forward), MMIF_S2D=1 MMIF_CHAIN_HIW=0 (5
+conv_wide in s2d mode) and with MMIF_S2D_IO=1 too (1 s2d_enter + 5
+conv_wide + 1 s2d_exit), each beside phase 4's default pairs/s and held
+to the BASELINE contract; the test CLI (f32, 3 pairs) under the pair and
+packed switches, its SSIM and each fused image within 1e-4 of the f32
+default route; the bench --int8 with MMIF_CHAIN_PAIR=1, whose forwards
+take the float pair route (no conv_int8_chain launch). Every kernel of
+the `kernels` line must have launched on a path.
+
 Prints the `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Needs one card; exits non-zero without one.
 """
@@ -1258,12 +1282,12 @@ RES2_PAIRS = 3        # the res2fusion test CLI's pairs (the first, warmup)
 WIDE_PAIRS = 3        # the dbnet and unfusion test CLIs' pairs
 
 
-def bench_path(build, bench, name, batch=BATCH):
-    """The port's bench of `name` at `batch` pairs with every count set to 0
-    just before it; the counts must be exactly FORWARD_LAUNCHES x (warmup +
-    timed)."""
+def bench_path(build, bench, name, batch=BATCH, model=None):
+    """The port's bench of `model` (default `name`) at `batch` pairs with
+    every count set to 0 just before it; the counts must be exactly
+    FORWARD_LAUNCHES[name] x (warmup + timed)."""
     build.LAUNCHES.clear()
-    result, last = bench.run(seed=0, model_name=name, batch=batch)
+    result, last = bench.run(seed=0, model_name=model or name, batch=batch)
     counts = dict(build.LAUNCHES)
     want = {k: v * (bench.ITERS + 1)
             for k, v in FORWARD_LAUNCHES[name].items()}
@@ -1818,11 +1842,11 @@ INT8_FORWARD_LAUNCHES = {
 }
 
 
-def int8_bench_path(torch, build, bench, name):
+def int8_bench_path(torch, build, bench, name, key=None):
     """The port's bench --int8 of `name` (16 pairs), every count set to 0
     just before it. Its calibration forward is counted apart first (the
     same call on the same crop), so the counts must be exactly that plus
-    INT8_FORWARD_LAUNCHES x (warmup + timed)."""
+    INT8_FORWARD_LAUNCHES[key or name] x (warmup + timed)."""
     from multi_modal_image_fusion_tpu_torch.models import create_model
     from multi_modal_image_fusion_tpu_torch.ops.quant import calibrate
     model = create_model(name, generator=torch.Generator().manual_seed(
@@ -1840,7 +1864,7 @@ def int8_bench_path(torch, build, bench, name):
     result, last = bench.run(seed=0, model_name=name, int8=True)
     counts = dict(build.LAUNCHES)
     want = collections.Counter({k: v * (bench.ITERS + 1) for k, v in
-                                INT8_FORWARD_LAUNCHES[name].items()})
+                                INT8_FORWARD_LAUNCHES[key or name].items()})
     want.update(cal)
     if counts != dict(want):
         raise AssertionError(f"{name} int8 bench launches {counts}, want "
@@ -1868,31 +1892,23 @@ def int8_quality(torch, dev, name, a16, b16, y_int8, chunk=4):
         amax = calibrate(m16, [(a16[:1, :256, :256], b16[:1, :256, :256])])
         variants = {"int8_res1": "1", "int8_res0": "0"}
     vals = {k: [] for k in (*variants, "f32", "bf16")}
-    old = os.environ.get("MMIF_HIW_INT8_RES")
-    try:
-        with torch.no_grad():
-            for lo in range(0, a16.shape[0], chunk):
-                sl = slice(lo, lo + chunk)
-                x1, x2 = a16[sl].float(), b16[sl].float()
-                with fast_training(False):
-                    ys = {"f32": m32(x1, x2)}
-                ys["bf16"] = m16(a16[sl], b16[sl]).float()
-                for key, flag in variants.items():
-                    if flag is None:
-                        ys[key] = y_int8[sl].float()
-                        continue
-                    os.environ["MMIF_HIW_INT8_RES"] = flag
-                    with quantized_inference(amax):
-                        ys[key] = m16(a16[sl], b16[sl]).float()
-                for key, y in ys.items():
-                    vals[key].append(torch.stack(ssim_qabf(torch, x1, x2,
-                                                           y)))
-                del ys
-    finally:
-        if old is None:
-            os.environ.pop("MMIF_HIW_INT8_RES", None)
-        else:
-            os.environ["MMIF_HIW_INT8_RES"] = old
+    with torch.no_grad():
+        for lo in range(0, a16.shape[0], chunk):
+            sl = slice(lo, lo + chunk)
+            x1, x2 = a16[sl].float(), b16[sl].float()
+            with fast_training(False):
+                ys = {"f32": m32(x1, x2)}
+            ys["bf16"] = m16(a16[sl], b16[sl]).float()
+            for key, flag in variants.items():
+                if flag is None:
+                    ys[key] = y_int8[sl].float()
+                    continue
+                with switches({"MMIF_HIW_INT8_RES": flag}), \
+                        quantized_inference(amax):
+                    ys[key] = m16(a16[sl], b16[sl]).float()
+            for key, y in ys.items():
+                vals[key].append(torch.stack(ssim_qabf(torch, x1, x2, y)))
+            del ys
     means = {k: torch.cat(v, 1).mean(1).tolist() for k, v in vals.items()}
     rec = {"ssim": {k: v[0] for k, v in means.items()},
            "qabf": {k: v[1] for k, v in means.items()},
@@ -1999,6 +2015,317 @@ def int8_cli_path(torch, build, test_cli, root, dev, float_ssim):
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# DeepFuse's opt-in chain routes: conv_pair (row 10), conv_wide's s2d mode
+# (row 9) and s2d_enter / s2d_exit (rows 13-14)
+# ---------------------------------------------------------------------------
+
+VARIANT_REPLACES = {
+    "conv_pair_enter": "multi_modal_image_fusion_tpu/ops/pallas/"
+                       "conv_kernel.py:970 (conv_tlane_chain_pair, enc0 + "
+                       "enc1; pallas_call :1036)",
+    "conv_pair_exit": "multi_modal_image_fusion_tpu/ops/pallas/"
+                      "conv_kernel.py:970 (conv_tlane_chain_pair, dec1 + "
+                      "dec2; pallas_call :1036)",
+    "conv_wide_s2d": "multi_modal_image_fusion_tpu/ops/pallas/"
+                     "conv_kernel.py:719 (conv_tlane_chain, s2d_f=2; "
+                     "pallas_call :799)",
+    "s2d_enter": "multi_modal_image_fusion_tpu/ops/pallas/s2d_io.py:155 "
+                 "(s2d_chain_enter; pallas_call :171)",
+    "s2d_exit": "multi_modal_image_fusion_tpu/ops/pallas/s2d_io.py:249 "
+                "(s2d_chain_exit; pallas_call :260)",
+}
+VARIANT_SOURCES = {
+    "conv_pair_enter": "multi_modal_image_fusion_tpu_torch/csrc/conv_pair.cu",
+    "conv_pair_exit": "multi_modal_image_fusion_tpu_torch/csrc/conv_pair.cu",
+    "conv_wide_s2d": "multi_modal_image_fusion_tpu_torch/csrc/conv_wide.cu",
+    "s2d_enter": "multi_modal_image_fusion_tpu_torch/csrc/s2d_io.cu",
+    "s2d_exit": "multi_modal_image_fusion_tpu_torch/csrc/s2d_io.cu",
+}
+# The pair and the packed conv are held to conv_wide's tolerance (WIDE_TOL,
+# relative to max|y| of the plain version): f32 1e-4 (the same f32 products
+# summed in another order); bf16 1e-3 beyond one bf16 ulp of each output
+# (a single conv rounds an f32 sum to bf16, and another summation order can
+# land on the neighbouring value; in the pair the mid is rounded to bf16 on
+# both sides, and a one-ulp flip of a mid value moves an output by |w| x
+# 2^-8 of one of its 400-784 terms, far inside 1e-3 of max|y|). Each has a
+# control that must miss by 10x: the pair with the mid's halo computed as
+# conv_a over the reflect-extended input; the packed conv with the
+# phase-blind reflect of the packed tensor (conv_wide without s2d mode).
+# s2d_enter and s2d_exit move values: bit for bit, and the control (the
+# pack with the px phases swapped) must differ.
+# DeepFuse's packed layers: (name, c_in, c_out, k, act, fuse_n) of the
+# original layer; they run at (H/2, W/2) on 4x the channels, k5 -> k3 and
+# k7 -> k5.
+S2D_LAYERS = [("enc0", 1, 16, 5, "relu", False),
+              ("enc1", 16, 32, 7, "relu", False),
+              ("dec0", 32, 32, 7, "relu", True),
+              ("dec1", 32, 16, 5, "relu", False),
+              ("dec2", 16, 1, 5, None, False)]
+
+
+def _extended_mid(torch, F, x, wa, ba, wb, bb, act_b):
+    """The pair's control: conv_a over the input reflect-padded by pa + pb
+    (the mid's halo not mirrored), cast, then conv_b VALID; in batch
+    chunks under 2^31 elements."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
+        apply_act, batch_step)
+    p = wa.shape[-1] // 2 + wb.shape[-1] // 2
+    b, h, w, c = x.shape
+    step = batch_step(h + 2 * p, w + 2 * p, max(c, 32), 1)
+    outs = []
+    for i in range(0, b, step):
+        xp = F.pad(x[i:i + step].float().permute(0, 3, 1, 2), (p,) * 4,
+                   mode="reflect")
+        mid = apply_act(F.conv2d(xp, wa.float(), ba), "relu").to(x.dtype)
+        y = apply_act(F.conv2d(mid.float(), wb.float(), bb), act_b)
+        outs.append(y.permute(0, 2, 3, 1).to(x.dtype))
+        del xp, mid
+    return torch.cat(outs)
+
+
+def check_variants(torch, F, dev, timer):
+    """Phase 3 for rows 10, 13, 14 and row 9's s2d mode, at 1224x1024: the
+    bf16 bench's 16 pairs and the f32 test CLI's one pair, each kernel
+    against its plain version with its control (see S2D_LAYERS' comment),
+    and at the bench's shape the kernel, the plain version and the
+    library: two F.conv2d for a pair (the pads and the mid's cast timed
+    apart), one F.conv2d on the per-phase padded packed input (the pad
+    timed apart), F.pixel_unshuffle / F.pixel_shuffle for rows 13-14 (the
+    concat and the NHWC permute timed apart). Returns {kernel: record}."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        apply_act
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        ENTER_SHAPES, EXIT_SHAPES, conv_pair_enter, conv_pair_exit,
+        conv_pair_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
+        conv_wide, conv_wide_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.s2d_io import (
+        s2d_enter, s2d_enter_plain, s2d_exit, s2d_exit_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.s2d import (
+        s2d_pack_bias, s2d_pack_weights, s2d_reflect_pad)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    recs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                   "min_control_rel_err": float("inf"),
+                   "tolerance_rel": WIDE_TOL, "layers": {}}
+            for name in VARIANT_REPLACES}
+    for name in ("s2d_enter", "s2d_exit"):
+        recs[name]["tolerance_rel"] = "bit for bit"
+
+    def note(kern, key, got, want, dt, ctl, what):
+        r = recs[kern]
+        err, rel = _wide_rel(torch, got, want, dt)
+        if rel > WIDE_TOL[dt]:
+            raise AssertionError(f"{kern} {key}: max err {err} is {rel:.3g} "
+                                 f"of max|y|, above {WIDE_TOL[dt]}")
+        c = _wide_rel(torch, ctl, want, dt)[1]
+        if c <= 10 * WIDE_TOL[dt]:
+            raise AssertionError(f"{kern} {key}: the control ({what}) misses "
+                                 f"by {c:.3g} only")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        r["min_control_rel_err"] = min(r["min_control_rel_err"], c)
+        print(f"{kern} {key}: err {rel:.3g}, control ({what}) {c:.3g} "
+              f"(tolerance {WIDE_TOL[dt]})", flush=True)
+
+    # row 10: the two pairs
+    for kind, shapes in (("enter", ENTER_SHAPES), ("exit", EXIT_SHAPES)):
+        kern = f"conv_pair_{kind}"
+        for dt, pairs in (("bf16", BATCH), ("f32", 1)):
+            dtype = dts[dt]
+            (wa, ba), (wb, bb) = [
+                ((_rand(torch, s, 400 + i, dev, torch.float32, -0.5, 2.0)
+                  / np.sqrt(s[1] * s[2] * s[3])).to(dtype),
+                 _rand(torch, (s[0],), 410 + i, dev, torch.float32, -0.5,
+                       0.2))
+                for i, s in enumerate(shapes)]
+            act_b = "relu" if kind == "enter" else None
+            args = (wa, ba, "relu", wb, bb, act_b)
+            if kind == "enter":
+                a = _rand(torch, (pairs, H, W, 1), 1, dev, dtype)
+                b = _rand(torch, (pairs, H, W, 1), 2, dev, dtype)
+                x = torch.cat([a, b])
+
+                def run():
+                    return conv_pair_enter(a, b, *args)
+            else:
+                x = _rand(torch, (pairs, H, W, 32), 420, dev, dtype, -0.5, 2.0)
+
+                def run():
+                    return conv_pair_exit(x, *args)
+
+            def plain():
+                return conv_pair_plain(x, *args)
+            key = f"{x.shape[0]}x{H}x{W}x{x.shape[-1]} {dt}"
+            got, want = run(), plain()
+            ctl = _extended_mid(torch, F, x, wa, ba, wb, bb, act_b)
+            note(kern, key, got, want, dt, ctl, "mid halo over the "
+                 "extended input")
+            del got, want, ctl
+            torch.cuda.empty_cache()
+            # FLOP a pixel: 2 (k_a^2 c_in c_mid + k_b^2 c_mid c_out)
+            px = x.shape[0] * H * W
+            flops = 2.0 * px * sum(s[1] * s[2] * s[3] * s[0] for s in shapes)
+            esz = 2 if dt == "bf16" else 4
+            nbytes = px * (x.shape[-1] + shapes[1][0]) * esz
+            bound, by = _bound(nbytes, flops, dt)
+            pa, pb = shapes[0][-1] // 2, shapes[1][-1] // 2
+            xn = x.permute(0, 3, 1, 2)
+            xa = F.pad(xn, (pa,) * 4, mode="reflect")
+            mid = apply_act(F.conv2d(xa, wa, ba.to(dtype)), "relu")
+            midp = F.pad(mid, (pb,) * 4, mode="reflect")
+            recs[kern]["layers"][key] = {
+                "ms": timer(run), "plain_ms": timer(plain),
+                "library_ms": timer(lambda: (F.conv2d(xa, wa, ba.to(dtype)),
+                                             F.conv2d(midp, wb,
+                                                      bb.to(dtype)))),
+                "library_calls": 2,
+                "library_pad_act_ms": timer(lambda: (
+                    F.pad(xn, (pa,) * 4, mode="reflect"),
+                    F.pad(torch.relu(mid), (pb,) * 4, mode="reflect"))),
+                "bound_ms": bound, "bound_by": by,
+                "shape": f"{key} k{shapes[0][-1]}+k{shapes[1][-1]}"}
+            del xa, mid, midp, xn, x, run, plain
+            torch.cuda.empty_cache()
+        stamp(f"{kern} checked")
+
+    # row 9's s2d mode: DeepFuse's five packed layers
+    hp, wp_ = H // 2, W // 2
+    for dt, pairs in (("bf16", BATCH), ("f32", 1)):
+        dtype = dts[dt]
+        for name, cin, cout, k, act, fuse in S2D_LAYERS:
+            b_in = 2 * pairs if name in ("enc0", "enc1", "dec0") else pairs
+            fuse_n = pairs if fuse else 0
+            n = b_in - fuse_n
+            x = _rand(torch, (b_in, hp, wp_, 4 * cin), 430 + cin, dev, dtype,
+                      -0.5, 2.0)
+            wt = (_rand(torch, (cout, cin, k, k), 431 + cout, dev, torch.float32,
+                        -0.5, 2.0) / np.sqrt(cin * k * k)).to(dtype)
+            bias = _rand(torch, (cout,), 432, dev, torch.float32, -0.5, 0.2)
+            wpk, bpk = s2d_pack_weights(wt), s2d_pack_bias(bias)
+            kp = wpk.shape[-1]
+
+            def run():
+                return conv_wide([(x, 0)], wpk, bpk, act, fuse_n, s2d_f=2)
+
+            def plain():
+                return conv_wide_plain([(x, 0)], wpk, bpk, act, fuse_n,
+                                       s2d_f=2)
+            key = f"{name} {dt}"
+            got, want = run(), plain()
+            note("conv_wide_s2d", key, got, want, dt,
+                 conv_wide([(x, 0)], wpk, bpk, act, fuse_n),
+                 "phase-blind reflect")
+            del got, want
+            xin = x[:n] + x[n:] if fuse_n else x
+            esz = 2 if dt == "bf16" else 4
+            nbytes = ((b_in * 4 * cin + n * 4 * cout) * hp * wp_
+                      + wpk.numel()) * esz
+            flops = 2.0 * n * hp * wp_ * (4 * cin) * (4 * cout) * kp * kp
+            bound, by = _bound(nbytes, flops, dt)
+            xpad = s2d_reflect_pad(xin, kp // 2).permute(0, 3, 1, 2)
+            bl = bpk.to(dtype)
+            recs["conv_wide_s2d"]["layers"][key] = {
+                "ms": timer(run), "plain_ms": timer(plain),
+                "library_ms": timer(lambda: F.conv2d(xpad, wpk, bl)),
+                "library_pad_ms": timer(lambda: s2d_reflect_pad(
+                    xin, kp // 2)),
+                "bound_ms": bound, "bound_by": by,
+                "shape": f"{b_in}x{hp}x{wp_}x{4 * cin} fuse_n {fuse_n} -> "
+                         f"{n}x{hp}x{wp_}x{4 * cout} k{kp} {dt}"}
+            del x, xin, xpad, run, plain
+            torch.cuda.empty_cache()
+        stamp(f"conv_wide s2d {dt} checked")
+
+    # rows 13-14: bit for bit, both image dtypes and both chain dtypes
+    for in_dt, out_dt, pairs in (("bf16", "bf16", BATCH),
+                                 ("f32", "bf16", 2), ("f32", "f32", 1)):
+        a = _rand(torch, (pairs, H, W, 1), 5, dev, dts[in_dt])
+        b = _rand(torch, (pairs, H, W, 1), 6, dev, dts[in_dt])
+        t = s2d_enter(a, b, dts[out_dt])
+        want = s2d_enter_plain(a, b, dts[out_dt])
+        y = s2d_exit(t)
+        if not (torch.equal(t, want) and torch.equal(y, s2d_exit_plain(t))
+                and torch.equal(y, torch.cat([a, b]).to(dts[out_dt]))):
+            raise AssertionError(f"s2d_enter/exit {in_dt}->{out_dt}: not "
+                                 f"equal to the plain pack and unpack")
+        diff = int((t != want[..., [1, 0, 3, 2]]).sum())
+        if diff == 0:
+            raise AssertionError("s2d_enter: the control (px phases "
+                                 "swapped) equals the kernel")
+        for kern in ("s2d_enter", "s2d_exit"):
+            recs[kern]["min_control_rel_err"] = min(
+                recs[kern]["min_control_rel_err"],
+                float((t - want[..., [1, 0, 3, 2]]).abs().max()
+                      / want.abs().max()))
+        if in_dt != "bf16":
+            continue
+        esz = 2
+        px = 2 * pairs * H * W
+        x = torch.cat([a, b]).permute(0, 3, 1, 2)     # NCHW, one channel
+        recs["s2d_enter"]["layers"][f"{2 * pairs}x{H}x{W} bf16"] = {
+            "ms": timer(lambda: s2d_enter(a, b, torch.bfloat16)),
+            "plain_ms": timer(lambda: s2d_enter_plain(a, b,
+                                                      torch.bfloat16)),
+            "library_ms": timer(lambda: F.pixel_unshuffle(x, 2)),
+            "library_concat_ms": timer(lambda: torch.cat([a, b])),
+            "library_permute_ms": timer(
+                lambda: F.pixel_unshuffle(x, 2).permute(0, 2, 3, 1)
+                .contiguous()),
+            "bound_ms": 2 * px * esz / PEAK_BYTES_S * 1e3,
+            "bound_by": "bytes",
+            "shape": f"2 x {pairs}x{H}x{W}x1 -> {2 * pairs}x{H // 2}x"
+                     f"{W // 2}x4 bf16"}
+        tq = t[:pairs].contiguous()                   # the fused images
+        tn = tq.permute(0, 3, 1, 2).contiguous()
+        recs["s2d_exit"]["layers"][f"{pairs}x{H}x{W} bf16"] = {
+            "ms": timer(lambda: s2d_exit(tq)),
+            "plain_ms": timer(lambda: s2d_exit_plain(tq)),
+            "library_ms": timer(lambda: F.pixel_shuffle(tn, 2)),
+            "library_permute_ms": timer(
+                lambda: tq.permute(0, 3, 1, 2).contiguous()),
+            "bound_ms": 2 * pairs * H * W * esz / PEAK_BYTES_S * 1e3,
+            "bound_by": "bytes",
+            "shape": f"{pairs}x{H // 2}x{W // 2}x4 -> {pairs}x{H}x{W}x1 "
+                     f"bf16"}
+        del x, tq, tn
+    for kern in ("s2d_enter", "s2d_exit"):
+        recs[kern]["max_abs_err"] = recs[kern]["max_rel_err"] = 0.0
+    torch.cuda.empty_cache()
+    stamp("s2d_enter and s2d_exit checked")
+    return recs
+
+
+# DeepFuse's opt-in routes: the switches and the launches of one forward
+VARIANTS = {
+    "deepfuse_pair": {"MMIF_CHAIN_PAIR": "1"},
+    "deepfuse_s2d": {"MMIF_S2D": "1", "MMIF_CHAIN_HIW": "0"},
+    "deepfuse_s2d_io": {"MMIF_S2D": "1", "MMIF_CHAIN_HIW": "0",
+                        "MMIF_S2D_IO": "1"},
+}
+FORWARD_LAUNCHES["deepfuse_pair"] = {"conv_pair_enter": 1, "conv_chain": 1,
+                                     "conv_pair_exit": 1}
+FORWARD_LAUNCHES["deepfuse_s2d"] = {"conv_wide": 5, "conv_wide/s2d": 5}
+FORWARD_LAUNCHES["deepfuse_s2d_io"] = {"s2d_enter": 1, "conv_wide": 5,
+                                       "conv_wide/s2d": 5, "s2d_exit": 1}
+INT8_FORWARD_LAUNCHES["deepfuse_pair"] = FORWARD_LAUNCHES["deepfuse_pair"]
+
+
+@contextlib.contextmanager
+def switches(env):
+    """Set environment switches for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main():
     import torch
 
@@ -2049,6 +2376,9 @@ def main():
     print(f"conv_wide layers: {json.dumps(rec['conv_wide']['layers'])}")
     rec.update(check_int8(torch, F, dev, timer))
     for name in ("conv_int8", "conv_int8_chain"):
+        print(f"{name} layers: {json.dumps(rec[name]['layers'])}")
+    rec.update(check_variants(torch, F, dev, timer))
+    for name in VARIANT_REPLACES:
         print(f"{name} layers: {json.dumps(rec[name]['layers'])}")
     print("kernel checks passed")
 
@@ -2151,6 +2481,15 @@ def main():
                                          cli_ssim)
         main_counts.update(counts)
         stamp("test CLI --int8 done")
+        # the test CLI under the pair and packed switches (f32: no s2d_io)
+        variant_cli = {}
+        for key in ("deepfuse_pair", "deepfuse_s2d"):
+            with switches(VARIANTS[key]):
+                variant_cli[key], counts = model_cli_path(
+                    torch, build, test_cli, root, dev, key, "deepfuse", {},
+                    WIDE_PAIRS, 3)
+            main_counts.update(counts)
+            stamp(f"test CLI {key} done")
     torch.cuda.empty_cache()
 
     # BASELINE contract on the bench's last timed batch: its bf16 fused
@@ -2219,6 +2558,34 @@ def main():
         del a16, b16, y8
         torch.cuda.empty_cache()
         stamp(f"{name} int8 bench and quality done")
+
+    # DeepFuse's opt-in routes (rows 9's s2d mode, 10, 13, 14): the bench
+    # under each set of switches, counts from 0, beside the default bench
+    # of phase 4, and its contract; then --int8 with MMIF_CHAIN_PAIR, which
+    # takes the float pair route (no conv_int8_chain launch)
+    variant_benches = {}
+    for key, env in VARIANTS.items():
+        torch.cuda.reset_peak_memory_stats()
+        with switches(env):
+            variant_benches[key], (a16, b16, y16), counts = bench_path(
+                build, bench, key, BATCH, model="deepfuse")
+        variant_benches[key]["peak_memory_gb"] = (
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+        variant_benches[key]["default_pairs_per_sec"] = result["value"]
+        variant_benches[key]["switches"] = env
+        main_counts.update(counts)
+        torch.cuda.empty_cache()
+        contracts[key] = contract(torch, dev, "deepfuse", a16, b16, y16)
+        del a16, b16, y16
+        torch.cuda.empty_cache()
+        stamp(f"{key} bench and contract done")
+    with switches(VARIANTS["deepfuse_pair"]):
+        int8_pair, _, counts = int8_bench_path(torch, build, bench,
+                                               "deepfuse", "deepfuse_pair")
+    int8_pair["int8_chain_pairs_per_sec"] = int8_benches["deepfuse"]["value"]
+    main_counts.update(counts)
+    torch.cuda.empty_cache()
+    stamp("deepfuse --int8 with MMIF_CHAIN_PAIR done")
 
     # phase 6: training, counts from 0
     with tempfile.TemporaryDirectory() as root:
@@ -2347,6 +2714,28 @@ def main():
             "library_ms": sum(v["library_ms"] for v in ls),
             "layers": r["layers"],
         })
+    # the opt-in routes' kernels: the sums are one bf16 bench forward of 16
+    # pairs (conv_wide_s2d: its five packed layers; launches counted under
+    # conv_wide/s2d, inside conv_wide's); the f32 checks are under "layers"
+    for name in VARIANT_REPLACES:
+        r = rec[name]
+        ls = [v for key, v in r["layers"].items() if key.endswith(" bf16")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": VARIANT_SOURCES[name],
+            "replaces": VARIANT_REPLACES[name],
+            "launches": counts.get("conv_wide/s2d" if name == "conv_wide_s2d"
+                                   else name, 0),
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "min_control_rel_err": r["min_control_rel_err"],
+            "tolerance_rel": r["tolerance_rel"],
+            "ms": sum(v["ms"] for v in ls),
+            "plain_ms": sum(v["plain_ms"] for v in ls),
+            "bound_ms": sum(v["bound_ms"] for v in ls),
+            "bound_by": "operations" if any(
+                v["bound_by"] == "operations" for v in ls) else "bytes",
+            "library_ms": sum(v["library_ms"] for v in ls),
+            "layers": r["layers"],
+        })
     # conv_valid: the sums are one train step's 9 launches in f32, the
     # training CLI's dtype; every shape checked is under "layers"
     r = rec["conv_valid"]
@@ -2372,6 +2761,9 @@ def main():
         "library_ms": sum(v["library_ms"] for v in step),
         "layers": r["layers"],
     })
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
     print(json.dumps({"kernels": kernels,
                       "pairs_per_sec": result["value"],
                       "benches": benches,
@@ -2384,6 +2776,9 @@ def main():
                       "int8_benches": int8_benches,
                       "int8_quality": int8_gap,
                       "test_cli_int8": int8_cli,
+                      "variant_benches": variant_benches,
+                      "int8_bench_pair": int8_pair,
+                      "test_cli_variants": variant_cli,
                       "eval": eval_rec,
                       "main_path_launches": counts,
                       "training": {"step": step_stats, "profile": busy,

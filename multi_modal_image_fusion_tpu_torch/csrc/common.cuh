@@ -36,6 +36,19 @@ __device__ __forceinline__ int reflect_index(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
+// The source pixel (row * W + column) of tile position (y, x), either side
+// of the image: reflect index math. With s2d set the tensor is
+// space-to-depth packed (f = 2, phase-major channels, ops/s2d.py) and H, W
+// are its packed sizes: a channel of phase ph = py*2 + px reads the packed
+// reflect extension of the original image, packed row
+// reflect(2y + py, 2H) / 2 of the same phase (reflection keeps the parity),
+// so phase 0 mirrors exclusively and phase 1 inclusively.
+__device__ __forceinline__ size_t src_pixel(int y, int x, int H, int W, int s2d, int ph) {
+  if (!s2d) return (size_t)reflect_index(y, H) * W + reflect_index(x, W);
+  return (size_t)(reflect_index(2 * y + (ph >> 1), 2 * H) >> 1) * W +
+         (reflect_index(2 * x + (ph & 1), 2 * W) >> 1);
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 

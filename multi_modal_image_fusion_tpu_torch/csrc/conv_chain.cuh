@@ -1,8 +1,8 @@
 // The conv_chain kernel body: a register-blocked f32-FMA reflect-SAME conv
 // over up to MAX_LEGS input legs (csrc/conv_chain.cu explains the design).
 // conv_chain.cu launches it for conv_chain and conv_multi; conv_wide.cu
-// launches it for conv_wide's f32 path, with 8 output channels a block
-// where Cout is not a multiple of 16.
+// launches it for conv_wide's f32 path, with 8 or 4 output channels a
+// block where Cout is not a multiple of 16, and for its s2d mode.
 #pragma once
 
 #include "common.cuh"
@@ -36,11 +36,14 @@ constexpr int CH_TH = 8, CH_TW = 64, CH_PX = 4, CH_CI = 8;
 constexpr int CH_THREADS = (CH_TW / CH_PX) * CH_TH;  // 128
 constexpr int MAX_LEGS = 8;
 
+// s2d: the one leg is space-to-depth packed (f = 2, ops/s2d.py; conv_wide's
+// s2d mode): its halo is the packed reflect extension (src_pixel).
 struct Legs {
   const void* x[MAX_LEGS];
   int cin[MAX_LEGS];
   int b_off[MAX_LEGS];
   int n;
+  int s2d;
 };
 
 template <int K, int CO_T>
@@ -88,7 +91,9 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
     const T* base = static_cast<const T*>(legs.x[l]);
     const T* xa = base + (size_t)(b + legs.b_off[l]) * img;
     const T* xs = fuse_n ? base + (size_t)(b + legs.b_off[l] + fuse_n) * img : nullptr;
-    const bool vec = (Cin % 8) == 0;
+    const int s2d = legs.s2d, cb = Cin >> 2;  // s2d: channels a phase
+    // 8 channels a load where they lie in one phase
+    const bool vec = (Cin % 8) == 0 && (!s2d || cb % 8 == 0);
 
     for (int ci0 = 0; ci0 < Cin; ci0 += CH_CI) {
       // stage the input tile (reflect halo, fuse_n sibling added in f32)
@@ -98,8 +103,8 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
 #pragma unroll
         for (int j = 0; j < CH_CI; ++j) v[j] = 0.f;
         if (c < G::W_IN) {
-          const size_t off = ((size_t)reflect_index(y0 - P + r, H) * W +
-                              reflect_index(x0 - P + c, W)) * Cin + ci0;
+          const int ty = y0 - P + r, tx = x0 - P + c;
+          const size_t off = src_pixel(ty, tx, H, W, s2d, s2d ? ci0 / cb : 0) * Cin + ci0;
           if (vec) {
             load8(xa + off, v);
             if (xs) {
@@ -112,8 +117,11 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
 #pragma unroll
             for (int j = 0; j < CH_CI; ++j) {
               if (ci0 + j < Cin) {
-                v[j] = to_f32(xa[off + j]);
-                if (xs) v[j] += to_f32(xs[off + j]);
+                // s2d: each channel in its own phase's halo
+                const size_t o = s2d ? src_pixel(ty, tx, H, W, 1, (ci0 + j) / cb) * Cin + ci0 + j
+                                     : off + j;
+                v[j] = to_f32(xa[o]);
+                if (xs) v[j] += to_f32(xs[o]);
               }
             }
           }
@@ -184,8 +192,13 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
     float o[CO_T];
 #pragma unroll
     for (int c = 0; c < CO_T; ++c) o[c] = apply_act(acc[p][c] + bv[c], act);
+    if constexpr (CO_T % 8 == 0) {
 #pragma unroll
-    for (int c = 0; c < CO_T; c += 8) store8(dst + c, o + c);
+      for (int c = 0; c < CO_T; c += 8) store8(dst + c, o + c);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CO_T; ++c) dst[c] = from_f32<T>(o[c]);
+    }
   }
 }
 

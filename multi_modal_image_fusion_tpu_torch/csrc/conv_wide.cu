@@ -28,8 +28,20 @@
 // pipelining, wgmma or TMA yet: a simple kernel that is right first.
 //
 // In f32 the chain's FMA body (conv_chain.cuh) runs with 16 output channels
-// a block, or 8 where Cout is not a multiple of 16: TF32 would miss the f32
-// reference over 11,520-term sums.
+// a block, or 8 or 4 where Cout is not a multiple of 16: TF32 would miss the
+// f32 reference over 11,520-term sums.
+//
+// s2d mode (conv_tlane_chain's s2d_f=2, ops/layers.py:409-437 and :531 of
+// the JAX package): DeepFuse's packed chain runs its k5/k7 convs as k3/k5
+// convs on space-to-depth packed tensors (ops/s2d.py): enc0 4 -> 64 k3,
+// enc1 64 -> 128 k5, dec0 128 -> 128 k5 with fuse_n, dec1 128 -> 64 k3,
+// dec2 64 -> 4 k3. The only change is the halo: each channel's phase reads
+// the packed reflect extension of the original image (src_pixel in
+// common.cuh; conv_kernel.py:544-560 mirrors it on the TPU). Each 16-channel
+// stage of the wide layers lies in one phase; enc0's 4 channels are one
+// phase each (the per-channel path). dec2's 4 outputs use a 16-wide n block
+// with the pairs past Cout left unstored. k5 at BN = 64 stages 76.8 KB of
+// weights: the staging is dynamic shared memory.
 //
 // Not carried over from the TPU kernel: the guard layout, the kw_order
 // weight permutation, the ssa/ssai/acc epilogues and the VMEM-driven c_in
@@ -49,15 +61,27 @@ __device__ __forceinline__ uint4 pack8_bf16(const float* v) {
 }
 
 template <int K, int NT>
+struct WideSmem {
+  static constexpr int IN_H = WD_TH + K - 1, IN_W = WD_TW + K - 1;
+  static constexpr int IN_WORDS = IN_H * IN_W * WD_PW;   // [pixel][16 ch]
+  static constexpr int W_WORDS = K * K * 8 * NT * WD_PW;  // [tap][co][16 ch]
+  static constexpr size_t BYTES = (size_t)(IN_WORDS + W_WORDS) * 4;
+};
+
+template <int K, int NT>
 __global__ void __launch_bounds__(WD_THREADS)
 conv_wide_mma_kernel(Legs legs, const __nv_bfloat16* __restrict__ w,
                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H,
                      int W, int Cout, int cout_pad, int cin_pad, int fuse_n, int act) {
+  using S = WideSmem<K, NT>;
   constexpr int BN = 8 * NT;
   constexpr int P = K / 2;
-  constexpr int IN_H = WD_TH + K - 1, IN_W = WD_TW + K - 1;
-  __shared__ __align__(16) uint32_t s_in[IN_H * IN_W * WD_PW];  // [pixel][16 ch]
-  __shared__ __align__(16) uint32_t s_w[K * K * BN * WD_PW];    // [tap][co][16 ch]
+  constexpr int IN_H = S::IN_H, IN_W = S::IN_W;
+  // dynamic: k5 at BN = 64 stages 76.8 KB of weights, over the 48 KB of
+  // static shared memory
+  extern __shared__ uint4 wd_smem[];
+  uint32_t* s_in = reinterpret_cast<uint32_t*>(wd_smem);
+  uint32_t* s_w = s_in + S::IN_WORDS;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -81,17 +105,21 @@ conv_wide_mma_kernel(Legs legs, const __nv_bfloat16* __restrict__ w,
     const __nv_bfloat16* xa = base + (size_t)(b + legs.b_off[l]) * img;
     const __nv_bfloat16* xs =
         fuse_n ? base + (size_t)(b + legs.b_off[l] + fuse_n) * img : nullptr;
-    const bool vec = (Cin % 8) == 0;
+    const int s2d = legs.s2d, cb = Cin >> 2;  // s2d: channels a phase
+    // 8 channels a load where they lie in one phase
+    const bool vec = (Cin % 8) == 0 && (!s2d || cb % 8 == 0);
 
     for (int ci0 = 0; ci0 < Cin; ci0 += WD_CK) {
-      // stage the input tile: reflect halo, zeros past the leg's channels,
-      // the fuse_n sibling added in f32 and rounded to bf16 (as a bf16 add)
+      // stage the input tile: reflect halo (per phase in s2d mode), zeros
+      // past the leg's channels, the fuse_n sibling added in f32 and
+      // rounded to bf16 (as a bf16 add)
       for (int idx = tid; idx < IN_H * IN_W * 2; idx += WD_THREADS) {
         const int half = idx & 1, pix = idx >> 1;
         const int r = pix / IN_W, c = pix - r * IN_W;
         const int c0 = ci0 + 8 * half;
-        const size_t off = ((size_t)reflect_index(y0 - P + r, H) * W +
-                            reflect_index(x0 - P + c, W)) * Cin + c0;
+        const int ty = y0 - P + r, tx = x0 - P + c;
+        const size_t off =
+            src_pixel(ty, tx, H, W, s2d, s2d && c0 < Cin ? c0 / cb : 0) * Cin + c0;
         uint4 u = make_uint4(0u, 0u, 0u, 0u);
         if (vec) {
           if (c0 < Cin && xs) {
@@ -110,8 +138,11 @@ conv_wide_mma_kernel(Legs legs, const __nv_bfloat16* __restrict__ w,
           for (int j = 0; j < 8; ++j) {
             v[j] = 0.f;
             if (c0 + j < Cin) {
-              v[j] = to_f32(xa[off + j]);
-              if (xs) v[j] += to_f32(xs[off + j]);
+              // s2d: each channel in its own phase's halo
+              const size_t o =
+                  s2d ? src_pixel(ty, tx, H, W, 1, (c0 + j) / cb) * Cin + c0 + j : off + j;
+              v[j] = to_f32(xa[o]);
+              if (xs) v[j] += to_f32(xs[o]);
             }
           }
           u = pack8_bf16(v);
@@ -164,7 +195,7 @@ conv_wide_mma_kernel(Legs legs, const __nv_bfloat16* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int co = co0 + 8 * j + 2 * t;
-    if (co >= Cout) continue;  // Cout % 8 == 0: the whole n-tile is past it
+    if (co >= Cout) continue;  // Cout even: both channels of the pair are past it
     const float bv0 = bias ? bias[co] : 0.f, bv1 = bias ? bias[co + 1] : 0.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -185,9 +216,14 @@ template <int K, int NT>
 static int launch_wide(const Legs& legs, const void* w, const float* bias, void* y, int b_out,
                        int h, int wd, int cout, int cout_pad, int cin_pad, int fuse_n, int act,
                        cudaStream_t s) {
+  constexpr size_t smem = WideSmem<K, NT>::BYTES;
+  // above 48 KB only as opted-in dynamic shared memory; set once per instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_wide_mma_kernel<K, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((wd + WD_TW - 1) / WD_TW, (h + WD_TH - 1) / WD_TH,
                   b_out * (cout_pad / (8 * NT)));
-  conv_wide_mma_kernel<K, NT><<<grid, WD_THREADS, 0, s>>>(
+  conv_wide_mma_kernel<K, NT><<<grid, WD_THREADS, smem, s>>>(
       legs, static_cast<const __nv_bfloat16*>(w), bias, static_cast<__nv_bfloat16*>(y), h, wd,
       cout, cout_pad, cin_pad, fuse_n, act);
   return (int)cudaGetLastError();
@@ -210,7 +246,22 @@ static int wide_f32(const Legs& legs, const float* w, const float* bias, void* y
                     int h, int wd, int cout, int fuse_n, int act, cudaStream_t s) {
   if (cout % 16 == 0)
     return launch_chain<float, K, 16>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
-  return launch_chain<float, K, 8>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+  if (cout % 8 == 0)
+    return launch_chain<float, K, 8>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+  return launch_chain<float, K, 4>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+}
+
+template <int K>
+static int wide_launch(int dtype, const Legs& legs, const void* w, const float* bias, void* y,
+                       int b_out, int h, int wd, int cout, int bn, int cin_pad, int fuse_n,
+                       int act, cudaStream_t s) {
+  if (dtype == DT_F32)
+    return wide_f32<K>(legs, static_cast<const float*>(w), bias, y, b_out, h, wd, cout, fuse_n,
+                       act, s);
+  if (dtype != DT_BF16 || bn <= 0) return (int)cudaErrorInvalidValue;
+  const int cout_pad = (cout + bn - 1) / bn * bn;
+  return wide_by_bn<K>(bn, legs, w, bias, y, b_out, h, wd, cout, cout_pad, cin_pad, fuse_n, act,
+                       s);
 }
 
 }  // namespace mmif
@@ -221,15 +272,20 @@ extern "C" {
 
 // n_legs legs: xs[l] (B_l, h, w, cins[l]) in dtype, read at batch b + b_offs[l]
 // (and b + b_offs[l] + fuse_n when fuse_n > 0) for output image b; y (b_out,
-// h, w, cout) in dtype; bias f32 or null; k 1 or 3; cout a multiple of 8.
+// h, w, cout) in dtype; bias f32 or null; k 1, 3 or 5; cout a multiple of 4.
+// s2d: one leg, space-to-depth packed (f = 2, phase-major, cins[0] a
+// multiple of 4), h and w its packed sizes; the halo is the packed reflect
+// extension of the original image.
 // bf16: w is (k*k, cout_pad, cin_pad) bf16, cout_pad = cout rounded up to a
 // multiple of bn (16, 32 or 64), cin_pad the sum of the legs' channel counts
 // each rounded up to a multiple of 16, zeros in the padding.
 // f32: w is [sum(cins)][k][k][cout] f32 and bn is ignored.
 int mmif_conv_wide(int dtype, int n_legs, const void* const* xs, const int* cins,
                    const int* b_offs, const void* w, const float* bias, void* y, int b_out,
-                   int h, int wd, int cout, int k, int bn, int fuse_n, int act, void* stream) {
-  if (n_legs < 1 || n_legs > MAX_LEGS || cout < 8 || cout % 8 || (k != 1 && k != 3))
+                   int h, int wd, int cout, int k, int bn, int fuse_n, int act, int s2d,
+                   void* stream) {
+  if (n_legs < 1 || n_legs > MAX_LEGS || cout < 4 || cout % 4 ||
+      (k != 1 && k != 3 && k != 5) || (s2d && (n_legs != 1 || cins[0] % 4)))
     return (int)cudaErrorInvalidValue;
   Legs legs = {};
   int cin_pad = 0;
@@ -241,18 +297,13 @@ int mmif_conv_wide(int dtype, int n_legs, const void* const* xs, const int* cins
     cin_pad += (cins[l] + WD_CK - 1) / WD_CK * WD_CK;
   }
   legs.n = n_legs;
+  legs.s2d = s2d ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) {
-    const float* wf = static_cast<const float*>(w);
-    return k == 1 ? wide_f32<1>(legs, wf, bias, y, b_out, h, wd, cout, fuse_n, act, s)
-                  : wide_f32<3>(legs, wf, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+  switch (k) {
+    case 1: return wide_launch<1>(dtype, legs, w, bias, y, b_out, h, wd, cout, bn, cin_pad, fuse_n, act, s);
+    case 3: return wide_launch<3>(dtype, legs, w, bias, y, b_out, h, wd, cout, bn, cin_pad, fuse_n, act, s);
+    default: return wide_launch<5>(dtype, legs, w, bias, y, b_out, h, wd, cout, bn, cin_pad, fuse_n, act, s);
   }
-  if (dtype != DT_BF16 || bn <= 0) return (int)cudaErrorInvalidValue;
-  const int cout_pad = (cout + bn - 1) / bn * bn;
-  return k == 1 ? wide_by_bn<1>(bn, legs, w, bias, y, b_out, h, wd, cout, cout_pad, cin_pad,
-                                fuse_n, act, s)
-                : wide_by_bn<3>(bn, legs, w, bias, y, b_out, h, wd, cout, cout_pad, cin_pad,
-                                fuse_n, act, s);
 }
 
 }  // extern "C"

@@ -14,11 +14,15 @@ from torch import nn
 
 from ..ops.blocks import (DenseBlock, NestDecoder, NestEncoder, Res2ConvBlock,
                           down, upsample)
+from ..ops.cuda.conv_pair import conv_pair_enter, conv_pair_exit
+from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
 from ..ops.fusion import attention_fusion, element_fusion
 from ..ops.layers import ConvLayer, int8_ctx
-from ..ops.quant import (chain_hop_ok, chain_leg_ok, hiw_int8_enabled,
-                         hiw_res_enabled, name_layers, quant_off,
-                         quant_skipped)
+from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
+                         hiw_int8_enabled, hiw_res_enabled, name_layers,
+                         quant_off, quant_skipped)
+from ..ops.s2d import (chain_pair_enabled, hiw_enabled, s2d_enabled,
+                       s2d_io_enabled, s2d_io_ok, s2d_pack, s2d_unpack)
 
 __all__ = ["DBNet", "DeepFuse", "DenseFuse", "MODEL_ZOO", "Res2Fusion",
            "UNFusion", "VIFNet", "create_model"]
@@ -48,10 +52,29 @@ class DeepFuse(nn.Module):
     kernels; the hops enc1 -> dec0 ('sum' only: the siamese sum then rides
     the int8 grid in dec0's load) and dec0 -> dec1 stay int8 between the
     legs unless MMIF_HIW_INT8_RES=0. MMIF_HIW_INT8=0, and autoencoder
-    mode, send every layer to ConvLayer's int8 route instead. The JAX
-    package's opt-in MMIF_CHAIN_PAIR route (row 10) is not ported yet
-    (ROADMAP): under int8 the port ignores the switch, where the JAX
-    chain would leave the int8 legs for its float pair kernel."""
+    mode, send every layer to ConvLayer's int8 route instead.
+
+    A fused pair served outside a trainer scope, with no gradient needed and
+    outside `calibrate`, takes a route in the JAX package's order
+    (zoo.py:352-540), each switch read at call time (ops/s2d.py):
+
+    1. int8 (above): the int8 chain unless MMIF_CHAIN_PAIR is set;
+    2. MMIF_CHAIN_PAIR set (any non-empty value): the fused conv pairs
+       (ops/cuda/conv_pair.py): conv_pair_enter (enc0 + enc1 on the gray
+       pair), dec0 on conv_chain (fuse_n for 'sum', element_fusion first
+       for 'mean'/'max'), conv_pair_exit (dec1 + dec2). The route is float
+       even under int8, as the JAX pair route has no int8 dispatch;
+    3. MMIF_CHAIN_HIW on (the default), or int8: the default route;
+    4. MMIF_S2D on and H, W even: the packed chain, every layer on
+       conv_wide's s2d mode at (H/2, W/2) on 4x the channels (ConvLayer.
+       packed), entered and left through s2d_enter / s2d_exit
+       (ops/cuda/s2d_io.py) when MMIF_S2D_IO is on and `s2d_io_ok` holds
+       on the chain dtype, else through the torch pack; 'sum' is dec0's
+       fuse_n on the packed legs, 'mean'/'max' fuse the packed halves;
+    5. otherwise the default route.
+
+    In training, with a gradient and during calibration every layer is
+    recorded or differentiated on the default route."""
 
     def __init__(self, fusion_mode="sum", generator=None):
         super().__init__()
@@ -74,8 +97,14 @@ class DeepFuse(nn.Module):
         enc0, enc1 = self.encode
         dec0, dec1, dec2 = self.decode
         qc = int8_ctx()
-        if qc is not None and img2 is not None and hiw_int8_enabled():
+        route = self.route(img1, img2)
+        if route == "int8_chain":
             return self._int8_chain(img1, img2, qc)
+        if route == "pair":
+            with quant_off():
+                return self._pair_chain(img1, img2)
+        if route == "s2d":
+            return self._packed_chain(img1, img2)
         t = enc1(enc0.enter(img1, img2))
         if img2 is None:
             t = dec0(t)
@@ -85,6 +114,60 @@ class DeepFuse(nn.Module):
             n = img1.shape[0]
             t = dec0(element_fusion(t[:n], t[n:], self.fusion_mode))
         return dec2(dec1(t))
+
+    def route(self, img1, img2=None):
+        """The route forward takes now (class docstring): 'int8_chain',
+        'pair', 's2d' or 'default'."""
+        layers = [*self.encode, *self.decode]
+        if (img2 is None or calibrating()
+                or any(m._training_route(img1, img2) for m in layers)):
+            return "default"
+        if int8_ctx() is not None:
+            if not hiw_int8_enabled():
+                return "default"        # ConvLayer's int8 route
+            return "pair" if chain_pair_enabled() else "int8_chain"
+        if chain_pair_enabled():
+            return "pair"
+        h, w = img1.shape[1:3]
+        if not hiw_enabled() and s2d_enabled() and h % 2 == 0 and w % 2 == 0:
+            return "s2d"
+        return "default"
+
+    def _pair_chain(self, img1, img2):
+        """The MMIF_CHAIN_PAIR route (JAX zoo.py:510-540)."""
+        enc0, enc1 = self.encode
+        dec0, dec1, dec2 = self.decode
+        n = img1.shape[0]
+        wa, ba, _, aa = enc0.pair_args()
+        wb, bb, _, ab = enc1.pair_args()
+        t = conv_pair_enter(img1, img2, wa, ba, aa, wb, bb, ab)
+        if self.fusion_mode == "sum":
+            t = dec0(t, fuse_n=n)
+        else:
+            t = dec0(element_fusion(t[:n], t[n:], self.fusion_mode))
+        wa, ba, _, aa = dec1.pair_args()
+        wb, bb, _, ab = dec2.pair_args()
+        return conv_pair_exit(t, wa, ba, aa, wb, bb, ab)
+
+    def _packed_chain(self, img1, img2):
+        """The MMIF_S2D route (JAX zoo.py:470-508)."""
+        n, h, w = img1.shape[:3]
+        dt = self.encode[0].weight.dtype
+        use_io = s2d_io_enabled() and s2d_io_ok(h, w, dt)
+        if use_io:
+            t = s2d_enter(img1, img2, dt)
+        else:
+            t = s2d_pack(torch.cat([img1, img2], 0).to(dt)).contiguous()
+        for layer in self.encode:
+            t = layer.packed(t)
+        dec0, *rest = self.decode
+        if self.fusion_mode == "sum":
+            t = dec0.packed(t, fuse_n=n)
+        else:
+            t = dec0.packed(element_fusion(t[:n], t[n:], self.fusion_mode))
+        for layer in rest:
+            t = layer.packed(t)
+        return s2d_exit(t) if use_io else s2d_unpack(t).contiguous()
 
     def _int8_chain(self, img1, img2, qc):
         enc0, enc1 = self.encode

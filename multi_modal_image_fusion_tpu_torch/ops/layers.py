@@ -23,7 +23,12 @@ Routes of a conv:
   kernels of ops/cuda/ on CUDA tensors, their plain versions on CPU tensors.
   A `wide` layer (a call site of the JAX package's C-major chain conv
   conv_tlane_chain: UNFusion's nested decoder and encoder k1 convs, DBNet's
-  decoder) runs `conv_wide` on one tensor or a list of legs. Otherwise a
+  decoder) runs `conv_wide` on one tensor or a list of legs. `packed`
+  (the JAX package's `chain_s2d=2`) runs a layer on an f = 2 space-to-depth
+  packed tensor: the weight and bias packed by ops/s2d.py, conv_wide's s2d
+  mode. `pair_args` hands a layer's (weight, bias, k, act) to a model that
+  fuses two layers in one kernel (ops/cuda/conv_pair.py; the JAX package's
+  `chain_defer_in_ch`). Otherwise a
   list of legs runs `conv_multi`; on one tensor the c_in=1 layer runs
   `conv_gray_enter`, the c_out=1 layer `conv_gray_exit`, every other layer
   `conv_chain`; a depthwise layer runs `conv_dw`, which reads a channel
@@ -73,6 +78,7 @@ from .cuda.conv_vjp import conv_valid_fast
 from .cuda.conv_wide import conv_wide
 from .quant import (calibrating, choose_fold, fold_weights, hiw_fold_scale,
                     quant_ctx, quant_skipped, quantize_weights, record)
+from .s2d import s2d_pack_bias, s2d_pack_weights
 
 __all__ = ["ACT_CODES", "ConvLayer", "apply_act", "fast_training",
            "init_conv_", "int8_ctx", "interpolate"]
@@ -275,6 +281,24 @@ class ConvLayer(nn.Module):
         if self.out_ch == 1 and not fuse_n:
             return conv_gray_exit(x, self.weight, self.bias, self.act)
         return conv_chain(x, self.weight, self.bias, self.act, fuse_n)
+
+    def packed(self, x, fuse_n=0):
+        """The packed route (JAX ops/layers.py:409-437, `chain_s2d=2`): x
+        (B, H/2, W/2, 4 in_ch) space-to-depth packed (ops/s2d.py) ->
+        (B or fuse_n, H/2, W/2, 4 out_ch), the weight and bias packed at
+        call time, conv_wide's s2d mode (a k5 or k7 layer runs as a k3 or
+        k5 conv). Serving only: a stride-1 dense layer, no gradient."""
+        if self.stride != 1 or self.groups != 1:
+            raise ValueError("packed route: stride-1 dense layers only")
+        w = s2d_pack_weights(self.weight.detach())
+        b = None if self.bias is None else s2d_pack_bias(self.bias.detach())
+        return conv_wide([(x, 0)], w, b, self.act, fuse_n, s2d_f=2)
+
+    def pair_args(self):
+        """(weight, bias, k, act) for a model that runs this layer inside a
+        fused pair (ops/cuda/conv_pair.py): the counterpart of the JAX
+        package's `chain_defer_in_ch` (ops/layers.py:443-452)."""
+        return self.weight, self.bias, self.ksize, self.act
 
     def _int8_route(self):
         """The quantized_inference this layer runs int8 under now, or None:

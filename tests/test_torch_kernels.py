@@ -810,10 +810,16 @@ def test_conv_wide_raises(cuda):
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
         conv_wide
     x = _drand((2, 16, 16, 16), 230, cuda, torch.float32)
-    with pytest.raises(ValueError):       # k5 is not built
-        conv_wide([(x, 0)], torch.zeros((16, 16, 5, 5), device=cuda))
-    with pytest.raises(ValueError):       # Cout not a multiple of 8
-        conv_wide([(x, 0)], torch.zeros((12, 16, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # k7 is not built
+        conv_wide([(x, 0)], torch.zeros((16, 16, 7, 7), device=cuda))
+    with pytest.raises(ValueError):       # Cout not a multiple of 4
+        conv_wide([(x, 0)], torch.zeros((10, 16, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # s2d mode: one packed leg
+        conv_wide([(x, 0)] * 2, torch.zeros((16, 32, 3, 3), device=cuda),
+                  s2d_f=2)
+    with pytest.raises(ValueError):       # s2d mode: f = 2 only
+        conv_wide([(x, 0)], torch.zeros((16, 16, 3, 3), device=cuda),
+                  s2d_f=4)
     with pytest.raises(ValueError):       # at most 8 legs
         conv_wide([(x, 0)] * 9, torch.zeros((16, 144, 3, 3), device=cuda))
     with pytest.raises(TypeError):
@@ -1064,3 +1070,217 @@ def test_train_conv_reflect_pad_past_int32(cuda):
     assert got.shape == (32, 1224, 1024, 64)
     for i in range(0, 32, 4):             # f64 copies of 2.6e9 elements
         _close(got[i:i + 4], want[i:i + 4], torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# DeepFuse's opt-in chain routes: conv_pair (row 10), conv_wide's s2d mode
+# (row 9) and s2d_enter / s2d_exit (rows 13-14)
+# ---------------------------------------------------------------------------
+
+# the pair's tolerance: conv_wide's (f32 1e-4 of max|y|; bf16 1e-3 of max|y|
+# beyond one bf16 ulp of each output). In bf16 the mid is rounded to bf16 on
+# both sides; an f32 sum taken in another order flips a mid value by one
+# ulp now and then, which moves an output by |w| * 2^-8 of one of its
+# 400-784 terms: far inside 1e-3 of max|y|.
+PAIR_CASES = [("enter", 2, 45, 61), ("enter", 1, 20, 130),
+              ("exit", 2, 45, 61), ("exit", 1, 33, 70), ("exit", 1, 16, 5)]
+
+
+def _pair_weights(kind, dev, dtype):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        ENTER_SHAPES, EXIT_SHAPES)
+    out = []
+    for i, shape in enumerate(ENTER_SHAPES if kind == "enter"
+                              else EXIT_SHAPES):
+        fan = shape[1] * shape[2] * shape[3]
+        out += [(_drand(shape, 300 + i, dev, torch.float32)
+                 / np.sqrt(fan)).to(dtype),
+                _drand((shape[0],), 310 + i, dev, torch.float32) * 0.1]
+    wa, ba, wb, bb = out
+    return wa, ba, "relu", wb, bb, "relu" if kind == "enter" else None
+
+
+def _extended_mid(x, wa, ba, wb, bb, act_b):
+    """The control: the mid's halo computed as conv_a over the reflect-
+    extended input, then conv_b VALID (f32, cast like the pair)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        apply_act
+    p = wa.shape[-1] // 2 + wb.shape[-1] // 2
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (p,) * 4, mode="reflect")
+    mid = apply_act(F.conv2d(xp, wa.float(), ba), "relu").to(x.dtype).float()
+    y = apply_act(F.conv2d(mid, wb.float(), bb), act_b)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", PAIR_CASES, ids=[
+    f"{c[0]}-{c[1]}x{c[2]}x{c[3]}" for c in PAIR_CASES])
+def test_conv_pair(cuda, case, dt):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        conv_pair_enter, conv_pair_exit, conv_pair_plain)
+    kind, b, h, w = case
+    dtype = DTYPES[dt]
+    args = _pair_weights(kind, cuda, dtype)
+    name = f"conv_pair_{kind}"
+    before = build.LAUNCHES[name]
+    if kind == "enter":
+        img1 = _drand((b, h, w, 1), 320, cuda, torch.float32)
+        img2 = _drand((b, h, w, 1), 321, cuda, torch.float32)
+        x = torch.cat([img1, img2]).to(dtype)
+        got = conv_pair_enter(img1, img2, *args)   # f32 images, cast inside
+    else:
+        x = _drand((b, h, w, 32), 322, cuda, dtype)
+        got = conv_pair_exit(x, *args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    assert got.dtype == dtype
+    want = conv_pair_plain(x, *args)
+    tol = WIDE_TOL[dtype]
+    assert _wide_rel(got, want, dtype) <= tol
+    if min(h, w) > 8:
+        ctl = _extended_mid(x, args[0], args[1], args[3], args[4], args[5])
+        assert _wide_rel(got, ctl, dtype) > 10 * tol
+
+
+def test_conv_pair_bf16_images(cuda):
+    """conv_pair_enter reads bf16 images as well as f32 ones."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        conv_pair_enter, conv_pair_plain)
+    args = _pair_weights("enter", cuda, torch.bfloat16)
+    img1 = _drand((1, 40, 70, 1), 323, cuda, torch.bfloat16)
+    img2 = _drand((1, 40, 70, 1), 324, cuda, torch.bfloat16)
+    got = conv_pair_enter(img1, img2, *args)
+    want = conv_pair_plain(torch.cat([img1, img2]), *args)
+    assert _wide_rel(got, want, torch.bfloat16) <= WIDE_TOL[torch.bfloat16]
+
+
+def test_conv_pair_raises(cuda):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        conv_pair_enter, conv_pair_exit)
+    wa, ba, aa, wb, bb, ab = _pair_weights("exit", cuda, torch.float32)
+    x = torch.zeros((1, 16, 16, 32), device=cuda)
+    with pytest.raises(ValueError, match="built for"):
+        conv_pair_exit(x, wb, bb, aa, wa, ba, ab)
+    with pytest.raises(ValueError, match="32 input channels"):
+        conv_pair_exit(x[..., :16].contiguous(), wa, ba, aa, wb, bb, ab)
+    with pytest.raises(TypeError):
+        conv_pair_exit(x.to(torch.bfloat16), wa, ba, aa, wb, bb, ab)
+    img = torch.zeros((1, 16, 16, 1), device=cuda)
+    with pytest.raises(ValueError, match="built for"):
+        conv_pair_enter(img, img, wa, ba, aa, wb, bb, ab)
+    wa.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        conv_pair_exit(x, wa, ba, aa, wb, bb, ab)
+
+
+# conv_wide's s2d mode at DeepFuse's packed layers: (name, c_in, c_out, k
+# of the original layer, act, fuse_n), run packed (4x the channels, k5 ->
+# k3, k7 -> k5); packed heights 15 and 23 reach the bottom mirror of both
+# phases. The control, the phase-blind reflect of the packed tensor
+# (conv_wide without s2d mode), must miss by 10x the tolerance.
+S2D_LAYERS = [("enc0", 1, 16, 5, "relu", 0), ("enc1", 16, 32, 7, "relu", 0),
+              ("dec0", 32, 32, 7, "relu", 2), ("dec1", 32, 16, 5, "relu", 0),
+              ("dec2", 16, 1, 5, None, 0)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("hw", [(30, 44), (46, 130)])
+@pytest.mark.parametrize("layer", S2D_LAYERS, ids=[c[0] for c in S2D_LAYERS])
+def test_conv_wide_s2d(cuda, layer, hw, dt):
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
+        conv_wide, conv_wide_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.s2d import (
+        s2d_pack, s2d_pack_bias, s2d_pack_weights)
+    name, cin, cout, k, act, fuse_n = layer
+    dtype = DTYPES[dt]
+    h, w = hw
+    x = _drand((2 * fuse_n or 2, h, w, cin), 330 + cin, cuda, dtype)
+    wt = (_drand((cout, cin, k, k), 331 + cout, cuda, torch.float32)
+          / np.sqrt(cin * k * k)).to(dtype)
+    bias = _drand((cout,), 332, cuda, torch.float32) * 0.1
+    xp, wp, bp = s2d_pack(x).contiguous(), s2d_pack_weights(wt), \
+        s2d_pack_bias(bias)
+    before = build.LAUNCHES["conv_wide/s2d"]
+    got = conv_wide([(xp, 0)], wp, bp, act, fuse_n, s2d_f=2)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_wide/s2d"] == before + 1
+    want = conv_wide_plain([(xp, 0)], wp, bp, act, fuse_n, s2d_f=2)
+    tol = WIDE_TOL[dtype]
+    assert _wide_rel(got, want, dtype) <= tol
+    blind = conv_wide([(xp, 0)], wp, bp, act, fuse_n)
+    assert _wide_rel(blind, want, dtype) > 10 * tol
+
+
+@pytest.mark.parametrize("in_dt", sorted(DTYPES))
+@pytest.mark.parametrize("out_dt", sorted(DTYPES))
+@pytest.mark.parametrize("hw", [(30, 44), (40, 256), (2, 2)])
+def test_s2d_enter_exit(cuda, in_dt, out_dt, hw):
+    """Bit for bit against the plain pack and unpack; the control (a pack
+    with the px phases swapped) must differ."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.s2d_io import (
+        s2d_enter, s2d_enter_plain, s2d_exit, s2d_exit_plain)
+    h, w = hw
+    img1 = _drand((3, h, w, 1), 340, cuda, DTYPES[in_dt])
+    img2 = _drand((3, h, w, 1), 341, cuda, DTYPES[in_dt])
+    before = dict(build.LAUNCHES)
+    t = s2d_enter(img1, img2, DTYPES[out_dt])
+    want = s2d_enter_plain(img1, img2, DTYPES[out_dt])
+    assert t.dtype == DTYPES[out_dt] and torch.equal(t, want)
+    assert not torch.equal(t, want[..., [1, 0, 3, 2]])
+    y = s2d_exit(t)
+    torch.cuda.synchronize()
+    assert torch.equal(y, s2d_exit_plain(t))
+    assert torch.equal(y, torch.cat([img1, img2]).to(DTYPES[out_dt]))
+    for name in ("s2d_enter", "s2d_exit"):
+        assert build.LAUNCHES[name] == before.get(name, 0) + 1
+    with pytest.raises(ValueError, match="even"):
+        s2d_enter(img1[:, :-1].contiguous(), img2[:, :-1].contiguous(),
+                  torch.float32)
+
+
+# launches of one DeepFuse forward on each opt-in route
+_VARIANT_LAUNCHES = {
+    "pair": {"conv_pair_enter": 1, "conv_chain": 1, "conv_pair_exit": 1},
+    "s2d": {"conv_wide": 5, "conv_wide/s2d": 5},
+    "s2d_io": {"s2d_enter": 1, "conv_wide": 5, "conv_wide/s2d": 5,
+               "s2d_exit": 1},
+}
+_VARIANT_ENV = {"pair": {"MMIF_CHAIN_PAIR": "1"},
+                "s2d": {"MMIF_S2D": "1", "MMIF_CHAIN_HIW": "0"},
+                "s2d_io": {"MMIF_S2D": "1", "MMIF_CHAIN_HIW": "0",
+                           "MMIF_S2D_IO": "1"}}
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("route", sorted(_VARIANT_LAUNCHES))
+def test_deepfuse_routes_on_card(cuda, monkeypatch, route, mode):
+    """DeepFuse's opt-in routes through the kernels against the default
+    route of the same weights on the CPU (f32, 1e-4 of max|y|), with exact
+    launch counts; the s2d_io route in bf16 at an eligible shape, bit for
+    bit against the packed route without it, and within the bf16
+    tolerance of the CPU."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    for k, v in _VARIANT_ENV[route].items():
+        monkeypatch.setenv(k, v)
+    dtype = torch.bfloat16 if route == "s2d_io" else torch.float32
+    h, w = (32, 256) if route == "s2d_io" else (46, 70)
+    model = create_model("deepfuse", fusion_mode=mode,
+                         generator=torch.Generator().manual_seed(7)).eval()
+    x1 = _rand((2, h, w, 1), 350, "cpu", lo=0.0)
+    x2 = _rand((2, h, w, 1), 351, "cpu", lo=0.0)
+    with torch.no_grad():
+        with monkeypatch.context() as m:
+            for k in _VARIANT_ENV[route]:
+                m.delenv(k)
+            want = model(x1, x2)
+        card = model.to(cuda, dtype)
+        a, b = x1.to(cuda, dtype), x2.to(cuda, dtype)
+        assert card.route(a, b) == route.split("_")[0]
+        build.LAUNCHES.clear()
+        got = card(a, b)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == _VARIANT_LAUNCHES[route]
+        if route == "s2d_io":
+            monkeypatch.setenv("MMIF_S2D_IO", "0")
+            assert torch.equal(card(a, b), got)
+    _close(got.float().cpu(), want, dtype)
