@@ -8,19 +8,30 @@ Phases, each fatal (any failure raises and the script exits non-zero):
 1. Print the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 off, so f32 comparisons are f32.
 2. Build every kernel from the sources in multi_modal_image_fusion_tpu_torch/
-   csrc/ (one nvcc per source, in parallel); print the build time.
+   csrc/ (one nvcc per source, in parallel); print the build time. Count
+   the HGMMA (wgmma) instructions in the SASS of every bf16 conv_chain /
+   conv_multi instance (cuobjdump -sass of the library; fails without the
+   tool or with an instance that has none, and if a bf16 FMA
+   conv_chain_kernel was built) and print ptxas's registers, spills and
+   shared memory of each.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
-   the convs in DeepFuse's k5/k7 instances and DenseFuse's and VIFNet's k3
-   ones) against its plain PyTorch version on the card: at the main path's
-   shapes (1224x1024; bf16 batch 16 as the bench runs it, f32 batch 1 as the
-   test CLI runs it) and at 45x61, with tolerances relative to the plain output's
-   largest magnitude: f32 1e-4 (same f32 products, another summation
-   order), bf16 2e-2 (both round an f32 result to bf16's 8-bit mantissa,
-   ~4e-3, and another summation order can flip that rounding). Time the
-   kernel, the plain version and, for the convs, one F.conv2d on the
-   reflect-padded input in the same dtype (the pad timed apart), each with
-   CUDA events over cold-L2 repetitions; compute each kernel's bound from
-   this run's shapes.
+   the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
+   ones and UNFusion's nine encoder convs at their scales) against its
+   plain PyTorch version on the card: at the main path's shapes (1224x1024;
+   bf16 batch 16 as the bench runs it, f32 batch 1 as the test CLI runs
+   it) and at 45x61, with tolerances relative to the plain output's largest
+   magnitude: f32 1e-4 of max(|y|, 1) (same f32 products, another
+   summation order), bf16 1e-3 of max|y| beyond one bf16 ulp of each output
+   (the same exact products of bf16 weights and inputs summed in f32 in
+   another order, one rounding to bf16, which may land on the neighbouring
+   value). At the bench's shapes each bf16 conv_chain check has controls
+   that must miss by 10x: the taps transposed, the halo zero-padded
+   instead of reflected, and for fuse_n one half's images in reverse order.
+   Time the kernel, the plain version and, for the convs, one F.conv2d on
+   the reflect-padded input in the same dtype (the pad timed apart), and
+   for the k3 and k5 conv_chain layers conv_wide's mma.sync body on the
+   same inputs (a measurement only), each with CUDA events over cold-L2
+   repetitions; compute each kernel's bound from this run's shapes.
 4. Main path, with every launch count set to 0 just before it: the port's
    bench (DeepFuse, 1224x1024, bf16, batch 16, 1 warmup + 10 timed
    forwards), then the port's test CLI on 51 synthetic 1224x1024 BMP pairs
@@ -61,8 +72,11 @@ library call computes the five maps: library_ms is null); and conv_multi
 against the concat of its legs and conv_chain_plain at DenseFuse's dense
 convs and dec0 and VIFNet's 8-leg dec0 at 1224x1024 (bf16 batch 16, f32
 one pair) and at k1, k5, 1-channel-leg and identity-leg cases at 45x61,
-its library time one F.conv2d on the padded concat (the concat and the
-pad timed apart).
+at conv_chain's tolerances, the bf16 bench shapes with controls that must
+miss by 10x (the taps transposed, two legs of one width swapped, the halo
+zero-padded, one fuse_n half reversed); its library time one F.conv2d on
+the padded concat (the concat and the pad timed apart), conv_wide's time
+on the same legs beside it.
 
 Phase 3 also holds the non-local attention kernels nl_minmax and nl_apply
 against their plain two-pass version (nl_spatial_plain's passes) at the
@@ -206,6 +220,76 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def tensor_core_report(build, lib_path):
+    """Phase 2's proof that bf16 conv_chain / conv_multi run on the tensor
+    cores: the HGMMA (wgmma) instructions in the SASS of every
+    conv_chain_tc_kernel instance (cuobjdump -sass of the built library),
+    and no bf16 instance of the FMA conv_chain_kernel; then ptxas's
+    registers, spills and static shared memory of each wgmma instance."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(cuobjdump):
+        raise AssertionError(f"cuobjdump not found beside nvcc "
+                             f"({cuobjdump}): cannot count HGMMA")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    tc = {f: c for f, c in counts.items() if "conv_chain_tc_kernel" in f}
+    fma = [f for f in counts if "conv_chain_kernel" in f]
+    if not tc or min(tc.values()) == 0:
+        raise AssertionError(f"conv_chain_tc_kernel instances without "
+                             f"HGMMA: {tc}")
+    if any("bfloat16" in f for f in fma):
+        raise AssertionError(f"a bf16 FMA conv_chain_kernel was built: "
+                             f"{fma}")
+    def inst(f):
+        return "k{}/bn{}".format(*re.search(r"ILi(\d+)ELi(\d+)EE",
+                                            f).groups())
+    print(f"SASS: {sum(tc.values())} HGMMA in {len(tc)} "
+          f"conv_chain_tc_kernel instances (per instance "
+          f"{ {inst(f): c for f, c in sorted(tc.items())} }); "
+          f"{len(fma)} FMA conv_chain_kernel instances, none bf16")
+    log = build.build_log()
+    serialized = [line.strip() for line in log.splitlines()
+                  if "serialized" in line and "conv_chain_tc" in line]
+    if serialized:   # ptxas made the wgmmas wait for each other
+        raise AssertionError("ptxas serialized the wgmmas: "
+                             + "; ".join(serialized))
+    ptxas, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) if "conv_chain_tc_kernel" in m.group(1) else None
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            ptxas[fn] = {"spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in ptxas:
+            sm = re.search(r"(\d+) bytes smem", line)
+            ptxas[fn].update(registers=int(m.group(1)),
+                             static_smem=int(sm.group(1)) if sm else 0)
+            fn = None
+    if set(ptxas) != set(tc):
+        raise AssertionError(f"ptxas -v lines for {sorted(ptxas)}, SASS "
+                             f"for {sorted(tc)}")
+    print("ptxas -v, conv_chain_tc_kernel (the dynamic shared memory is "
+          "the launch's tc_plan): " + json.dumps(
+              {inst(f): v for f, v in sorted(ptxas.items())}))
+    return {"hgmma": sum(tc.values()), "instances": len(tc)}
+
+
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
     """Seeded uniform [lo, lo + 1) * scale, drawn on the device: the
     1224x1024 inputs of the wide layers are gigabytes."""
@@ -267,89 +351,172 @@ def _err(torch, got, want, dt):
     return err, err / scale
 
 
+# conv_chain and conv_multi (the wgmma body in bf16), and the enter / exit
+# checked beside them: f32 within 1e-4 of max(|y|, 1) (TOL); bf16 within
+# 1e-3 of max|y| beyond one bf16 ulp of each output, conv_wide's standard
+# (the same exact products of bf16 weights and inputs, an f32 sum in another
+# order, one rounding to bf16). At the bench's shapes every conv_chain and
+# conv_multi check in bf16 has controls that must miss by 10x: the taps
+# transposed (kh <-> kw), two legs of one width swapped, the halo
+# zero-padded instead of reflected, and one fuse_n half's images in reverse
+# order.
+CHAIN_TOL = {"f32": 1e-4, "bf16": 1e-3}
+
+
+def _chain_err(torch, got, want, dt):
+    if dt == "f32":
+        return _err(torch, got, want, dt)
+    err, rel = _wide_rel(torch, got, want, dt)
+    if rel > CHAIN_TOL[dt]:
+        raise AssertionError(f"max err {err} is {rel:.3g} of max|y|, above "
+                             f"{CHAIN_TOL[dt]} beyond one bf16 ulp")
+    return err, rel
+
+
+def _zero_halo_plain(torch, F, x, wt, bias, act, n=2):
+    """The plain conv of x's first n images with a zero halo in place of
+    the reflect: a control the checks must catch."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        apply_act
+    y = F.conv2d(x[:n].float().permute(0, 3, 1, 2), wt.to(x.dtype).float(),
+                 None if bias is None else bias.float(),
+                 padding=wt.shape[-1] // 2)
+    return apply_act(y, act).permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _check_controls(torch, r, key, want, ctls):
+    """Each control (bf16) must miss the plain output by 10x CHAIN_TOL."""
+    for what, y in ctls.items():
+        c = _wide_rel(torch, y, want[:y.shape[0]], "bf16")[1]
+        if c <= 10 * CHAIN_TOL["bf16"]:
+            raise AssertionError(f"{key}: the control ({what}) misses by "
+                                 f"{c:.3g} only")
+        r["min_control_rel_err"] = min(r["min_control_rel_err"], c)
+        print(f"{key} bf16: control ({what}) {c:.3g} (tolerance "
+              f"{CHAIN_TOL['bf16']})")
+
+
+# UNFusion's conv_chain launches (models/zoo.py:438-461, ops/blocks.py:
+# 181-197 of the port): CB2_0-CB4_0 and the six ECBs' k3 convs, over the
+# siamese fold's 2 images a pair, at their scale of 1224x1024 (_S):
+# (name, c_in, c_out, scale)
+UNFUSION_CHAIN = [("unfusion.CB2_0", 16, 32, 1), ("unfusion.CB3_0", 32, 48, 2),
+                  ("unfusion.CB4_0", 48, 64, 3),
+                  ("unfusion.EB2_1.conv2", 24, 64, 1),
+                  ("unfusion.EB3_1.conv2", 40, 96, 2),
+                  ("unfusion.EB4_1.conv2", 56, 128, 3),
+                  ("unfusion.EB3_2.conv2", 104, 256, 2),
+                  ("unfusion.EB4_2.conv2", 144, 304, 3),
+                  ("unfusion.EB4_3.conv2", 376, 1024, 3)]
+
+
 def check_kernels(torch, F, dev, timer):
     """Phase 3. Returns {kernel name: record} for the kernels line."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
         conv_chain, conv_chain_plain, conv_gray_enter, conv_gray_enter_plain,
-        conv_gray_exit, conv_gray_exit_plain)
+        conv_gray_exit, conv_gray_exit_plain, pick_bn_tc)
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
+        conv_wide
     from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import (
         ssim_maps, ssim_maps_plain)
     from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
 
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    # DeepFuse's layers, then the k3 instances of DenseFuse and VIFNet
-    # (their dense convs and concat-fed dec0 are conv_multi's, below):
-    # (name, kernel, c_in, c_out, k, act, fuse)
-    layers = [("enc0", "conv_gray_enter", 1, 16, 5, "relu", False),
-              ("enc1", "conv_chain", 16, 32, 7, "relu", False),
-              ("dec0", "conv_chain", 32, 32, 7, "relu", True),
-              ("dec1", "conv_chain", 32, 16, 5, "relu", False),
-              ("dec2", "conv_gray_exit", 16, 1, 5, None, False),
+    # DeepFuse's layers, the k3 instances of DenseFuse and VIFNet (their
+    # dense convs and concat-fed dec0 are conv_multi's, below), UNFusion's
+    # encoder convs: (name, kernel, c_in, c_out, k, act, fuse, scale,
+    # images a pair)
+    layers = [("enc0", "conv_gray_enter", 1, 16, 5, "relu", False, 0, 1),
+              ("enc1", "conv_chain", 16, 32, 7, "relu", False, 0, 2),
+              ("dec0", "conv_chain", 32, 32, 7, "relu", True, 0, 1),
+              ("dec1", "conv_chain", 32, 16, 5, "relu", False, 0, 1),
+              ("dec2", "conv_gray_exit", 16, 1, 5, None, False, 0, 1),
               ("densefuse.conv_in", "conv_gray_enter", 1, 16, 3, "relu",
-               False),
-              ("densefuse_l1.dec0", "conv_chain", 64, 64, 3, "relu", False),
-              ("densefuse.dec1", "conv_chain", 64, 32, 3, "relu", False),
-              ("densefuse.dec2", "conv_chain", 32, 16, 3, "relu", False),
-              ("densefuse.dec3", "conv_gray_exit", 16, 1, 3, None, False),
-              ("vifnet.dec1", "conv_chain", 128, 64, 3, "relu", False),
-              ("vifnet.dec2", "conv_chain", 64, 32, 3, "relu", False),
-              ("vifnet.dec3", "conv_chain", 32, 16, 3, "relu", False)]
+               False, 0, 1),
+              ("densefuse_l1.dec0", "conv_chain", 64, 64, 3, "relu", False,
+               0, 1),
+              ("densefuse.dec1", "conv_chain", 64, 32, 3, "relu", False, 0,
+               1),
+              ("densefuse.dec2", "conv_chain", 32, 16, 3, "relu", False, 0,
+               1),
+              ("densefuse.dec3", "conv_gray_exit", 16, 1, 3, None, False, 0,
+               1),
+              ("vifnet.dec1", "conv_chain", 128, 64, 3, "relu", False, 0, 1),
+              ("vifnet.dec2", "conv_chain", 64, 32, 3, "relu", False, 0, 1),
+              ("vifnet.dec3", "conv_chain", 32, 16, 3, "relu", False, 0, 1)]
+    layers += [(name, "conv_chain", cin, cout, 3, "relu", False, s, 2)
+               for name, cin, cout, s in UNFUSION_CHAIN]
     rec = {}
-    for name, kern, cin, cout, k, act, fuse in layers:
+    for name, kern, cin, cout, k, act, fuse, scale, per_pair in layers:
         wt = _rand(torch, (cout, cin, k, k), 10 + k + cin, dev, torch.float32,
                    lo=-0.5, scale=2.0 / np.sqrt(cin * k * k))
         bias = _rand(torch, (cout,), 20 + cout, dev, torch.float32, lo=-0.5,
                      scale=0.1)
         # (dtype, pairs, h, w): bench shape, test-CLI shape, odd small shape
-        for dt, n, h, w in (("bf16", BATCH, H, W), ("f32", 1, H, W),
+        hs, ws = _S[scale]
+        for dt, n, h, w in (("bf16", BATCH, hs, ws), ("f32", 1, hs, ws),
                             ("bf16", 2, 45, 61), ("f32", 2, 45, 61)):
             dtype = dts[dt]
             wk = wt.to(dtype)
+            b_out = n * per_pair
+            fuse_n = n if fuse else 0
             if kern == "conv_gray_enter":
                 a = _rand(torch, (n, h, w, 1), 1, dev, dtype)
                 b = _rand(torch, (n, h, w, 1), 2, dev, dtype)
                 xin = torch.cat([a, b], 0)
 
-                def run():
+                def run(wk=wk):
                     return conv_gray_enter(a, b, wk, bias, act)
 
                 def plain():
                     return conv_gray_enter_plain(a, b, wk, bias, act)
                 b_in, b_out = 2 * n, 2 * n
             else:
-                b_in = 2 * n if name in ("enc1", "dec0") else n
-                b_out = n if name != "enc1" else 2 * n
+                b_in = 2 * n if fuse else b_out
                 xin = _rand(torch, (b_in, h, w, cin), 3, dev, dtype)
-                fuse_n = n if fuse else 0
                 if kern == "conv_chain":
-                    def run():
+                    def run(wk=wk, xin=xin):
                         return conv_chain(xin, wk, bias, act, fuse_n)
 
                     def plain():
                         return conv_chain_plain(xin, wk, bias, act, fuse_n)
                 else:
-                    def run():
+                    def run(wk=wk):
                         return conv_gray_exit(xin, wk, bias, act)
 
                     def plain():
                         return conv_gray_exit_plain(xin, wk, bias, act)
-            err, rel = _err(torch, run(), plain(), dt)
+            want = plain()
+            err, rel = _chain_err(torch, run(), want, dt)
             r = rec.setdefault(kern, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                      "tolerance_rel": CHAIN_TOL,
                                       "layers": {}})
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["max_rel_err"] = max(r["max_rel_err"], rel)
-            if not (dt == "bf16" and h == H):
+            if not (dt == "bf16" and h == hs and n == BATCH):
                 continue
-            # timings at the bench's shape
             xn = xin[:n] + xin[n:] if fuse else xin
+            if kern == "conv_chain":
+                r.setdefault("min_control_rel_err", float("inf"))
+                ctls = {"zero halo": _zero_halo_plain(torch, F, xn, wk, bias,
+                                                      act)}
+                if k > 1:
+                    ctls["taps transposed"] = run(wk.transpose(2, 3))
+                if fuse:
+                    ctls["one half reversed"] = run(xin=torch.cat(
+                        [xin[:n], xin[n:].flip(0)]))
+                _check_controls(torch, r, f"conv_chain {name}", want, ctls)
+                del ctls
+            del want
+            # timings at the bench's shape
             p = k // 2
             xnchw = xn.permute(0, 3, 1, 2)
             parts, xp = _library_parts(F, xnchw, k, cout)
             wb, bb = wk, bias.to(dtype)
             esz = 2
             flops = 2.0 * b_out * h * w * cin * k * k * cout
-            nbytes = (b_in * h * w * cin + b_out * h * w * cout) * esz \
-                + wt.numel() * 4
+            nbytes = (b_in * h * w * cin + b_out * h * w * cout
+                      + wt.numel()) * esz
             bound = max(nbytes / PEAK_BYTES_S,
                         flops / PEAK_FLOPS[dt]) * 1e3
             r["layers"][name] = {
@@ -365,6 +532,13 @@ def check_kernels(torch, F, dev, timer):
                              > flops / PEAK_FLOPS[dt] else "operations"),
                 "shape": f"{b_in}x{h}x{w}x{cin}->{b_out}x{h}x{w}x{cout} "
                          f"k{k} {dt}"}
+            if kern == "conv_chain":
+                r["layers"][name]["bn"] = pick_bn_tc(cout, [cin], k)
+                if k in (3, 5):
+                    # conv_wide's mma.sync body on the same inputs, timed
+                    # only (ROADMAP note 1)
+                    r["layers"][name]["conv_wide_ms"] = timer(
+                        lambda: conv_wide([(xin, 0)], wk, bias, act, fuse_n))
             del xp, xnchw, xn
         del xin
         torch.cuda.empty_cache()
@@ -766,18 +940,26 @@ def check_conv_multi(torch, F, dev, timer):
     conv_chain_plain): DenseFuse's dense convs and dec0 (fuse_n) and
     VIFNet's 8-leg dec0 at 1224x1024, bf16 batch 16 (the bench) and f32 one
     pair (the test CLI); k1, k5, 1-channel-leg and identity-leg cases at
-    45x61 in f32 and bf16. Times at the bench's shapes; the library time is
-    one F.conv2d on the padded concat, the concat and the pad timed
-    apart."""
+    45x61 in f32 and bf16; CHAIN_TOL, with the controls at the bench's
+    shapes. Times at the bench's shapes; the library time is one F.conv2d
+    on the padded concat, the concat and the pad timed apart; conv_wide's
+    mma.sync body on the same legs is timed beside it."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        pick_bn_tc
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import (
         concat_legs, conv_multi, conv_multi_plain, identity_weights)
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
+        conv_wide
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+         "min_control_rel_err": float("inf"), "tolerance_rel": CHAIN_TOL,
+         "layers": {}}
 
     def case(key, legs, wt, bias, fuse_n, n_out, dt, timed):
-        got = conv_multi(legs, wt, bias, "relu", fuse_n, n_out)
-        err, rel = _err(torch, got, conv_multi_plain(
-            legs, wt, bias, "relu", fuse_n, n_out), dt)
+        wt = wt.to(dts[dt])
+        want = conv_multi_plain(legs, wt, bias, "relu", fuse_n, n_out)
+        err, rel = _chain_err(torch, conv_multi(legs, wt, bias, "relu",
+                                                fuse_n, n_out), want, dt)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["max_rel_err"] = max(r["max_rel_err"], rel)
         if timed:
@@ -786,36 +968,62 @@ def check_conv_multi(torch, F, dev, timer):
                 return (x[:n_out] + x[n_out:] if fuse_n else x).permute(
                     0, 3, 1, 2)
             xn = cat()
+            ctls = {"taps transposed": conv_multi(
+                        legs, wt.transpose(2, 3), bias, "relu", fuse_n,
+                        n_out),
+                    "zero halo": _zero_halo_plain(
+                        torch, F, xn.permute(0, 2, 3, 1), wt, bias, "relu")}
+            same = [(i, j) for i in range(len(legs))
+                    for j in range(i + 1, len(legs))
+                    if legs[i][0].shape[-1] == legs[j][0].shape[-1]
+                    and legs[i][0] is not legs[j][0]]
+            if same:
+                i, j = same[0]
+                sw = list(legs)
+                sw[i], sw[j] = legs[j], legs[i]
+                ctls[f"legs {i} and {j} swapped"] = conv_multi(
+                    sw, wt, bias, "relu", fuse_n, n_out)
+            if fuse_n:
+                ctls["one half reversed"] = conv_multi(
+                    [(torch.cat([t[:off + fuse_n],
+                                 t[off + fuse_n:off + fuse_n + n_out]
+                                 .flip(0)]), off) for t, off in legs],
+                    wt, bias, "relu", fuse_n, n_out)
+            _check_controls(torch, r, f"conv_multi {key}", want, ctls)
+            del ctls, want
             k = wt.shape[-1]
             p = k // 2
             parts, xp = _library_parts(F, xn, k, wt.shape[0])
-            wl, bl = wt.to(dts[dt]), bias.to(dts[dt])
+            bl = bias.to(dts[dt])
             h, w = xn.shape[2:]
             esz = 2 if dt == "bf16" else 4
             read = sum(n_out * h * w * t.shape[-1] for t, _ in legs)
             read *= 2 if fuse_n else 1
             bound, by = _bound(
-                (read + n_out * h * w * wt.shape[0]) * esz + wt.numel() * 4,
+                (read + n_out * h * w * wt.shape[0] + wt.numel()) * esz,
                 2.0 * n_out * h * w * wt.shape[1] * wt.shape[0] * k * k, dt)
             r["layers"][key] = {
                 "ms": timer(lambda: conv_multi(legs, wt, bias, "relu",
                                                fuse_n, n_out)),
                 "plain_ms": timer(lambda: conv_multi_plain(
                     legs, wt, bias, "relu", fuse_n, n_out)),
-                "library_ms": timer(lambda: [F.conv2d(t, wl, bl)
+                "library_ms": timer(lambda: [F.conv2d(t, wt, bl)
                                              for t in xp]),
                 "library_concat_ms": timer(cat),
                 "library_pad_ms": timer(lambda: [
                     F.pad(xn[sl], (p, p, p, p), mode="reflect")
                     for sl in parts]),
                 "library_calls": len(parts),
+                "conv_wide_ms": timer(lambda: conv_wide(
+                    legs, wt, bias, "relu", fuse_n, n_out)),
+                "bn": pick_bn_tc(wt.shape[0],
+                                 [t.shape[-1] for t, _ in legs], k),
                 "bound_ms": bound, "bound_by": by,
                 "shape": f"{len(legs)} legs {[t.shape[-1] for t, _ in legs]}"
                          f" b_offs {[o for _, o in legs]} fuse_n {fuse_n} -> "
                          f"{n_out}x{h}x{w}x{wt.shape[0]} k{k} {dt}"}
             del xn, xp
-            stamp(f"conv_multi {key} timed")
-        del got
+            stamp(f"conv_multi {key} checked and timed")
 
     def weights(cout, cin, k, seed):
         return (_rand(torch, (cout, cin, k, k), seed, dev, torch.float32,
@@ -826,12 +1034,12 @@ def check_conv_multi(torch, F, dev, timer):
     for dt, n in (("bf16", BATCH), ("f32", 1)):
         dtype = dts[dt]
         timed = dt == "bf16"
-        legs = [_rand(torch, (2 * n, H, W, 16), 90, dev, dtype)]
+        legs = [_rand(torch, (2 * n, H, W, 16), 90, dev, dtype, lo=-0.5)]
         for i in range(3):
             wt, bias = weights(16, 16 * (i + 1), 3, 91 + 2 * i)
             ls = [(t, 0) for t in legs]
             case(f"densefuse.conv{i}", ls, wt, bias, 0, 2 * n, dt, timed)
-            legs.append(conv_multi(ls, wt, bias, "relu"))
+            legs.append(conv_multi(ls, wt.to(dtype), bias, "relu"))
         wt, bias = weights(64, 64, 3, 97)
         case("densefuse.dec0", [(t, 0) for t in legs], wt, bias, n, n, dt,
              timed)
@@ -2354,6 +2562,7 @@ def main():
     lib_path = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     build.library()
+    sass = tensor_core_report(build, lib_path)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -2688,6 +2897,8 @@ def main():
             "bound_by": "operations" if any(
                 v["bound_by"] == "operations" for v in ls) else "bytes",
             "library_ms": None if None in lib else sum(lib),
+            **({"sass": sass} if name in ("conv_chain", "conv_multi")
+               else {}),
             "layers": r["layers"],
         })
     # conv_int8: the sums are the bf16 layers checked at the benches' 16

@@ -16,13 +16,23 @@ namespace mmif {
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_LRELU = 3, ACT_TANH = 4 };
 
 // Epilogue activation, in f32 before the output cast (the TPU kernels'
-// _apply_act, ops/pallas/conv_kernel.py:43).
+// _apply_act, ops/pallas/conv_kernel.py:43). The compile-time form keeps a
+// per-element switch (an indirect branch each) out of a hot epilogue.
+template <int ACT>
+__device__ __forceinline__ float apply_act_c(float y) {
+  if constexpr (ACT == ACT_RELU) return fmaxf(y, 0.f);
+  if constexpr (ACT == ACT_RELU6) return fminf(fmaxf(y, 0.f), 6.f);
+  if constexpr (ACT == ACT_LRELU) return y >= 0.f ? y : 0.2f * y;
+  if constexpr (ACT == ACT_TANH) return tanhf(y);
+  return y;
+}
+
 __device__ __forceinline__ float apply_act(float y, int act) {
   switch (act) {
-    case ACT_RELU: return fmaxf(y, 0.f);
-    case ACT_RELU6: return fminf(fmaxf(y, 0.f), 6.f);
-    case ACT_LRELU: return y >= 0.f ? y : 0.2f * y;
-    case ACT_TANH: return tanhf(y);
+    case ACT_RELU: return apply_act_c<ACT_RELU>(y);
+    case ACT_RELU6: return apply_act_c<ACT_RELU6>(y);
+    case ACT_LRELU: return apply_act_c<ACT_LRELU>(y);
+    case ACT_TANH: return apply_act_c<ACT_TANH>(y);
     default: return y;
   }
 }
@@ -118,6 +128,12 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Eight f32 values rounded to bf16, as one 16-byte word.
+__device__ __forceinline__ uint4 pack8_bf16(const float* v) {
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                    pack_bf16(v[6], v[7]));
 }
 
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16

@@ -1,17 +1,23 @@
-// The conv_chain kernel body: a register-blocked f32-FMA reflect-SAME conv
-// over up to MAX_LEGS input legs (csrc/conv_chain.cu explains the design).
-// conv_chain.cu launches it for conv_chain and conv_multi; conv_wide.cu
-// launches it for conv_wide's f32 path, with 8 or 4 output channels a
-// block where Cout is not a multiple of 16, and for its s2d mode.
+// The conv_chain kernel bodies: a reflect-SAME conv over up to MAX_LEGS
+// input legs (csrc/conv_chain.cu explains what bounds it). Two bodies:
+//
+// - bf16: conv_chain_tc_kernel, a wgmma implicit GEMM with an asynchronous
+//   copy ring (design below). conv_chain.cu (k1) and conv_chain_k3/k5/k7.cu
+//   instantiate it for conv_chain and conv_multi.
+// - f32: conv_chain_kernel, register-blocked f32 FMAs. conv_chain.cu
+//   launches it for conv_chain and conv_multi in f32; conv_wide.cu for its
+//   f32 path, with 8 or 4 output channels a block where Cout is not a
+//   multiple of 16, and for its s2d mode. TF32 would miss the f32 budget
+//   over sums of up to 11,520 terms.
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace mmif {
 
 // ---------------------------------------------------------------------------
-// conv_chain: L legs (B_l, H, W, Cin_l) -> (B_out, H, W, Cout), weights
-// [sum Cin_l][K][K][Cout]
+// conv_chain: L legs (B_l, H, W, Cin_l) -> (B_out, H, W, Cout)
 // ---------------------------------------------------------------------------
 // A conv is linear in its input channels, so the conv over the channel
 // concat of several legs is the sum of per-leg convs with the matching
@@ -24,16 +30,6 @@ namespace mmif {
 // x0, y1, y2, y3 of DenseFuse and VIFNet), concat fusion across the siamese
 // halves (VIFNet's decoder entry reads the same 4 legs at batch offsets 0 and
 // n), and, with a centre-tap identity weight on a leg, a residual add.
-//
-// One block computes a TH x TW output tile for CO_T output channels. Each
-// leg's input tile plus halo is staged in shared memory CI_C channels at a
-// time (f32, channel-major so a thread's row segment is one to three float4
-// loads), next to the matching CI_C x K x K x CO_T weight slice. The legs
-// are an outer loop around the channel chunks, each with its own base
-// pointer, channel count and batch offset; legs of any channel count work
-// (a 1-channel leg loads scalars and runs one FMA channel).
-constexpr int CH_TH = 8, CH_TW = 64, CH_PX = 4, CH_CI = 8;
-constexpr int CH_THREADS = (CH_TW / CH_PX) * CH_TH;  // 128
 constexpr int MAX_LEGS = 8;
 
 // s2d: the one leg is space-to-depth packed (f = 2, ops/s2d.py; conv_wide's
@@ -45,6 +41,411 @@ struct Legs {
   int n;
   int s2d;
 };
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma implicit GEMM
+// ---------------------------------------------------------------------------
+// The function is the JAX kernel's in bf16 (hiw_kernel.py:297, :387): the
+// weights are bf16, a fuse_n pair is summed and rounded to bf16 before the
+// product, the products are exact and summed in f32, bias and activation
+// are applied in f32 and the result rounded to bf16.
+//
+// GEMM view: M = output pixels, N = output channels, K = legs x 16-channel
+// k-steps x k^2 taps. A block is two warpgroups (256 threads). A tile is TH
+// = 2 * MT output rows of TC_TW = 64 pixels; warpgroup g owns rows g*MT ..
+// g*MT + MT - 1, one m64 wgmma row block each. N is a block of BN output
+// channels (16 to 256; the wrapper picks it and zero-pads Cout to a multiple
+// of it), the grid's y; within it, every k-step's input tile is staged once
+// for all BN channels. Each m64nNk16 reads its A (2 KB) and B (N x 32
+// bytes) from shared memory, so below N = 64 shared memory's 128 bytes a
+// cycle, not the tensor cores, bound the MMAs (16 + N / 4 cycles a wgmma
+// against N / 2).
+//
+// Staging: for one (leg, k-step) the tile's input rows plus the reflect halo
+// (TH + K - 1 rows of 64 + K - 1 pixels, 16 channels) lie in shared memory
+// as [channel half][row][pixel][8 channels] bf16. A wgmma A operand is then
+// K-major without swizzle: a core matrix is 8 consecutive pixels of one
+// half (128 contiguous bytes), the two halves one leading byte offset
+// apart. Tap (kh, kw) of output row r reads the window that starts at staged
+// pixel (r + kh, kw): the same tile with the descriptor's start address
+// moved by whole 16-byte pixels, so the k^2 taps cost no extra copies. B,
+// the packed weights of one k-step, is [tap][half][n][8 ci] bf16, K-major
+// too (ops/cuda/conv_chain.py pack_weights_tc writes it).
+//
+// The ring: R = 4, 3 or 2 stages of input tiles. A stage's copies are
+// cp.async 16 bytes a thread with the reflect index math in the source
+// address, zero-filled past a leg's last channel. A fuse_n pair, and a leg
+// whose channel count is not a multiple of 8, go through registers (load,
+// sum in f32, round to bf16, st.shared). Stage s + R - 1 is issued right
+// after stage s's wgmmas, so copies and the fuse_n sums run while the
+// tensor cores work through the queued wgmmas. (TMA's tiled mode
+// zero-fills out-of-bounds reads and cannot make the halo; TMA loads of the
+// interior tiles beside cp.async for the border ones were tried, made enc1
+// faster and VIFNet's dec0 slower, and were not kept.) The weights of the
+// block's N slice are resident (loaded once) when they fit beside the
+// ring, which covers every DeepFuse and DenseFuse layer; otherwise each
+// stage carries its k-step's weights in the ring. The grid is persistent:
+// at most as many blocks as fit on the SMs, each walking tiles (tx
+// fastest), so a resident weight is read once a block.
+//
+// Epilogue: f32 bias and activation on the accumulators, rounded to bf16
+// into an output tile in shared memory ([pixel][BN] with rows padded by 16
+// bytes, so the accumulator layout's 4-byte writes hit 32 banks); after
+// the next stage's wgmmas are issued, the tile goes to global memory in
+// coalesced 16-byte stores. The activation is a template argument, picked
+// once a tile: a switch on it for every element (an indirect branch each)
+// made enc1's epilogue cost as much as a third of its MMAs.
+constexpr int TC_TW = 64;
+constexpr int TC_WG = 2;
+constexpr int TC_THREADS = 128 * TC_WG;
+constexpr int TC_CK = 16;
+constexpr int TC_SMEM_MAX = 232448;  // 227 KB, the most a block may opt in to
+
+// m-tiles a warpgroup: about 64 accumulator registers a thread (128 at BN 256)
+__host__ __device__ constexpr int tc_mt(int bn) {
+  return bn >= 128 ? 1 : (128 / bn > 8 ? 8 : 128 / bn);
+}
+
+template <int K, int BN>
+struct TcGeom {
+  static constexpr int MT = tc_mt(BN);
+  static constexpr int TH = TC_WG * MT;
+  static constexpr int IN_H = TH + K - 1, IN_W = TC_TW + K - 1;
+  // one channel half of a staged tile; the halves start 64 bytes apart
+  // modulo 128, so the two 16-byte copies of a pixel hit other banks
+  static constexpr int HALF = (IN_H * IN_W * 16 + 127) / 128 * 128 + 64;
+  static constexpr int IN_BYTES = 2 * HALF;
+  static constexpr int W_BYTES = K * K * BN * 32;  // one k-step: [tap][half][n][8]
+  static constexpr int OUT_PITCH = 2 * BN + 16;     // bytes of one staged output pixel
+  static constexpr int OUT_BYTES = TH * TC_TW * OUT_PITCH;
+};
+
+struct TcArgs {
+  Legs legs;
+  int ks0[MAX_LEGS + 1];  // each leg's first k-step; ks0[legs.n] = KS
+  const __nv_bfloat16* w;  // [Cout_pad / BN][KS][K * K][2][BN][8]
+  const float* bias;
+  __nv_bfloat16* y;
+  int b_out, H, W, Cout, KS, fuse_n, act;
+  int tiles_x, tiles_y, n_tiles;  // set by launch_chain_tc
+  int resident, ring;             // set by tc_plan
+};
+
+// Resident weights with the deepest ring that fits, else the weights in the
+// ring; smem is the dynamic shared memory: the ring, the weights, the
+// output tile. ops/cuda/conv_chain.py tc_plan mirrors this choice to pick
+// BN.
+template <int K, int BN>
+bool tc_plan(int ks, int& resident, int& ring, size_t& smem) {
+  using G = TcGeom<K, BN>;
+  for (int r = 4; r >= 2; --r) {
+    const size_t s = (size_t)r * G::IN_BYTES + (size_t)ks * G::W_BYTES + G::OUT_BYTES;
+    if (s <= (size_t)TC_SMEM_MAX) {
+      resident = 1, ring = r, smem = s;
+      return true;
+    }
+  }
+  for (int r = 4; r >= 2; --r) {
+    const size_t s = (size_t)r * (G::IN_BYTES + G::W_BYTES) + G::OUT_BYTES;
+    if (s <= (size_t)TC_SMEM_MAX) {
+      resident = 0, ring = r, smem = s;
+      return true;
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void tc_tile(const TcArgs& a, int tile, int& b, int& ty, int& tx) {
+  tx = tile % a.tiles_x;
+  const int rest = tile / a.tiles_x;
+  ty = rest % a.tiles_y;
+  b = rest / a.tiles_y;
+}
+
+// Issue the copies of the block's stage s (tile s / KS, k-step s % KS) into
+// ring slot s % ring: the input tile with its reflect halo and, when the
+// weights are not resident, the k-step's weights.
+template <int K, int BN>
+__device__ __forceinline__ void tc_load_stage(const TcArgs& a, int s, uint32_t s_in,
+                                              uint32_t s_w, const __nv_bfloat16* wblk) {
+  using G = TcGeom<K, BN>;
+  constexpr int P = K / 2;
+  const int ks = s % a.KS;
+  int b, ty, tx;
+  tc_tile(a, blockIdx.x + (s / a.KS) * gridDim.x, b, ty, tx);
+  int l = 0;
+  while (ks >= a.ks0[l + 1]) ++l;
+  const int Cin = a.legs.cin[l];
+  const int c0 = (ks - a.ks0[l]) * TC_CK;
+  const size_t img = (size_t)a.H * a.W * Cin;
+  const __nv_bfloat16* xa =
+      static_cast<const __nv_bfloat16*>(a.legs.x[l]) + (size_t)(b + a.legs.b_off[l]) * img;
+  const __nv_bfloat16* xs = a.fuse_n ? xa + (size_t)a.fuse_n * img : nullptr;
+  const bool async = (Cin % 8) == 0 && !xs;
+  const uint32_t buf = s_in + (s % a.ring) * G::IN_BYTES;
+  const int y0 = ty * G::TH - P, x0 = tx * TC_TW - P;
+  for (int i = threadIdx.x; i < G::IN_H * G::IN_W * 2; i += TC_THREADS) {
+    const int half = i & 1, pix = i >> 1;
+    const int r = pix / G::IN_W, c = pix - r * G::IN_W;
+    const int ch = c0 + 8 * half;
+    const size_t off =
+        ((size_t)reflect_index(y0 + r, a.H) * a.W + reflect_index(x0 + c, a.W)) * Cin + ch;
+    const uint32_t dst = buf + half * G::HALF + pix * 16;
+    if (async) {
+      cp_async16(dst, ch < Cin ? xa + off : xa, ch < Cin ? 16 : 0);
+    } else {
+      // fuse_n: the pair summed in f32 and rounded once, a bf16 add; a
+      // ragged leg: its channels one by one, zeros past the last
+      float v[8];
+      if ((Cin % 8) == 0) {
+        if (ch < Cin) {
+          float u[8];
+          load8(xa + off, v);
+          load8(xs + off, u);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] += u[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          v[j] = 0.f;
+          if (ch + j < Cin) {
+            v[j] = to_f32(xa[off + j]);
+            if (xs) v[j] += to_f32(xs[off + j]);
+          }
+        }
+      }
+      st_shared16(dst, pack8_bf16(v));
+    }
+  }
+  if (!a.resident) {
+    const __nv_bfloat16* src = wblk + (size_t)ks * (G::W_BYTES / 2);
+    const uint32_t wdst = s_w + (s % a.ring) * G::W_BYTES;
+    for (int i = threadIdx.x; i < G::W_BYTES / 16; i += TC_THREADS)
+      cp_async16(wdst + 16 * i, src + 8 * i, 16);
+  }
+}
+
+// The tile's accumulators, bias and activation ACT in f32, as bf16 pairs
+// into the output tile in shared memory.
+template <int K, int BN, int ACT>
+__device__ __forceinline__ void tc_stage_out(const TcArgs& a, float (&acc)[TcGeom<K, BN>::MT][BN / 2],
+                                             uint32_t s_out, int nb) {
+  using G = TcGeom<K, BN>;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = nb * BN + 8 * j + 2 * q;
+    const bool live = c < a.Cout;
+    const float b0 = live && a.bias ? __ldg(a.bias + c) : 0.f;
+    const float b1 = live && a.bias ? __ldg(a.bias + c + 1) : 0.f;
+#pragma unroll
+    for (int m = 0; m < G::MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pix = (wg * G::MT + m) * TC_TW + 16 * warp + g + 8 * e;
+        const uint32_t v = pack_bf16(apply_act_c<ACT>(acc[m][4 * j + 2 * e] + b0),
+                                     apply_act_c<ACT>(acc[m][4 * j + 2 * e + 1] + b1));
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(s_out + pix * G::OUT_PITCH + 16 * j + 4 * q),
+                     "r"(v)
+                     : "memory");
+      }
+  }
+}
+
+// The staged output tile to global memory: 16 bytes (8 channels of one
+// pixel) a thread, consecutive threads on consecutive bytes.
+template <int K, int BN>
+__device__ __forceinline__ void tc_store_out(const TcArgs& a, int tile, uint32_t s_out, int nb) {
+  using G = TcGeom<K, BN>;
+  constexpr int CH = BN / 8;  // 16-byte chunks of a pixel
+  int b, ty, tx;
+  tc_tile(a, tile, b, ty, tx);
+  for (int i = threadIdx.x; i < G::TH * TC_TW * CH; i += TC_THREADS) {
+    const int pix = i / CH, c = i - pix * CH;
+    const int oy = ty * G::TH + pix / TC_TW, ox = tx * TC_TW + pix % TC_TW;
+    const int co = nb * BN + 8 * c;
+    if (oy < a.H && ox < a.W && co < a.Cout) {
+      uint4 v;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(s_out + pix * G::OUT_PITCH + 16 * c));
+      *reinterpret_cast<uint4*>(a.y + (((size_t)b * a.H + oy) * a.W + ox) * a.Cout + co) = v;
+    }
+  }
+}
+
+template <int K, int BN>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
+  using G = TcGeom<K, BN>;
+  constexpr int MT = G::MT;
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  const uint32_t s_in = smem_u32(tc_smem);
+  const uint32_t s_w = s_in + a.ring * G::IN_BYTES;
+  const uint32_t s_out = s_w + (a.resident ? a.KS : a.ring) * G::W_BYTES;
+  // warp-uniform (a shuffle from lane 0), so the descriptors below live in
+  // uniform registers and each wgmma's is one add of an immediate
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int nb = blockIdx.y;
+  const __nv_bfloat16* wblk = a.w + (size_t)nb * a.KS * (G::W_BYTES / 2);
+  const int my_tiles =
+      (int)blockIdx.x < a.n_tiles ? (a.n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int S = my_tiles * a.KS;
+
+  // resident weights: the block's N slice of every k-step, in the first group
+  if (a.resident)
+    for (int i = threadIdx.x; i < a.KS * (G::W_BYTES / 16); i += TC_THREADS)
+      cp_async16(s_w + 16 * i, wblk + 8 * i, 16);
+  for (int s = 0; s < a.ring - 1; ++s) {
+    if (s < S) tc_load_stage<K, BN>(a, s, s_in, s_w, wblk);
+    cp_async_commit();
+  }
+
+  float acc[MT][BN / 2];
+
+  int staged = -1;  // the tile whose outputs wait in s_out
+  for (int s = 0; s < S; ++s) {
+    // stage s has landed (each thread's own copies), is visible to the
+    // async proxy, and every warpgroup is done with stage s - 1's slot
+    if (a.ring == 4)
+      cp_async_wait<2>();
+    else if (a.ring == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+
+    const int ks = s % a.KS;
+    const uint32_t buf = s_in + (s % a.ring) * G::IN_BYTES;
+    const uint32_t wk = s_w + (a.resident ? ks : s % a.ring) * G::W_BYTES;
+    const uint64_t da0 = wgmma_desc(buf + wg * MT * G::IN_W * 16, G::HALF, 128);
+    const uint64_t db0 = wgmma_desc(wk, BN * 16, 128);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+    wgmma_fence();
+    // every tap unrolled: the issue of one wgmma waits on no address math
+#pragma unroll
+    for (int kh = 0; kh < K; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < K; ++kw) {
+        const uint64_t db = desc_add(db0, (kh * K + kw) * BN * 32);
+        // a tile's first product overwrites the accumulators
+        const int scale_d = ks > 0 || kh > 0 || kw > 0;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          wgmma_bf16<BN>(acc[m], desc_add(da0, ((m + kh) * G::IN_W + kw) * 16), db, scale_d);
+      }
+    }
+    wgmma_commit();
+    // while the tensor cores work through the queued wgmmas: the previous
+    // tile's outputs to global memory, the copies of stage s + ring - 1
+    // (into the slot stage s - 1 used). Interleaved with the wgmmas' issue
+    // (a K-th after each row of taps) they made enc1 slower.
+    if (staged >= 0) tc_store_out<K, BN>(a, staged, s_out, nb);
+    staged = -1;
+    if (s + a.ring - 1 < S) tc_load_stage<K, BN>(a, s + a.ring - 1, s_in, s_w, wblk);
+    cp_async_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+
+    if (ks != a.KS - 1) continue;
+    // the tile's epilogue into s_out, once every thread has stored the
+    // previous tile out of it
+    __syncthreads();
+    switch (a.act) {
+      case ACT_RELU: tc_stage_out<K, BN, ACT_RELU>(a, acc, s_out, nb); break;
+      case ACT_RELU6: tc_stage_out<K, BN, ACT_RELU6>(a, acc, s_out, nb); break;
+      case ACT_LRELU: tc_stage_out<K, BN, ACT_LRELU>(a, acc, s_out, nb); break;
+      case ACT_TANH: tc_stage_out<K, BN, ACT_TANH>(a, acc, s_out, nb); break;
+      default: tc_stage_out<K, BN, ACT_NONE>(a, acc, s_out, nb);
+    }
+    staged = blockIdx.x + (s / a.KS) * gridDim.x;
+  }
+  if (staged >= 0) {
+    __syncthreads();
+    tc_store_out<K, BN>(a, staged, s_out, nb);
+  }
+  cp_async_wait<0>();
+}
+
+template <int K, int BN>
+int launch_chain_tc(TcArgs a, int cout_pad, cudaStream_t s) {
+  using G = TcGeom<K, BN>;
+  size_t smem = 0;
+  if (!tc_plan<K, BN>(a.KS, a.resident, a.ring, smem)) return (int)cudaErrorInvalidValue;
+  // opt in to the most shared memory once per instance; the launch asks for
+  // what this call's plan needs
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv_chain_tc_kernel<K, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, conv_chain_tc_kernel<K, BN>,
+                                                      TC_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_nb = cout_pad / BN;
+  a.tiles_x = (a.W + TC_TW - 1) / TC_TW;
+  a.tiles_y = (a.H + G::TH - 1) / G::TH;
+  const long long tiles = (long long)a.tiles_x * a.tiles_y * a.b_out;
+  if (tiles > 0x7fffffffLL || n_nb > 65535) return (int)cudaErrorInvalidConfiguration;
+  a.n_tiles = (int)tiles;
+  const int per_nb = (sms * occ + n_nb - 1) / n_nb;
+  const dim3 grid((unsigned)(a.n_tiles < per_nb ? a.n_tiles : per_nb), (unsigned)n_nb);
+  conv_chain_tc_kernel<K, BN><<<grid, TC_THREADS, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 instances of one kernel size, by N block. conv_chain.cu
+// instantiates k1, conv_chain_k3.cu, _k5.cu and _k7.cu the others, so they
+// compile in parallel.
+template <int K>
+int chain_tc_by_bn(int bn, const TcArgs& a, cudaStream_t s) {
+  const int cout_pad = (a.Cout + bn - 1) / bn * bn;
+  switch (bn) {
+    case 16: return launch_chain_tc<K, 16>(a, cout_pad, s);
+    case 32: return launch_chain_tc<K, 32>(a, cout_pad, s);
+    case 48: return launch_chain_tc<K, 48>(a, cout_pad, s);
+    case 64: return launch_chain_tc<K, 64>(a, cout_pad, s);
+    case 96: return launch_chain_tc<K, 96>(a, cout_pad, s);
+    case 128: return launch_chain_tc<K, 128>(a, cout_pad, s);
+    case 256: return launch_chain_tc<K, 256>(a, cout_pad, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern template int chain_tc_by_bn<3>(int, const TcArgs&, cudaStream_t);
+extern template int chain_tc_by_bn<5>(int, const TcArgs&, cudaStream_t);
+extern template int chain_tc_by_bn<7>(int, const TcArgs&, cudaStream_t);
+
+// ---------------------------------------------------------------------------
+// f32: register-blocked FMAs
+// ---------------------------------------------------------------------------
+// One block computes a TH x TW output tile for CO_T output channels. Each
+// leg's input tile plus halo is staged in shared memory CI_C channels at a
+// time (channel-major so a thread's row segment is one to three float4
+// loads), next to the matching CI_C x K x K x CO_T weight slice. The legs
+// are an outer loop around the channel chunks, each with its own base
+// pointer, channel count and batch offset; legs of any channel count work
+// (a 1-channel leg loads scalars and runs one FMA channel).
+constexpr int CH_TH = 8, CH_TW = 64, CH_PX = 4, CH_CI = 8;
+constexpr int CH_THREADS = (CH_TW / CH_PX) * CH_TH;  // 128
 
 template <int K, int CO_T>
 struct ChainSmem {
@@ -58,10 +459,10 @@ struct ChainSmem {
 // internal linkage: each source that includes this header has its own copy
 namespace {
 
-template <typename T, int K, int CO_T>
+template <int K, int CO_T>
 __global__ void __launch_bounds__(CH_THREADS)
 conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restrict__ bias,
-                  T* __restrict__ y, int H, int W, int Cout, int fuse_n, int act) {
+                  float* __restrict__ y, int H, int W, int Cout, int fuse_n, int act) {
   using S = ChainSmem<K, CO_T>;
   using G = typename S::G;
   constexpr int P = K / 2;
@@ -88,15 +489,15 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
   for (int l = 0; l < legs.n; ++l) {
     const int Cin = legs.cin[l];
     const size_t img = (size_t)H * W * Cin;
-    const T* base = static_cast<const T*>(legs.x[l]);
-    const T* xa = base + (size_t)(b + legs.b_off[l]) * img;
-    const T* xs = fuse_n ? base + (size_t)(b + legs.b_off[l] + fuse_n) * img : nullptr;
+    const float* base = static_cast<const float*>(legs.x[l]);
+    const float* xa = base + (size_t)(b + legs.b_off[l]) * img;
+    const float* xs = fuse_n ? base + (size_t)(b + legs.b_off[l] + fuse_n) * img : nullptr;
     const int s2d = legs.s2d, cb = Cin >> 2;  // s2d: channels a phase
     // 8 channels a load where they lie in one phase
     const bool vec = (Cin % 8) == 0 && (!s2d || cb % 8 == 0);
 
     for (int ci0 = 0; ci0 < Cin; ci0 += CH_CI) {
-      // stage the input tile (reflect halo, fuse_n sibling added in f32)
+      // stage the input tile (reflect halo, fuse_n sibling added)
       for (int idx = tid; idx < S::IN_H * G::PITCH; idx += CH_THREADS) {
         const int r = idx / G::PITCH, c = idx % G::PITCH;
         float v[CH_CI];
@@ -120,8 +521,8 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
                 // s2d: each channel in its own phase's halo
                 const size_t o = s2d ? src_pixel(ty, tx, H, W, 1, (ci0 + j) / cb) * Cin + ci0 + j
                                      : off + j;
-                v[j] = to_f32(xa[o]);
-                if (xs) v[j] += to_f32(xs[o]);
+                v[j] = xa[o];
+                if (xs) v[j] += xs[o];
               }
             }
           }
@@ -178,7 +579,7 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
     wc0 += Cin;
   }
 
-  // epilogue: bias + activation in f32, cast, 16-byte stores
+  // epilogue: bias + activation, 16-byte stores
   const int gy = y0 + ty;
   if (gy >= H) return;
   float bv[CO_T];
@@ -188,7 +589,7 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
   for (int p = 0; p < CH_PX; ++p) {
     const int gx = x0 + tx * CH_PX + p;
     if (gx >= W) continue;
-    T* dst = y + (((size_t)b * H + gy) * W + gx) * Cout + co0;
+    float* dst = y + (((size_t)b * H + gy) * W + gx) * Cout + co0;
     float o[CO_T];
 #pragma unroll
     for (int c = 0; c < CO_T; ++c) o[c] = apply_act(acc[p][c] + bv[c], act);
@@ -197,26 +598,25 @@ conv_chain_kernel(Legs legs, const float* __restrict__ w, const float* __restric
       for (int c = 0; c < CO_T; c += 8) store8(dst + c, o + c);
     } else {
 #pragma unroll
-      for (int c = 0; c < CO_T; ++c) dst[c] = from_f32<T>(o[c]);
+      for (int c = 0; c < CO_T; ++c) dst[c] = o[c];
     }
   }
 }
 
 }  // namespace
 
-template <typename T, int K, int CO_T>
+template <int K, int CO_T>
 static int launch_chain(const Legs& legs, const float* w, const float* bias, void* y,
                         int b_out, int h, int wd, int cout, int fuse_n, int act,
                         cudaStream_t stream) {
   constexpr size_t smem = ChainSmem<K, CO_T>::BYTES;
   // above 48 KB only as opted-in dynamic shared memory; set once per instance
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_chain_kernel<T, K, CO_T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      conv_chain_kernel<K, CO_T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((wd + CH_TW - 1) / CH_TW, (h + CH_TH - 1) / CH_TH, b_out * (cout / CO_T));
-  conv_chain_kernel<T, K, CO_T><<<grid, CH_THREADS, smem, stream>>>(
-      legs, w, bias, static_cast<T*>(y), h, wd, cout, fuse_n, act);
+  conv_chain_kernel<K, CO_T><<<grid, CH_THREADS, smem, stream>>>(
+      legs, w, bias, static_cast<float*>(y), h, wd, cout, fuse_n, act);
   return (int)cudaGetLastError();
 }
 

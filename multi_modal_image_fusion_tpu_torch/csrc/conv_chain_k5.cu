@@ -1,0 +1,7 @@
+// The k5 bf16 instances of the wgmma conv_chain body (conv_chain.cuh), in a
+// source of their own so nvcc builds them beside conv_chain.cu.
+#include "conv_chain.cuh"
+
+namespace mmif {
+template int chain_tc_by_bn<5>(int, const TcArgs&, cudaStream_t);
+}  // namespace mmif

@@ -55,11 +55,6 @@ constexpr int WD_THREADS = 128;       // 4 warps, 32 pixels of one row each
 constexpr int WD_CK = 16;             // input channels a stage: one mma k-step
 constexpr int WD_PW = 12;             // 32-bit words a staged row: 8 + 4 padding
 
-__device__ __forceinline__ uint4 pack8_bf16(const float* v) {
-  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                    pack_bf16(v[6], v[7]));
-}
-
 template <int K, int NT>
 struct WideSmem {
   static constexpr int IN_H = WD_TH + K - 1, IN_W = WD_TW + K - 1;
@@ -245,10 +240,10 @@ template <int K>
 static int wide_f32(const Legs& legs, const float* w, const float* bias, void* y, int b_out,
                     int h, int wd, int cout, int fuse_n, int act, cudaStream_t s) {
   if (cout % 16 == 0)
-    return launch_chain<float, K, 16>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+    return launch_chain<K, 16>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
   if (cout % 8 == 0)
-    return launch_chain<float, K, 8>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
-  return launch_chain<float, K, 4>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+    return launch_chain<K, 8>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+  return launch_chain<K, 4>(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
 }
 
 template <int K>

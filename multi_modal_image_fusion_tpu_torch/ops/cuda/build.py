@@ -6,6 +6,8 @@ library with a plain C interface. The library lands in
 `multi_modal_image_fusion_tpu_torch/_build/`, named by a hash of the sources
 and flags, so an unchanged tree builds once and a changed one never loads a
 stale library. Nothing is downloaded and no PyTorch header is compiled.
+`ptxas -v` reports each kernel's registers, shared memory and spills; the
+build keeps that output beside the library (`build_log`).
 
 Each kernel wrapper counts its own launches in `LAUNCHES` (kernel name ->
 count), so a caller can show which kernels a run went through. A wrapper
@@ -27,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = collections.Counter()
 
@@ -73,6 +75,7 @@ def build():
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objs)]
+        logs = []
         for src, proc in zip(sources, procs):
             text, _ = proc.communicate()
             if proc.returncode != 0:
@@ -80,14 +83,24 @@ def build():
                     other.kill()
                     other.wait()
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{text}")
+            logs.append(f"== {src.name}\n{text}")
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib),
                                *map(str, objs)],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        tmp_log = Path(tmp) / "build.log"
+        tmp_log.write_text("".join(logs))
+        os.replace(tmp_log, out.with_suffix(".log"))
         os.replace(tmp_lib, out)   # atomic: concurrent builds agree
     return out
+
+
+def build_log():
+    """The nvcc and ptxas output of the library's build (built on first
+    use)."""
+    return build().with_suffix(".log").read_text()
 
 
 def library():

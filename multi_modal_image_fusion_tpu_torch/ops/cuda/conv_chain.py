@@ -18,15 +18,20 @@ Three wrappers over csrc/conv_chain.cu, all NHWC, f32 accumulation:
   together with the c_out=1 exit conv, writing (B, H, W, 1) directly.
 
 What bounds them on an H100 and what the design does about it is in the
-header of csrc/conv_chain.cu: the wide layers are bound by arithmetic and
-run as register-blocked f32 FMAs on the CUDA cores; the thin enter/exit
-layers have their own loops.
+headers of csrc/conv_chain.cu and csrc/conv_chain.cuh: the wide layers are
+bound by arithmetic; in bf16 `conv_chain` and `conv_multi` run a `wgmma`
+implicit GEMM on the tensor cores with an asynchronous copy ring
+(`pack_weights_tc` packs its weights, `pick_bn_tc` picks its block of
+output channels), in f32 register-blocked FMAs on the CUDA cores; the thin
+enter/exit layers have their own loops.
 
-Each wrapper takes its plain version (`*_plain`, F.pad + F.conv2d in f32)
-only for CPU tensors. A CUDA tensor launches the kernel or raises; there is
-no fallback. The kernels are forward-only: on a CUDA tensor with grad mode
-on and an input, weight or bias that requires grad, the wrappers raise
-(training goes through ops/cuda/conv_vjp.py). They are built for
+Each wrapper takes its plain version (`*_plain`, F.pad + F.conv2d in f32;
+`conv_chain_plain` rounds the weight and the fuse_n sum to the input's
+dtype first, as the JAX kernel does) only for CPU tensors. A CUDA tensor
+launches the kernel or raises; there is no fallback. The kernels are
+forward-only: on a CUDA tensor with grad mode on and an input, weight or
+bias that requires grad, the wrappers raise (training goes through
+ops/cuda/conv_vjp.py). They are built for
 what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
 and k7 (DeepFuse), `conv_gray_enter` k3 and k5, `conv_gray_exit` k1
 (UNFusion), k3 and k5, output channels a multiple of 16 (but the exit's 1),
@@ -41,9 +46,10 @@ import torch.nn.functional as F
 from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
 
-__all__ = ["ACT_CODES", "apply_act", "conv_chain", "conv_chain_plain",
-           "conv_gray_enter", "conv_gray_enter_plain", "conv_gray_exit",
-           "conv_gray_exit_plain"]
+__all__ = ["ACT_CODES", "apply_act", "chain_weights", "conv_chain",
+           "conv_chain_plain", "conv_gray_enter", "conv_gray_enter_plain",
+           "conv_gray_exit", "conv_gray_exit_plain", "pack_weights_tc",
+           "pick_bn_tc", "tc_plan", "tc_weight_index"]
 
 # epilogue activations the kernels fuse (csrc/common.cuh Act; the TPU
 # kernels' _apply_act, ops/pallas/conv_kernel.py:43)
@@ -97,12 +103,14 @@ def _conv_nhwc_f32(x, weight, bias, groups=1):
 
 
 def conv_chain_plain(x, weight, bias=None, act=None, fuse_n=0):
-    """Plain version of conv_chain: the same function in f32, cast back to
-    x.dtype."""
-    xf = x.float()
+    """Plain version of conv_chain, the JAX kernel's function in x.dtype:
+    the fuse_n sum and the weight rounded to x.dtype (hiw_kernel.py:297,
+    :387), the conv, bias and activation in f32, the cast back. In f32 the
+    rounding changes nothing."""
     if fuse_n:
-        xf = xf[:fuse_n] + xf[fuse_n:]
-    return apply_act(_conv_nhwc_f32(xf, weight, bias), act).to(x.dtype)
+        x = x[:fuse_n] + x[fuse_n:]
+    return apply_act(_conv_nhwc_f32(x, weight.to(x.dtype), bias),
+                     act).to(x.dtype)
 
 
 def conv_gray_enter_plain(img1, img2, weight, bias=None, act="relu"):
@@ -160,6 +168,100 @@ def weights_f32(weight, bias):
     return wk, bk
 
 
+# The bf16 wgmma body (csrc/conv_chain.cuh): its N blocks, tile geometry
+# and shared-memory plan, mirrored here to pick the block and pack weights.
+TC_BNS = (256, 128, 96, 64, 48, 32, 16)
+_TC_CK = 16                 # input channels a k-step
+_TC_WG, _TC_TW = 2, 64      # warpgroups a block, pixels an m-tile
+_TC_SMEM_MAX = 232448
+
+
+def _tc_mt(bn):
+    return 1 if bn >= 128 else min(8, 128 // bn)
+
+
+def tc_plan(k, bn, ks):
+    """(resident, ring, shared bytes) of conv_chain.cuh tc_plan for kernel
+    size k, N block bn and ks k-steps: the layer's weights resident beside
+    the deepest ring (4, 3 or 2 input stages) and the output tile that fit,
+    else the weights in the ring; None if nothing fits."""
+    th = _TC_WG * _tc_mt(bn)
+    in_h, in_w = th + k - 1, _TC_TW + k - 1
+    in_bytes = 2 * (-(-in_h * in_w * 16 // 128) * 128 + 64)
+    w_bytes = k * k * bn * 32
+    out_bytes = th * _TC_TW * (2 * bn + 16)
+    for resident in (1, 0):
+        for ring in (4, 3, 2):
+            smem = ring * (in_bytes + (0 if resident else w_bytes)) \
+                + (ks * w_bytes if resident else 0) + out_bytes
+            if smem <= _TC_SMEM_MAX:
+                return resident, ring, smem
+    return None
+
+
+def _ksteps(cins):
+    return [-(-c // _TC_CK) for c in cins]
+
+
+def pick_bn_tc(cout, cins, k):
+    """The bf16 body's block of output channels (one of TC_BNS), by a cost
+    per 64 output pixels and tap of ceil(cout / bn) blocks, each
+    max(bn / 2, 16 + bn / 4) cycles (the tensor cores, or the shared
+    memory that feeds them 2 KB of A and bn * 32 bytes of B a wgmma), half
+    again when the weights cannot stay resident; the larger on a tie."""
+    ks = sum(_ksteps(cins))
+    best = None
+    for bn in TC_BNS:
+        plan = tc_plan(k, bn, ks)
+        if plan is None:
+            continue
+        cost = -(-cout // bn) * max(bn / 2, 16 + bn / 4) * (
+            1.0 if plan[0] else 1.5)
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    if best is None:
+        raise ValueError(f"conv_chain: no bf16 block fits k{k} with {ks} "
+                         f"k-steps")
+    return best[1]
+
+
+def tc_weight_index(k, bn, ks_total, co, ks, j, kh, kw):
+    """Element index in `pack_weights_tc`'s output of output channel co,
+    k-step ks, channel j (0-15) of the k-step and tap (kh, kw): the
+    kernel's [Cout_pad / bn][KS][k * k][half][bn][8] layout."""
+    nb, n = divmod(co, bn)
+    return ((((nb * ks_total + ks) * k * k + kh * k + kw) * 2 + j // 8)
+            * bn + n) * 8 + j % 8
+
+
+def pack_weights_tc(weight, cins, bn):
+    """OIHW (c_out, sum cins, k, k) -> the bf16 body's flat bf16 weights:
+    each leg's channels zero-padded to whole 16-channel k-steps, c_out to a
+    multiple of bn, laid out as `tc_weight_index` reads them."""
+    cout, _, k, _ = weight.shape
+    wq = weight.detach().to(torch.bfloat16)
+    blocks, ofs = [], 0
+    for c, n in zip(cins, _ksteps(cins)):
+        blocks.append(F.pad(wq[:, ofs:ofs + c], (0, 0, 0, 0, 0,
+                                                 n * _TC_CK - c)))
+        ofs += c
+    wp = F.pad(torch.cat(blocks, 1), (0, 0, 0, 0, 0, 0, 0, -cout % bn))
+    nnb, ks = wp.shape[0] // bn, wp.shape[1] // _TC_CK
+    wp = wp.reshape(nnb, bn, ks, 2, 8, k, k).permute(0, 2, 5, 6, 3, 1, 4)
+    return wp.contiguous().reshape(-1)
+
+
+def chain_weights(weight, bias, cins, dtype):
+    """The conv_chain kernel's weights, bias and N block: bf16 packed for
+    the wgmma body (`pack_weights_tc`, `pick_bn_tc`), f32 [Cin][K][K][Cout]
+    for the FMA body (N block 0, unused)."""
+    if dtype == torch.bfloat16:
+        bn = pick_bn_tc(weight.shape[0], cins, weight.shape[-1])
+        bk = None if bias is None else bias.detach().float().contiguous()
+        return pack_weights_tc(weight, cins, bn), bk, bn
+    return (*weights_f32(weight, bias), 0)
+
+
 def act_code(act):
     if act not in ACT_CODES:
         raise ValueError(f"unfusable activation {act!r}")
@@ -190,14 +292,14 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
     if b_out * (cout // _CO_TILE) > _GRID_Z_MAX:
         raise ValueError(f"conv_chain: batch {b_out} too large for one "
                          f"launch")
-    wk, bk = weights_f32(weight, bias)
+    wk, bk, bn = chain_weights(weight, bias, [cin], x.dtype)
     y = torch.empty((b_out, h, w, cout), dtype=x.dtype, device=x.device)
     fn = kernel_function("mmif_conv_chain",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P])
+                          _I, _I, _P])
     with torch.cuda.device(x.device):
         err = fn(DTYPE_CODES[x.dtype], ptr(x), ptr(wk), ptr(bk), ptr(y),
-                 b_out, h, w, cin, cout, k, fuse_n, act_code(act),
+                 b_out, h, w, cin, cout, k, bn, fuse_n, act_code(act),
                  stream_handle(x.device))
     check_launch("conv_chain", err)
     return y

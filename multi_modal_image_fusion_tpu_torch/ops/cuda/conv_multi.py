@@ -14,6 +14,10 @@ dtype. It is the kernel behind `conv_chain`, launched with the legs in its
 launch parameters (`conv_chain` is the case of one leg at offset 0); this
 wrapper counts its own launches as `conv_multi`.
 
+In bf16 the kernel is conv_chain's `wgmma` body, each leg's channels
+zero-padded to whole 16-channel k-steps in the packed weights
+(`pack_weights_tc`); in f32 its FMA body.
+
 The plain version (`conv_multi_plain`) is the concat of the legs at their
 batch offsets (plus their fuse_n siblings) and `conv_chain_plain`. CPU
 tensors take it; a CUDA tensor launches the kernel or raises. The kernel is
@@ -28,8 +32,8 @@ import torch
 
 from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
-from .conv_chain import (DTYPE_CODES, act_code, check_tensors,
-                         conv_chain_plain, weights_f32)
+from .conv_chain import (DTYPE_CODES, act_code, chain_weights,
+                         check_tensors, conv_chain_plain)
 
 __all__ = ["check_legs", "concat_legs", "conv_multi", "conv_multi_plain",
            "identity_weights", "legs_n_out"]
@@ -70,8 +74,9 @@ def concat_legs(legs, fuse_n=0, n_out=None):
 
 def conv_multi_plain(legs, weight, bias=None, act=None, fuse_n=0,
                      n_out=None):
-    """Plain version of conv_multi: the concat, then conv_chain_plain (f32,
-    cast back to the legs' dtype)."""
+    """Plain version of conv_multi: the concat, then conv_chain_plain (the
+    fuse_n sum and the weight in the legs' dtype, the conv in f32, cast
+    back)."""
     if n_out is None:
         n_out = legs_n_out(legs, fuse_n)
     return conv_chain_plain(concat_legs(legs, fuse_n, n_out), weight, bias,
@@ -133,7 +138,8 @@ def conv_multi(legs, weight, bias=None, act=None, fuse_n=0, n_out=None):
     k, cout = check_legs(legs, weight, bias, fuse_n, n_out)
     x0 = legs[0][0]
     h, w = x0.shape[1:3]
-    wk, bk = weights_f32(weight, bias)
+    wk, bk, bn = chain_weights(weight, bias, [t.shape[-1] for t, _ in legs],
+                               x0.dtype)
     y = torch.empty((n_out, h, w, cout), dtype=x0.dtype, device=x0.device)
     nl = len(legs)
     xs = (ctypes.c_void_p * nl)(*[t.data_ptr() for t, _ in legs])
@@ -141,11 +147,11 @@ def conv_multi(legs, weight, bias=None, act=None, fuse_n=0, n_out=None):
     offs = (ctypes.c_int * nl)(*[off for _, off in legs])
     I, P = ctypes.c_int, ctypes.c_void_p
     fn = kernel_function("mmif_conv_multi",
-                         [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
+                         [I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
     with torch.cuda.device(x0.device):
         err = fn(DTYPE_CODES[x0.dtype], nl, ctypes.cast(xs, P),
                  ctypes.cast(cins, P), ctypes.cast(offs, P), ptr(wk),
-                 ptr(bk), ptr(y), n_out, h, w, cout, k, fuse_n,
+                 ptr(bk), ptr(y), n_out, h, w, cout, k, bn, fuse_n,
                  act_code(act), stream_handle(x0.device))
     check_launch("conv_multi", err)
     return y

@@ -9,7 +9,11 @@ Tolerances, relative to the largest magnitude of the plain output: f32
 1e-4 (the kernel and the plain version sum the same f32 products in another
 order; TF32 is off for the plain convs); bf16 2e-2 (both compute in f32 and
 round the output to bf16, whose 8-bit mantissa is 2^-8 ~ 4e-3 of a value,
-and a different summation order can flip that rounding).
+and a different summation order can flip that rounding). conv_chain and
+conv_multi in bf16 (the wgmma body), like conv_wide: 1e-3 beyond one bf16
+ulp of each output (the same exact products of bf16 weights and inputs, an
+f32 sum in another order, one rounding to bf16), with controls that must
+miss by 10x (`test_conv_chain_controls_fail`).
 """
 
 import numpy as np
@@ -75,13 +79,15 @@ def test_conv_chain(cuda, dt, k, cin, cout, h, w, fuse_n):
     dtype = DTYPES[dt]
     b = 2 * fuse_n if fuse_n else 2
     x = _rand((b, h, w, cin), 0, cuda, dtype)
-    wt = _rand((cout, cin, k, k), 1, cuda) * 0.2
+    wt = (_rand((cout, cin, k, k), 1, cuda) * 0.2).to(dtype)
     bias = _rand((cout,), 2, cuda)
     before = build.LAUNCHES["conv_chain"]
     got = conv_chain(x, wt, bias, "relu", fuse_n)
     torch.cuda.synchronize()
     assert build.LAUNCHES["conv_chain"] == before + 1
-    _close(got, conv_chain_plain(x, wt, bias, "relu", fuse_n), dtype)
+    assert got.dtype == dtype
+    want = conv_chain_plain(x, wt, bias, "relu", fuse_n)
+    assert _wide_rel(got, want, dtype) <= WIDE_TOL[dtype]
 
 
 @pytest.mark.parametrize("act", ["relu6", "lrelu", "tanh", None])
@@ -140,9 +146,10 @@ def test_full_resolution_deepfuse_layers(cuda):
     _close(t, conv_gray_enter_plain(img1, img2, w0, None, "relu"), bf)
     for cin, cout, k, fuse in ((16, 32, 7, 0), (32, 32, 7, 1),
                                (32, 16, 5, 0)):
-        wt = _rand((cout, cin, k, k), cin + cout + k, cuda) * 0.1
+        wt = (_rand((cout, cin, k, k), cin + cout + k, cuda) * 0.1).to(bf)
         y = conv_chain(t, wt, None, "relu", fuse)
-        _close(y, conv_chain_plain(t, wt, None, "relu", fuse), bf)
+        assert _wide_rel(y, conv_chain_plain(t, wt, None, "relu", fuse),
+                         bf) <= WIDE_TOL[bf]
         t = y
     wt = _rand((1, 16, 5, 5), 17, cuda) * 0.2
     _close(conv_gray_exit(t, wt, None, None),
@@ -435,13 +442,62 @@ def _multi_cases(dev, dtype):
 @pytest.mark.parametrize("case", ["dense", "cross", "fuse", "identity", "k1",
                                   "gray", "k7"])
 def test_conv_multi(cuda, dt, case):
-    legs, wt, bias, fuse_n = _multi_cases(cuda, DTYPES[dt])[case]
+    dtype = DTYPES[dt]
+    legs, wt, bias, fuse_n = _multi_cases(cuda, dtype)[case]
+    wt = wt.to(dtype)
     before = build.LAUNCHES["conv_multi"]
     got = conv_multi(legs, wt, bias, "relu", fuse_n)
     torch.cuda.synchronize()
     assert build.LAUNCHES["conv_multi"] == before + 1
-    assert got.dtype == DTYPES[dt]
-    _close(got, conv_multi_plain(legs, wt, bias, "relu", fuse_n), DTYPES[dt])
+    assert got.dtype == dtype
+    want = conv_multi_plain(legs, wt, bias, "relu", fuse_n)
+    assert _wide_rel(got, want, dtype) <= WIDE_TOL[dtype]
+
+
+def _zero_halo_plain(legs, wt, bias, fuse_n):
+    """conv_multi_plain with a zero-padded halo instead of the reflect."""
+    x = torch.cat([t for t, _ in legs], -1)
+    if fuse_n:
+        x = x[:fuse_n] + x[fuse_n:]
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), wt.float(), bias,
+                 padding=wt.shape[-1] // 2)
+    return torch.relu(y).permute(0, 2, 3, 1).to(x.dtype)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["dec0", "dense"])
+def test_conv_chain_controls_fail(cuda, dt, case):
+    """The checks of conv_chain / conv_multi can fail: taps transposed, two
+    legs of one width swapped, a zero halo, and one fuse_n half's images in
+    reverse order each miss the plain version by more than 10x the
+    tolerance, while the kernel passes it."""
+    dtype = DTYPES[dt]
+    if case == "dec0":             # DeepFuse dec0, k7, fuse_n
+        n, cins, cout, k = 2, [32], 32, 7
+    else:                          # DenseFuse dec0's legs, k3, fuse_n
+        n, cins, cout, k = 2, [16, 16, 16, 16], 64, 3
+    h, w = 64, 200
+    legs = [(_drand((2 * n, h, w, c), 240 + i, cuda, dtype), 0)
+            for i, c in enumerate(cins)]
+    cin = sum(cins)
+    wt = (_drand((cout, cin, k, k), 250, cuda, torch.float32)
+          / np.sqrt(cin * k * k)).to(dtype)
+    bias = _drand((cout,), 251, cuda, torch.float32) * 0.1
+    want = conv_multi_plain(legs, wt, bias, "relu", n)
+    tol = WIDE_TOL[dtype]
+    assert _wide_rel(conv_multi(legs, wt, bias, "relu", n), want,
+                     dtype) <= tol
+    controls = {
+        "taps": conv_multi(legs, wt.transpose(2, 3), bias, "relu", n),
+        "zero halo": _zero_halo_plain(legs, wt, bias, n),
+        "half reversed": conv_multi(
+            [(torch.cat([t[:n], t[n:].flip(0)]), 0) for t, _ in legs], wt,
+            bias, "relu", n)}
+    if len(legs) > 1:
+        controls["legs"] = conv_multi([legs[1], legs[0]] + legs[2:], wt,
+                                      bias, "relu", n)
+    for what, ctl in controls.items():
+        assert _wide_rel(ctl, want, dtype) > 10 * tol, what
 
 
 def test_full_resolution_dense_layers(cuda):
@@ -449,21 +505,25 @@ def test_full_resolution_dense_layers(cuda):
     VIFNet's 8-leg dec0, bf16."""
     h, w = 1224, 1024
     bf = torch.bfloat16
+    tol = WIDE_TOL[bf]
     legs = [_rand((2, h, w, 16), 80, cuda, bf)]
     for i in range(3):
-        wt = _rand((16, 16 * (i + 1), 3, 3), 81 + i, cuda) * 0.2
+        wt = (_rand((16, 16 * (i + 1), 3, 3), 81 + i, cuda) * 0.2).to(bf)
         ls = [(t, 0) for t in legs]
         y = conv_multi(ls, wt, None, "relu")
-        _close(y, conv_multi_plain(ls, wt, None, "relu"), bf)
+        assert _wide_rel(y, conv_multi_plain(ls, wt, None, "relu"),
+                         bf) <= tol
         legs.append(y)
     ls = [(t, 0) for t in legs]
-    wt = _rand((64, 64, 3, 3), 84, cuda) * 0.1
-    _close(conv_multi(ls, wt, None, "relu", fuse_n=1),
-           conv_multi_plain(ls, wt, None, "relu", fuse_n=1), bf)
+    wt = (_rand((64, 64, 3, 3), 84, cuda) * 0.1).to(bf)
+    assert _wide_rel(conv_multi(ls, wt, None, "relu", fuse_n=1),
+                     conv_multi_plain(ls, wt, None, "relu", fuse_n=1),
+                     bf) <= tol
     ls = ls + [(t, 1) for t in legs]
-    wt = _rand((128, 128, 3, 3), 85, cuda) * 0.05
-    _close(conv_multi(ls, wt, None, "relu", n_out=1),
-           conv_multi_plain(ls, wt, None, "relu", n_out=1), bf)
+    wt = (_rand((128, 128, 3, 3), 85, cuda) * 0.05).to(bf)
+    assert _wide_rel(conv_multi(ls, wt, None, "relu", n_out=1),
+                     conv_multi_plain(ls, wt, None, "relu", n_out=1),
+                     bf) <= tol
 
 
 # launches of one fused forward: (model, model kwargs, autoencoder) ->
