@@ -13,7 +13,9 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    conv_multi instance (cuobjdump -sass of the library; fails without the
    tool or with an instance that has none, and if a bf16 FMA
    conv_chain_kernel was built) and print ptxas's registers, spills and
-   shared memory of each.
+   shared memory of each. The same for the two bf16 nl kernels (their
+   HGMMA, and the HMMA of warp-level mma.sync, of which they must hold
+   none), failing on a spill or on wgmmas that ptxas serialized.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
    the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones and UNFusion's nine encoder convs at their scales) against its
@@ -82,14 +84,20 @@ Phase 3 also holds the non-local attention kernels nl_minmax and nl_apply
 against their plain two-pass version (nl_spatial_plain's passes) at the
 shapes of Res2Fusion's 112-channel attention: 1224x1024 bf16 batch 2 (one
 nl call of the res2fusion bench) and f32 batch 1 (the test CLI's), 45x61
-and a ragged 20x50, on independent centred q and k (k of zero mean, so the
-output is the attention term alone). nl_minmax is held to 1e-4 of the
-range hi - lo in both dtypes, nl_apply to 1e-4 (f32) and 5e-2 (bf16) of
-the largest attention term; at every shape a control (keys swapped within
-pairs in the value product; k's channels rolled by 8 for the range) must
-fail those tolerances. nl_apply's library time is one
+and a ragged 20x50, and at the edges of the bf16 kernels' tiling (64 keys
+a tile, 256 and 128 query rows a block: ragged last tiles and blocks), on
+independent centred q and k (k of zero mean, so the output is the
+attention term alone). nl_minmax is held to 1e-4 of the range hi - lo in
+both dtypes, nl_apply to 1e-4 (f32) and 5e-2 (bf16) of the largest
+attention term, and bf16 nl_apply to 1e-2 of it against
+nl_apply_flash_plain, the same function with the TPU kernel's rounding;
+at every shape a control (keys swapped within pairs in the value product;
+k's channels rolled by 8 for the range) must fail those tolerances, and
+with one image's queries scaled 3x the range and output reduced per image
+must fail them too. nl_apply's library time is one
 scaled_dot_product_attention(q, k, k, scale=1/(hi-lo)) (the same
-function: softmax is shift-invariant), nl_minmax has none. And conv_dw
+function: softmax is shift-invariant), nl_minmax has none; the bf16
+wrappers' key repack is timed apart. And conv_dw
 against F.conv2d(groups=C) in f32 at Res2Fusion's RB1 and RB2 windows (k1,
 k3, with and without the added previous group): 1224x1024 bf16 batch 4
 and f32 batch 2, and 45x61; its library time is one F.conv2d(groups=C) on
@@ -220,12 +228,40 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def _ptxas_props(log, wanted):
+    """ptxas -v's registers, spills and static shared memory of every
+    function of the build log for which wanted(name) holds."""
+    props, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) if wanted(m.group(1)) else None
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            props[fn] = {"spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in props:
+            sm = re.search(r"(\d+) bytes smem", line)
+            props[fn].update(registers=int(m.group(1)),
+                             static_smem=int(sm.group(1)) if sm else 0)
+            fn = None
+    return props
+
+
 def tensor_core_report(build, lib_path):
-    """Phase 2's proof that bf16 conv_chain / conv_multi run on the tensor
-    cores: the HGMMA (wgmma) instructions in the SASS of every
-    conv_chain_tc_kernel instance (cuobjdump -sass of the built library),
-    and no bf16 instance of the FMA conv_chain_kernel; then ptxas's
-    registers, spills and static shared memory of each wgmma instance."""
+    """Phase 2's proof that the bf16 conv_chain / conv_multi and nl kernels
+    run on the tensor cores: the HGMMA (wgmma) instructions in the SASS of
+    every conv_chain_tc_kernel instance (cuobjdump -sass of the built
+    library), and no bf16 instance of the FMA conv_chain_kernel; then
+    ptxas's registers, spills and static shared memory of each wgmma
+    instance. For each bf16 nl kernel (NL_KERNELS) its HGMMA, that it holds
+    no HMMA (warp-level mma.sync), and its ptxas registers with no spills.
+    Returns the conv_chain summary and the nl kernels' reports."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(cuobjdump):
         raise AssertionError(f"cuobjdump not found beside nvcc "
@@ -233,14 +269,16 @@ def tensor_core_report(build, lib_path):
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=600).stdout
-    counts, fn = {}, None
+    counts, hmma, fn = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
+            counts[fn] = hmma[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] += 1
     tc = {f: c for f, c in counts.items() if "conv_chain_tc_kernel" in f}
     fma = [f for f in counts if "conv_chain_kernel" in f]
     if not tc or min(tc.values()) == 0:
@@ -258,36 +296,35 @@ def tensor_core_report(build, lib_path):
           f"{len(fma)} FMA conv_chain_kernel instances, none bf16")
     log = build.build_log()
     serialized = [line.strip() for line in log.splitlines()
-                  if "serialized" in line and "conv_chain_tc" in line]
+                  if "serialized" in line and ("conv_chain_tc" in line
+                                               or "_ws_kernel" in line)]
     if serialized:   # ptxas made the wgmmas wait for each other
         raise AssertionError("ptxas serialized the wgmmas: "
                              + "; ".join(serialized))
-    ptxas, fn = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            fn = m.group(1) if "conv_chain_tc_kernel" in m.group(1) else None
-            continue
-        if fn is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            ptxas[fn] = {"spill_stores": int(m.group(1)),
-                         "spill_loads": int(m.group(2))}
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn in ptxas:
-            sm = re.search(r"(\d+) bytes smem", line)
-            ptxas[fn].update(registers=int(m.group(1)),
-                             static_smem=int(sm.group(1)) if sm else 0)
-            fn = None
+    ptxas = _ptxas_props(log, lambda f: "conv_chain_tc_kernel" in f)
     if set(ptxas) != set(tc):
         raise AssertionError(f"ptxas -v lines for {sorted(ptxas)}, SASS "
                              f"for {sorted(tc)}")
     print("ptxas -v, conv_chain_tc_kernel (the dynamic shared memory is "
           "the launch's tc_plan): " + json.dumps(
               {inst(f): v for f, v in sorted(ptxas.items())}))
-    return {"hgmma": sum(tc.values()), "instances": len(tc)}
+    nl_ptxas = _ptxas_props(log, lambda f: any(
+        k in f for k in NL_KERNELS.values()))
+    nl = {}
+    for name, kern in NL_KERNELS.items():
+        fns = [f for f in counts if kern in f]
+        props = [v for f, v in nl_ptxas.items() if kern in f]
+        if len(fns) != 1 or len(props) != 1:
+            raise AssertionError(f"{name}: SASS functions {fns}, ptxas "
+                                 f"lines {props}")
+        nl[name] = {"hgmma": counts[fns[0]], "hmma": hmma[fns[0]],
+                    **props[0]}
+        if (nl[name]["hgmma"] == 0 or nl[name]["hmma"] != 0
+                or props[0]["spill_stores"] or props[0]["spill_loads"]):
+            raise AssertionError(f"{name} ({kern}): {nl[name]}: want HGMMA, "
+                                 f"no HMMA and no spills")
+    print(f"SASS and ptxas -v, bf16 nl kernels: {json.dumps(nl)}")
+    return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
@@ -1080,22 +1117,30 @@ RES2_BATCH = 2         # the res2fusion bench's pairs a forward
 # normalised ones, each 2^-9 a weight, and with 35 keys the output is a
 # tenth of the keys' magnitude, so the two roundings differ by up to ~2e-2
 # of it. The controls below (keys swapped within pairs, k's channels
-# rolled) must fail these tolerances, and the smoke fails if they pass.
+# rolled, the range reduced per image) must fail these tolerances, and the
+# smoke fails if they pass. NL_ROUND_TOL: bf16 nl_apply against
+# nl_apply_flash_plain, the same function with the TPU kernel's rounding
+# (nl_kernel.py:116-120), relative to the same attention term: both round
+# the output to bf16 (2^-9 of a value), and the f32 exps and sums differ in
+# implementation and order (expect ~1e-3).
 NL_TOL = {"nl_minmax": {"f32": 1e-4, "bf16": 1e-4},
           "nl_apply": {"f32": 1e-4, "bf16": 5e-2}}
+NL_ROUND_TOL = 1e-2
+NL_KERNELS = {"nl_minmax": "nl_minmax_ws_kernel",
+              "nl_apply": "nl_apply_ws_kernel"}
 
 
-def _nl_inputs(torch, b, h, w, c, seed, dev, dtype):
-    """q (b, h*w, c) and k (b, (h//8)*(w//8), c), the shapes of the 'nl'
-    spatial pooling of a (b, h, w, c) feature map, drawn apart: q uniform in
-    [-1, 1), k uniform in [-1, 1) less its mean over the keys. Independent
-    centred q and k make the normalised energies of a query span about half
-    of [0, 1], and k's zero mean leaves only the attention term in the
-    output, so a kernel that mixes up queries, keys or channels moves the
-    whole of it."""
+def _nl_inputs(torch, b, n, m, c, seed, dev, dtype):
+    """q (b, n, c) and k (b, m, c), as the 'nl' spatial pooling of a (b, h,
+    w, c) feature map gives them at n = h*w, m = (h//8)*(w//8), drawn apart:
+    q uniform in [-1, 1), k uniform in [-1, 1) less its mean over the keys.
+    Independent centred q and k make the normalised energies of a query
+    span about half of [0, 1], and k's zero mean leaves only the attention
+    term in the output, so a kernel that mixes up queries, keys or channels
+    moves the whole of it."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.rand((b, h * w, c), generator=g, device=dev) * 2 - 1
-    k = torch.rand((b, (h // 8) * (w // 8), c), generator=g, device=dev) * 2 - 1
+    q = torch.rand((b, n, c), generator=g, device=dev) * 2 - 1
+    k = torch.rand((b, m, c), generator=g, device=dev) * 2 - 1
     return q.to(dtype), (k - k.mean(1, keepdim=True)).to(dtype)
 
 
@@ -1122,28 +1167,52 @@ def _nl_rel(torch, name, got, want, scale, dt):
     return err, err / scale
 
 
+# check_nl's cases: (dtype, batch, queries, keys, key, seed). The feature maps of
+# Res2Fusion's attention (1224x1024: the res2fusion bench's nl call, bf16
+# batch 2, and the test CLI's, f32 batch 1; 45x61; a ragged 20x50), then
+# the edges of the bf16 kernels' tiling (64 keys a staged tile; 256 query
+# rows a block in pass 1, 128 in pass 2): 3 full key tiles and a ragged
+# one; full key tiles and a last block of one row; a last tile of one key
+# and pass 1's last block half empty.
+NL_CASES = [(dt, b, h * w, (h // 8) * (w // 8), f"{b}x{h}x{w}x112 {dt}",
+             120 + h)
+            for dt, b, h, w in (("bf16", RES2_BATCH, H, W), ("f32", 1, H, W),
+                                ("bf16", 2, 45, 61), ("f32", 2, 45, 61),
+                                ("bf16", 2, 20, 50), ("f32", 2, 20, 50))] + [
+    ("bf16", b, n, m, f"{b}x{n}q{m}k bf16", 130 + i)
+    for i, (b, n, m) in enumerate(((1, 1000, 3 * 64 + 17),
+                                   (2, 3 * 256 + 1, 4 * 64),
+                                   (1, 5 * 128, 2 * 64 + 1)))]
+
+
 def check_nl(torch, F, dev, timer):
     """nl_minmax and nl_apply against the plain two-pass version
-    (nl_spatial_plain's passes) on the card, at the shapes of Res2Fusion's
-    112-channel attention: 1224x1024 (bf16 batch 2, one nl call of the
-    res2fusion bench; f32 batch 1, the test CLI's), 45x61 (5x7 keys) and a
-    ragged 20x50 (1000 queries, 12 keys), on _nl_inputs, at NL_TOL. Two
-    controls a shape must fail those tolerances: nl_apply's plain function
-    with the keys of the value product swapped within pairs (2j <-> 2j+1,
-    as a misordered weight fragment would), and nl_minmax's with k's
-    channels rolled by 8 (a misaddressed key fragment); a kernel that
-    ignored q and weighted the keys uniformly would output mean(k) and
-    miss by the whole attention term (1 in NL_TOL's units). Times at the
-    bench's shape; nl_apply's library time is one
+    (nl_spatial_plain's passes) on the card at NL_CASES, on _nl_inputs, at
+    NL_TOL, and bf16 nl_apply against nl_apply_flash_plain (the TPU kernel's
+    rounding) at NL_ROUND_TOL. Two controls a case must fail NL_TOL:
+    nl_apply's plain function with the keys of the value product swapped
+    within pairs (2j <-> 2j+1, as a misordered weight fragment would), and
+    nl_minmax's with k's channels rolled by 8 (a misaddressed key
+    fragment); a kernel that ignored q and weighted the keys uniformly
+    would output mean(k) and miss by the whole attention term (1 in
+    NL_TOL's units). Then the batch-global check (bf16 and f32, 2 images of
+    1500 queries and 90 keys, image 1's queries scaled 3x so that lo and hi
+    come from it): the kernels within NL_TOL of the global plain passes, and
+    both passes reduced per image (image 0's own range) must miss. Times at
+    the bench's shape, the key repack of the bf16 wrappers (pack_keys,
+    inside the kernels' times) apart; nl_apply's library time is one
     scaled_dot_product_attention(q, k, k, scale=1/(hi-lo)), the same
     function since softmax is shift-invariant."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
-        BLOCK, nl_apply, nl_apply_plain, nl_minmax, nl_minmax_plain)
+        BLOCK, nl_apply, nl_apply_flash_plain, nl_apply_plain, nl_minmax,
+        nl_minmax_plain, pack_keys)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     rec = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0,
                   "min_control_rel_err": float("inf"),
                   "tolerance_rel": NL_TOL[name], "layers": {}}
            for name in ("nl_minmax", "nl_apply")}
+    rec["nl_apply"].update(rounding_rel_err=0.0,
+                           rounding_tolerance_rel=NL_ROUND_TOL)
 
     def note(name, key, dt, err, rel, ctl):
         r, tol = rec[name], NL_TOL[name][dt]
@@ -1160,12 +1229,7 @@ def check_nl(torch, F, dev, timer):
         print(f"{name} {key}: err {rel:.3g}, control {ctl:.3g} "
               f"(tolerance {tol})")
 
-    for dt, b, h, w, c in (("bf16", RES2_BATCH, H, W, 112),
-                           ("f32", 1, H, W, 112), ("bf16", 2, 45, 61, 112),
-                           ("f32", 2, 45, 61, 112), ("bf16", 2, 20, 50, 112),
-                           ("f32", 2, 20, 50, 112)):
-        key = f"{b}x{h}x{w}x{c} {dt}"
-        q, k = _nl_inputs(torch, b, h, w, c, 120 + h, dev, dts[dt])
+    def check(dt, q, k, key):
         m = k.shape[1]
         lohi, want_lohi = nl_minmax(q, k), nl_minmax_plain(q, k)
         span = float(want_lohi[1] - want_lohi[0])
@@ -1183,16 +1247,35 @@ def check_nl(torch, F, dev, timer):
              *_nl_rel(torch, "nl_apply", got, want, scale, dt),
              float((ctl - want.float()).abs().max()) / scale)
         del ctl
+        if dt == "bf16":
+            flash = nl_apply_flash_plain(q, k, want_lohi)
+            _, rel = _nl_rel(torch, "nl_apply", got, flash, scale, dt)
+            _, rel_norm = _nl_rel(torch, "nl_apply", want, flash, scale, dt)
+            if rel > NL_ROUND_TOL:
+                raise AssertionError(f"nl_apply {key}: {rel:.3g} of the "
+                                     f"scale from the TPU kernel's rounding,"
+                                     f" above {NL_ROUND_TOL}")
+            r = rec["nl_apply"]
+            r["rounding_rel_err"] = max(r["rounding_rel_err"], rel)
+            print(f"nl_apply {key}: rounding check err {rel:.3g} "
+                  f"(tolerance {NL_ROUND_TOL}; nl_apply_plain's normalised "
+                  f"rounding is {rel_norm:.3g} from it)")
+        return lohi, want_lohi, want, scale
+
+    for dt, b, n, m, key, seed in NL_CASES:
+        q, k = _nl_inputs(torch, b, n, m, 112, seed, dev, dts[dt])
+        lohi, _, want, scale = check(dt, q, k, key)
         stamp(f"nl {key} checked")
-        if not (dt == "bf16" and h == H):
+        if not (dt == "bf16" and n == H * W):
             continue
-        n = q.shape[1]
         esz = 2
-        scores = 2.0 * b * n * m * c
-        bound, by = _bound((b * n * c + b * m * c) * esz + 8, scores, dt)
+        scores = 2.0 * b * n * m * 112
+        bound, by = _bound((b * n * 112 + b * m * 112) * esz + 8, scores, dt)
+        pack_ms = timer(lambda: pack_keys(k))
         rec["nl_minmax"]["layers"][key] = {
             "ms": timer(lambda: nl_minmax(q, k)),
             "plain_ms": timer(lambda: nl_minmax_plain(q, k)),
+            "pack_ms": pack_ms,
             "library_ms": None, "bound_ms": bound, "bound_by": by,
             "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} {dt}"}
         q4, k4 = q[:, None], k[:, None]
@@ -1202,17 +1285,39 @@ def check_nl(torch, F, dev, timer):
             return F.scaled_dot_product_attention(q4, k4, k4,
                                                   scale=sdpa_scale)
         lib_err = float((library()[:, 0].float() - want.float()).abs().max())
-        bound, by = _bound((2 * b * n * c + b * m * c) * esz, 2 * scores, dt)
+        bound, by = _bound((2 * b * n * 112 + b * m * 112) * esz, 2 * scores,
+                           dt)
         rec["nl_apply"]["layers"][key] = {
             "ms": timer(lambda: nl_apply(q, k, lohi)),
             "plain_ms": timer(lambda: nl_apply_plain(q, k, lohi)),
+            "pack_ms": pack_ms,
             "library_ms": timer(library),
             "library_rel_err": lib_err / scale,
             "bound_ms": bound, "bound_by": by,
             "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} {dt}"}
         del q4, k4, library
         stamp(f"nl {key} timed")
-    del q, k, got, want
+    del q, k, want
+    for dt in ("bf16", "f32"):
+        key = f"2x1500q90k {dt}, image 1 x3"
+        q, k = _nl_inputs(torch, 2, 1500, 90, 112, 77, dev, dts[dt])
+        q[1] *= 3
+        _, want_lohi, want, scale = check(dt, q, k, key)
+        own = nl_minmax_plain(q[:1], k[:1])
+        ctl = {"nl_minmax": float((own - want_lohi).abs().max())
+               / float(want_lohi[1] - want_lohi[0]),
+               "nl_apply": _nl_rel(torch, "nl_apply",
+                                   nl_apply_plain(q[:1], k[:1], own),
+                                   want[:1], scale, dt)[1]}
+        for name, c in ctl.items():
+            if c <= NL_TOL[name][dt]:
+                raise AssertionError(f"{name} {key}: the per-image control "
+                                     f"passes ({c:.3g})")
+            r = rec[name]
+            r["batch_global_control_rel_err"] = min(
+                r.get("batch_global_control_rel_err", float("inf")), c)
+            print(f"{name} {key}: per-image control {c:.3g} "
+                  f"(tolerance {NL_TOL[name][dt]})")
     torch.cuda.empty_cache()
     return rec
 
@@ -2562,7 +2667,7 @@ def main():
     lib_path = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     build.library()
-    sass = tensor_core_report(build, lib_path)
+    sass, nl_sass = tensor_core_report(build, lib_path)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -2898,7 +3003,11 @@ def main():
                 v["bound_by"] == "operations" for v in ls) else "bytes",
             "library_ms": None if None in lib else sum(lib),
             **({"sass": sass} if name in ("conv_chain", "conv_multi")
-               else {}),
+               else {"sass": nl_sass[name]} if name in nl_sass else {}),
+            **{key: r[key] for key in ("rounding_rel_err",
+                                       "rounding_tolerance_rel",
+                                       "batch_global_control_rel_err")
+               if key in r},
             "layers": r["layers"],
         })
     # conv_int8: the sums are the bf16 layers checked at the benches' 16

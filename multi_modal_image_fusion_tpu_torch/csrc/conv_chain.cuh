@@ -357,7 +357,7 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
     staged = -1;
     if (s + a.ring - 1 < S) tc_load_stage<K, BN>(a, s + a.ring - 1, s_in, s_w, wblk);
     cp_async_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
 #pragma unroll
     for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
 

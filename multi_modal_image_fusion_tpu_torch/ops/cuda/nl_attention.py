@@ -21,20 +21,23 @@ kernels, each with its own wrapper and launch count:
 (Res2Fusion's attention) and raise on other channel counts. Products
 accumulate in f32. The f32 path is f32 throughout (FMAs on the CUDA cores),
 as the JAX package's precision="float32" einsums; bf16 runs both products
-on the tensor cores (mma.sync) and, as the TPU kernel does, rounds the
-unnormalised weights exp(s) to bf16 before the value product. What
-bounds the kernels on an H100 and what their design does about it is in
-the header of csrc/nl_attention.cu.
+as warp-specialised `wgmma` on the tensor cores over a ring of key tiles
+that the wrapper first repacks (`pack_keys`, counted in each launch's
+time) and, as the TPU kernel does, rounds the unnormalised weights exp(s)
+to bf16 before the value product. What bounds the kernels on an H100 and
+what their design does about it is in the header of csrc/nl_attention.cu.
 
 The plain versions are the JAX package's two-pass blocked math
 (`_nl_spatial_blocked`, ops/fusion.py:176-216) over blocks of `block`
 query rows; with one block (block >= N) they are its dense math
 (fusion.py:157-165). In bf16 the normalised weights are cast to bf16
-before the value product, as JAX does. CPU tensors take the plain
-versions; a CUDA tensor launches the kernels or raises. The kernels are
-forward-only: on a CUDA tensor that needs a gradient they raise (the
-custom-VJP counterpart of `_nl_spatial_flash_diff` comes with Res2Fusion
-training). hi == lo gives NaN, as in JAX.
+before the value product, as JAX does; `nl_apply_flash_plain` is pass 2
+with the TPU kernel's rounding instead (nl_kernel.py:116-120), the
+function the bf16 kernel computes. CPU tensors take the plain versions; a
+CUDA tensor launches the kernels or raises. The kernels are forward-only:
+on a CUDA tensor that needs a gradient they raise (the custom-VJP
+counterpart of `_nl_spatial_flash_diff` comes with Res2Fusion training).
+hi == lo gives NaN, as in JAX.
 """
 
 import ctypes
@@ -45,12 +48,14 @@ from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
 from .conv_chain import DTYPE_CODES
 
-__all__ = ["nl_apply", "nl_apply_plain", "nl_minmax", "nl_minmax_plain",
-           "nl_spatial_flash", "nl_spatial_plain"]
+__all__ = ["nl_apply", "nl_apply_flash_plain", "nl_apply_plain",
+           "nl_minmax", "nl_minmax_plain", "nl_spatial_flash",
+           "nl_spatial_plain", "pack_keys", "unpack_keys"]
 
 BLOCK = 4096           # query rows a block of the plain versions
 NL_C = 112             # the channels the kernels are built for
-_BQ = 64               # query rows a kernel block
+KEY_TILE = 64          # keys a staged tile of the bf16 kernels
+_BQ = 64               # fewest query rows a kernel block (part's size)
 _GRID_Y_MAX = 65535
 
 _I = ctypes.c_int
@@ -85,11 +90,51 @@ def nl_apply_plain(q, k, lohi, block=BLOCK):
     return out
 
 
+def nl_apply_flash_plain(q, k, lohi, block=BLOCK):
+    """Plain pass 2 with the TPU kernel's rounding (nl_kernel.py:116-120):
+    p = exp((q k^T - lo) / (hi - lo)) in f32, the value product on p
+    rounded to k's dtype, the row sums of the f32 p, one divide, the result
+    in q's dtype."""
+    lo, hi = lohi[0], lohi[1]
+    out = torch.empty_like(q)
+    for i in range(0, q.shape[1], block):
+        p = torch.exp((_energy(q[:, i:i + block], k) - lo) / (hi - lo))
+        acc = torch.matmul(p.to(k.dtype).float(), k.float())
+        out[:, i:i + block] = (acc / p.sum(-1, keepdim=True)).to(out.dtype)
+    return out
+
+
 def nl_spatial_plain(q, k, block=BLOCK):
     """Plain version of nl_spatial_flash: the two passes over blocks of
     `block` query rows (JAX `_nl_spatial_blocked`; block >= N is the dense
     math)."""
     return nl_apply_plain(q, k, nl_minmax_plain(q, k, block), block)
+
+
+def pack_keys(k):
+    """k (B, M, C) -> the bf16 kernels' staged layout (B, Mp / 8, C / 8, 8,
+    8), Mp = M rounded up to KEY_TILE with zero keys:
+
+        packed[b, m // 8, c // 8, m % 8, c % 8] = k[b, m, c]
+
+    Each 8 keys x 8 channels is one 128-byte wgmma core matrix, and a tile
+    of KEY_TILE keys is KEY_TILE * C contiguous values (one bulk copy)."""
+    b, m, c = k.shape
+    mp = -(-m // KEY_TILE) * KEY_TILE
+    kp = torch.nn.functional.pad(k, (0, 0, 0, mp - m))
+    return kp.view(b, mp // 8, 8, c // 8, 8).permute(0, 1, 3, 2, 4) \
+        .contiguous()
+
+
+def unpack_keys(kp, m):
+    """The inverse of pack_keys: (B, Mp / 8, C / 8, 8, 8) -> (B, m, C)."""
+    b, groups, cgroups = kp.shape[:3]
+    return kp.permute(0, 1, 3, 2, 4).reshape(b, groups * 8, cgroups * 8)[:, :m]
+
+
+def _kernel_keys(k):
+    """k as the kernels take it: packed in bf16, as it is in f32."""
+    return pack_keys(k) if k.dtype == torch.bfloat16 else k
 
 
 def _check(name, q, k):
@@ -126,11 +171,12 @@ def nl_minmax(q, k):
     part = torch.empty((b * -(-n // _BQ), 2), dtype=torch.float32,
                        device=q.device)
     lohi = torch.empty(2, dtype=torch.float32, device=q.device)
+    keys = _kernel_keys(k)
     fn = kernel_function("mmif_nl_minmax",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(q.device):
-        err = fn(DTYPE_CODES[q.dtype], ptr(q), ptr(k), ptr(part), ptr(lohi),
-                 b, n, m, c, stream_handle(q.device))
+        err = fn(DTYPE_CODES[q.dtype], ptr(q), ptr(keys), ptr(part),
+                 ptr(lohi), b, n, m, c, stream_handle(q.device))
     check_launch("nl_minmax", err)
     return lohi
 
@@ -148,11 +194,12 @@ def nl_apply(q, k, lohi):
                          "q's device")
     lohi = lohi.contiguous()
     out = torch.empty_like(q)
+    keys = _kernel_keys(k)
     fn = kernel_function("mmif_nl_apply",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(q.device):
-        err = fn(DTYPE_CODES[q.dtype], ptr(q), ptr(k), ptr(lohi), ptr(out),
-                 b, n, m, c, stream_handle(q.device))
+        err = fn(DTYPE_CODES[q.dtype], ptr(q), ptr(keys), ptr(lohi),
+                 ptr(out), b, n, m, c, stream_handle(q.device))
     check_launch("nl_apply", err)
     return out
 

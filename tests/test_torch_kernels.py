@@ -604,9 +604,13 @@ def test_eval_metrics_small_image_on_card(cuda):
 # the largest attention term |out - mean(k)|, bf16 5e-2 (the kernel rounds
 # the unnormalised weights to bf16, the plain version the normalised ones).
 # Keys swapped within pairs in the value product miss by more than the
-# whole term (checked here as the control).
+# whole term (checked here as the control). The bf16 kernel is also held to
+# nl_apply_flash_plain, the same function with the TPU kernel's rounding, at
+# NL_ROUND_TOL: both round the output to bf16 (2^-9 of a value), and the f32
+# sums and exps differ in order and implementation (expect ~1e-3).
 NL_TOL = {"nl_minmax": {torch.float32: 1e-4, torch.bfloat16: 1e-4},
           "nl_apply": {torch.float32: 1e-4, torch.bfloat16: 5e-2}}
+NL_ROUND_TOL = 1e-2
 
 
 def _nl_inputs(b, n, m, c, seed, dev, dtype):
@@ -620,19 +624,24 @@ def _nl_inputs(b, n, m, c, seed, dev, dtype):
             torch.from_numpy(k).to(dev, dtype))
 
 
-def _nl_close(name, got, want, scale, dtype):
+def _nl_err(got, want, scale):
     got, want = got.detach().double(), want.detach().double()
     assert got.shape == want.shape
     assert torch.isfinite(got).all()
-    err = float((got - want).abs().max())
-    assert err <= NL_TOL[name][dtype] * scale, (name, err, scale)
+    return float((got - want).abs().max()) / scale
+
+
+def _nl_close(name, got, want, scale, dtype):
+    err = _nl_err(got, want, scale)
+    assert err <= NL_TOL[name][dtype], (name, err)
 
 
 def _nl_check(q, k, lohi, got, dtype):
     """lohi and got (nl_apply's output) against the plain passes at
-    NL_TOL, and the swapped-keys control outside it."""
+    NL_TOL, bf16 also against the TPU kernel's rounding at NL_ROUND_TOL,
+    and the swapped-keys control outside NL_TOL."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
-        nl_apply_plain, nl_minmax_plain)
+        nl_apply_flash_plain, nl_apply_plain, nl_minmax_plain)
     want_lohi = nl_minmax_plain(q, k)
     _nl_close("nl_minmax", lohi, want_lohi,
               float(want_lohi[1] - want_lohi[0]), dtype)
@@ -640,6 +649,9 @@ def _nl_check(q, k, lohi, got, dtype):
     scale = float((want.double() - k.double().mean(1, keepdim=True))
                   .abs().max())
     _nl_close("nl_apply", got, want, scale, dtype)
+    if dtype == torch.bfloat16:
+        err = _nl_err(got, nl_apply_flash_plain(q, k, want_lohi), scale)
+        assert err <= NL_ROUND_TOL, ("rounding", err)
     m = k.shape[1]
     swap = torch.arange(m, device=k.device) ^ 1
     swap[swap >= m] = m - 1
@@ -679,6 +691,50 @@ def test_nl_kernels(cuda, dt, b, h, w, c):
     _nl_check(q, k, lohi, nl_spatial_flash(q, k), dtype)
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("b,n,m", [
+    (1, 1000, 3 * 64 + 17),   # 3 full key tiles and a ragged one; pass 1's
+                              # last block 232 rows, pass 2's 104
+    (2, 3 * 256 + 1, 4 * 64),  # full key tiles; a last block of one row
+    (1, 5 * 128, 2 * 64 + 1),  # pass 2's blocks full; pass 1's last block
+                               # half empty; a last tile of one key
+    (2, 37, 5)])               # fewer keys than a tile, rows than a block
+def test_nl_kernel_tiling(cuda, dt, b, n, m):
+    """The kernels at the edges of the bf16 kernels' tiling (64 keys a
+    staged tile, 256 query rows a block in pass 1, 128 in pass 2)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply, nl_minmax)
+    dtype = DTYPES[dt]
+    q, k = _nl_inputs(b, n, m, 112, n + m, cuda, dtype)
+    lohi = nl_minmax(q, k)
+    _nl_check(q, k, lohi, nl_apply(q, k, lohi), dtype)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_nl_batch_global(cuda, dt):
+    """Image 1's queries scaled 3x: lo and hi come from it, so a range
+    reduced per image (the control) misses image 0's (lo, hi) and output
+    by more than NL_TOL, while the kernels hold the batch-global ones."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply, nl_apply_plain, nl_minmax, nl_minmax_plain)
+    dtype = DTYPES[dt]
+    q, k = _nl_inputs(2, 1500, 90, 112, 77, cuda, dtype)
+    q[1] *= 3
+    lohi = nl_minmax(q, k)
+    got = nl_apply(q, k, lohi)
+    _nl_check(q, k, lohi, got, dtype)
+    want_lohi = nl_minmax_plain(q, k)
+    span = float(want_lohi[1] - want_lohi[0])
+    own = nl_minmax_plain(q[:1], k[:1])
+    assert float((own - want_lohi).abs().max()) / span > \
+        NL_TOL["nl_minmax"][dtype]
+    want = nl_apply_plain(q, k, want_lohi)
+    scale = float((want.double() - k.double().mean(1, keepdim=True))
+                  .abs().max())
+    ctl = nl_apply_plain(q[:1], k[:1], own)
+    assert _nl_err(ctl, want[:1], scale) > NL_TOL["nl_apply"][dtype]
+
+
 def test_nl_full_resolution(cuda):
     """One modality's nl call of the test CLI: 1224x1024, 112 channels,
     f32."""
@@ -688,6 +744,17 @@ def test_nl_full_resolution(cuda):
                       torch.float32)
     lohi = nl_minmax(q, k)
     _nl_check(q, k, lohi, nl_apply(q, k, lohi), torch.float32)
+
+
+def test_nl_full_resolution_bf16(cuda):
+    """One nl call of the Res2Fusion bench: 1224x1024, 112 channels, bf16,
+    batch 2."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
+        nl_apply, nl_minmax)
+    q, k = _nl_inputs(2, 1224 * 1024, 153 * 128, 112, 91, cuda,
+                      torch.bfloat16)
+    lohi = nl_minmax(q, k)
+    _nl_check(q, k, lohi, nl_apply(q, k, lohi), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))

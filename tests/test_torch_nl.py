@@ -9,8 +9,15 @@ versions on the CPU) against the JAX package.
   product on both sides);
 - the two passes apart: `nl_minmax_plain` is the batch-global (min, max)
   of the energies, `nl_apply_plain` the normalised softmax product;
+- `nl_apply_flash_plain`, the TPU kernel's rounding of pass 2 (the bf16
+  kernel's function), against JAX `nl_spatial_flash` in interpret mode in
+  bf16;
+- `pack_keys` / `unpack_keys`, the bf16 kernels' key layout: the index map
+  of csrc/nl_attention.cu's header, zeros past the last key, an exact
+  round trip;
 - the wrappers' refusals, on tensors that are not on the CPU (meta
-  tensors: the checks run before any launch).
+  tensors: the checks run before any launch);
+- `nl_variants`' edits of csrc/nl_attention.cu still find their places.
 """
 
 import jax
@@ -22,9 +29,12 @@ import torch
 from multi_modal_image_fusion_tpu.ops import fusion as JF
 from multi_modal_image_fusion_tpu.ops.pallas.nl_kernel import \
     nl_spatial_flash as jax_flash
+from multi_modal_image_fusion_tpu_torch import nl_variants
+from multi_modal_image_fusion_tpu_torch.ops.cuda import build
 from multi_modal_image_fusion_tpu_torch.ops.cuda.nl_attention import (
-    nl_apply, nl_apply_plain, nl_minmax, nl_minmax_plain, nl_spatial_flash,
-    nl_spatial_plain)
+    KEY_TILE, nl_apply, nl_apply_flash_plain, nl_apply_plain, nl_minmax,
+    nl_minmax_plain, nl_spatial_flash, nl_spatial_plain, pack_keys,
+    unpack_keys)
 
 
 def _qk(seed, b, n, m, c):
@@ -61,6 +71,55 @@ def test_plain_vs_jax_blocked_bf16():
                            torch.from_numpy(k).bfloat16(), block=512)
     assert got.dtype == torch.bfloat16
     assert _rel(got.float(), want) < 2e-2
+
+
+def test_flash_rounding_plain_vs_jax_flash_bf16():
+    """nl_apply_flash_plain rounds as the TPU kernel does (the unnormalised
+    weights to bf16, the row sums in f32): against JAX nl_spatial_flash in
+    interpret mode, bf16 in and out, within 1e-2 of the largest attention
+    term |out - mean(k)| (one bf16 rounding of the output, 2^-8 of it, and
+    f32 sums in another order). nl_apply_plain, which rounds the normalised
+    weights, is the other function, further from it."""
+    r = np.random.RandomState(11)
+    q = (r.rand(2, 700, 112) * 2 - 1).astype(np.float32)
+    k = r.rand(2, 90, 112).astype(np.float32) * 2 - 1
+    k -= k.mean(1, keepdims=True)
+    jq, jk = jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16)
+    want = np.asarray(jax_flash(jq, jk, bn=256, mt=256, interpret=True),
+                      np.float32)
+    tq, tk = torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16()
+    lohi = nl_minmax_plain(tq, tk)
+    got = nl_apply_flash_plain(tq, tk, lohi, block=256)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    scale = float(np.abs(want - tk.float().mean(1, keepdim=True).numpy())
+                  .max())
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= 1e-2 * scale, (err, scale)
+    other = nl_apply_plain(tq, tk, lohi, block=256).float().numpy()
+    assert float(np.abs(other - want).max()) > err
+
+
+@pytest.mark.parametrize("m", [1, 8, 63, KEY_TILE, 70, 3 * KEY_TILE + 17])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pack_keys_layout(m, dtype):
+    """packed[b, m // 8, c // 8, m % 8, c % 8] = k[b, m, c], keys zero up
+    to a multiple of KEY_TILE, each tile KEY_TILE * C contiguous values;
+    unpack_keys gives k back exactly."""
+    k = torch.from_numpy(np.random.RandomState(m).randn(2, m, 112)
+                         .astype(np.float32)).to(dtype)
+    kp = pack_keys(k)
+    mp = -(-m // KEY_TILE) * KEY_TILE
+    assert kp.shape == (2, mp // 8, 14, 8, 8) and kp.is_contiguous()
+    assert kp.dtype == dtype
+    flat = kp.reshape(2, -1)
+    for b, key, c in [(0, 0, 0), (1, m - 1, 111), (0, m // 2, 37),
+                      (1, m // 3, 8), (0, m - 1, 7)]:
+        want = k[b, key, c]
+        assert kp[b, key // 8, c // 8, key % 8, c % 8] == want
+        off = (key // 8) * 14 * 64 + (c // 8) * 64 + (key % 8) * 8 + c % 8
+        assert flat[b, off] == want
+    assert (unpack_keys(kp, mp)[:, m:] == 0).all()
+    assert torch.equal(unpack_keys(kp, m), k)
 
 
 def test_passes_are_the_dense_math():
@@ -120,3 +179,21 @@ def test_wrappers_refuse(case, err):
                  lambda: nl_spatial_flash(q, k)):
         with pytest.raises(err):
             call()
+
+
+def test_nl_variants_edit_the_source():
+    """Each design variant that nl_variants times is the committed source
+    with its one edit applied: none equals the source, and the ring and
+    overlap variants change only the lines they name."""
+    src = (build.CSRC / "nl_attention.cu").read_text()
+    vs = nl_variants.variants(src)
+    assert vs.pop("committed") == src
+    assert sorted(vs) == ["apply_no_overlap", "no_turns", "ring2", "ring3",
+                          "ring6", "ring8"]
+    for name, text in vs.items():
+        assert text != src, name
+    assert "constexpr int NL_STAGES = 6;" in vs["ring6"]
+    assert "named_bar_sync(me" not in vs["no_turns"]
+    assert "named_bar_sync(3" in vs["no_turns"]
+    assert vs["apply_no_overlap"].count("wgmma_wait<1>();") == \
+        src.count("wgmma_wait<1>();") - 1
