@@ -10,10 +10,11 @@ Phases, each fatal (any failure raises and the script exits non-zero):
 2. Build every kernel from the sources in multi_modal_image_fusion_tpu_torch/
    csrc/ (one nvcc per source, in parallel); print the build time. Count
    the HGMMA (wgmma) instructions in the SASS of every bf16 conv_chain /
-   conv_multi instance (cuobjdump -sass of the library; fails without the
-   tool or with an instance that has none, and if a bf16 FMA
-   conv_chain_kernel was built) and print ptxas's registers, spills and
-   shared memory of each. The same for the two bf16 nl kernels (their
+   conv_multi / conv_wide instance (the one wgmma body, conv_chain_tc_kernel;
+   cuobjdump -sass of the library; fails without the tool or with an
+   instance that has none, if a bf16 FMA conv_chain_kernel was built, if a
+   kernel of conv_wide's own is left beside it) and print ptxas's
+   registers, spills and shared memory of each, failing on a spill. The same for the two bf16 nl kernels (their
    HGMMA, and the HMMA of warp-level mma.sync, of which they must hold
    none), failing on a spill or on wgmmas that ptxas serialized.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
@@ -30,10 +31,9 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    that must miss by 10x: the taps transposed, the halo zero-padded
    instead of reflected, and for fuse_n one half's images in reverse order.
    Time the kernel, the plain version and, for the convs, one F.conv2d on
-   the reflect-padded input in the same dtype (the pad timed apart), and
-   for the k3 and k5 conv_chain layers conv_wide's mma.sync body on the
-   same inputs (a measurement only), each with CUDA events over cold-L2
-   repetitions; compute each kernel's bound from this run's shapes.
+   the reflect-padded input in the same dtype (the pad timed apart), each
+   with CUDA events over cold-L2 repetitions; compute each kernel's bound
+   from this run's shapes.
 4. Main path, with every launch count set to 0 just before it: the port's
    bench (DeepFuse, 1224x1024, bf16, batch 16, 1 warmup + 10 timed
    forwards), then the port's test CLI on 51 synthetic 1224x1024 BMP pairs
@@ -77,8 +77,7 @@ one pair) and at k1, k5, 1-channel-leg and identity-leg cases at 45x61,
 at conv_chain's tolerances, the bf16 bench shapes with controls that must
 miss by 10x (the taps transposed, two legs of one width swapped, the halo
 zero-padded, one fuse_n half reversed); its library time one F.conv2d on
-the padded concat (the concat and the pad timed apart), conv_wide's time
-on the same legs beside it.
+the padded concat (the concat and the pad timed apart).
 
 Phase 3 also holds the non-local attention kernels nl_minmax and nl_apply
 against their plain two-pass version (nl_spatial_plain's passes) at the
@@ -103,8 +102,9 @@ k3, with and without the added previous group): 1224x1024 bf16 batch 4
 and f32 batch 2, and 45x61; its library time is one F.conv2d(groups=C) on
 the padded window (the window's copy and the pad timed apart).
 
-Phase 3 also holds conv_wide (the wide chain conv of UNFusion and DBNet)
-against its plain version (the legs' concat, F.conv2d in f32, TF32 off) on
+Phase 3 also holds conv_wide (the wide chain conv of UNFusion and DBNet;
+in bf16 the wgmma body of conv_chain, its N block and weight plan beside
+each layer's times) against its plain version (the legs' concat, F.conv2d in f32, TF32 off) on
 centred independent inputs: UNFusion's DB3_1 conv1 (legs 256 + 1024 ->
 640, 306x256, batch 2), DB1_3 conv1 (legs 16 x 3 + 64 -> 56, 1224x1024,
 batch 2), an odd 45x61 case and DBNet's dec0 with fuse_n at 1224x1024, in
@@ -169,7 +169,9 @@ versions at 1224x1024, bf16 at the bench's 16 pairs and f32 at the test
 CLI's pair: the pair and the packed conv within conv_wide's tolerance
 (f32 1e-4 of max|y|, bf16 1e-3 beyond one ulp of each output), each with
 a control that must miss by 10x (the mid's halo computed over the
-extended input; the phase-blind reflect of the packed tensor); the pack
+extended input; the phase-blind reflect of the packed tensor), and the
+packed dec2 (4 output channels, 8-byte stores) written into the head of a
+buffer prefilled with a sentinel that must stay past the output; the pack
 and unpack bit for bit, with a pack whose px phases are swapped as the
 control. Times beside the plain versions and the library: two F.conv2d a
 pair, one F.conv2d on the per-phase padded packed input,
@@ -254,12 +256,12 @@ def _ptxas_props(log, wanted):
 
 
 def tensor_core_report(build, lib_path):
-    """Phase 2's proof that the bf16 conv_chain / conv_multi and nl kernels
-    run on the tensor cores: the HGMMA (wgmma) instructions in the SASS of
-    every conv_chain_tc_kernel instance (cuobjdump -sass of the built
-    library), and no bf16 instance of the FMA conv_chain_kernel; then
-    ptxas's registers, spills and static shared memory of each wgmma
-    instance. For each bf16 nl kernel (NL_KERNELS) its HGMMA, that it holds
+    """Phase 2's proof that the bf16 conv_chain / conv_multi / conv_wide
+    and nl kernels run on the tensor cores: the HGMMA (wgmma) instructions
+    in the SASS of every conv_chain_tc_kernel instance (cuobjdump -sass of
+    the built library), no bf16 instance of the FMA conv_chain_kernel and
+    no conv_wide kernel of its own; then ptxas's registers, spills (none
+    allowed) and static shared memory of each wgmma instance. For each bf16 nl kernel (NL_KERNELS) its HGMMA, that it holds
     no HMMA (warp-level mma.sync), and its ptxas registers with no spills.
     Returns the conv_chain summary and the nl kernels' reports."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -284,6 +286,13 @@ def tensor_core_report(build, lib_path):
     if not tc or min(tc.values()) == 0:
         raise AssertionError(f"conv_chain_tc_kernel instances without "
                              f"HGMMA: {tc}")
+    # conv_wide launches these instances (bf16) and conv_wide.cu's copies of
+    # the FMA conv_chain_kernel (f32): no kernel of its own is left
+    own = [f for f in counts
+           if "conv_wide" in f and "conv_chain_kernel" not in f]
+    if own:
+        raise AssertionError(f"conv_wide kernels beside the wgmma body: "
+                             f"{own}")
     if any("bfloat16" in f for f in fma):
         raise AssertionError(f"a bf16 FMA conv_chain_kernel was built: "
                              f"{fma}")
@@ -305,6 +314,11 @@ def tensor_core_report(build, lib_path):
     if set(ptxas) != set(tc):
         raise AssertionError(f"ptxas -v lines for {sorted(ptxas)}, SASS "
                              f"for {sorted(tc)}")
+    spills = {inst(f): v for f, v in ptxas.items()
+              if v["spill_stores"] or v["spill_loads"]}
+    if spills:
+        raise AssertionError(f"conv_chain_tc_kernel instances spill: "
+                             f"{spills}")
     print("ptxas -v, conv_chain_tc_kernel (the dynamic shared memory is "
           "the launch's tc_plan): " + json.dumps(
               {inst(f): v for f, v in sorted(ptxas.items())}))
@@ -451,9 +465,7 @@ def check_kernels(torch, F, dev, timer):
     """Phase 3. Returns {kernel name: record} for the kernels line."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
         conv_chain, conv_chain_plain, conv_gray_enter, conv_gray_enter_plain,
-        conv_gray_exit, conv_gray_exit_plain, pick_bn_tc)
-    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
-        conv_wide
+        conv_gray_exit, conv_gray_exit_plain)
     from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import (
         ssim_maps, ssim_maps_plain)
     from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
@@ -570,12 +582,8 @@ def check_kernels(torch, F, dev, timer):
                 "shape": f"{b_in}x{h}x{w}x{cin}->{b_out}x{h}x{w}x{cout} "
                          f"k{k} {dt}"}
             if kern == "conv_chain":
-                r["layers"][name]["bn"] = pick_bn_tc(cout, [cin], k)
-                if k in (3, 5):
-                    # conv_wide's mma.sync body on the same inputs, timed
-                    # only (ROADMAP note 1)
-                    r["layers"][name]["conv_wide_ms"] = timer(
-                        lambda: conv_wide([(xin, 0)], wk, bias, act, fuse_n))
+                r["layers"][name].update(
+                    _tc_block(cout, [cin], k, dt, fuse_n))
             del xp, xnchw, xn
         del xin
         torch.cuda.empty_cache()
@@ -979,14 +987,9 @@ def check_conv_multi(torch, F, dev, timer):
     pair (the test CLI); k1, k5, 1-channel-leg and identity-leg cases at
     45x61 in f32 and bf16; CHAIN_TOL, with the controls at the bench's
     shapes. Times at the bench's shapes; the library time is one F.conv2d
-    on the padded concat, the concat and the pad timed apart; conv_wide's
-    mma.sync body on the same legs is timed beside it."""
-    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
-        pick_bn_tc
+    on the padded concat, the concat and the pad timed apart."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import (
         concat_legs, conv_multi, conv_multi_plain, identity_weights)
-    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
-        conv_wide
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     r = {"max_abs_err": 0.0, "max_rel_err": 0.0,
          "min_control_rel_err": float("inf"), "tolerance_rel": CHAIN_TOL,
@@ -1051,10 +1054,8 @@ def check_conv_multi(torch, F, dev, timer):
                     F.pad(xn[sl], (p, p, p, p), mode="reflect")
                     for sl in parts]),
                 "library_calls": len(parts),
-                "conv_wide_ms": timer(lambda: conv_wide(
-                    legs, wt, bias, "relu", fuse_n, n_out)),
-                "bn": pick_bn_tc(wt.shape[0],
-                                 [t.shape[-1] for t, _ in legs], k),
+                **_tc_block(wt.shape[0], [t.shape[-1] for t, _ in legs], k,
+                            dt, fuse_n),
                 "bound_ms": bound, "bound_by": by,
                 "shape": f"{len(legs)} legs {[t.shape[-1] for t, _ in legs]}"
                          f" b_offs {[o for _, o in legs]} fuse_n {fuse_n} -> "
@@ -1408,8 +1409,8 @@ WIDE_CHECKS = [("DB3_1.conv1", [256, 1024], 640, 3, 0, 2, 306, 256),
                ("odd", [40, 24, 40], 40, 3, 0, 2, 45, 61),
                ("dbnet.dec0", [16, 16, 16, 16, 64], 64, 3, 2, 2, H, W)]
 # every conv_wide launch of one fused forward: (name, legs' channels, c_out,
-# k, fuse_n, scale, images per pair). UNFusion's ECB k1 convs run on the
-# siamese fold's 2 images a pair.
+# k, fuse (the siamese sum of the two halves), scale, images per pair).
+# UNFusion's ECB k1 convs run on the siamese fold's 2 images a pair.
 _S = [(H, W)]
 for _ in range(3):
     _S.append(((_S[-1][0] + 1) // 2, (_S[-1][1] + 1) // 2))
@@ -1455,6 +1456,20 @@ def _wide_rel(torch, got, want, dt):
     return float(d.max()), float(d.max()) / scale
 
 
+def _tc_block(cout, cins, k, dt, fuse_n=0):
+    """The bf16 wgmma body's N block for a layer, whether its weights stay
+    resident and whether a fuse_n pair is summed in shared memory
+    (conv_chain.py pick_bn_tc and tc_plan, as the launch picks them);
+    nothing in f32."""
+    if dt != "bf16":
+        return {}
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
+        pick_bn_tc, tc_plan)
+    bn = pick_bn_tc(cout, cins, k, fuse_n)
+    plan = tc_plan(k, bn, sum(-(-c // 16) for c in cins), fuse_n)
+    return {"bn": bn, "resident": bool(plan[0]), "pair": bool(plan[3])}
+
+
 def check_conv_wide(torch, F, dev, timer):
     """conv_wide against its plain version (the legs' concat, reflect pad,
     F.conv2d in f32, TF32 off) on centred independent inputs: at
@@ -1462,7 +1477,8 @@ def check_conv_wide(torch, F, dev, timer):
     DBNet forward (WIDE_LAYERS) at 1224x1024, bf16 at the bench's 16 pairs
     and f32 at the test CLI's one pair, with times: the kernel, the plain
     version, and one F.conv2d on the padded concat in the same dtype (the
-    concat and the pad timed apart)."""
+    concat and the pad timed apart); in bf16 the wgmma body's N block and
+    whether its weights stay resident (tc_plan) beside each layer."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import \
         concat_legs
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
@@ -1521,11 +1537,28 @@ def check_conv_wide(torch, F, dev, timer):
         torch.cuda.empty_cache()
         stamp(f"conv_wide {name} checked")
 
+    # which kernel a bf16 conv_wide launches: conv_chain's wgmma body
+    legs, wt, bias = inputs([40, 24], 48, 3, 2, 45, 61, "bf16", 165)
+    conv_wide(legs, wt, bias, "relu")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        conv_wide(legs, wt, bias, "relu")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "conv_" in e.name
+             and e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(names) != 1 or "conv_chain_tc_kernel" not in names[0]:
+        raise AssertionError(f"bf16 conv_wide launched {names}, want one "
+                             f"conv_chain_tc_kernel")
+    r["bf16_kernel"] = names[0]
+    print(f"bf16 conv_wide launches {names[0]}")
+
     for dt, pairs in (("bf16", BATCH), ("f32", 1)):
-        for name, cins, cout, k, fuse_n, s, per_pair in WIDE_LAYERS:
+        for name, cins, cout, k, fuse, s, per_pair in WIDE_LAYERS:
             h, w = _S[s]
             n = pairs * per_pair
-            legs, wt, bias = inputs(cins, cout, k, 2 * n if fuse_n else n,
+            fuse_n = n if fuse else 0      # the siamese halves, n apart
+            legs, wt, bias = inputs(cins, cout, k, 2 * n if fuse else n,
                                     h, w, dt, 170 + cout)
 
             def run():
@@ -1557,6 +1590,7 @@ def check_conv_wide(torch, F, dev, timer):
                     for sl in parts]),
                 "library_calls": len(parts),
                 "bound_ms": bound, "bound_by": by,
+                **_tc_block(cout, cins, k, dt, fuse_n),
                 "shape": f"legs {cins} fuse_n {fuse_n} -> {n}x{h}x{w}x{cout}"
                          f" k{k} {dt}"}
             del legs, xn, xp, run, plain, cat
@@ -1611,8 +1645,8 @@ def bench_path(build, bench, name, batch=BATCH, model=None):
 
 
 # kernel-name prefixes of the port's kernels (csrc/), for the forward's split
-KERNEL_GROUPS = {"nl": ("nl_",), "conv_wide": ("conv_wide",),
-                 "conv": ("conv_",)}
+# (conv_wide launches conv_chain_tc_kernel, so its time is in "conv")
+KERNEL_GROUPS = {"nl": ("nl_",), "conv": ("conv_",)}
 
 
 def profile_forward(torch, model, a, b):
@@ -2412,7 +2446,7 @@ def check_variants(torch, F, dev, timer):
         ENTER_SHAPES, EXIT_SHAPES, conv_pair_enter, conv_pair_exit,
         conv_pair_plain)
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
-        conv_wide, conv_wide_plain)
+        conv_wide, conv_wide_into, conv_wide_plain)
     from multi_modal_image_fusion_tpu_torch.ops.cuda.s2d_io import (
         s2d_enter, s2d_enter_plain, s2d_exit, s2d_exit_plain)
     from multi_modal_image_fusion_tpu_torch.ops.s2d import (
@@ -2529,6 +2563,19 @@ def check_variants(torch, F, dev, timer):
             note("conv_wide_s2d", key, got, want, dt,
                  conv_wide([(x, 0)], wpk, bpk, act, fuse_n),
                  "phase-blind reflect")
+            if 4 * cout % 8:
+                # 8-byte stores that stop at Cout: the output in the head of
+                # a buffer one image longer, the sentinel past it untouched
+                buf = torch.full((n + 1, hp, wp_, 4 * cout), 1234.0,
+                                 dtype=dtype, device=dev)
+                conv_wide_into(buf[:n], [(x, 0)], wpk, bpk, act, fuse_n,
+                               s2d_f=2)
+                if not (torch.equal(buf[:n], got)
+                        and bool((buf[n] == 1234.0).all())):
+                    raise AssertionError(f"conv_wide_s2d {key}: the output "
+                                         f"buffer's sentinel past Cout was "
+                                         f"written")
+                recs["conv_wide_s2d"]["sentinel_untouched"] = True
             del got, want
             xin = x[:n] + x[n:] if fuse_n else x
             esz = 2 if dt == "bf16" else 4
@@ -2544,6 +2591,7 @@ def check_variants(torch, F, dev, timer):
                 "library_pad_ms": timer(lambda: s2d_reflect_pad(
                     xin, kp // 2)),
                 "bound_ms": bound, "bound_by": by,
+                **_tc_block(4 * cout, [4 * cin], kp, dt, fuse_n),
                 "shape": f"{b_in}x{hp}x{wp_}x{4 * cin} fuse_n {fuse_n} -> "
                          f"{n}x{hp}x{wp_}x{4 * cout} k{kp} {dt}"}
             del x, xin, xpad, run, plain
@@ -2997,13 +3045,18 @@ def main():
                if "min_control_rel_err" in r else {}),
             "tolerance_rel": r.get("tolerance_rel", TOL),
             "ms": sum(v["ms"] for v in ls),
+            "layers_summed": len(ls),
             "plain_ms": sum(v["plain_ms"] for v in ls),
             "bound_ms": sum(v["bound_ms"] for v in ls),
             "bound_by": "operations" if any(
                 v["bound_by"] == "operations" for v in ls) else "bytes",
             "library_ms": None if None in lib else sum(lib),
-            **({"sass": sass} if name in ("conv_chain", "conv_multi")
+            **({"sass": sass} if name in ("conv_chain", "conv_multi",
+                                          "conv_wide")
                else {"sass": nl_sass[name]} if name in nl_sass else {}),
+            **({"body": "multi_modal_image_fusion_tpu_torch/csrc/"
+                        "conv_chain.cuh (conv_chain_tc_kernel; f32: "
+                        "conv_chain_kernel)"} if name == "conv_wide" else {}),
             **{key: r[key] for key in ("rounding_rel_err",
                                        "rounding_tolerance_rel",
                                        "batch_global_control_rel_err")
@@ -3027,6 +3080,7 @@ def main():
             "min_control_rel_err": r["min_control_rel_err"],
             "tolerance_rel": r["tolerance_rel"],
             "ms": sum(v["ms"] for v in ls),
+            "layers_summed": len(ls),
             "plain_ms": sum(v["plain_ms"] for v in ls),
             "bound_ms": sum(v["bound_ms"] for v in ls),
             "bound_by": "operations" if any(
@@ -3049,11 +3103,14 @@ def main():
             "min_control_rel_err": r["min_control_rel_err"],
             "tolerance_rel": r["tolerance_rel"],
             "ms": sum(v["ms"] for v in ls),
+            "layers_summed": len(ls),
             "plain_ms": sum(v["plain_ms"] for v in ls),
             "bound_ms": sum(v["bound_ms"] for v in ls),
             "bound_by": "operations" if any(
                 v["bound_by"] == "operations" for v in ls) else "bytes",
             "library_ms": sum(v["library_ms"] for v in ls),
+            **({"sentinel_untouched": r["sentinel_untouched"]}
+               if "sentinel_untouched" in r else {}),
             "layers": r["layers"],
         })
     # conv_valid: the sums are one train step's 9 launches in f32, the
@@ -3074,6 +3131,7 @@ def main():
         "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
         "tolerance_rel": TOL,
         "ms": sum(v["ms"] for v in step),
+        "layers_summed": len(step),
         "plain_ms": sum(v["plain_ms"] for v in step),
         "bound_ms": sum(v["bound_ms"] for v in step),
         "bound_by": "operations" if any(
@@ -3084,6 +3142,16 @@ def main():
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    # a rough order for the redesign queue, not the time any path spends:
+    # all main-path launches (bf16 benches, f32 batch-1 CLIs and int8
+    # calibration alike) x the mean time the checked layers (bf16 16 pairs
+    # where there is one) spend above their bounds, largest first
+    excess = sorted(((k["launches"] * (k["ms"] - k["bound_ms"])
+                      / k["layers_summed"], k["name"]) for k in kernels),
+                    reverse=True)
+    print("rough heuristic, launches of every path x mean (ms - bound_ms) "
+          "of the checked layers: " + json.dumps(
+              {name: round(v, 1) for v, name in excess}))
     print(json.dumps({"kernels": kernels,
                       "pairs_per_sec": result["value"],
                       "benches": benches,

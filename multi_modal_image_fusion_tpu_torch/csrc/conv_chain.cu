@@ -44,31 +44,7 @@ static int chain_f32(int k, const Legs& legs, const float* w, const float* bias,
   }
 }
 
-static int chain_bf16(int k, int bn, const Legs& legs, const void* w, const float* bias,
-                      void* y, int b_out, int h, int wd, int cout, int fuse_n, int act,
-                      cudaStream_t s) {
-  TcArgs a = {};
-  a.legs = legs;
-  a.ks0[0] = 0;
-  for (int l = 0; l < legs.n; ++l) a.ks0[l + 1] = a.ks0[l] + (legs.cin[l] + TC_CK - 1) / TC_CK;
-  a.w = static_cast<const __nv_bfloat16*>(w);
-  a.bias = bias;
-  a.y = static_cast<__nv_bfloat16*>(y);
-  a.b_out = b_out;
-  a.H = h;
-  a.W = wd;
-  a.Cout = cout;
-  a.KS = a.ks0[legs.n];
-  a.fuse_n = fuse_n;
-  a.act = act;
-  switch (k) {
-    case 1: return chain_tc_by_bn<1>(bn, a, s);
-    case 3: return chain_tc_by_bn<3>(bn, a, s);
-    case 5: return chain_tc_by_bn<5>(bn, a, s);
-    case 7: return chain_tc_by_bn<7>(bn, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+template int chain_tc_by_bn<1>(int, const TcArgs&, cudaStream_t);
 
 // f32: w [sum cin][k][k][cout] f32, the FMA body; bf16: w packed for the
 // wgmma body (conv_chain.cuh TcArgs::w) with N blocks of bn channels.
@@ -81,7 +57,7 @@ static int chain_launch(int dtype, int k, int bn, const Legs& legs, const void* 
     return chain_f32(k, legs, static_cast<const float*>(w), bias, y, b_out, h, wd, cout,
                      fuse_n, act, s);
   if (dtype == DT_BF16)
-    return chain_bf16(k, bn, legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
+    return launch_tc(k, bn, legs, w, bias, y, b_out, h, wd, cout, fuse_n, act, s);
   return (int)cudaErrorInvalidValue;
 }
 

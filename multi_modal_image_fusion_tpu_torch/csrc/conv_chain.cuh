@@ -3,7 +3,9 @@
 //
 // - bf16: conv_chain_tc_kernel, a wgmma implicit GEMM with an asynchronous
 //   copy ring (design below). conv_chain.cu (k1) and conv_chain_k3/k5/k7.cu
-//   instantiate it for conv_chain and conv_multi.
+//   instantiate it; conv_chain and conv_multi launch it (Cout a multiple of
+//   16), and so does conv_wide (conv_wide.cu: Cout a multiple of 4, and its
+//   s2d mode).
 // - f32: conv_chain_kernel, register-blocked f32 FMAs. conv_chain.cu
 //   launches it for conv_chain and conv_multi in f32; conv_wide.cu for its
 //   f32 path, with 8 or 4 output channels a block where Cout is not a
@@ -76,7 +78,18 @@ struct Legs {
 // cp.async 16 bytes a thread with the reflect index math in the source
 // address, zero-filled past a leg's last channel. A fuse_n pair, and a leg
 // whose channel count is not a multiple of 8, go through registers (load,
-// sum in f32, round to bf16, st.shared). Stage s + R - 1 is issued right
+// sum in f32, round to bf16, st.shared). A fuse_n pair is copied
+// asynchronously instead, each half into its own buffer of the slot and the
+// two summed in shared memory once the stage has landed, wherever a ring of
+// such doubled slots fits (tc_plan): DBNet's five-leg dec0 (16 pairs at
+// 1224x1024, H100) 18.4 -> 16.4 ms with its weights pushed into the ring.
+// DeepFuse's k7 dec0 has no such plan at any N block and sums in registers.
+// In s2d mode (conv_wide's packed
+// leg) the source address is src_pixel's per-phase halo: a staged half of
+// 8 channels lies in one phase when Cin / 4 is a multiple of 8 (DeepFuse's
+// packed enc1, dec0, dec1 and dec2), else its channels go one by one
+// through registers, each in its own phase (enc0: 4 channels, one a
+// phase). Stage s + R - 1 is issued right
 // after stage s's wgmmas, so copies and the fuse_n sums run while the
 // tensor cores work through the queued wgmmas. (TMA's tiled mode
 // zero-fills out-of-bounds reads and cannot make the halo; TMA loads of the
@@ -92,7 +105,9 @@ struct Legs {
 // into an output tile in shared memory ([pixel][BN] with rows padded by 16
 // bytes, so the accumulator layout's 4-byte writes hit 32 banks); after
 // the next stage's wgmmas are issued, the tile goes to global memory in
-// coalesced 16-byte stores. The activation is a template argument, picked
+// coalesced 16-byte stores (8-byte ones for a Cout of 4 mod 8, conv_wide's
+// packed dec2: a pixel is then 8-byte aligned and its last 4 channels end
+// where the next pixel starts). The activation is a template argument, picked
 // once a tile: a switch on it for every element (an indirect branch each)
 // made enc1's epilogue cost as much as a third of its MMAs.
 constexpr int TC_TW = 64;
@@ -101,9 +116,15 @@ constexpr int TC_THREADS = 128 * TC_WG;
 constexpr int TC_CK = 16;
 constexpr int TC_SMEM_MAX = 232448;  // 227 KB, the most a block may opt in to
 
-// m-tiles a warpgroup: about 64 accumulator registers a thread (128 at BN 256)
+// m-tiles a warpgroup: 64 to 128 accumulator registers a thread (2 m-tiles
+// from BN 48 to 128, 4 at 32, 8 at 16, one at 256). Two m-tiles at BN 96
+// and 128 halve the weight bytes a product reads when the weights stream
+// through the ring, and halve the stages (each with its barrier and
+// waits) a pixel takes: on an H100, 16 pairs, UNFusion's DB3_1 conv1
+// (80 k-steps of k3 weights) 57.6 -> 41.3 ms, DB2_2 conv1 25.3 -> 18.0,
+// the EB4_3 k1 conv 7.2 -> 4.5.
 __host__ __device__ constexpr int tc_mt(int bn) {
-  return bn >= 128 ? 1 : (128 / bn > 8 ? 8 : 128 / bn);
+  return bn >= 256 ? 1 : bn >= 96 ? 2 : (128 / bn > 8 ? 8 : 128 / bn);
 }
 
 template <int K, int BN>
@@ -129,28 +150,28 @@ struct TcArgs {
   int b_out, H, W, Cout, KS, fuse_n, act;
   int tiles_x, tiles_y, n_tiles;  // set by launch_chain_tc
   int resident, ring;             // set by tc_plan
+  int pair;                       // set by tc_plan: a fuse_n pair summed in shared memory
 };
 
 // Resident weights with the deepest ring that fits, else the weights in the
-// ring; smem is the dynamic shared memory: the ring, the weights, the
-// output tile. ops/cuda/conv_chain.py tc_plan mirrors this choice to pick
-// BN.
+// ring; with fuse_n, the first of these plans whose ring slots hold both
+// halves of the pair (pair), else one half. smem is the dynamic shared
+// memory: the ring, the weights, the output tile. ops/cuda/conv_chain.py
+// tc_plan mirrors this choice to pick BN.
 template <int K, int BN>
-bool tc_plan(int ks, int& resident, int& ring, size_t& smem) {
+bool tc_plan(int ks, int fuse_n, int& resident, int& ring, int& pair, size_t& smem) {
   using G = TcGeom<K, BN>;
-  for (int r = 4; r >= 2; --r) {
-    const size_t s = (size_t)r * G::IN_BYTES + (size_t)ks * G::W_BYTES + G::OUT_BYTES;
-    if (s <= (size_t)TC_SMEM_MAX) {
-      resident = 1, ring = r, smem = s;
-      return true;
-    }
-  }
-  for (int r = 4; r >= 2; --r) {
-    const size_t s = (size_t)r * (G::IN_BYTES + G::W_BYTES) + G::OUT_BYTES;
-    if (s <= (size_t)TC_SMEM_MAX) {
-      resident = 0, ring = r, smem = s;
-      return true;
-    }
+  for (int p = fuse_n ? 1 : 0; p >= 0; --p) {
+    const size_t in_bytes = (size_t)G::IN_BYTES * (p + 1);
+    for (int res = 1; res >= 0; --res)
+      for (int r = 4; r >= 2; --r) {
+        const size_t s = res ? (size_t)r * in_bytes + (size_t)ks * G::W_BYTES + G::OUT_BYTES
+                             : (size_t)r * (in_bytes + G::W_BYTES) + G::OUT_BYTES;
+        if (s <= (size_t)TC_SMEM_MAX) {
+          resident = res, ring = r, pair = p, smem = s;
+          return true;
+        }
+      }
   }
   return false;
 }
@@ -161,6 +182,20 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
                : "memory");
 }
 
+// The leg of k-step ks.
+__device__ __forceinline__ int tc_leg(const TcArgs& a, int ks) {
+  int l = 0;
+  while (ks >= a.ks0[l + 1]) ++l;
+  return l;
+}
+
+// True when k-step ks's 8-channel halves move as 16-byte copies: a leg of
+// whole 8-channel groups that, in s2d mode, lie in one phase each.
+__device__ __forceinline__ bool tc_vec(const TcArgs& a, int ks) {
+  const int cin = a.legs.cin[tc_leg(a, ks)];
+  return (cin % 8) == 0 && (!a.legs.s2d || ((cin >> 2) % 8) == 0);
+}
+
 __device__ __forceinline__ void tc_tile(const TcArgs& a, int tile, int& b, int& ty, int& tx) {
   tx = tile % a.tiles_x;
   const int rest = tile / a.tiles_x;
@@ -168,42 +203,75 @@ __device__ __forceinline__ void tc_tile(const TcArgs& a, int tile, int& b, int& 
   b = rest / a.tiles_y;
 }
 
+// The 16-byte copies of one leg's staged tile (k-step channels c0 ..
+// c0 + 15, the halo in the source address; S2D: half h in phase ph[h]) into
+// buf, zero-filled past the leg's last channel.
+template <int K, int BN, bool S2D>
+__device__ __forceinline__ void tc_copy_tile(const TcArgs& a, const __nv_bfloat16* x, int Cin,
+                                             int c0, int y0, int x0, int ph0, int ph1,
+                                             uint32_t buf) {
+  using G = TcGeom<K, BN>;
+  for (int i = threadIdx.x; i < G::IN_H * G::IN_W * 2; i += TC_THREADS) {
+    const int half = i & 1, pix = i >> 1;
+    const int r = pix / G::IN_W, c = pix - r * G::IN_W;
+    const int ch = c0 + 8 * half;
+    size_t px;
+    if constexpr (S2D)
+      px = src_pixel(y0 + r, x0 + c, a.H, a.W, 1, half ? ph1 : ph0);
+    else
+      px = (size_t)reflect_index(y0 + r, a.H) * a.W + reflect_index(x0 + c, a.W);
+    const size_t off = px * Cin + ch;
+    cp_async16(buf + half * G::HALF + pix * 16, ch < Cin ? x + off : x, ch < Cin ? 16 : 0);
+  }
+}
+
 // Issue the copies of the block's stage s (tile s / KS, k-step s % KS) into
-// ring slot s % ring: the input tile with its reflect halo and, when the
-// weights are not resident, the k-step's weights.
-template <int K, int BN>
-__device__ __forceinline__ void tc_load_stage(const TcArgs& a, int s, uint32_t s_in,
-                                              uint32_t s_w, const __nv_bfloat16* wblk) {
+// ring slot s % ring: the input tile with its reflect halo (S2D: the packed
+// leg's per-phase halo) and, when the weights are not resident, the
+// k-step's weights.
+template <int K, int BN, bool S2D>
+__device__ __forceinline__ void tc_load_stage_t(const TcArgs& a, int s, uint32_t s_in,
+                                                uint32_t s_w, const __nv_bfloat16* wblk) {
   using G = TcGeom<K, BN>;
   constexpr int P = K / 2;
   const int ks = s % a.KS;
   int b, ty, tx;
   tc_tile(a, blockIdx.x + (s / a.KS) * gridDim.x, b, ty, tx);
-  int l = 0;
-  while (ks >= a.ks0[l + 1]) ++l;
+  const int l = tc_leg(a, ks);
   const int Cin = a.legs.cin[l];
   const int c0 = (ks - a.ks0[l]) * TC_CK;
   const size_t img = (size_t)a.H * a.W * Cin;
   const __nv_bfloat16* xa =
       static_cast<const __nv_bfloat16*>(a.legs.x[l]) + (size_t)(b + a.legs.b_off[l]) * img;
   const __nv_bfloat16* xs = a.fuse_n ? xa + (size_t)a.fuse_n * img : nullptr;
-  const bool async = (Cin % 8) == 0 && !xs;
+  // S2D: cb channels a phase; 8 channels move together where they lie in
+  // one phase, the phase of half h being (c0 + 8 h) / cb
+  const int cb = Cin >> 2;
+  const bool vec = (Cin % 8) == 0 && (!S2D || cb % 8 == 0);
+  const int ph0 = S2D && vec ? c0 / cb : 0, ph1 = S2D && vec ? (c0 + 8) / cb : 0;
   const uint32_t buf = s_in + (s % a.ring) * G::IN_BYTES;
   const int y0 = ty * G::TH - P, x0 = tx * TC_TW - P;
-  for (int i = threadIdx.x; i < G::IN_H * G::IN_W * 2; i += TC_THREADS) {
-    const int half = i & 1, pix = i >> 1;
-    const int r = pix / G::IN_W, c = pix - r * G::IN_W;
-    const int ch = c0 + 8 * half;
-    const size_t off =
-        ((size_t)reflect_index(y0 + r, a.H) * a.W + reflect_index(x0 + c, a.W)) * Cin + ch;
-    const uint32_t dst = buf + half * G::HALF + pix * 16;
-    if (async) {
-      cp_async16(dst, ch < Cin ? xa + off : xa, ch < Cin ? 16 : 0);
-    } else {
+  if (vec && (!xs || a.pair)) {
+    tc_copy_tile<K, BN, S2D>(a, xa, Cin, c0, y0, x0, ph0, ph1, buf);
+    // pair: the fuse_n sibling into the slot's second buffer
+    if (xs) tc_copy_tile<K, BN, S2D>(a, xs, Cin, c0, y0, x0, ph0, ph1,
+                                     buf + a.ring * G::IN_BYTES);
+  } else {
+    for (int i = threadIdx.x; i < G::IN_H * G::IN_W * 2; i += TC_THREADS) {
+      const int half = i & 1, pix = i >> 1;
+      const int r = pix / G::IN_W, c = pix - r * G::IN_W;
+      const int ch = c0 + 8 * half;
+      size_t px;
+      if constexpr (S2D)
+        px = src_pixel(y0 + r, x0 + c, a.H, a.W, 1, half ? ph1 : ph0);
+      else
+        px = (size_t)reflect_index(y0 + r, a.H) * a.W + reflect_index(x0 + c, a.W);
+      const size_t off = px * Cin + ch;
       // fuse_n: the pair summed in f32 and rounded once, a bf16 add; a
-      // ragged leg: its channels one by one, zeros past the last
+      // ragged leg (or an S2D half across phases): its channels one by
+      // one, zeros past the last
       float v[8];
-      if ((Cin % 8) == 0) {
+      if (vec) {
         if (ch < Cin) {
           float u[8];
           load8(xa + off, v);
@@ -219,12 +287,16 @@ __device__ __forceinline__ void tc_load_stage(const TcArgs& a, int s, uint32_t s
         for (int j = 0; j < 8; ++j) {
           v[j] = 0.f;
           if (ch + j < Cin) {
-            v[j] = to_f32(xa[off + j]);
-            if (xs) v[j] += to_f32(xs[off + j]);
+            // S2D: each channel in its own phase's halo
+            const size_t o = S2D ? src_pixel(y0 + r, x0 + c, a.H, a.W, 1, (ch + j) / cb) * Cin +
+                                       ch + j
+                                 : off + j;
+            v[j] = to_f32(xa[o]);
+            if (xs) v[j] += to_f32(xs[o]);
           }
         }
       }
-      st_shared16(dst, pack8_bf16(v));
+      st_shared16(buf + half * G::HALF + pix * 16, pack8_bf16(v));
     }
   }
   if (!a.resident) {
@@ -233,6 +305,39 @@ __device__ __forceinline__ void tc_load_stage(const TcArgs& a, int s, uint32_t s
     for (int i = threadIdx.x; i < G::W_BYTES / 16; i += TC_THREADS)
       cp_async16(wdst + 16 * i, src + 8 * i, 16);
   }
+}
+
+// The s2d flag is uniform over a launch: one test a stage, so the load of
+// a plain leg (conv_chain, conv_multi) is the code it always was.
+template <int K, int BN>
+__device__ __forceinline__ void tc_load_stage(const TcArgs& a, int s, uint32_t s_in,
+                                              uint32_t s_w, const __nv_bfloat16* wblk) {
+  if (a.legs.s2d)
+    tc_load_stage_t<K, BN, true>(a, s, s_in, s_w, wblk);
+  else
+    tc_load_stage_t<K, BN, false>(a, s, s_in, s_w, wblk);
+}
+
+// Eight bf16 channels at two shared addresses, summed in f32 and rounded to
+// bf16.
+__device__ __forceinline__ uint4 tc_sum_pair(uint32_t x, uint32_t y) {
+  uint4 u, v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "r"(x));
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(y));
+  const __nv_bfloat162* hu = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&v);
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(hu[i]), q = __bfloat1622float2(hv[i]);
+    f[2 * i] = p.x + q.x;
+    f[2 * i + 1] = p.y + q.y;
+  }
+  return pack8_bf16(f);
 }
 
 // The tile's accumulators, bias and activation ACT in f32, as bf16 pairs
@@ -264,13 +369,29 @@ __device__ __forceinline__ void tc_stage_out(const TcArgs& a, float (&acc)[TcGeo
 }
 
 // The staged output tile to global memory: 16 bytes (8 channels of one
-// pixel) a thread, consecutive threads on consecutive bytes.
+// pixel) a thread, consecutive threads on consecutive bytes. A Cout of 4
+// mod 8 (conv_wide only) takes 8-byte stores of 4 channels, none past Cout.
 template <int K, int BN>
 __device__ __forceinline__ void tc_store_out(const TcArgs& a, int tile, uint32_t s_out, int nb) {
   using G = TcGeom<K, BN>;
   constexpr int CH = BN / 8;  // 16-byte chunks of a pixel
   int b, ty, tx;
   tc_tile(a, tile, b, ty, tx);
+  if (a.Cout % 8) {
+    for (int i = threadIdx.x; i < G::TH * TC_TW * 2 * CH; i += TC_THREADS) {
+      const int pix = i / (2 * CH), c = i - pix * (2 * CH);
+      const int oy = ty * G::TH + pix / TC_TW, ox = tx * TC_TW + pix % TC_TW;
+      const int co = nb * BN + 4 * c;
+      if (oy < a.H && ox < a.W && co < a.Cout) {
+        uint2 v;
+        asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+                     : "=r"(v.x), "=r"(v.y)
+                     : "r"(s_out + pix * G::OUT_PITCH + 8 * c));
+        *reinterpret_cast<uint2*>(a.y + (((size_t)b * a.H + oy) * a.W + ox) * a.Cout + co) = v;
+      }
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < G::TH * TC_TW * CH; i += TC_THREADS) {
     const int pix = i / CH, c = i - pix * CH;
     const int oy = ty * G::TH + pix / TC_TW, ox = tx * TC_TW + pix % TC_TW;
@@ -292,7 +413,7 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
   constexpr int MT = G::MT;
   extern __shared__ __align__(128) uint8_t tc_smem[];
   const uint32_t s_in = smem_u32(tc_smem);
-  const uint32_t s_w = s_in + a.ring * G::IN_BYTES;
+  const uint32_t s_w = s_in + a.ring * G::IN_BYTES * (a.pair ? 2 : 1);
   const uint32_t s_out = s_w + (a.resident ? a.KS : a.ring) * G::W_BYTES;
   // warp-uniform (a shuffle from lane 0), so the descriptors below live in
   // uniform registers and each wgmma's is one add of an immediate
@@ -329,6 +450,16 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
 
     const int ks = s % a.KS;
     const uint32_t buf = s_in + (s % a.ring) * G::IN_BYTES;
+    if (a.pair && tc_vec(a, ks)) {
+      // the fuse_n pair: the sibling's buffer added into the slot, summed in
+      // f32 and rounded once, as the register path sums it
+      for (int i = threadIdx.x; i < G::IN_H * G::IN_W * 2; i += TC_THREADS) {
+        const uint32_t at = buf + (i & 1) * G::HALF + (i >> 1) * 16;
+        st_shared16(at, tc_sum_pair(at, at + a.ring * G::IN_BYTES));
+      }
+      fence_proxy_async();
+      __syncthreads();
+    }
     const uint32_t wk = s_w + (a.resident ? ks : s % a.ring) * G::W_BYTES;
     const uint64_t da0 = wgmma_desc(buf + wg * MT * G::IN_W * 16, G::HALF, 128);
     const uint64_t db0 = wgmma_desc(wk, BN * 16, 128);
@@ -385,7 +516,8 @@ template <int K, int BN>
 int launch_chain_tc(TcArgs a, int cout_pad, cudaStream_t s) {
   using G = TcGeom<K, BN>;
   size_t smem = 0;
-  if (!tc_plan<K, BN>(a.KS, a.resident, a.ring, smem)) return (int)cudaErrorInvalidValue;
+  if (!tc_plan<K, BN>(a.KS, a.fuse_n, a.resident, a.ring, a.pair, smem))
+    return (int)cudaErrorInvalidValue;
   // opt in to the most shared memory once per instance; the launch asks for
   // what this call's plan needs
   static const cudaError_t attr =
@@ -406,7 +538,10 @@ int launch_chain_tc(TcArgs a, int cout_pad, cudaStream_t s) {
   const long long tiles = (long long)a.tiles_x * a.tiles_y * a.b_out;
   if (tiles > 0x7fffffffLL || n_nb > 65535) return (int)cudaErrorInvalidConfiguration;
   a.n_tiles = (int)tiles;
-  const int per_nb = (sms * occ + n_nb - 1) / n_nb;
+  // every block resident at once: the blocks of all N slices fit on the SMs
+  // (rounding up put a few blocks in a second wave that then walked their
+  // whole share of tiles alone, doubling the time of DB3_1 conv1's 5 slices)
+  const int per_nb = sms * occ / n_nb > 0 ? sms * occ / n_nb : 1;
   const dim3 grid((unsigned)(a.n_tiles < per_nb ? a.n_tiles : per_nb), (unsigned)n_nb);
   conv_chain_tc_kernel<K, BN><<<grid, TC_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
@@ -414,7 +549,7 @@ int launch_chain_tc(TcArgs a, int cout_pad, cudaStream_t s) {
 
 // The bf16 instances of one kernel size, by N block. conv_chain.cu
 // instantiates k1, conv_chain_k3.cu, _k5.cu and _k7.cu the others, so they
-// compile in parallel.
+// compile in parallel; conv_chain.cu and conv_wide.cu launch them.
 template <int K>
 int chain_tc_by_bn(int bn, const TcArgs& a, cudaStream_t s) {
   const int cout_pad = (a.Cout + bn - 1) / bn * bn;
@@ -430,9 +565,46 @@ int chain_tc_by_bn(int bn, const TcArgs& a, cudaStream_t s) {
   }
 }
 
+// The launch parameters of the bf16 body over legs (w packed by
+// ops/cuda/conv_chain.py pack_weights_tc); launch_chain_tc sets the tiling
+// and the plan.
+inline TcArgs tc_args(const Legs& legs, const void* w, const float* bias, void* y, int b_out,
+                      int h, int wd, int cout, int fuse_n, int act) {
+  TcArgs a = {};
+  a.legs = legs;
+  a.ks0[0] = 0;
+  for (int l = 0; l < legs.n; ++l) a.ks0[l + 1] = a.ks0[l] + (legs.cin[l] + TC_CK - 1) / TC_CK;
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = bias;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.b_out = b_out;
+  a.H = h;
+  a.W = wd;
+  a.Cout = cout;
+  a.KS = a.ks0[legs.n];
+  a.fuse_n = fuse_n;
+  a.act = act;
+  return a;
+}
+
+extern template int chain_tc_by_bn<1>(int, const TcArgs&, cudaStream_t);
 extern template int chain_tc_by_bn<3>(int, const TcArgs&, cudaStream_t);
 extern template int chain_tc_by_bn<5>(int, const TcArgs&, cudaStream_t);
 extern template int chain_tc_by_bn<7>(int, const TcArgs&, cudaStream_t);
+
+// The bf16 body over legs for kernel size k (1, 3, 5 or 7) and N block bn:
+// conv_chain.cu's and conv_wide.cu's entry points.
+inline int launch_tc(int k, int bn, const Legs& legs, const void* w, const float* bias, void* y,
+                     int b_out, int h, int wd, int cout, int fuse_n, int act, cudaStream_t s) {
+  const TcArgs a = tc_args(legs, w, bias, y, b_out, h, wd, cout, fuse_n, act);
+  switch (k) {
+    case 1: return chain_tc_by_bn<1>(bn, a, s);
+    case 3: return chain_tc_by_bn<3>(bn, a, s);
+    case 5: return chain_tc_by_bn<5>(bn, a, s);
+    case 7: return chain_tc_by_bn<7>(bn, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // f32: register-blocked FMAs

@@ -174,28 +174,38 @@ TC_BNS = (256, 128, 96, 64, 48, 32, 16)
 _TC_CK = 16                 # input channels a k-step
 _TC_WG, _TC_TW = 2, 64      # warpgroups a block, pixels an m-tile
 _TC_SMEM_MAX = 232448
+# cycles of one ring stage's barrier, waits and copy issue, shared by the
+# rows of a tile; fitted to UNFusion's k1 convs on an H100 (16 pairs): EB4_2
+# conv1 at N 96 1.02 ms against 1.43 at N 48, EB4_3 conv1 at N 128 3.74
+# against 4.53 at N 96
+_TC_STAGE = 512
 
 
 def _tc_mt(bn):
-    return 1 if bn >= 128 else min(8, 128 // bn)
+    return 1 if bn >= 256 else 2 if bn >= 96 else min(8, 128 // bn)
 
 
-def tc_plan(k, bn, ks):
-    """(resident, ring, shared bytes) of conv_chain.cuh tc_plan for kernel
-    size k, N block bn and ks k-steps: the layer's weights resident beside
-    the deepest ring (4, 3 or 2 input stages) and the output tile that fit,
-    else the weights in the ring; None if nothing fits."""
+def tc_plan(k, bn, ks, fuse_n=0):
+    """(resident, ring, shared bytes, pair) of conv_chain.cuh tc_plan for
+    kernel size k, N block bn and ks k-steps: the layer's weights resident
+    beside the deepest ring (4, 3 or 2 input stages) and the output tile
+    that fit, else the weights in the ring; with fuse_n, the first such
+    plan whose ring slots hold both halves of the pair (pair = 1: summed in
+    shared memory), else one half (pair = 0: summed in registers); None if
+    nothing fits."""
     th = _TC_WG * _tc_mt(bn)
     in_h, in_w = th + k - 1, _TC_TW + k - 1
-    in_bytes = 2 * (-(-in_h * in_w * 16 // 128) * 128 + 64)
+    in_tile = 2 * (-(-in_h * in_w * 16 // 128) * 128 + 64)
     w_bytes = k * k * bn * 32
     out_bytes = th * _TC_TW * (2 * bn + 16)
-    for resident in (1, 0):
-        for ring in (4, 3, 2):
-            smem = ring * (in_bytes + (0 if resident else w_bytes)) \
-                + (ks * w_bytes if resident else 0) + out_bytes
-            if smem <= _TC_SMEM_MAX:
-                return resident, ring, smem
+    for pair in ((1, 0) if fuse_n else (0,)):
+        in_bytes = in_tile * (1 + pair)
+        for resident in (1, 0):
+            for ring in (4, 3, 2):
+                smem = ring * (in_bytes + (0 if resident else w_bytes)) \
+                    + (ks * w_bytes if resident else 0) + out_bytes
+                if smem <= _TC_SMEM_MAX:
+                    return resident, ring, smem, pair
     return None
 
 
@@ -203,20 +213,23 @@ def _ksteps(cins):
     return [-(-c // _TC_CK) for c in cins]
 
 
-def pick_bn_tc(cout, cins, k):
+def pick_bn_tc(cout, cins, k, fuse_n=0):
     """The bf16 body's block of output channels (one of TC_BNS), by a cost
-    per 64 output pixels and tap of ceil(cout / bn) blocks, each
-    max(bn / 2, 16 + bn / 4) cycles (the tensor cores, or the shared
-    memory that feeds them 2 KB of A and bn * 32 bytes of B a wgmma), half
-    again when the weights cannot stay resident; the larger on a tie."""
+    per 64 output pixels and k-step of ceil(cout / bn) blocks, each k * k
+    wgmmas of max(bn / 2, 16 + bn / 4) cycles (the tensor cores, or the
+    shared memory that feeds them 2 KB of A and bn * 32 bytes of B a
+    wgmma), half again when the weights cannot stay resident, plus a
+    stage's fixed cycles (_TC_STAGE) over the tile's rows; the larger on a
+    tie. Each block's plan is tc_plan's for the layer's fuse_n."""
     ks = sum(_ksteps(cins))
     best = None
     for bn in TC_BNS:
-        plan = tc_plan(k, bn, ks)
+        plan = tc_plan(k, bn, ks, fuse_n)
         if plan is None:
             continue
-        cost = -(-cout // bn) * max(bn / 2, 16 + bn / 4) * (
-            1.0 if plan[0] else 1.5)
+        cost = -(-cout // bn) * (
+            k * k * max(bn / 2, 16 + bn / 4) * (1.0 if plan[0] else 1.5)
+            + _TC_STAGE / (_TC_WG * _tc_mt(bn)))
         if best is None or cost < best[0]:
             best = (cost, bn)
     if best is None:
@@ -251,12 +264,12 @@ def pack_weights_tc(weight, cins, bn):
     return wp.contiguous().reshape(-1)
 
 
-def chain_weights(weight, bias, cins, dtype):
+def chain_weights(weight, bias, cins, dtype, fuse_n=0):
     """The conv_chain kernel's weights, bias and N block: bf16 packed for
-    the wgmma body (`pack_weights_tc`, `pick_bn_tc`), f32 [Cin][K][K][Cout]
-    for the FMA body (N block 0, unused)."""
+    the wgmma body (`pack_weights_tc`, `pick_bn_tc` for the layer's
+    fuse_n), f32 [Cin][K][K][Cout] for the FMA body (N block 0, unused)."""
     if dtype == torch.bfloat16:
-        bn = pick_bn_tc(weight.shape[0], cins, weight.shape[-1])
+        bn = pick_bn_tc(weight.shape[0], cins, weight.shape[-1], fuse_n)
         bk = None if bias is None else bias.detach().float().contiguous()
         return pack_weights_tc(weight, cins, bn), bk, bn
     return (*weights_f32(weight, bias), 0)
@@ -292,7 +305,7 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
     if b_out * (cout // _CO_TILE) > _GRID_Z_MAX:
         raise ValueError(f"conv_chain: batch {b_out} too large for one "
                          f"launch")
-    wk, bk, bn = chain_weights(weight, bias, [cin], x.dtype)
+    wk, bk, bn = chain_weights(weight, bias, [cin], x.dtype, fuse_n)
     y = torch.empty((b_out, h, w, cout), dtype=x.dtype, device=x.device)
     fn = kernel_function("mmif_conv_chain",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

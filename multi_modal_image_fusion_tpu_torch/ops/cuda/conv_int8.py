@@ -39,18 +39,24 @@ import torch.nn.functional as F
 from ..quant import quantize_input_recip, quantize_input_scaled
 from .build import check_launch, check_no_grad, kernel_function, stream_handle
 from .conv_chain import act_code, apply_act
-from .conv_wide import pick_bn
 
 __all__ = ["CHAIN_KSIZES", "KSIZES", "conv_int8", "conv_int8_chain",
            "conv_int8_chain_plain", "conv_int8_plain", "int_conv_plain",
-           "pack_weights_int8"]
+           "pack_weights_int8", "pick_bn"]
 
 KSIZES = (1, 3, 5, 7)
 CHAIN_KSIZES = (5, 7)
 _CK = 32                   # input channels a k-step (csrc/conv_int8.cuh)
+_BNS = (64, 32, 16)        # output channels a block (csrc/conv_int8.cuh)
 _TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _DIV, _MUL = 0, 1
 _PLAIN_CHUNK = 2 ** 27     # elements of one chunk's float64 input or output
+
+
+def pick_bn(cout):
+    """The kernel's output-channel block: the one of 16, 32 and 64 that pads
+    c_out least, the larger on a tie."""
+    return min(_BNS, key=lambda bn: -(-cout // bn) * bn)
 
 
 def pack_weights_int8(qw, bn):

@@ -139,7 +139,7 @@ def conv_multi(legs, weight, bias=None, act=None, fuse_n=0, n_out=None):
     x0 = legs[0][0]
     h, w = x0.shape[1:3]
     wk, bk, bn = chain_weights(weight, bias, [t.shape[-1] for t, _ in legs],
-                               x0.dtype)
+                               x0.dtype, fuse_n)
     y = torch.empty((n_out, h, w, cout), dtype=x0.dtype, device=x0.device)
     nl = len(legs)
     xs = (ctypes.c_void_p * nl)(*[t.data_ptr() for t, _ in legs])

@@ -12,12 +12,14 @@ b; with `fuse_n > 0` every leg first adds its sibling at `b + b_off + fuse_n`
 in that dtype is). The weight is OIHW with its input channels in leg-concat
 order; the output is (n_out, H, W, c_out) in the legs' dtype.
 
-bf16 runs warp-level mma.sync on the tensor cores (bf16 products, f32
-sums); f32 runs f32 FMAs (the conv_chain body), never TF32. Built for k1,
-k3 and k5, c_out a multiple of 4, any channel count per leg, 1 to 8 legs;
-the wrapper raises on anything else, and when an input needs a gradient
-(the kernel is forward-only; the training routes concatenate the legs,
-ops/layers.py).
+bf16 runs the `wgmma` implicit GEMM of conv_chain and conv_multi
+(csrc/conv_chain.cuh; bf16 products, f32 sums), its weights packed by
+`pack_weights_tc` and its block of output channels picked by `pick_bn_tc`
+(ops/cuda/conv_chain.py); f32 runs f32 FMAs (the conv_chain body), never
+TF32. Built for k1, k3 and k5, c_out a multiple of 4, any channel count per
+leg, 1 to 8 legs; the wrapper raises on anything else, and when an input
+needs a gradient (the kernel is forward-only; the training routes
+concatenate the legs, ops/layers.py).
 
 `s2d_f=2` is the TPU kernel's space-to-depth mode (its call sites: the
 JAX package's `ops/layers.py:409-437`, then `conv_tlane_chain(...,
@@ -40,39 +42,15 @@ import torch.nn.functional as F
 
 from ..s2d import s2d_reflect_pad
 from .build import check_launch, check_no_grad, kernel_function, stream_handle
-from .conv_chain import (DTYPE_CODES, act_code, apply_act, conv_chain_plain,
-                         weights_f32)
+from .conv_chain import (DTYPE_CODES, act_code, apply_act, chain_weights,
+                         conv_chain_plain)
 from .conv_multi import check_legs, concat_legs, legs_n_out
 
-__all__ = ["conv_wide", "conv_wide_plain", "pack_weights_bf16", "pick_bn",
-           "s2d_conv_plain"]
+__all__ = ["conv_wide", "conv_wide_plain", "s2d_conv_plain"]
 
 KSIZES = (1, 3, 5)
 CO_MULTIPLE = 4
-_CK = 16                   # input channels a staged chunk (csrc/conv_wide.cu)
-_BNS = (64, 32, 16)        # output channels a block, bf16
 _PLAIN_CHUNK = 2 ** 29     # elements of one chunk's padded f32 input
-
-
-def pick_bn(cout):
-    """The bf16 kernel's output-channel block: the one of 16, 32 and 64 that
-    pads c_out least, the larger on a tie."""
-    return min(_BNS, key=lambda bn: -(-cout // bn) * bn)
-
-
-def pack_weights_bf16(weight, cins, bn):
-    """OIHW (c_out, sum cins, k, k) -> (k*k, c_out_pad, cin_pad) bf16: the
-    bf16 kernel's weight rows, each leg's channel block zero-padded to a
-    multiple of 16 and c_out to a multiple of bn."""
-    cout, _, k, _ = weight.shape
-    wf = weight.detach().float()
-    blocks, ofs = [], 0
-    for c in cins:
-        blocks.append(F.pad(wf[:, ofs:ofs + c], (0, 0, 0, 0, 0, -c % _CK)))
-        ofs += c
-    wp = F.pad(torch.cat(blocks, 1), (0, 0, 0, 0, 0, 0, 0, -cout % bn))
-    return wp.permute(2, 3, 0, 1).reshape(k * k, *wp.shape[:2]).to(
-        torch.bfloat16).contiguous()
 
 
 def s2d_conv_plain(x, weight, bias=None, act=None):
@@ -118,30 +96,43 @@ def conv_wide(legs, weight, bias=None, act=None, fuse_n=0, n_out=None,
     one f = 2 packed leg and a packed weight, the halo per phase (module
     docstring)."""
     legs = [(t, int(off)) for t, off in legs]
+    if n_out is None:
+        n_out = legs_n_out(legs, fuse_n)
+    if legs[0][0].device.type == "cpu":
+        _check_s2d(legs, s2d_f)
+        return conv_wide_plain(legs, weight, bias, act, fuse_n, n_out, s2d_f)
+    y = torch.empty((n_out, *legs[0][0].shape[1:3], weight.shape[0]),
+                    dtype=legs[0][0].dtype, device=legs[0][0].device)
+    return conv_wide_into(y, legs, weight, bias, act, fuse_n, s2d_f)
+
+
+def _check_s2d(legs, s2d_f):
     if s2d_f not in (1, 2):
         raise ValueError(f"conv_wide: s2d_f={s2d_f} (1, or 2 for a packed "
                          f"leg)")
     if s2d_f == 2 and (len(legs) != 1 or legs[0][0].shape[-1] % 4):
         raise ValueError("conv_wide: s2d_f=2 takes one packed leg with a "
                          "multiple of 4 channels")
-    if n_out is None:
-        n_out = legs_n_out(legs, fuse_n)
-    if legs[0][0].device.type == "cpu":
-        return conv_wide_plain(legs, weight, bias, act, fuse_n, n_out, s2d_f)
+
+
+def conv_wide_into(y, legs, weight, bias=None, act=None, fuse_n=0, s2d_f=1):
+    """conv_wide's launch into y, a CUDA tensor of (n_out, H, W, c_out) in
+    the legs' dtype; the kernel writes y's elements and nothing else."""
+    legs = [(t, int(off)) for t, off in legs]
+    _check_s2d(legs, s2d_f)
+    n_out = y.shape[0]
     check_no_grad("conv_wide", *[t for t, _ in legs], weight, bias)
     k, cout = check_legs(legs, weight, bias, fuse_n, n_out, "conv_wide",
                          KSIZES, CO_MULTIPLE)
     x0 = legs[0][0]
     h, w = x0.shape[1:3]
+    if (y.shape != (n_out, h, w, cout) or y.dtype != x0.dtype
+            or y.device != x0.device or not y.is_contiguous()):
+        raise ValueError(f"conv_wide: output {tuple(y.shape)} {y.dtype} is "
+                         f"not a contiguous ({n_out}, {h}, {w}, {cout}) "
+                         f"{x0.dtype} tensor on {x0.device}")
     cins = [t.shape[-1] for t, _ in legs]
-    if x0.dtype == torch.bfloat16:
-        bn = pick_bn(cout)
-        wk = pack_weights_bf16(weight, cins, bn)
-        bk = None if bias is None else bias.detach().float().contiguous()
-    else:
-        bn = 0
-        wk, bk = weights_f32(weight, bias)
-    y = torch.empty((n_out, h, w, cout), dtype=x0.dtype, device=x0.device)
+    wk, bk, bn = chain_weights(weight, bias, cins, x0.dtype, fuse_n)
     nl = len(legs)
     xs = (ctypes.c_void_p * nl)(*[t.data_ptr() for t, _ in legs])
     cin_arr = (ctypes.c_int * nl)(*cins)

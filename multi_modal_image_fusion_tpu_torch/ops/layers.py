@@ -35,16 +35,18 @@ Routes of a conv:
   window of a wider tensor in place (`depthwise`);
 - training (inside a `fast_training` scope, which the trainer opens around
   its steps, or whenever a gradient is needed): reflect pad, then
-  - with `fast_training(True)`: `conv_valid_fast` (kernel forward and dx,
-    bias and activation as torch ops) when a gradient is needed, else
-    `conv_valid` with bias and activation fused (the valid step); a shape
-    the kernel does not take raises, there is no quiet F.conv2d;
+  - with `fast_training(True)`, for the layers the JAX package's gate
+    admits to its kernel (dense k3, k5 and k7, `_valid_eligible`):
+    `conv_valid_fast` (kernel forward and dx, bias and activation as torch
+    ops) when a gradient is needed, else `conv_valid` with bias and
+    activation fused (the valid step); a shape the kernel does not take
+    raises, there is no quiet F.conv2d;
   - otherwise F.conv2d (groups=C for a depthwise layer), the counterpart
-    of the JAX package's XLA conv.
+    of the JAX package's XLA conv: every conv outside fast training, and
+    depthwise and k1 layers inside it, as the JAX package routes them.
   On CPU tensors the kernels' plain versions run in their place. A list of
   legs is concatenated first (`concat_legs`), a depthwise window sliced,
-  then takes the same route. conv_valid has no depthwise instance, so a
-  depthwise layer raises under `fast_training(True)`;
+  then takes the same route;
 - int8 (inside ops/quant.quantized_inference, outside a `fast_training`
   scope): a stride-1 dense layer that the skip set does not name runs
   `conv_int8` (the JAX package's `ops/layers.py:624-691`): its effective
@@ -93,7 +95,8 @@ _FAST_TRAINING = contextvars.ContextVar("mmif_fast_training", default=None)
 @contextlib.contextmanager
 def fast_training(enable=True):
     """Scope of a train or valid step: every conv takes a training route,
-    through the conv_valid kernels when `enable`, else through F.conv2d."""
+    through the conv_valid kernels when `enable` (the dense k3, k5 and k7
+    layers; the others on F.conv2d), else through F.conv2d."""
     token = _FAST_TRAINING.set(bool(enable))
     try:
         yield
@@ -216,18 +219,23 @@ class ConvLayer(nn.Module):
                               for i in range(0, x.shape[0], step)])
         p = self.ksize // 2
         xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
-        if not _FAST_TRAINING.get():
+        if not (_FAST_TRAINING.get() and self._valid_eligible()):
             y = F.conv2d(xp, self.weight, self.bias, groups=self.groups)
             return apply_act(y, self.act).permute(0, 2, 3, 1)
-        if self.groups != 1:
-            raise NotImplementedError(
-                "fast_training(True): conv_valid has no depthwise instance")
         xp = xp.permute(0, 2, 3, 1).contiguous()
         if self._needs_grad(xp):
             y = conv_valid_fast(xp, self.weight)
             return apply_act(y if self.bias is None else y + self.bias,
                              self.act)
         return conv_valid(xp, self.weight, self.bias, self.act)
+
+    def _valid_eligible(self):
+        """The layers the JAX package's gate lets take the conv_valid kernel
+        under fast training (ops/layers.py:165-176 `_pallas_conv_eligible`):
+        dense k3, k5 and k7 (stride 2 never reaches a training route). A
+        depthwise or k1 layer trains on F.conv2d there, as the JAX package
+        trains it on XLA's conv."""
+        return self.groups == 1 and self.ksize in (3, 5, 7)
 
     def _training_route(self, *xs):
         return _FAST_TRAINING.get() is not None or self._needs_grad(*xs)

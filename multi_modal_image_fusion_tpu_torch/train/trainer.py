@@ -137,7 +137,10 @@ class Trainer:
                 imgf = self._apply(img1, img2, train=True)
             with record_function("loss"):
                 total, parts = self.loss_bundle(img1, tgt2, imgf)
-            grads = torch.autograd.grad(total, list(self.params.values()))
+            # a parameter the loss does not reach (Res2ConvBlock's dead
+            # dwconv) gets a zero gradient, as jax.grad gives it
+            grads = torch.autograd.grad(total, list(self.params.values()),
+                                        materialize_grads=True)
         with torch.no_grad(), record_function("optimizer"):
             self._update(grads)
         return {k: v.detach() for k, v in parts.items()}, imgf.detach()

@@ -151,7 +151,14 @@ def test_bf16_plain_rounds_weight_and_fuse_sum():
     ([48], 64, 1, 64),
     ([16, 24, 48, 1], 48, 3, 48),     # four legs, each to whole k-steps
     ([32], 32, 7, 32),                # DeepFuse dec0 (fuse_n packs alike)
-    ([376], 1024, 3, 256)])           # UNFusion EB4_3, four N blocks
+    ([376], 1024, 3, 256),            # UNFusion EB4_3, four N blocks
+    # conv_wide's layers: UNFusion DB1_3 conv1 (56 of a 64 block), the
+    # EB4_3 k1 over four legs (a 304-channel leg: 19 k-steps), DBNet's
+    # five-leg dec0, DeepFuse's packed dec2 (4 of a 16 block)
+    ([16, 16, 16, 64], 56, 3, 64),
+    ([64, 128, 304, 256], 376, 1, 96),
+    ([16, 16, 16, 16, 64], 64, 3, 64),
+    ([64], 4, 3, 16)])
 def test_pack_weights_tc_read_back(cins, cout, k, bn):
     r = np.random.RandomState(sum(cins) + cout + k)
     wt = torch.from_numpy(_rand(r, cout, sum(cins), k, k))
@@ -187,18 +194,53 @@ def test_pack_weights_tc_read_back(cins, cout, k, bn):
     ([16] * 8, 128, 3, 64, 1),        # VIFNet dec0: two resident blocks
     ([144], 304, 3, 64, 1),           # UNFusion EB4_2: 304 = 5 x 64 - 16
     ([376], 1024, 3, 256, 0),         # UNFusion EB4_3: weights in the ring
-    ([16, 32], 384, 1, 128, 1)])      # Res2Fusion RB2 pwconv1
+    ([16, 32], 384, 1, 128, 1),       # Res2Fusion RB2 pwconv1
+    # conv_wide's layers: UNFusion DB3_1 conv1 and conv2 (80 and 40
+    # k-steps: the weights in the ring), EB4_2's and EB4_3's k1 over three
+    # and four legs (a stage's fixed cost favours the wider blocks there),
+    # DeepFuse's packed enc1 and dec1 (k5 and k3 on 4x the channels)
+    ([256, 1024], 640, 3, 128, 0),
+    ([640], 256, 3, 256, 0),
+    ([64, 128, 96], 144, 1, 96, 1),
+    ([64, 128, 304, 256], 376, 1, 128, 0),
+    ([64], 128, 5, 48, 1),
+    ([128], 64, 3, 64, 1)])
 def test_pick_bn_tc_for_model_layers(cins, cout, k, bn, resident):
     assert pick_bn_tc(cout, cins, k) == bn
     assert tc_plan(k, bn, sum(-(-c // 16) for c in cins))[0] == resident
+
+
+@pytest.mark.parametrize("cins,cout,k,bn,resident,pair,alone", [
+    ([16, 16, 16, 16, 64], 64, 3, 64, 0, 1, 1),   # DBNet dec0
+    ([128], 128, 5, 64, 0, 1, 0),                  # DeepFuse's packed dec0
+    ([16, 16, 16, 16], 64, 3, 64, 1, 1, 1),        # DenseFuse dec0
+    ([32], 32, 7, 32, 1, 0, 1)])                   # DeepFuse dec0
+def test_pick_bn_tc_pair_plan(cins, cout, k, bn, resident, pair, alone):
+    """The fuse_n layers: where a ring of slots holding both halves of the
+    pair (twice the input tile) fits, the pair is summed in shared memory,
+    even when the second buffer pushes the weights into the ring (DBNet's
+    dec0); DeepFuse's k7 dec0 has no such plan and sums in registers. The
+    N block is the one the layer picks without the pair."""
+    ks = sum(-(-c // 16) for c in cins)
+    assert pick_bn_tc(cout, cins, k, fuse_n=1) == bn == pick_bn_tc(cout,
+                                                                    cins, k)
+    plan = tc_plan(k, bn, ks, fuse_n=1)
+    assert plan[0] == resident and plan[3] == pair
+    one = tc_plan(k, bn, ks)
+    assert one[0] == alone and one[3] == 0
+    assert plan[2] > one[2] or plan[0] != alone or not pair
+    if not pair:
+        assert plan == one
 
 
 def test_tc_plan_fits_every_width():
     for k in (1, 3, 5, 7):
         for bn in TC_BNS:
             plan = tc_plan(k, bn, 1)
-            if (k, bn) in ((5, 256), (7, 128), (7, 256)):
-                assert plan is None       # 200 KB or more a k-step
+            # 200 KB or more a k-step; k7 at N 96 since the block holds two
+            # m-tiles a warpgroup there (its input and output tiles grew)
+            if (k, bn) in ((5, 256), (7, 96), (7, 128), (7, 256)):
+                assert plan is None
             else:
                 assert plan is not None and plan[2] <= 232448
         for cout in range(16, 1025, 16):
@@ -223,3 +265,89 @@ def test_f32_plain_matches_jax_chain(seed, cin, cout, k, fuse_n, h, w):
                            torch.from_numpy(bias), "relu", fuse_n)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+# conv_wide's s2d mode on the bf16 body: DeepFuse's packed layers (c_in and
+# c_out packed, k packed). enc1-dec2 stage a half of 8 channels in one
+# phase (c_in / 4 a multiple of 8); enc0's 4 channels go one by one.
+S2D_PACKED = [("enc0", 4, 64, 3), ("enc1", 64, 128, 5), ("dec0", 128, 128, 5),
+              ("dec1", 128, 64, 3), ("dec2", 64, 4, 3)]
+
+
+def _reflect(i, n):
+    """common.cuh reflect_index, clamped as the kernel clamps."""
+    i = np.abs(i)
+    i = np.where(i >= n, 2 * n - 2 - i, i)
+    return np.clip(i, 0, n - 1)
+
+
+def _src_pixel(y, x, h, w, ph):
+    """common.cuh src_pixel in s2d mode: (packed row, packed column)."""
+    return (_reflect(2 * y + (ph >> 1), 2 * h) >> 1,
+            _reflect(2 * x + (ph & 1), 2 * w) >> 1)
+
+
+def _staged_tile(x, ty, tx, c0, k, th, s2d):
+    """The mirror of conv_chain.cuh tc_load_stage_t: the (th + k - 1) x (64
+    + k - 1) x 16 tile of k-step channels c0 .. c0 + 15 that a stage
+    stages for tile (ty, tx), zeros past the last channel."""
+    b, h, w, cin = x.shape
+    p = k // 2
+    rows = np.arange(th + k - 1)[:, None] + ty * th - p
+    cols = np.arange(64 + k - 1)[None, :] + tx * 64 - p
+    cb = cin // 4
+    vec = cin % 8 == 0 and (not s2d or cb % 8 == 0)
+    tile = np.zeros((b, *np.broadcast(rows, cols).shape, 16), x.dtype)
+    for half in range(2):
+        ch = c0 + 8 * half
+        for j in range(8):
+            if ch + j >= cin:
+                continue
+            if not s2d:
+                r, c = _reflect(rows, h), _reflect(cols, w)
+            else:
+                r, c = _src_pixel(rows, cols, h, w,
+                                  (ch if vec else ch + j) // cb)
+            tile[..., 8 * half + j] = x[:, r, c, ch + j]
+    return tile
+
+
+@pytest.mark.parametrize("hw", [(45, 61), (45, 161)])
+@pytest.mark.parametrize("name,cin,cout,k", S2D_PACKED,
+                         ids=[c[0] for c in S2D_PACKED])
+def test_s2d_staged_index_is_the_packed_reflect(name, cin, cout, k, hw):
+    """Every staged tile of a 45x61 and a 45x161 packed image (ragged last
+    tiles, the top, bottom, left and right mirrors of all four phases; at
+    161 columns a middle column of tiles off the mirrors) holds what
+    s2d_reflect_pad puts at its place, wherever the tile lies inside the
+    padded image (the rest feeds no stored output). The control, the
+    phase-blind reflect of the packed tensor, stages the same interior
+    tiles and differs on every tile that reaches a mirror."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        _tc_mt
+    from multi_modal_image_fusion_tpu_torch.ops.s2d import s2d_reflect_pad
+    r = np.random.RandomState(cin + k)
+    h, w = hw
+    x = _rand(r, 2, h, w, cin)
+    p = k // 2
+    padded = s2d_reflect_pad(torch.from_numpy(x), p).numpy()
+    th = 2 * _tc_mt(pick_bn_tc(cout, [cin], k))
+    mirrored, tiles = 0, 0
+    for ty in range(-(-h // th)):
+        for tx in range(-(-w // 64)):
+            y1 = min(ty * th + th + k - 1, h + 2 * p)
+            x1 = min(tx * 64 + 64 + k - 1, w + 2 * p)
+            mirror = ty == 0 or tx == 0 or y1 > h + p or x1 > w + p
+            blind_same = True
+            for c0 in range(0, cin, 16):
+                want = padded[:, ty * th:y1, tx * 64:x1, c0:c0 + 16]
+                cut = (slice(None), slice(0, y1 - ty * th),
+                       slice(0, x1 - tx * 64), slice(0, want.shape[-1]))
+                got = _staged_tile(x, ty, tx, c0, k, th, True)[cut]
+                np.testing.assert_array_equal(got, want)
+                blind = _staged_tile(x, ty, tx, c0, k, th, False)[cut]
+                blind_same &= bool((blind == want).all())
+            assert blind_same != mirror, (ty, tx)
+            mirrored += mirror
+            tiles += 1
+    assert 0 < mirrored and (mirrored < tiles) == (w > 128)

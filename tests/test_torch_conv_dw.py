@@ -9,8 +9,8 @@ ConvLayer's depthwise routes, CPU) against the JAX package and F.conv2d.
   and without bias, at Res2Fusion's k1/k3 and widths: 2e-5 (docs/PARITY.md
   layer budget);
 - the training route (F.conv2d(groups=C) when a gradient is needed) gives
-  the serving route's values and a gradient; `fast_training(True)` has no
-  depthwise instance and raises;
+  the serving route's values and a gradient, inside `fast_training(True)`
+  too (the JAX package's gate sends a depthwise conv to XLA's conv there);
 - `use_bias=False` leaves no bias key; only dense or depthwise groups are
   accepted; the wrapper's refusals on tensors that are not on the CPU
   (meta tensors: the checks run before any launch).
@@ -102,8 +102,12 @@ def test_training_route_matches_serving():
         np.testing.assert_allclose(
             layer.depthwise(x, lo=16, add=add).numpy(), want.numpy(),
             atol=1e-6)
-    with fast_training(True), pytest.raises(NotImplementedError):
-        layer.depthwise(x, lo=16, add=add)
+    # fast training: the JAX package trains a depthwise conv on XLA's conv
+    # there too, so the layer takes F.conv2d(groups) and keeps its gradient
+    with fast_training(True):
+        got = layer.depthwise(x, lo=16, add=add)
+    assert got.grad_fn is not None
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=1e-6)
 
 
 def test_conv_layer_bias_and_groups():

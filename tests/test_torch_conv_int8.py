@@ -29,8 +29,7 @@ from multi_modal_image_fusion_tpu.ops.pallas.hiw_int8 import (
     conv_hiw_chain_q, hiw_fold_scale)
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
     conv_int8, conv_int8_chain, conv_int8_chain_plain, conv_int8_plain,
-    int_conv_plain, pack_weights_int8)
-from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import pick_bn
+    int_conv_plain, pack_weights_int8, pick_bn)
 from tests.test_hiw import _from_hmajor, _ref_conv, _to_hmajor
 
 REL = 1e-6

@@ -9,9 +9,10 @@ the parts are summed, then the bias and the activation are applied once;
 40 and 56, k1 and k3, fuse_n, every fused activation. Tolerance 1e-5
 (f32 on both sides; the kernel sums its products in another order).
 
-Also: the helpers of the bf16 kernel's launch (the output-channel block, the
-packed weights), ConvLayer's wide route in serving and in training, and the
-plain version's batch chunks.
+Also: the int8 kernel's output-channel block (`pick_bn`), ConvLayer's wide
+route in serving and in training, and the plain version's batch chunks. The
+bf16 kernel's weight packing, block and staged source index are conv_chain's
+(tests/test_torch_conv_chain_tc.py).
 """
 
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from multi_modal_image_fusion_tpu.ops.layers import get_act
 from multi_modal_image_fusion_tpu.ops.pallas.conv_kernel import (
     chain_enter, chain_exit, conv_tlane_chain)
 from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_wide as cw
+from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import pick_bn
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import concat_legs
 from multi_modal_image_fusion_tpu_torch.ops import layers
 from multi_modal_image_fusion_tpu_torch.ops.layers import ConvLayer, \
@@ -84,27 +86,9 @@ def test_plain_vs_jax_chain_kernel(name):
                                      (48, 16), (56, 64), (104, 16),
                                      (160, 32), (376, 64), (640, 64)])
 def test_pick_bn(cout, bn):
-    assert cw.pick_bn(cout) == bn
-
-
-def test_pack_weights_bf16():
-    """Each leg's channel block padded to 16, c_out to the block; the
-    kernel's row (tap, co) holds W[co, leg channels, kh, kw]."""
-    r = np.random.RandomState(0)
-    cins, cout, k, bn = [40, 16, 3], 24, 3, 32
-    wt = torch.from_numpy(r.rand(cout, sum(cins), k, k).astype(np.float32))
-    p = cw.pack_weights_bf16(wt, cins, bn).float()
-    assert p.shape == (k * k, 32, 48 + 16 + 16)
-    wb = wt.bfloat16().float()
-    ofs_w, ofs_p = 0, 0
-    for c in cins:
-        blk = p[:, :cout, ofs_p:ofs_p + c].reshape(k, k, cout, c)
-        np.testing.assert_array_equal(
-            blk.permute(2, 3, 0, 1).numpy(), wb[:, ofs_w:ofs_w + c].numpy())
-        assert not p[:, :, ofs_p + c:ofs_p + c + -c % 16].any()
-        ofs_w += c
-        ofs_p += -(-c // 16) * 16
-    assert not p[:, cout:].any()
+    """The int8 kernel's block (conv_int8.pick_bn; conv_wide's bf16 path
+    took it too until it moved onto conv_chain's pick_bn_tc)."""
+    assert pick_bn(cout) == bn
 
 
 def test_plain_in_batch_chunks(monkeypatch):

@@ -855,6 +855,7 @@ WIDE_CASES = [
     ("EB4_3.conv1.k1", [64, 128, 304, 256], 376, 1, 0, 2, 19, 16),
     ("dbnet.dec0", [16, 16, 16, 16, 64], 64, 3, 2, 2, 45, 61),
     ("cout8", [24, 24], 8, 3, 0, 2, 20, 70),
+    ("cout12", [24, 24], 12, 3, 0, 2, 20, 70),     # 8-byte stores
 ]
 
 
@@ -956,6 +957,62 @@ def test_conv_wide_raises(cuda):
         conv_wide([(x, 0)], wt)
     with torch.no_grad():
         conv_wide([(x, 0)], wt)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("s2d", [False, True], ids=["cout12", "dec2p"])
+def test_conv_wide_stores_stop_at_cout(cuda, dt, s2d):
+    """A Cout of 4 mod 8 (DeepFuse's packed dec2, 64 -> 4; a plain 12-wide
+    output): written into the head of a buffer one image longer,
+    prefilled with a sentinel. The head equals conv_wide's own output and
+    the plain version; the sentinel past it is untouched."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
+        conv_wide, conv_wide_into, conv_wide_plain)
+    dtype = DTYPES[dt]
+    cin, cout, h, w = (64, 4, 23, 70) if s2d else (24, 12, 21, 67)
+    x = _drand((2, h, w, cin), 240, cuda, dtype)
+    wt = (_drand((cout, cin, 3, 3), 241, cuda, torch.float32)
+          / np.sqrt(9 * cin)).to(dtype)
+    bias = _drand((cout,), 242, cuda, torch.float32) * 0.1
+    f = 2 if s2d else 1
+    buf = torch.full((3, h, w, cout), 1234.0, dtype=dtype, device=cuda)
+    conv_wide_into(buf[:2], [(x, 0)], wt, bias, None, s2d_f=f)
+    got = conv_wide([(x, 0)], wt, bias, None, s2d_f=f)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:2], got)
+    assert bool((buf[2] == 1234.0).all())
+    want = conv_wide_plain([(x, 0)], wt, bias, None, s2d_f=f)
+    assert _wide_rel(got, want, dtype) <= WIDE_TOL[dtype]
+
+
+def test_fast_training_dw_and_k1_take_conv2d(cuda):
+    """Inside fast_training(True) a depthwise and a k1 layer train on
+    F.conv2d, as the JAX package's gate sends them to XLA's conv: no
+    conv_valid launch, the values and weight gradients of the F.conv2d
+    route (f32, TF32 off). A dense k5 layer launches conv_valid."""
+    from multi_modal_image_fusion_tpu_torch.ops.layers import (
+        ConvLayer, fast_training)
+    gen = torch.Generator().manual_seed(5)
+    x = _rand((2, 20, 24, 16), 60, cuda)
+    for layer in (ConvLayer(16, 16, 3, act=None, groups=16, generator=gen),
+                  ConvLayer(16, 24, 1, generator=gen)):
+        layer = layer.to(cuda)
+        grads = []
+        for fast in (True, False):
+            build.LAUNCHES.clear()
+            with fast_training(fast):
+                y = layer(x)
+            y.square().sum().backward()
+            assert build.LAUNCHES["conv_valid"] == 0
+            grads.append((y.detach(), layer.weight.grad))
+            layer.weight.grad = None
+        _close(grads[0][0], grads[1][0], torch.float32)
+        _close(grads[0][1], grads[1][1], torch.float32)
+    k5 = ConvLayer(16, 16, 5, generator=gen).to(cuda)
+    build.LAUNCHES.clear()
+    with fast_training(True):
+        k5(x).sum().backward()
+    assert build.LAUNCHES["conv_valid/forward"] == 1
 
 
 # launches of one forward: (model, config, autoencoder) -> counts
