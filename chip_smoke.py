@@ -16,7 +16,11 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    kernel of conv_wide's own is left beside it) and print ptxas's
    registers, spills and shared memory of each, failing on a spill. The same for the two bf16 nl kernels (their
    HGMMA, and the HMMA of warp-level mma.sync, of which they must hold
-   none), failing on a spill or on wgmmas that ptxas serialized.
+   none), failing on a spill or on wgmmas that ptxas serialized. And for
+   the int8 body (rows 11 and 12, conv_int8_tc_kernel): the integer wgmma
+   instructions (IGMMA) of every instance, failing on an instance without
+   them, on a warp-level IMMA in one, on a mma.sync conv_int8_kernel left
+   in the library, on a spill or on a serialized wgmma.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
    the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones and UNFusion's nine encoder convs at their scales) against its
@@ -121,7 +125,9 @@ epilogue): conv_int8_chain at DeepFuse's chain legs (enc1 to an
 int8-resident output, dec0 on int8 input with fuse_n to int8, dec1 on int8
 input; enc1 and dec0 without resident hops) at 1224x1024, bf16 16 pairs
 and f32 one pair; conv_int8 at DeepFuse's five layers, DenseFuse's eight
-and UNFusion's DB3_1 conv1 (bf16 16 pairs; DeepFuse also f32 one pair).
+and UNFusion's DB3_1 conv1 (bf16 16 pairs; DeepFuse also f32 one pair),
+as the int8 forwards launch them: legs read in place, a fuse_n pair summed
+in the kernel.
 int8 outputs must be equal, f32 within 1e-6 of max|y|, bf16 within one
 bf16 ulp of each output; controls (taps transposed, the fold left out of
 the weights, one fuse_n half's images in reverse order) must miss by more
@@ -271,16 +277,20 @@ def tensor_core_report(build, lib_path):
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=600).stdout
-    counts, hmma, fn = {}, {}, None
+    counts, hmma, igmma, imma, fn = {}, {}, {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = hmma[fn] = 0
+            counts[fn] = hmma[fn] = igmma[fn] = imma[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
         elif fn is not None and "HMMA" in line:
             hmma[fn] += 1
+        elif fn is not None and "IGMMA" in line:
+            igmma[fn] += 1
+        elif fn is not None and "IMMA" in line:
+            imma[fn] += 1
     tc = {f: c for f, c in counts.items() if "conv_chain_tc_kernel" in f}
     fma = [f for f in counts if "conv_chain_kernel" in f]
     if not tc or min(tc.values()) == 0:
@@ -338,7 +348,42 @@ def tensor_core_report(build, lib_path):
             raise AssertionError(f"{name} ({kern}): {nl[name]}: want HGMMA, "
                                  f"no HMMA and no spills")
     print(f"SASS and ptxas -v, bf16 nl kernels: {json.dumps(nl)}")
-    return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl
+    # the int8 body (rows 11 and 12): integer wgmma (IGMMA) in every
+    # conv_int8_tc_kernel instance, no warp-level IMMA there, no mma.sync
+    # conv_int8_kernel left, no spill, no serialized wgmma
+    i8 = [f for f in counts if "conv_int8_tc_kernel" in f]
+    old = [f for f in counts if "conv_int8_kernel" in f]
+    mnemonics = sorted({m.group(0) for m in re.finditer(
+        r"\bI\w*MMA[\w.]*", sass)})
+    print(f"SASS integer MMA mnemonics: {mnemonics[:12]}")
+    if old or not i8 or any(igmma[f] == 0 or imma[f] for f in i8):
+        raise AssertionError(
+            f"int8: want IGMMA and no IMMA in every conv_int8_tc_kernel and "
+            f"no conv_int8_kernel; IGMMA "
+            f"{ {f: igmma[f] for f in i8} }, IMMA "
+            f"{ {f: imma[f] for f in i8} }, mma.sync kernels {old}")
+    serialized = [line.strip() for line in log.splitlines()
+                  if "serialized" in line and "conv_int8_tc" in line]
+    if serialized:
+        raise AssertionError("ptxas serialized the int8 wgmmas: "
+                             + "; ".join(serialized))
+
+    def inst8(f):
+        k, bn, tp = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", f).groups()
+        return f"k{k}/bn{bn}" + ("/tp" if tp == "1" else "")
+    i8_ptxas = _ptxas_props(log, lambda f: "conv_int8_tc_kernel" in f)
+    if set(i8_ptxas) != set(i8):
+        raise AssertionError(f"ptxas -v lines for {sorted(i8_ptxas)}, SASS "
+                             f"for {sorted(i8)}")
+    spills = {inst8(f): v for f, v in i8_ptxas.items()
+              if v["spill_stores"] or v["spill_loads"]}
+    if spills:
+        raise AssertionError(f"conv_int8_tc_kernel instances spill: {spills}")
+    int8 = {"igmma": sum(igmma[f] for f in i8), "instances": len(i8),
+            "per_instance": {inst8(f): {"igmma": igmma[f], **i8_ptxas[f]}
+                             for f in sorted(i8)}}
+    print(f"SASS and ptxas -v, int8 conv_int8_tc_kernel: {json.dumps(int8)}")
+    return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl, int8
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
@@ -1925,22 +1970,25 @@ CHAIN_CASES = [("enc1", 16, 32, 7, False, "float", "int8"),
                ("dec1", 32, 16, 5, False, "int8", "float"),
                ("enc1.nonres", 16, 32, 7, False, "float", "float"),
                ("dec0.nonres", 32, 32, 7, True, "float", "float")]
-# ConvLayer-route layers: (name, c_in, c_out, k, act, images per pair, h, w)
+# ConvLayer-route layers as the int8 forwards launch them: (name, leg
+# channels, c_out, k, act, images per pair in, fuse_n, h, w); the legs are
+# read in place, with fuse_n the pair's halves summed first
 ROW11_CASES = [
-    ("deepfuse.enc0", 1, 16, 5, "relu", 2, H, W),
-    ("deepfuse.enc1", 16, 32, 7, "relu", 2, H, W),
-    ("deepfuse.dec0", 32, 32, 7, "relu", 1, H, W),
-    ("deepfuse.dec1", 32, 16, 5, "relu", 1, H, W),
-    ("deepfuse.dec2", 16, 1, 5, None, 1, H, W),
-    ("densefuse.conv_in", 1, 16, 3, "relu", 2, H, W),
-    ("densefuse.dense0", 16, 16, 3, "relu", 2, H, W),
-    ("densefuse.dense1", 32, 16, 3, "relu", 2, H, W),
-    ("densefuse.dense2", 48, 16, 3, "relu", 2, H, W),
-    ("densefuse.dec0", 64, 64, 3, "relu", 1, H, W),
-    ("densefuse.dec1", 64, 32, 3, "relu", 1, H, W),
-    ("densefuse.dec2", 32, 16, 3, "relu", 1, H, W),
-    ("densefuse.dec3", 16, 1, 3, None, 1, H, W),
-    ("unfusion.DB3_1.conv1", 1280, 640, 3, "relu", 1, 306, 256)]
+    ("deepfuse.enc0", [1], 16, 5, "relu", 2, False, H, W),
+    ("deepfuse.enc1", [16], 32, 7, "relu", 2, False, H, W),
+    ("deepfuse.dec0", [32], 32, 7, "relu", 2, True, H, W),
+    ("deepfuse.dec1", [32], 16, 5, "relu", 1, False, H, W),
+    ("deepfuse.dec2", [16], 1, 5, None, 1, False, H, W),
+    ("densefuse.conv_in", [1], 16, 3, "relu", 2, False, H, W),
+    ("densefuse.dense0", [16], 16, 3, "relu", 2, False, H, W),
+    ("densefuse.dense1", [16, 16], 16, 3, "relu", 2, False, H, W),
+    ("densefuse.dense2", [16, 16, 16], 16, 3, "relu", 2, False, H, W),
+    ("densefuse.dec0", [16] * 4, 64, 3, "relu", 2, True, H, W),
+    ("densefuse.dec1", [64], 32, 3, "relu", 1, False, H, W),
+    ("densefuse.dec2", [32], 16, 3, "relu", 1, False, H, W),
+    ("densefuse.dec3", [16], 1, 3, None, 1, False, H, W),
+    ("unfusion.DB3_1.conv1", [256, 1024], 640, 3, "relu", 1, False, 306,
+     256)]
 
 
 def _int8_err(torch, got, want, kind):
@@ -2001,6 +2049,29 @@ def _int_mm_library(torch, F, timer, q, qw):
     return mm_ms, unfold_ms, calls
 
 
+def _int8_split(torch, run, reps=5):
+    """(quantizer ms, conv ms) of one call of `run`, an int8 wrapper on a
+    float input: the device time of its q8_quantize_kernel and
+    conv_int8_tc_kernel launches under torch.profiler, over reps calls."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    ms = {"q8_quantize_kernel": 0.0, "conv_int8_tc_kernel": 0.0}
+    for e in prof.key_averages():
+        for name in ms:
+            if name in e.key:
+                ms[name] += getattr(e, "self_device_time_total", getattr(
+                    e, "self_cuda_time_total", 0)) / 1e3 / reps
+    if not all(ms.values()):
+        raise AssertionError(f"the profiler saw no device time of {ms}")
+    return ms["q8_quantize_kernel"], ms["conv_int8_tc_kernel"]
+
+
 def check_int8(torch, F, dev, timer):
     """Phase 3 for rows 11 and 12: conv_int8_chain at DeepFuse's chain legs
     and conv_int8 at DeepFuse's five, DenseFuse's eight and UNFusion's
@@ -2009,7 +2080,8 @@ def check_int8(torch, F, dev, timer):
     pair), with the controls, and timed at the bench's shapes beside the
     plain version, one torch._int_mm on the im2col'd input (the unfold
     timed apart) and one bf16 F.conv2d on the padded input (the pad timed
-    apart). Returns {kernel: record}."""
+    apart); for a float input also its two kernels apart (_int8_split),
+    the quantizer beside its byte bound. Returns {kernel: record}."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
         conv_int8, conv_int8_chain, conv_int8_chain_plain, conv_int8_plain)
     from multi_modal_image_fusion_tpu_torch.ops.quant import (
@@ -2046,7 +2118,8 @@ def check_int8(torch, F, dev, timer):
               f"{ {k: round(_int8_err(torch, y, want, 'f32')[1], 4) for k, y in controls.items()} }",
               flush=True)
 
-    def timing(kern, key, run, plain, q, qw, x_float, bias, nbytes, ops):
+    def timing(kern, key, run, plain, q, qw, x_float, bias, nbytes, ops,
+               q_bytes=None):
         k = qw.shape[-1]
         mm_ms, unfold_ms, calls = _int_mm_library(torch, F, timer, q, qw)
         xn = x_float.permute(0, 3, 1, 2)
@@ -2066,6 +2139,13 @@ def check_int8(torch, F, dev, timer):
             "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b > t_o else "operations",
             "tops": ops / 1e12}
+        if q_bytes is not None:
+            # a float input: the call's two kernels apart; the quantizer
+            # moves q_bytes (its input read once, the int8 copy written)
+            q_ms, conv_ms = _int8_split(torch, run)
+            recs[kern]["layers"][key].update(
+                quantize_ms=q_ms, quantize_bound_ms=q_bytes / PEAK_BYTES_S
+                * 1e3, conv_ms=conv_ms)
         del xp
 
     # row 12: DeepFuse's chain legs
@@ -2130,48 +2210,64 @@ def check_int8(torch, F, dev, timer):
                 nbytes = (b_in * cin * esz_in + b_out * cout * esz_out) \
                     * H * W + qw.numel()
                 ops = 2.0 * b_out * H * W * cin * cout * k * k
+                q_bytes = None if src == "int8" else \
+                    (b_in * cin * esz_in + b_out * -(-cin // 16) * 16) * H * W
                 timing("conv_int8_chain", f"{name} {dt}", run, plain, q, qw,
-                       xf[:n] + xf[n:] if fuse else xf, bias, nbytes, ops)
+                       xf[:n] + xf[n:] if fuse else xf, bias, nbytes, ops,
+                       q_bytes)
                 del q
             del x, xf
             torch.cuda.empty_cache()
         stamp(f"conv_int8_chain {dt} checked")
 
-    # row 11: the ConvLayer route's layers
+    # row 11: the ConvLayer route's layers, their legs read in place
     for dt, pairs in (("bf16", BATCH), ("f32", 1)):
         dtype = dts[dt]
-        for name, cin, cout, k, act, per_pair, h, w_ in ROW11_CASES:
+        for name, cins, cout, k, act, per_pair, fuse, h, w_ in ROW11_CASES:
             if dt == "f32" and not name.startswith("deepfuse"):
                 continue
+            cin = sum(cins)
             b_in = pairs * per_pair
+            fuse_n = b_in // 2 if fuse else 0
+            b_out = fuse_n or b_in
             w, bias = layer(cin, cout, k, 300 + cin + k)
             g = torch.Generator(device=dev).manual_seed(310 + cout)
             x = ((torch.rand((b_in, h, w_, cin), generator=g, device=dev)
                   * 2 - 0.5) * _channel_spread(torch, cin, dev)).to(dtype)
-            f = choose_fold(x.float().abs().amax(dim=(0, 1, 2)), w)
+            legs = [(x[..., c0:c0 + c].contiguous(), 0) for c0, c in
+                    zip(np.cumsum([0] + cins[:-1]), cins)]
+            xs = x[:fuse_n] + x[fuse_n:] if fuse else x   # the effective input
+            del x
+            f = choose_fold(xs.float().abs().amax(dim=(0, 1, 2)), w)
             qw, sw = quantize_weights(fold_weights(w, f))
 
-            def run(qw=qw, sw=sw):
-                return conv_int8(x, qw, sw, f, bias, act)
+            def run(qw=qw, sw=sw, legs=legs):
+                return conv_int8(legs, qw, sw, f, bias, act, fuse_n)
 
             def plain():
-                return conv_int8_plain(x, qw, sw, f, bias, act)
+                return conv_int8_plain(legs, qw, sw, f, bias, act, fuse_n)
             want = plain()
             qw0, sw0 = quantize_weights(w)
             ctl = {"fold left out": run(qw0, sw0)}
             if k > 1:
                 ctl["taps transposed"] = run(qw.transpose(2, 3).contiguous())
+            if fuse_n > 1:
+                ctl["one half reversed"] = run(legs=[
+                    (torch.cat([t[:fuse_n], t[fuse_n:].flip(0)]), 0)
+                    for t, _ in legs])
             note("conv_int8", f"{name} {dt}", run(), want, dt, ctl)
             del ctl, want
             if dt == "bf16":
-                q = torch.clamp(torch.round(x.float() / f), -127, 127).to(
+                q = torch.clamp(torch.round(xs.float() / f), -127, 127).to(
                     torch.int8)
-                nbytes = (b_in * cin + b_in * cout) * h * w_ * 2 + qw.numel()
-                ops = 2.0 * b_in * h * w_ * cin * cout * k * k
-                timing("conv_int8", f"{name} {dt}", run, plain, q, qw, x,
-                       bias, nbytes, ops)
+                nbytes = (b_in * cin + b_out * cout) * h * w_ * 2 + qw.numel()
+                ops = 2.0 * b_out * h * w_ * cin * cout * k * k
+                q_bytes = (b_in * cin * 2 + b_out * -(-cin // 16) * 16) \
+                    * h * w_
+                timing("conv_int8", f"{name} {dt}", run, plain, q, qw, xs,
+                       bias, nbytes, ops, q_bytes)
                 del q
-            del x
+            del xs, legs
             torch.cuda.empty_cache()
         stamp(f"conv_int8 {dt} checked")
     return recs
@@ -2279,8 +2375,11 @@ def plain_int8():
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
         conv_int8_chain_plain, conv_int8_plain)
     kernels = layers.conv_int8, layers.conv_int8_chain
-    layers.conv_int8 = conv_int8_plain
-    layers.conv_int8_chain = conv_int8_chain_plain
+    # ConvLayer hands the kernels its cached packing (`weights`), which the
+    # plain versions do not take
+    layers.conv_int8 = lambda *a, weights=None, **kw: conv_int8_plain(*a, **kw)
+    layers.conv_int8_chain = lambda *a, weights=None, **kw: \
+        conv_int8_chain_plain(*a, **kw)
     try:
         yield
     finally:
@@ -2715,7 +2814,7 @@ def main():
     lib_path = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     build.library()
-    sass, nl_sass = tensor_core_report(build, lib_path)
+    sass, nl_sass, int8_sass = tensor_core_report(build, lib_path)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -3075,6 +3174,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "multi_modal_image_fusion_tpu_torch/csrc/conv_int8.cuh",
             "replaces": INT8_REPLACES[name],
+            "sass": {key: int8_sass[key] for key in ("igmma", "instances")},
             "launches": counts.get(name, 0),
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "min_control_rel_err": r["min_control_rel_err"],
@@ -3086,6 +3186,10 @@ def main():
             "bound_by": "operations" if any(
                 v["bound_by"] == "operations" for v in ls) else "bytes",
             "library_ms": sum(v["library_ms"] for v in ls),
+            # the float inputs' quantizer pass within ms, beside its bound
+            "quantize_ms": sum(v.get("quantize_ms", 0.0) for v in ls),
+            "quantize_bound_ms": sum(v.get("quantize_bound_ms", 0.0)
+                                     for v in ls),
             "layers": r["layers"],
         })
     # the opt-in routes' kernels: the sums are one bf16 bench forward of 16

@@ -1,22 +1,31 @@
 """Device times of the bf16 `wgmma` conv layers of DeepFuse, DenseFuse,
 VIFNet, Res2Fusion and UNFusion's encoder, and of their benches, from one
 checkout of the port: run it once per checkout, in turns, to compare two
-commits on one card.
+commits on one card. With `--int8`, the same for the int8 kernels (rows 11
+and 12) and the `--int8` benches.
 
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
         [--tag parent] [--benches deepfuse,densefuse,vifnet,res2fusion]
+        [--int8] [--profile densefuse]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
 the wrappers whose signatures every checkout since the `wgmma` body shares
-(`conv_chain`, `conv_multi`). Layers: bf16, 16 pairs of 1224x1024 (DeepFuse
-enc1 and dec0, DenseFuse dec0, VIFNet dec0; UNFusion's encoder convs at
-their scale, 32 images; Res2Fusion's RB2 pwconv1 at 2 pairs, its bench
-batch), random centred inputs from a seed; each time the mean of 5
-cold-L2 runs (CUDA events, a 256 MB write between runs) after a warmup.
-Benches: `bench.run` (10 timed forwards after one warmup). Prints one JSON
-line with the card, the tag, the layers' ms and the benches' pairs/s.
-Needs a CUDA card.
+(`conv_chain`, `conv_multi`; with `--int8` every checkout since the int8
+kernels': `conv_int8` on one tensor, `conv_int8_chain`). Layers: bf16, 16
+pairs of 1224x1024 (DeepFuse enc1 and dec0, DenseFuse dec0, VIFNet dec0;
+UNFusion's encoder convs at their scale, 32 images; Res2Fusion's RB2
+pwconv1 at 2 pairs, its bench batch); `--int8`: DeepFuse's chain legs
+(enc1 to int8, dec0 int8 with fuse_n to int8, dec1 int8 to bf16),
+DenseFuse's dense2 and dec0 (their concat) and UNFusion's DB3_1 conv1
+(1280 -> 640 at 306x256), bf16 16 pairs. Random centred inputs from a
+seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
+between runs) after a warmup. Benches: `bench.run` (10 timed forwards
+after one warmup; `--int8`: DeepFuse, DenseFuse and UNFusion under
+`--int8`). `--profile NAME`: one `--int8` forward of NAME at the bench's
+shapes under torch.profiler, its device time by op name (the largest 15).
+Prints one JSON line with the card, the tag, the layers' ms and the
+benches' pairs/s (and the profile). Needs a CUDA card.
 """
 
 import argparse
@@ -59,13 +68,93 @@ def layer_cases():
     return cases
 
 
+def int8_layer_cases():
+    """(name, kernel, c_in, c_out, k, fuse_n, input images, h, w, input,
+    output): "int8" an int8-resident tensor, "float" bf16."""
+    return [("deepfuse.enc1", "conv_int8_chain", 16, 32, 7, 0, 2 * PAIRS, H,
+             W, "float", "int8"),
+            ("deepfuse.dec0", "conv_int8_chain", 32, 32, 7, PAIRS, 2 * PAIRS,
+             H, W, "int8", "int8"),
+            ("deepfuse.dec1", "conv_int8_chain", 32, 16, 5, 0, PAIRS, H, W,
+             "int8", "float"),
+            ("densefuse.dense2", "conv_int8", 48, 16, 3, 0, 2 * PAIRS, H, W,
+             "float", "float"),
+            ("densefuse.dec0", "conv_int8", 64, 64, 3, 0, PAIRS, H, W,
+             "float", "float"),
+            ("unfusion.DB3_1.conv1", "conv_int8", 1280, 640, 3, 0, PAIRS, 306,
+             256, "float", "float")]
+
+
+def int8_layer(torch, case, gen, dev):
+    """The call of one int8 case on seeded inputs, scales and weights."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8, conv_int8_chain)
+    _, kern, cin, cout, k, fuse_n, n, h, w, src, dst = case
+    if src == "int8":
+        x = torch.randint(-127, 128, (n, h, w, cin), generator=gen,
+                          device=dev, dtype=torch.int8)
+    else:
+        x = (torch.rand((n, h, w, cin), generator=gen, device=dev)
+             - 0.5).to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                       device=dev, dtype=torch.int8)
+    f = torch.rand((cin,), generator=gen, device=dev) * 0.01 + 0.002
+    dq = torch.rand((cout,), generator=gen, device=dev) * 1e-4
+    bias = torch.rand((cout,), generator=gen, device=dev) - 0.5
+    if kern == "conv_int8":
+        return lambda: conv_int8(x, qw, dq, f, bias, "relu")
+    return lambda: conv_int8_chain(x, qw, dq, bias, "relu", 1.0 / f, fuse_n,
+                                   dst == "int8", torch.bfloat16)
+
+
+def int8_profile(torch, name):
+    """{op name: device ms} of one --int8 forward of `name` (16 pairs at
+    1224x1024, calibrated as bench.run calibrates), the largest 15."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_modal_image_fusion_tpu_torch import bench
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.quant import (
+        calibrate, quantized_inference)
+    dev = torch.device("cuda")
+    model = create_model(name, generator=torch.Generator().manual_seed(
+        0)).to(dev, torch.bfloat16).eval()
+    r = np.random.RandomState(0)
+    a, b = (torch.from_numpy(r.rand(bench.BATCH, H, W, 1).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    amax = calibrate(model, [(a[:1, :256, :256], b[:1, :256, :256])])
+    with torch.no_grad(), quantized_inference(amax):
+        model(a, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(a, b)
+            torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3)
+            for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    return {"total_ms": sum(ms for _, ms in rows),
+            "ops_ms": dict(rows[:15])}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", required=True,
                    help="checkout whose port package is timed")
     p.add_argument("--tag", default="", help="a label for the JSON line")
-    p.add_argument("--benches", default="deepfuse,densefuse,vifnet,res2fusion")
+    p.add_argument("--benches", default=None,
+                   help="default deepfuse,densefuse,vifnet,res2fusion; "
+                        "with --int8 deepfuse,densefuse,unfusion")
+    p.add_argument("--int8", action="store_true",
+                   help="the int8 kernels' layers and the --int8 benches")
+    p.add_argument("--profile", default="",
+                   help="a model whose --int8 forward is profiled")
     args = p.parse_args(argv)
+    if args.benches is None:
+        args.benches = ("deepfuse,densefuse,unfusion" if args.int8
+                        else "deepfuse,densefuse,vifnet,res2fusion")
     sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
@@ -102,7 +191,15 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     layers = {}
     with torch.no_grad():
-        for name, kern, cins, cout, k, fuse_n, n, h, w in layer_cases():
+        for case in int8_layer_cases() if args.int8 else []:
+            fn = int8_layer(torch, case, gen, dev)
+            if not bool(torch.isfinite(fn().float()).all()):
+                raise RuntimeError(f"{case[0]}: output not finite")
+            layers[case[0]] = timed(fn)
+            del fn
+            torch.cuda.empty_cache()
+        for name, kern, cins, cout, k, fuse_n, n, h, w in (
+                [] if args.int8 else layer_cases()):
             b_in = 2 * fuse_n if fuse_n else n
             legs = [((torch.rand((b_in, h, w, c), generator=gen, device=dev)
                       - 0.5).to(torch.bfloat16), 0) for c in cins]
@@ -124,12 +221,16 @@ def main(argv=None):
     benches = {}
     for name in filter(None, args.benches.split(",")):
         batch = 2 if name == "res2fusion" else bench.BATCH
-        result, _ = bench.run(seed=0, model_name=name, batch=batch)
+        result, _ = bench.run(seed=0, model_name=name, batch=batch,
+                              int8=args.int8)
         benches[name] = result["value"]
         torch.cuda.empty_cache()
-    print(json.dumps({"card": card(), "tag": args.tag,
-                      "root": os.path.abspath(args.root), "layers_ms": layers,
-                      "benches_pairs_per_sec": benches}))
+    out = {"card": card(), "tag": args.tag, "int8": args.int8,
+           "root": os.path.abspath(args.root), "layers_ms": layers,
+           "benches_pairs_per_sec": benches}
+    if args.profile:
+        out["profile"] = {args.profile: int8_profile(torch, args.profile)}
+    print(json.dumps(out))
     return 0
 
 

@@ -127,8 +127,9 @@ __host__ __device__ constexpr int tc_mt(int bn) {
   return bn >= 256 ? 1 : bn >= 96 ? 2 : (128 / bn > 8 ? 8 : 128 / bn);
 }
 
-template <int K, int BN>
+template <int K_, int BN_>
 struct TcGeom {
+  static constexpr int K = K_, BN = BN_;
   static constexpr int MT = tc_mt(BN);
   static constexpr int TH = TC_WG * MT;
   static constexpr int IN_H = TH + K - 1, IN_W = TC_TW + K - 1;
@@ -154,19 +155,20 @@ struct TcArgs {
 };
 
 // Resident weights with the deepest ring that fits, else the weights in the
-// ring; with fuse_n, the first of these plans whose ring slots hold both
-// halves of the pair (pair), else one half. smem is the dynamic shared
-// memory: the ring, the weights, the output tile. ops/cuda/conv_chain.py
-// tc_plan mirrors this choice to pick BN.
-template <int K, int BN>
-bool tc_plan(int ks, int fuse_n, int& resident, int& ring, int& pair, size_t& smem) {
-  using G = TcGeom<K, BN>;
-  for (int p = fuse_n ? 1 : 0; p >= 0; --p) {
-    const size_t in_bytes = (size_t)G::IN_BYTES * (p + 1);
+// ring; with pair_ok, the first of these plans whose ring slots hold both
+// halves of a fuse_n pair (pair), else one half. in_tile is a staged input
+// tile, w_bytes one k-step's weights, fixed the rest (the output tile; the
+// int8 body's also its dequant scales and biases); smem is the dynamic
+// shared memory: the ring, the weights, the rest. The int8 body
+// (conv_int8.cuh) plans with it too.
+inline bool tc_plan_bytes(size_t in_tile, size_t w_bytes, size_t fixed, int ks, bool pair_ok,
+                          int& resident, int& ring, int& pair, size_t& smem) {
+  for (int p = pair_ok ? 1 : 0; p >= 0; --p) {
+    const size_t in_bytes = in_tile * (p + 1);
     for (int res = 1; res >= 0; --res)
       for (int r = 4; r >= 2; --r) {
-        const size_t s = res ? (size_t)r * in_bytes + (size_t)ks * G::W_BYTES + G::OUT_BYTES
-                             : (size_t)r * (in_bytes + G::W_BYTES) + G::OUT_BYTES;
+        const size_t s = res ? (size_t)r * in_bytes + (size_t)ks * w_bytes + fixed
+                             : (size_t)r * (in_bytes + w_bytes) + fixed;
         if (s <= (size_t)TC_SMEM_MAX) {
           resident = res, ring = r, pair = p, smem = s;
           return true;
@@ -174,6 +176,15 @@ bool tc_plan(int ks, int fuse_n, int& resident, int& ring, int& pair, size_t& sm
       }
   }
   return false;
+}
+
+// The bf16 body's plan; ops/cuda/conv_chain.py tc_plan mirrors this choice
+// to pick BN.
+template <int K, int BN>
+bool tc_plan(int ks, int fuse_n, int& resident, int& ring, int& pair, size_t& smem) {
+  using G = TcGeom<K, BN>;
+  return tc_plan_bytes(G::IN_BYTES, G::W_BYTES, G::OUT_BYTES, ks, fuse_n != 0, resident, ring,
+                       pair, smem);
 }
 
 __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
@@ -196,7 +207,10 @@ __device__ __forceinline__ bool tc_vec(const TcArgs& a, int ks) {
   return (cin % 8) == 0 && (!a.legs.s2d || ((cin >> 2) % 8) == 0);
 }
 
-__device__ __forceinline__ void tc_tile(const TcArgs& a, int tile, int& b, int& ty, int& tx) {
+// The batch image and tile row and column of tile (A: the launch
+// parameters of this body or of conv_int8.cuh's).
+template <typename A>
+__device__ __forceinline__ void tc_tile(const A& a, int tile, int& b, int& ty, int& tx) {
   tx = tile % a.tiles_x;
   const int rest = tile / a.tiles_x;
   ty = rest % a.tiles_y;
@@ -222,6 +236,20 @@ __device__ __forceinline__ void tc_copy_tile(const TcArgs& a, const __nv_bfloat1
       px = (size_t)reflect_index(y0 + r, a.H) * a.W + reflect_index(x0 + c, a.W);
     const size_t off = px * Cin + ch;
     cp_async16(buf + half * G::HALF + pix * 16, ch < Cin ? x + off : x, ch < Cin ? 16 : 0);
+  }
+}
+
+// Stage s's k-step weights (k-step ks; W_BYTES a k-step) into ring slot s
+// % ring, when they are not resident: the end of both bodies' stage loads.
+template <int W_BYTES, typename A, typename W>
+__device__ __forceinline__ void tc_load_weights(const A& a, int ks, int s, uint32_t s_w,
+                                                const W* wblk) {
+  constexpr int WE = sizeof(W);
+  if (!a.resident) {
+    const W* src = wblk + (size_t)ks * (W_BYTES / WE);
+    const uint32_t wdst = s_w + (s % a.ring) * W_BYTES;
+    for (int i = threadIdx.x; i < W_BYTES / 16; i += TC_THREADS)
+      cp_async16(wdst + 16 * i, src + (16 / WE) * i, 16);
   }
 }
 
@@ -299,23 +327,7 @@ __device__ __forceinline__ void tc_load_stage_t(const TcArgs& a, int s, uint32_t
       st_shared16(buf + half * G::HALF + pix * 16, pack8_bf16(v));
     }
   }
-  if (!a.resident) {
-    const __nv_bfloat16* src = wblk + (size_t)ks * (G::W_BYTES / 2);
-    const uint32_t wdst = s_w + (s % a.ring) * G::W_BYTES;
-    for (int i = threadIdx.x; i < G::W_BYTES / 16; i += TC_THREADS)
-      cp_async16(wdst + 16 * i, src + 8 * i, 16);
-  }
-}
-
-// The s2d flag is uniform over a launch: one test a stage, so the load of
-// a plain leg (conv_chain, conv_multi) is the code it always was.
-template <int K, int BN>
-__device__ __forceinline__ void tc_load_stage(const TcArgs& a, int s, uint32_t s_in,
-                                              uint32_t s_w, const __nv_bfloat16* wblk) {
-  if (a.legs.s2d)
-    tc_load_stage_t<K, BN, true>(a, s, s_in, s_w, wblk);
-  else
-    tc_load_stage_t<K, BN, false>(a, s, s_in, s_w, wblk);
+  tc_load_weights<G::W_BYTES>(a, ks, s, s_w, wblk);
 }
 
 // Eight bf16 channels at two shared addresses, summed in f32 and rounded to
@@ -406,39 +418,66 @@ __device__ __forceinline__ void tc_store_out(const TcArgs& a, int tile, uint32_t
   }
 }
 
-template <int K, int BN>
-__global__ void __launch_bounds__(TC_THREADS, 1)
-conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
-  using G = TcGeom<K, BN>;
-  constexpr int MT = G::MT;
+// ---------------------------------------------------------------------------
+// The stage loop of both wgmma conv bodies
+// ---------------------------------------------------------------------------
+// One loop runs this body (bf16, TcBf16 below) and the int8 one
+// (conv_int8.cuh Q8Op): ring prologue, per stage the wait, the fuse_n pair
+// sum in shared memory, the wgmmas over every tap, then while they run the
+// previous tile's store and the next stage's copies, and a tile's epilogue
+// after its last k-step. Op, the operand traits, gives what differs:
+//   Args, Acc, G             launch parameters, accumulator type, geometry
+//   W_BYTES                  one k-step's packed weights in a block's N slice
+//   LBO, KW, TAP, HALVES     the A descriptor's leading byte offset, wgmmas a
+//                            row of taps and the pixels between their taps,
+//                            16-byte halves staged a pixel (tap pairs: 16, (K
+//                            + 1) / 2, 2, 1; else HALF, K, 1, 2)
+//   mma                      one wgmma
+//   start                    the block's set-up before the ring's prologue
+//   load_stage               stage s's copies into its ring slot: the input
+//                            tile, then tc_load_weights
+//   pair_vec, sum16          whether k-step ks, in a plan with a fuse_n pair
+//                            in shared memory (TcArgs::pair), sums it there;
+//                            16 bytes of it summed in place
+//   stage_out<ACT>           the tile's epilogue into the output tile
+//   store_out                the output tile to global memory
+// Both are forced inline, so each instance compiles to the loop it had
+// when each body held its own copy.
+
+template <class Op>
+__device__ __forceinline__ void tc_conv(const typename Op::Args& a) {
+  using G = typename Op::G;
+  constexpr int K = G::K, BN = G::BN, MT = G::MT;
   extern __shared__ __align__(128) uint8_t tc_smem[];
   const uint32_t s_in = smem_u32(tc_smem);
   const uint32_t s_w = s_in + a.ring * G::IN_BYTES * (a.pair ? 2 : 1);
-  const uint32_t s_out = s_w + (a.resident ? a.KS : a.ring) * G::W_BYTES;
+  const uint32_t s_out = s_w + (a.resident ? a.KS : a.ring) * Op::W_BYTES;
   // warp-uniform (a shuffle from lane 0), so the descriptors below live in
   // uniform registers and each wgmma's is one add of an immediate
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int nb = blockIdx.y;
-  const __nv_bfloat16* wblk = a.w + (size_t)nb * a.KS * (G::W_BYTES / 2);
+  constexpr int WE = sizeof(*a.w);  // bytes a weight element
+  const auto wblk = a.w + (size_t)nb * a.KS * (Op::W_BYTES / WE);
   const int my_tiles =
       (int)blockIdx.x < a.n_tiles ? (a.n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   const int S = my_tiles * a.KS;
 
+  Op::start(a, s_out, nb);
   // resident weights: the block's N slice of every k-step, in the first group
   if (a.resident)
-    for (int i = threadIdx.x; i < a.KS * (G::W_BYTES / 16); i += TC_THREADS)
-      cp_async16(s_w + 16 * i, wblk + 8 * i, 16);
+    for (int i = threadIdx.x; i < a.KS * (Op::W_BYTES / 16); i += TC_THREADS)
+      cp_async16(s_w + 16 * i, wblk + (16 / WE) * i, 16);
   for (int s = 0; s < a.ring - 1; ++s) {
-    if (s < S) tc_load_stage<K, BN>(a, s, s_in, s_w, wblk);
+    if (s < S) Op::load_stage(a, s, s_in, s_w, wblk);
     cp_async_commit();
   }
 
-  float acc[MT][BN / 2];
+  typename Op::Acc acc[MT][BN / 2];
 
   int staged = -1;  // the tile whose outputs wait in s_out
   for (int s = 0; s < S; ++s) {
-    // stage s has landed (each thread's own copies), is visible to the
-    // async proxy, and every warpgroup is done with stage s - 1's slot
+    // stage s has landed (each thread's own copies and stores), is visible
+    // to the async proxy, and every warpgroup is done with stage s - 1's slot
     if (a.ring == 4)
       cp_async_wait<2>();
     else if (a.ring == 3)
@@ -450,18 +489,18 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
 
     const int ks = s % a.KS;
     const uint32_t buf = s_in + (s % a.ring) * G::IN_BYTES;
-    if (a.pair && tc_vec(a, ks)) {
-      // the fuse_n pair: the sibling's buffer added into the slot, summed in
-      // f32 and rounded once, as the register path sums it
-      for (int i = threadIdx.x; i < G::IN_H * G::IN_W * 2; i += TC_THREADS) {
-        const uint32_t at = buf + (i & 1) * G::HALF + (i >> 1) * 16;
-        st_shared16(at, tc_sum_pair(at, at + a.ring * G::IN_BYTES));
+    if (a.pair && Op::pair_vec(a, ks)) {
+      // the fuse_n pair: the sibling's buffer added into the slot, as the
+      // register path sums it
+      for (int i = threadIdx.x; i < G::IN_H * G::IN_W * Op::HALVES; i += TC_THREADS) {
+        const uint32_t at = Op::HALVES == 2 ? buf + (i & 1) * G::HALF + (i >> 1) * 16 : buf + i * 16;
+        Op::sum16(at, at + a.ring * G::IN_BYTES);
       }
       fence_proxy_async();
       __syncthreads();
     }
-    const uint32_t wk = s_w + (a.resident ? ks : s % a.ring) * G::W_BYTES;
-    const uint64_t da0 = wgmma_desc(buf + wg * MT * G::IN_W * 16, G::HALF, 128);
+    const uint32_t wk = s_w + (a.resident ? ks : s % a.ring) * Op::W_BYTES;
+    const uint64_t da0 = wgmma_desc(buf + wg * MT * G::IN_W * 16, Op::LBO, 128);
     const uint64_t db0 = wgmma_desc(wk, BN * 16, 128);
 #pragma unroll
     for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
@@ -470,13 +509,13 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
 #pragma unroll
     for (int kh = 0; kh < K; ++kh) {
 #pragma unroll
-      for (int kw = 0; kw < K; ++kw) {
-        const uint64_t db = desc_add(db0, (kh * K + kw) * BN * 32);
+      for (int j = 0; j < Op::KW; ++j) {
+        const uint64_t db = desc_add(db0, (kh * Op::KW + j) * BN * 32);
         // a tile's first product overwrites the accumulators
-        const int scale_d = ks > 0 || kh > 0 || kw > 0;
+        const int scale_d = ks > 0 || kh > 0 || j > 0;
 #pragma unroll
         for (int m = 0; m < MT; ++m)
-          wgmma_bf16<BN>(acc[m], desc_add(da0, ((m + kh) * G::IN_W + kw) * 16), db, scale_d);
+          Op::mma(acc[m], desc_add(da0, ((m + kh) * G::IN_W + Op::TAP * j) * 16), db, scale_d);
       }
     }
     wgmma_commit();
@@ -484,9 +523,9 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
     // tile's outputs to global memory, the copies of stage s + ring - 1
     // (into the slot stage s - 1 used). Interleaved with the wgmmas' issue
     // (a K-th after each row of taps) they made enc1 slower.
-    if (staged >= 0) tc_store_out<K, BN>(a, staged, s_out, nb);
+    if (staged >= 0) Op::store_out(a, staged, s_out, nb);
     staged = -1;
-    if (s + a.ring - 1 < S) tc_load_stage<K, BN>(a, s + a.ring - 1, s_in, s_w, wblk);
+    if (s + a.ring - 1 < S) Op::load_stage(a, s + a.ring - 1, s_in, s_w, wblk);
     cp_async_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -497,19 +536,90 @@ conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
     // previous tile out of it
     __syncthreads();
     switch (a.act) {
-      case ACT_RELU: tc_stage_out<K, BN, ACT_RELU>(a, acc, s_out, nb); break;
-      case ACT_RELU6: tc_stage_out<K, BN, ACT_RELU6>(a, acc, s_out, nb); break;
-      case ACT_LRELU: tc_stage_out<K, BN, ACT_LRELU>(a, acc, s_out, nb); break;
-      case ACT_TANH: tc_stage_out<K, BN, ACT_TANH>(a, acc, s_out, nb); break;
-      default: tc_stage_out<K, BN, ACT_NONE>(a, acc, s_out, nb);
+      case ACT_RELU: Op::template stage_out<ACT_RELU>(a, acc, s_out, nb); break;
+      case ACT_RELU6: Op::template stage_out<ACT_RELU6>(a, acc, s_out, nb); break;
+      case ACT_LRELU: Op::template stage_out<ACT_LRELU>(a, acc, s_out, nb); break;
+      case ACT_TANH: Op::template stage_out<ACT_TANH>(a, acc, s_out, nb); break;
+      default: Op::template stage_out<ACT_NONE>(a, acc, s_out, nb);
     }
     staged = blockIdx.x + (s / a.KS) * gridDim.x;
   }
   if (staged >= 0) {
     __syncthreads();
-    tc_store_out<K, BN>(a, staged, s_out, nb);
+    Op::store_out(a, staged, s_out, nb);
   }
   cp_async_wait<0>();
+}
+
+// The bf16 operand traits of tc_conv.
+template <int K, int BN>
+struct TcBf16 {
+  using Args = TcArgs;
+  using Acc = float;
+  using G = TcGeom<K, BN>;
+  static constexpr int W_BYTES = G::W_BYTES, LBO = G::HALF, KW = K, TAP = 1, HALVES = 2;
+  static __device__ __forceinline__ void start(const TcArgs&, uint32_t, int) {}
+  // the s2d flag is uniform over a launch: one test a stage, so the load
+  // of a plain leg (conv_chain, conv_multi) is the code it always was
+  static __device__ __forceinline__ void load_stage(const TcArgs& a, int s, uint32_t s_in,
+                                                    uint32_t s_w, const __nv_bfloat16* wblk) {
+    if (a.legs.s2d)
+      tc_load_stage_t<K, BN, true>(a, s, s_in, s_w, wblk);
+    else
+      tc_load_stage_t<K, BN, false>(a, s, s_in, s_w, wblk);
+  }
+  static __device__ __forceinline__ bool pair_vec(const TcArgs& a, int ks) {
+    return tc_vec(a, ks);
+  }
+  // summed in f32 and rounded once
+  static __device__ __forceinline__ void sum16(uint32_t at, uint32_t sib) {
+    st_shared16(at, tc_sum_pair(at, sib));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    wgmma_bf16<BN>(d, da, db, scale_d);
+  }
+  template <int ACT>
+  static __device__ __forceinline__ void stage_out(const TcArgs& a, float (&acc)[G::MT][BN / 2],
+                                                   uint32_t s_out, int nb) {
+    tc_stage_out<K, BN, ACT>(a, acc, s_out, nb);
+  }
+  static __device__ __forceinline__ void store_out(const TcArgs& a, int tile, uint32_t s_out,
+                                                   int nb) {
+    tc_store_out<K, BN>(a, tile, s_out, nb);
+  }
+};
+
+template <int K, int BN>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+conv_chain_tc_kernel(const __grid_constant__ TcArgs a) {
+  tc_conv<TcBf16<K, BN>>(a);
+}
+
+// The persistent grid of a wgmma conv body (this one, conv_int8.cuh's): at
+// most as many blocks of `kernel` as fit on the SMs beside `smem` of
+// dynamic shared memory, n_nb slices of N in the grid's y. Sets the tiling
+// of a (th rows of TC_TW pixels a tile). 0 or a cudaError_t.
+template <typename A>
+int tc_grid(const void* kernel, A& a, int th, size_t smem, int n_nb, dim3& grid) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, TC_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  a.tiles_x = (a.W + TC_TW - 1) / TC_TW;
+  a.tiles_y = (a.H + th - 1) / th;
+  const long long tiles = (long long)a.tiles_x * a.tiles_y * a.b_out;
+  if (tiles > 0x7fffffffLL || n_nb > 65535) return (int)cudaErrorInvalidConfiguration;
+  a.n_tiles = (int)tiles;
+  // every block resident at once: the blocks of all N slices fit on the SMs
+  // (rounding up put a few blocks in a second wave that then walked their
+  // whole share of tiles alone, doubling the time of DB3_1 conv1's 5 slices)
+  const int per_nb = sms * occ / n_nb > 0 ? sms * occ / n_nb : 1;
+  grid = dim3((unsigned)(a.n_tiles < per_nb ? a.n_tiles : per_nb), (unsigned)n_nb);
+  return 0;
 }
 
 template <int K, int BN>
@@ -524,25 +634,10 @@ int launch_chain_tc(TcArgs a, int cout_pad, cudaStream_t s) {
       cudaFuncSetAttribute(conv_chain_tc_kernel<K, BN>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, conv_chain_tc_kernel<K, BN>,
-                                                      TC_THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_nb = cout_pad / BN;
-  a.tiles_x = (a.W + TC_TW - 1) / TC_TW;
-  a.tiles_y = (a.H + G::TH - 1) / G::TH;
-  const long long tiles = (long long)a.tiles_x * a.tiles_y * a.b_out;
-  if (tiles > 0x7fffffffLL || n_nb > 65535) return (int)cudaErrorInvalidConfiguration;
-  a.n_tiles = (int)tiles;
-  // every block resident at once: the blocks of all N slices fit on the SMs
-  // (rounding up put a few blocks in a second wave that then walked their
-  // whole share of tiles alone, doubling the time of DB3_1 conv1's 5 slices)
-  const int per_nb = sms * occ / n_nb > 0 ? sms * occ / n_nb : 1;
-  const dim3 grid((unsigned)(a.n_tiles < per_nb ? a.n_tiles : per_nb), (unsigned)n_nb);
+  dim3 grid;
+  const int e = tc_grid((const void*)conv_chain_tc_kernel<K, BN>, a, G::TH, smem,
+                        cout_pad / BN, grid);
+  if (e) return e;
   conv_chain_tc_kernel<K, BN><<<grid, TC_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

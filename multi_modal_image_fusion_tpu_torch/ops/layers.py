@@ -53,8 +53,11 @@ Routes of a conv:
   input (a list of legs concatenated, a fuse_n sum taken in the input's
   dtype) is quantized on the fold of its calibrated amax, or of the
   dynamic per-channel max of that input when the layer was not
-  calibrated. Depthwise and stride-2 layers keep their float routes. The
-  route is forward-only: it raises when a gradient is needed.
+  calibrated. A calibrated layer hands conv_int8 its legs and fuse_n,
+  which the kernel reads in place (the same function); the dynamic max
+  needs the whole input, so an uncalibrated layer builds it first.
+  Depthwise and stride-2 layers keep their float routes. The route is
+  forward-only: it raises when a gradient is needed.
 
 During ops/quant.calibrate every layer records the per-channel max |x| of
 its effective input under its flax path (`qpath`, set by
@@ -73,7 +76,7 @@ from torch import nn
 from .cuda.conv_chain import (ACT_CODES, apply_act, batch_step, conv_chain,
                               conv_gray_enter, conv_gray_exit)
 from .cuda.conv_dw import conv_dw
-from .cuda.conv_int8 import conv_int8, conv_int8_chain
+from .cuda.conv_int8 import Int8Weights, conv_int8, conv_int8_chain
 from .cuda.conv_multi import concat_legs, conv_multi, legs_n_out
 from .cuda.conv_valid import conv_valid
 from .cuda.conv_vjp import conv_valid_fast
@@ -269,6 +272,9 @@ class ConvLayer(nn.Module):
             return self._forward_legs(x, fuse_n)
         if self.groups != 1:
             return self.depthwise(x)
+        qc = self._int8_in_place()
+        if qc is not None:
+            return self._int8(x, qc, fuse_n)
         if fuse_n and (self.stride != 1 or self._training_route(x)
                        or self._whole_input()):
             x, fuse_n = x[:fuse_n] + x[fuse_n:], 0
@@ -317,30 +323,40 @@ class ConvLayer(nn.Module):
             return None
         return qc
 
-    def _forward_only(self, x):
-        if self._needs_grad(x):
+    def _int8_in_place(self):
+        """The int8 route of a calibrated layer outside calibration, whose
+        legs and fuse_n conv_int8 reads in place, or None."""
+        qc = None if calibrating() else self._int8_route()
+        return qc if qc is not None and self.qpath in qc.amax else None
+
+    def _forward_only(self, *xs):
+        if self._needs_grad(*xs):
             raise RuntimeError(
                 "int8 inference is forward-only: run the model under "
                 "torch.no_grad() inside quantized_inference")
 
-    def _int8(self, x, qc):
+    def _int8(self, x, qc, fuse_n=0):
         """The int8 route: the fold of the calibrated (else the dynamic)
         per-channel amax, the folded weights quantized per output channel,
-        then conv_int8 (JAX ops/layers.py:644-691)."""
-        self._forward_only(x)
+        then conv_int8 (JAX ops/layers.py:644-691) on x, a tensor or, for a
+        calibrated layer, a list of legs, with fuse_n. The weights are
+        packed for the kernel once per context (Int8Weights)."""
+        self._forward_only(*([t for t, _ in x] if isinstance(x, list)
+                             else [x]))
         amax = qc.amax.get(self.qpath)
 
         def prepare(a_in):
             f = choose_fold(a_in, self.weight,
                             mode=os.environ.get("MMIF_INT8_FOLD", "smooth"))
             qw, sw = quantize_weights(fold_weights(self.weight, f))
-            return f, qw, sw
+            return f, qw, sw, Int8Weights(qw, sw, self.bias, f)
         if amax is None:
-            f, qw, sw = prepare(x.abs().amax(dim=(0, 1, 2)).float())
+            f, qw, sw, wts = prepare(x.abs().amax(dim=(0, 1, 2)).float())
         else:
-            f, qw, sw = qc.cached((id(self), "conv_int8"),
-                                  lambda: prepare(amax))
-        return conv_int8(x, qw, sw, f, self.bias, self.act)
+            f, qw, sw, wts = qc.cached((id(self), "conv_int8"),
+                                       lambda: prepare(amax))
+        return conv_int8(x, qw, sw, f, self.bias, self.act, fuse_n,
+                         weights=wts)
 
     def chain_int8(self, x, amax, fuse_n=0, out_to=None, out_amax=None):
         """DeepFuse's int8 chain leg (JAX ops/pallas/hiw_int8.py:260-365):
@@ -361,11 +377,13 @@ class ConvLayer(nn.Module):
                 f_next = hiw_fold_scale(out_amax, out_to.weight)
                 sw = sw / f_next
                 b = None if b is None else b / f_next
-            return qw, sw, b, 1.0 / f
-        qw, dq, b, invf = qc.cached((id(self), "chain", id(out_to)), prepare)
+            invf = 1.0 / f
+            return qw, sw, b, invf, Int8Weights(qw, sw, b, invf)
+        qw, dq, b, invf, wts = qc.cached((id(self), "chain", id(out_to)),
+                                         prepare)
         return conv_int8_chain(x, qw, dq, b, self.act, invf, fuse_n,
                                out_int8=out_to is not None,
-                               out_dtype=self.weight.dtype)
+                               out_dtype=self.weight.dtype, weights=wts)
 
     def depthwise(self, x, lo=0, add=None):
         """Depthwise layer over channels [lo, lo + in_ch) of x (B, H, W,
@@ -397,6 +415,9 @@ class ConvLayer(nn.Module):
 
     def _forward_legs(self, legs, fuse_n):
         n_out = legs_n_out(legs, fuse_n)
+        qc = self._int8_in_place()
+        if qc is not None:
+            return self._int8(legs, qc, fuse_n)
         if self._whole_input():
             return self(concat_sum(legs, fuse_n, n_out))
         if self.stride != 1 or self._training_route(*[t for t, _ in legs]):

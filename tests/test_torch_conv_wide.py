@@ -9,7 +9,8 @@ the parts are summed, then the bias and the activation are applied once;
 40 and 56, k1 and k3, fuse_n, every fused activation. Tolerance 1e-5
 (f32 on both sides; the kernel sums its products in another order).
 
-Also: the int8 kernel's output-channel block (`pick_bn`), ConvLayer's wide
+Also: the int8 body's output-channel block at UNFusion's decoder layers
+(`pick_bn_int8`; its plans: tests/test_torch_conv_int8.py), ConvLayer's wide
 route in serving and in training, and the plain version's batch chunks. The
 bf16 kernel's weight packing, block and staged source index are conv_chain's
 (tests/test_torch_conv_chain_tc.py).
@@ -25,7 +26,8 @@ from multi_modal_image_fusion_tpu.ops.layers import get_act
 from multi_modal_image_fusion_tpu.ops.pallas.conv_kernel import (
     chain_enter, chain_exit, conv_tlane_chain)
 from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_wide as cw
-from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import pick_bn
+from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import \
+    pick_bn_int8
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import concat_legs
 from multi_modal_image_fusion_tpu_torch.ops import layers
 from multi_modal_image_fusion_tpu_torch.ops.layers import ConvLayer, \
@@ -82,13 +84,15 @@ def test_plain_vs_jax_chain_kernel(name):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("cout,bn", [(8, 16), (16, 16), (24, 32), (40, 16),
-                                     (48, 16), (56, 64), (104, 16),
-                                     (160, 32), (376, 64), (640, 64)])
-def test_pick_bn(cout, bn):
-    """The int8 kernel's block (conv_int8.pick_bn; conv_wide's bf16 path
-    took it too until it moved onto conv_chain's pick_bn_tc)."""
-    assert pick_bn(cout) == bn
+@pytest.mark.parametrize("cins,cout,k,bn", [
+    ([16, 64], 40, 3, 48), ([40], 16, 3, 16), ([64, 256], 160, 3, 32),
+    ([160], 64, 3, 64), ([256, 1024], 640, 3, 128), ([640], 256, 3, 128),
+    ([16, 16, 64], 48, 3, 48), ([64, 64, 256], 192, 3, 48),
+    ([16, 16, 16, 64], 56, 3, 64), ([16], 1, 1, 16)])
+def test_pick_bn(cins, cout, k, bn):
+    """The int8 body's block (conv_int8.pick_bn_int8) at UNFusion's decoder
+    layers under --int8 (bf16), on their legs' quantized concat."""
+    assert pick_bn_int8(cout, sum(cins), k) == bn
 
 
 def test_plain_in_batch_chunks(monkeypatch):

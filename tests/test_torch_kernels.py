@@ -1158,6 +1158,92 @@ def test_conv_int8_chain(cuda, dt, k, cin, cout, src, dst, fuse):
         assert _int8_rel(y, want) > 1e-2
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k,cins,cout", [(3, [1], 16), (3, [16], 16),
+                                         (5, [16], 1), (7, [16], 32),
+                                         (3, [8, 8], 16)])
+def test_conv_int8_tap_pairs(cuda, dt, k, cins, cout):
+    """The tap-pair route (at most 16 input channels: a k-step's halves
+    carry taps kw and kw + 1, half 1 read one pixel on) equals its plain
+    version; the controls (taps transposed; the rows of taps in reverse
+    order) miss by more than 1e-2 of max|y|."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8, conv_int8_plain, tap_pairs)
+    assert tap_pairs(k, sum(cins))
+    x, _, bias, f, qw, sw, _ = _int8_layer(sum(cins), cout, k,
+                                           900 + k + sum(cins), cuda)
+    x = x.to(DTYPES[dt])
+    legs, ofs = [], 0
+    for c in cins:
+        legs.append((x[..., ofs:ofs + c].contiguous(), 0))
+        ofs += c
+    want = conv_int8_plain(x, qw, sw, f, bias, "relu")
+    got = conv_int8(legs, qw, sw, f, bias, "relu")
+    assert _int8_rel(got, want) <= (1e-6 if dt == "f32" else 2 ** -8)
+    for ctl in (qw.transpose(2, 3).contiguous(), qw.flip(2).contiguous()):
+        assert _int8_rel(conv_int8(legs, ctl, sw, f, bias, "relu"),
+                         want) > 1e-2
+
+
+@pytest.mark.parametrize("dst", ["int8", "float"])
+def test_conv_int8_chain_pair_in_shared_memory(cuda, dst):
+    """An int8-resident fuse_n pair at DeepFuse's dec0 shape (k7, 32 -> 32)
+    is copied into two buffers of a ring slot and summed in shared memory
+    (int8_plan's pair), saturating at +-127 as the plain version's sum;
+    the input at the int8 limits, so the saturation is exercised. The
+    control (one half's images in reverse order) misses by more than 1e-2
+    of max|y|."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8_chain, conv_int8_chain_plain, int8_plan, pick_bn_int8)
+    out = torch.int8 if dst == "int8" else torch.bfloat16
+    bn = pick_bn_int8(32, 32, 7, True, out)
+    assert int8_plan(7, bn, 32, True, out)[3] == 1
+    _, _, bias, f, qw, sw, _ = _int8_layer(32, 32, 7, 950, cuda)
+    g = torch.Generator(device=cuda).manual_seed(951)
+    x = torch.randint(-127, 128, (4, 33, 70, 32), generator=g, device=cuda,
+                      dtype=torch.int8)
+    x[:2, :5] = 127
+    x[2:, :5] = 100
+    dq, b = sw, bias
+    if dst == "int8":
+        y = conv_int8_chain_plain(x, qw, sw, bias, "relu", fuse_n=2,
+                                  out_dtype=torch.float32)
+        f_next = y.abs().amax(dim=(0, 1, 2)).clamp(min=1e-3) / 127
+        dq, b = sw / f_next, bias / f_next
+
+    def run(xx):
+        return conv_int8_chain(xx, qw, dq, b, "relu", fuse_n=2,
+                               out_int8=dst == "int8", out_dtype=out)
+    want = conv_int8_chain_plain(x, qw, dq, b, "relu", fuse_n=2,
+                                 out_int8=dst == "int8", out_dtype=out)
+    got = run(x)
+    assert torch.equal(got, want) if dst == "int8" \
+        else _int8_rel(got, want) <= 2 ** -8
+    assert _int8_rel(run(torch.cat([x[:2], x[2:].flip(0)])), want) > 1e-2
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_conv_int8_legs_in_place(cuda, dt):
+    """conv_int8 over legs read in place (three legs, a batch offset,
+    fuse_n, each leg quantized by its slice of the concat's fold) equals
+    the plain version of the concat route; the control (two legs' scale
+    slices swapped) misses by more than 1e-2 of max|y|."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import (
+        conv_int8, conv_int8_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.layers import concat_sum
+    x, _, bias, f, qw, sw, _ = _int8_layer(80, 48, 3, 960, cuda)
+    x = x.to(DTYPES[dt])
+    extra = _rand((1, *x.shape[1:3], 48), 961, cuda, DTYPES[dt]) * 2
+    legs = [(x[..., :16].contiguous(), 0), (x[..., 16:32].contiguous(), 0),
+            (torch.cat([extra, x[..., 32:]]).contiguous(), 1)]
+    want = conv_int8_plain(concat_sum(legs, 2, 2), qw, sw, f, bias, "relu")
+    got = conv_int8(legs, qw, sw, f, bias, "relu", fuse_n=2)
+    assert _int8_rel(got, want) <= (1e-6 if dt == "f32" else 2 ** -8)
+    f_swapped = torch.cat([f[16:32], f[:16], f[32:]])
+    assert _int8_rel(conv_int8(legs, qw, sw, f_swapped, bias, "relu",
+                               fuse_n=2), want) > 1e-2
+
+
 def test_int8_raises_with_grad_and_on_unsupported(cuda):
     """The int8 wrappers and ConvLayer's int8 route are forward-only: a CUDA
     input or bias that needs a gradient raises (under no_grad they run);
@@ -1224,8 +1310,11 @@ def test_int8_models_on_card_match_plain(cuda, name):
         got = model(x1, x2)
         assert dict(build.LAUNCHES) == _INT8_MODEL_LAUNCHES[name]
         kernels = layers.conv_int8, layers.conv_int8_chain
-        layers.conv_int8 = conv_int8_plain
-        layers.conv_int8_chain = conv_int8_chain_plain
+        # the plain versions take no `weights` (ConvLayer's cached packing)
+        layers.conv_int8 = lambda *a, weights=None, **kw: conv_int8_plain(
+            *a, **kw)
+        layers.conv_int8_chain = lambda *a, weights=None, **kw: \
+            conv_int8_chain_plain(*a, **kw)
         try:
             want = model(x1, x2)
         finally:
