@@ -20,10 +20,15 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    the int8 body (rows 11 and 12, conv_int8_tc_kernel): the integer wgmma
    instructions (IGMMA) of every instance, failing on an instance without
    them, on a warp-level IMMA in one, on a mma.sync conv_int8_kernel left
-   in the library, on a spill or on a serialized wgmma.
+   in the library, on a spill or on a serialized wgmma. And for the enter
+   and exit convs (csrc/conv_gray.cu): the warp-level bf16 MMAs (HMMA) of
+   every bf16 instance (none in the f32 ones), failing on an instance
+   without them or on a spill in the instances of the models' activations
+   (relu, none).
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
    the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
-   ones and UNFusion's nine encoder convs at their scales) against its
+   ones, DBNet's 32-channel enter, UNFusion's k1 exit and its nine encoder
+   convs at their scales) against its
    plain PyTorch version on the card: at the main path's shapes (1224x1024;
    bf16 batch 16 as the bench runs it, f32 batch 1 as the test CLI runs
    it) and at 45x61, with tolerances relative to the plain output's largest
@@ -33,7 +38,11 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    another order, one rounding to bf16, which may land on the neighbouring
    value). At the bench's shapes each bf16 conv_chain check has controls
    that must miss by 10x: the taps transposed, the halo zero-padded
-   instead of reflected, and for fuse_n one half's images in reverse order.
+   instead of reflected, and for fuse_n one half's images in reverse order;
+   so has each enter and exit check (the taps transposed, the zero halo,
+   the enter's two images swapped, a k1 exit's input channels reversed),
+   and the enter and exit are also checked where their last tile is
+   ragged (8x200, 1224x1000).
    Time the kernel, the plain version and, for the convs, one F.conv2d on
    the reflect-padded input in the same dtype (the pad timed apart), each
    with CUDA events over cold-L2 repetitions; compute each kernel's bound
@@ -383,7 +392,31 @@ def tensor_core_report(build, lib_path):
             "per_instance": {inst8(f): {"igmma": igmma[f], **i8_ptxas[f]}
                              for f in sorted(i8)}}
     print(f"SASS and ptxas -v, int8 conv_int8_tc_kernel: {json.dumps(int8)}")
-    return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl, int8
+    # rows 2 and 3 (csrc/conv_gray.cu): warp-level bf16 MMAs (HMMA) in every
+    # bf16 instance, none in the f32 ones; no spill in the instances of the
+    # models' activations (relu, none: the last template argument 1 or 0;
+    # the others, n1, take apply_act's switch and are reported)
+    gray = {}
+    g_ptxas = _ptxas_props(log, lambda f: "gray_e" in f)
+    for f in sorted(f for f in counts if "gray_enter_kernel" in f
+                    or "gray_exit_kernel" in f):
+        bf16 = "bfloat16" in f
+        kind = "enter" if "gray_enter" in f else "exit"
+        name = "{}/{}/{}".format(kind, "bf16" if bf16 else "f32", "/".join(
+            re.findall(r"Li(n?\d+)E", f)))
+        gray[name] = {"hmma": hmma[f], **g_ptxas.get(f, {})}
+        spill = f not in g_ptxas or (not name.endswith("/n1") and (
+            g_ptxas[f]["spill_stores"] or g_ptxas[f]["spill_loads"]))
+        if (bf16 and hmma[f] == 0) or (not bf16 and hmma[f]) or spill:
+            raise AssertionError(f"{name}: {gray[name]}: want HMMA in the "
+                                 f"bf16 instances only, no spills")
+    if len(gray) != 2 * (2 * 2 * 3 + 3 * 3):
+        raise AssertionError(f"conv_gray.cu instances: {sorted(gray)}")
+    print(f"SASS and ptxas -v, conv_gray.cu: {json.dumps(gray)}")
+    gray_sum = {"hmma": sum(v["hmma"] for v in gray.values()),
+                "instances": len(gray)}
+    return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl, int8, \
+        gray_sum
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
@@ -492,6 +525,10 @@ def _check_controls(torch, r, key, want, ctls):
               f"{CHAIN_TOL['bf16']})")
 
 
+# (h, w, pairs) where the enter's and exit's last tile is ragged
+# (conv_gray.cu: 128-pixel tile rows): a narrow image and a 1000-pixel one
+GRAY_RAGGED = [(8, 200, 2), (1224, 1000, 1)]
+
 # UNFusion's conv_chain launches (models/zoo.py:438-461, ops/blocks.py:
 # 181-197 of the port): CB2_0-CB4_0 and the six ECBs' k3 convs, over the
 # siamese fold's 2 images a pair, at their scale of 1224x1024 (_S):
@@ -535,6 +572,10 @@ def check_kernels(torch, F, dev, timer):
                1),
               ("densefuse.dec3", "conv_gray_exit", 16, 1, 3, None, False, 0,
                1),
+              ("dbnet.encode", "conv_gray_enter", 1, 32, 3, "relu", False, 0,
+               1),
+              ("unfusion.conv_out", "conv_gray_exit", 16, 1, 1, "relu", False,
+               0, 1),
               ("vifnet.dec1", "conv_chain", 128, 64, 3, "relu", False, 0, 1),
               ("vifnet.dec2", "conv_chain", 64, 32, 3, "relu", False, 0, 1),
               ("vifnet.dec3", "conv_chain", 32, 16, 3, "relu", False, 0, 1)]
@@ -546,10 +587,15 @@ def check_kernels(torch, F, dev, timer):
                    lo=-0.5, scale=2.0 / np.sqrt(cin * k * k))
         bias = _rand(torch, (cout,), 20 + cout, dev, torch.float32, lo=-0.5,
                      scale=0.1)
-        # (dtype, pairs, h, w): bench shape, test-CLI shape, odd small shape
+        # (dtype, pairs, h, w): bench shape, test-CLI shape, odd small shape;
+        # the enter and exit also where their last tile is ragged
         hs, ws = _S[scale]
-        for dt, n, h, w in (("bf16", BATCH, hs, ws), ("f32", 1, hs, ws),
-                            ("bf16", 2, 45, 61), ("f32", 2, 45, 61)):
+        shapes = [("bf16", BATCH, hs, ws), ("f32", 1, hs, ws),
+                  ("bf16", 2, 45, 61), ("f32", 2, 45, 61)]
+        if kern != "conv_chain":
+            shapes += [(dt, n, h, w) for h, w, n in GRAY_RAGGED
+                       for dt in ("bf16", "f32")]
+        for dt, n, h, w in shapes:
             dtype = dts[dt]
             wk = wt.to(dtype)
             b_out = n * per_pair
@@ -600,6 +646,23 @@ def check_kernels(torch, F, dev, timer):
                     ctls["one half reversed"] = run(xin=torch.cat(
                         [xin[:n], xin[n:].flip(0)]))
                 _check_controls(torch, r, f"conv_chain {name}", want, ctls)
+                del ctls
+            else:
+                # the enter and exit: the taps transposed, the halo
+                # zero-padded, the enter's two images swapped; a k1 exit
+                # (no halo, no taps) its input channels reversed
+                r.setdefault("min_control_rel_err", float("inf"))
+                ctls = {}
+                if k > 1:
+                    ctls["zero halo"] = _zero_halo_plain(torch, F, xn, wk,
+                                                         bias, act)
+                    ctls["taps transposed"] = run(wk.transpose(2, 3))
+                else:
+                    ctls["channels reversed"] = run(wk.flip(1))
+                if kern == "conv_gray_enter":
+                    ctls["images swapped"] = conv_gray_enter(b, a, wk, bias,
+                                                             act)
+                _check_controls(torch, r, f"{kern} {name}", want, ctls)
                 del ctls
             del want
             # timings at the bench's shape
@@ -2814,7 +2877,8 @@ def main():
     lib_path = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     build.library()
-    sass, nl_sass, int8_sass = tensor_core_report(build, lib_path)
+    sass, nl_sass, int8_sass, gray_sass = tensor_core_report(build,
+                                                           lib_path)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -3111,7 +3175,11 @@ def main():
                    "(conv_hiw_chain; depthwise as diagonal bands :157-185)",
     }
     replaces["conv_wide"] = WIDE_REPLACES
-    sources = {"ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu",
+    sources = {"conv_gray_enter":
+                   "multi_modal_image_fusion_tpu_torch/csrc/conv_gray.cu",
+               "conv_gray_exit":
+                   "multi_modal_image_fusion_tpu_torch/csrc/conv_gray.cu",
+               "ssim_maps": "multi_modal_image_fusion_tpu_torch/csrc/ssim.cu",
                "moments": "multi_modal_image_fusion_tpu_torch/csrc/moments.cu",
                "nl_minmax":
                    "multi_modal_image_fusion_tpu_torch/csrc/nl_attention.cu",
@@ -3152,7 +3220,9 @@ def main():
             "library_ms": None if None in lib else sum(lib),
             **({"sass": sass} if name in ("conv_chain", "conv_multi",
                                           "conv_wide")
-               else {"sass": nl_sass[name]} if name in nl_sass else {}),
+               else {"sass": nl_sass[name]} if name in nl_sass
+               else {"sass": gray_sass} if name.startswith("conv_gray")
+               else {}),
             **({"body": "multi_modal_image_fusion_tpu_torch/csrc/"
                         "conv_chain.cuh (conv_chain_tc_kernel; f32: "
                         "conv_chain_kernel)"} if name == "conv_wide" else {}),

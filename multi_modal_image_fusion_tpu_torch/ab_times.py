@@ -1,8 +1,8 @@
 """Device times of the bf16 `wgmma` conv layers of DeepFuse, DenseFuse,
-VIFNet, Res2Fusion and UNFusion's encoder, and of their benches, from one
-checkout of the port: run it once per checkout, in turns, to compare two
-commits on one card. With `--int8`, the same for the int8 kernels (rows 11
-and 12) and the `--int8` benches.
+VIFNet, Res2Fusion and UNFusion's encoder, of the models' enter and exit
+convs, and of their benches, from one checkout of the port: run it once
+per checkout, in turns, to compare two commits on one card. With `--int8`,
+the same for the int8 kernels (rows 11 and 12) and the `--int8` benches.
 
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
         [--tag parent] [--benches deepfuse,densefuse,vifnet,res2fusion]
@@ -11,11 +11,15 @@ and 12) and the `--int8` benches.
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
 the wrappers whose signatures every checkout since the `wgmma` body shares
-(`conv_chain`, `conv_multi`; with `--int8` every checkout since the int8
-kernels': `conv_int8` on one tensor, `conv_int8_chain`). Layers: bf16, 16
-pairs of 1224x1024 (DeepFuse enc1 and dec0, DenseFuse dec0, VIFNet dec0;
-UNFusion's encoder convs at their scale, 32 images; Res2Fusion's RB2
-pwconv1 at 2 pairs, its bench batch); `--int8`: DeepFuse's chain legs
+(`conv_chain`, `conv_multi`, `conv_gray_enter`, `conv_gray_exit`; with
+`--int8` every checkout since the int8 kernels': `conv_int8` on one tensor,
+`conv_int8_chain`). Layers: bf16, 16 pairs of 1224x1024 (DeepFuse enc1 and
+dec0, DenseFuse dec0, VIFNet dec0; UNFusion's encoder convs at their scale,
+32 images; Res2Fusion's RB2 pwconv1 at 2 pairs, its bench batch); the
+enter and exit convs (`gray_cases`: DeepFuse enc0 and dec2 k5, DenseFuse
+conv_in and dec3 k3, UNFusion conv_out k1, DBNet's 32-channel enter) in
+bf16 at 16 pairs and DeepFuse's two in f32 at the test CLI's one pair;
+`--int8`: DeepFuse's chain legs
 (enc1 to int8, dec0 int8 with fuse_n to int8, dec1 int8 to bf16),
 DenseFuse's dense2 and dec0 (their concat) and UNFusion's DB3_1 conv1
 (1280 -> 640 at 306x256), bf16 16 pairs. Random centred inputs from a
@@ -66,6 +70,37 @@ def layer_cases():
         cases.append((f"unfusion.{name}", "conv_chain", [cin], cout, 3, 0,
                       2 * PAIRS, H >> lvl, W >> lvl))
     return cases
+
+
+def gray_cases():
+    """(name, kernel, c_in, c_out, k, act, pairs, dtype): the enter reads
+    both images of each pair, the exit one image a pair."""
+    cases = [("deepfuse.enc0", "conv_gray_enter", 1, 16, 5, "relu"),
+             ("deepfuse.dec2", "conv_gray_exit", 16, 1, 5, None),
+             ("densefuse.conv_in", "conv_gray_enter", 1, 16, 3, "relu"),
+             ("densefuse.dec3", "conv_gray_exit", 16, 1, 3, None),
+             ("unfusion.conv_out", "conv_gray_exit", 16, 1, 1, "relu"),
+             ("dbnet.encode", "conv_gray_enter", 1, 32, 3, "relu")]
+    out = [c + (PAIRS, "bf16") for c in cases]
+    return out + [(f"{c[0]}.f32",) + c[1:] + (1, "f32") for c in cases[:2]]
+
+
+def gray_layer(torch, case, gen, dev):
+    """The call of one enter or exit case on seeded inputs and weights."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
+        conv_gray_enter, conv_gray_exit)
+    _, kern, cin, cout, k, act, n, dt = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    wt = ((torch.rand((cout, cin, k, k), generator=gen, device=dev) - 0.5)
+          * 0.4).to(dtype)
+    bias = torch.rand((cout,), generator=gen, device=dev) - 0.5
+    if kern == "conv_gray_enter":
+        a, b = (torch.rand((n, H, W, 1), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        return lambda: conv_gray_enter(a, b, wt, bias, act)
+    x = (torch.rand((n, H, W, cin), generator=gen, device=dev)
+         - 0.5).to(dtype)
+    return lambda: conv_gray_exit(x, wt, bias, act)
 
 
 def int8_layer_cases():
@@ -193,6 +228,13 @@ def main(argv=None):
     with torch.no_grad():
         for case in int8_layer_cases() if args.int8 else []:
             fn = int8_layer(torch, case, gen, dev)
+            if not bool(torch.isfinite(fn().float()).all()):
+                raise RuntimeError(f"{case[0]}: output not finite")
+            layers[case[0]] = timed(fn)
+            del fn
+            torch.cuda.empty_cache()
+        for case in [] if args.int8 else gray_cases():
+            fn = gray_layer(torch, case, gen, dev)
             if not bool(torch.isfinite(fn().float()).all()):
                 raise RuntimeError(f"{case[0]}: output not finite")
             layers[case[0]] = timed(fn)

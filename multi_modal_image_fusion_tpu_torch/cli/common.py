@@ -83,10 +83,10 @@ def get_train_parser():
                "hand-written conv_valid kernel (ops/cuda/conv_vjp.py); "
                "without it the steps run F.conv2d")
     _bool_flag(p, "multihost", False,
-               "multi-host training (not ported: ROADMAP.md queue 1 item 8)")
+               "multi-host training (not ported: ROADMAP.md queue 1 item 7)")
     p.add_argument("--spatial", default=0, type=int,
                    help="height-shard each image over N devices (not "
-                        "ported: ROADMAP.md queue 1 item 8); 0/1 = off")
+                        "ported: ROADMAP.md queue 1 item 7); 0/1 = off")
     p.add_argument("--amp", default=None, choices=["bf16", "f32"],
                    help="bf16: f32 master params cast to bf16 at the model "
                         "boundary; loss, gradients and Adam moments stay "
@@ -160,7 +160,7 @@ def get_eval_parser():
                         "columns) or one sheet per metric (method columns)")
     p.add_argument("--spatial", default=0, type=int,
                    help="height-shard each image over N devices (not "
-                        "ported: ROADMAP.md queue 1 item 8); 0/1 = off")
+                        "ported: ROADMAP.md queue 1 item 7); 0/1 = off")
     return p
 
 

@@ -117,7 +117,7 @@ def main(argv=None):
     args = get_eval_parser().parse_args(argv)
     if args.spatial > 1:
         raise NotImplementedError(
-            "--spatial > 1 is not ported yet (ROADMAP.md queue 1 item 8, "
+            "--spatial > 1 is not ported yet (ROADMAP.md queue 1 item 7, "
             "parallelism)")
     device = resolve_device(args.device)
 

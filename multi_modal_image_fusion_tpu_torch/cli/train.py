@@ -164,7 +164,7 @@ def main(argv=None):
     if args.multihost or args.spatial > 1:
         raise NotImplementedError(
             "--multihost and --spatial > 1 are not ported yet (ROADMAP.md "
-            "queue 1 item 8, parallelism)")
+            "queue 1 item 7, parallelism)")
     device = resolve_device(args.device)
     setup_seed(args.seed)
     # f32 means f32: cuDNN would run the F.conv2d route and the loss filters

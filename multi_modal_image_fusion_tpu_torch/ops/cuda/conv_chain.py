@@ -1,45 +1,53 @@
 """Reflect-SAME conv kernels of the serving chain, with their plain versions.
 
-Three wrappers over csrc/conv_chain.cu, all NHWC, f32 accumulation:
+Three wrappers, all NHWC, f32 accumulation:
 
-- `conv_chain(x, weight, bias, act, fuse_n)` replaces the TPU kernel
-  `ops/pallas/hiw_kernel.py:335 conv_hiw_chain`: a k x k reflect-SAME conv
-  with bias and activation; with `fuse_n > 0` the input holds 2n images and
-  the kernel convolves x[i] + x[i+n] (the siamese 'sum' fusion in the load).
-  Its kernel takes a list of input legs; `conv_multi.py` launches the same
-  kernel with several (`hiw_kernel.py:619 conv_hiw_chain_multi`).
-- `conv_gray_enter(img1, img2, weight, ...)` replaces
+- `conv_chain(x, weight, bias, act, fuse_n)` (csrc/conv_chain.cu) replaces
+  the TPU kernel `ops/pallas/hiw_kernel.py:335 conv_hiw_chain`: a k x k
+  reflect-SAME conv with bias and activation; with `fuse_n > 0` the input
+  holds 2n images and the kernel convolves x[i] + x[i+n] (the siamese 'sum'
+  fusion in the load). Its kernel takes a list of input legs;
+  `conv_multi.py` launches the same kernel with several
+  (`hiw_kernel.py:619 conv_hiw_chain_multi`).
+- `conv_gray_enter(img1, img2, weight, ...)` (csrc/conv_gray.cu) replaces
   `ops/pallas/conv_kernel.py:357 _chain_enter_gray` (reached by
   `hiw_enter`) together with the c_in=1 entry conv: it reads the grayscale
   pair directly, so the concat, the cast to the chain dtype and the reflect
   halo all happen in its load.
-- `conv_gray_exit(x, weight, ...)` replaces
+- `conv_gray_exit(x, weight, ...)` (csrc/conv_gray.cu) replaces
   `ops/pallas/conv_kernel.py:383 _chain_exit_gray` (reached by `hiw_exit`)
   together with the c_out=1 exit conv, writing (B, H, W, 1) directly.
 
 What bounds them on an H100 and what the design does about it is in the
-headers of csrc/conv_chain.cu and csrc/conv_chain.cuh: the wide layers are
-bound by arithmetic; in bf16 `conv_chain` and `conv_multi` run a `wgmma`
-implicit GEMM on the tensor cores with an asynchronous copy ring
-(`pack_weights_tc` packs its weights, `pick_bn_tc` picks its block of
-output channels), in f32 register-blocked FMAs on the CUDA cores; the thin
-enter/exit layers have their own loops.
+headers of csrc/conv_chain.cu, csrc/conv_chain.cuh and csrc/conv_gray.cu:
+the wide layers are bound by arithmetic; in bf16 `conv_chain` and
+`conv_multi` run a `wgmma` implicit GEMM on the tensor cores with an
+asynchronous copy ring (`pack_weights_tc` packs its weights, `pick_bn_tc`
+picks its block of output channels), in f32 register-blocked FMAs on the
+CUDA cores. The thin enter/exit layers are bound by bytes: in bf16 their
+products run on `mma.sync` (weights packed as B fragments by
+`pack_gray_enter` and `pack_gray_exit`), in f32 on FMAs, both on a
+persistent grid with a `cp.async` ring and coalesced stores (tiles:
+`GRAY_TILES`).
 
 Each wrapper takes its plain version (`*_plain`, F.pad + F.conv2d in f32;
-`conv_chain_plain` rounds the weight and the fuse_n sum to the input's
-dtype first, as the JAX kernel does) only for CPU tensors. A CUDA tensor
+the weight, and conv_chain's fuse_n sum, rounded to the input's dtype
+first, as the JAX kernel does) only for CPU tensors. A CUDA tensor
 launches the kernel or raises; there is no fallback. The kernels are
 forward-only: on a CUDA tensor with grad mode on and an input, weight or
 bias that requires grad, the wrappers raise (training goes through
 ops/cuda/conv_vjp.py). They are built for
 what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
 and k7 (DeepFuse), `conv_gray_enter` k3 and k5, `conv_gray_exit` k1
-(UNFusion), k3 and k5, output channels a multiple of 16 (but the exit's 1),
-input and output in one dtype. The wrappers raise on anything else.
+(UNFusion), k3 and k5 (any Cin), output channels a multiple of 16 (but the
+exit's 1), input and output in one dtype. The wrappers raise on anything
+else.
 """
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,8 +56,9 @@ from .build import check_launch, check_no_grad, kernel_function, ptr, \
 
 __all__ = ["ACT_CODES", "apply_act", "chain_weights", "conv_chain",
            "conv_chain_plain", "conv_gray_enter", "conv_gray_enter_plain",
-           "conv_gray_exit", "conv_gray_exit_plain", "pack_weights_tc",
-           "pick_bn_tc", "tc_plan", "tc_weight_index"]
+           "conv_gray_exit", "conv_gray_exit_plain", "GRAY_TILES",
+           "gray_tile", "gray_weights", "pack_gray_enter", "pack_gray_exit",
+           "pack_weights_tc", "pick_bn_tc", "tc_plan", "tc_weight_index"]
 
 # epilogue activations the kernels fuse (csrc/common.cuh Act; the TPU
 # kernels' _apply_act, ops/pallas/conv_kernel.py:43)
@@ -114,14 +123,19 @@ def conv_chain_plain(x, weight, bias=None, act=None, fuse_n=0):
 
 
 def conv_gray_enter_plain(img1, img2, weight, bias=None, act="relu"):
-    """Plain version of conv_gray_enter."""
+    """Plain version of conv_gray_enter, the JAX chain's function in the
+    images' dtype: the weight rounded to it (hiw_kernel.py:387), the conv,
+    bias and activation in f32, the cast back."""
     x = img1 if img2 is None else torch.cat([img1, img2], dim=0)
-    return apply_act(_conv_nhwc_f32(x, weight, bias), act).to(img1.dtype)
+    return apply_act(_conv_nhwc_f32(x, weight.to(x.dtype), bias),
+                     act).to(x.dtype)
 
 
 def conv_gray_exit_plain(x, weight, bias=None, act=None):
-    """Plain version of conv_gray_exit."""
-    return apply_act(_conv_nhwc_f32(x, weight, bias), act).to(x.dtype)
+    """Plain version of conv_gray_exit, in x.dtype as conv_gray_enter_plain
+    is in the images'."""
+    return apply_act(_conv_nhwc_f32(x, weight.to(x.dtype), bias),
+                     act).to(x.dtype)
 
 
 def check_tensors(name, tensors):
@@ -264,6 +278,110 @@ def pack_weights_tc(weight, cins, bn):
     return wp.contiguous().reshape(-1)
 
 
+# csrc/conv_gray.cu's tiles: (output rows, output pixels a row)
+GRAY_TILES = {"enter": (4, 128), "exit": (8, 128)}
+
+
+def gray_tile(kind, b_out, h, w, tile):
+    """(image, first row, first column, rows, pixels) of output tile `tile`
+    of conv_gray.cu's rule for `kind` ('enter' or 'exit'), x fastest, and
+    the tile count: the last tile of a row or band is ragged where H or W
+    is not a multiple of GRAY_TILES[kind]."""
+    th, tw = GRAY_TILES[kind]
+    ty, tx = -(-h // th), -(-w // tw)
+    b, r = divmod(tile, ty * tx)
+    y0, x0 = r // tx * th, r % tx * tw
+    return (b, y0, x0, min(th, h - y0), min(tw, w - x0)), b_out * ty * tx
+
+
+def _enter_lanes(k):
+    """(parity, tap pair q, lane, element) -> (kh, kw) of the enter's B
+    fragments that hold a tap (the others are zero): lane (g, t) holds
+    B[2t, 2t+1][g] and B[2t+8, 2t+9][g] (common.cuh mma_bf16), B[j][co] =
+    w[co][2q + j // 8][j % 8 - d] with d = Q - k // 2 the window shift of
+    even (QE) or odd (QO) pixels (csrc/conv_gray.cu EnGeom)."""
+    p = k // 2
+    qs = (p + (p & 1), p + 1 - (p & 1))
+    out = {}
+    for par in range(2):
+        for q in range((k + 1) // 2):
+            for lane in range(32):
+                t = lane % 4
+                for e in range(4):
+                    j = 2 * t + (e & 1) + 8 * (e >> 1)
+                    kh, kw = 2 * q + j // 8, j % 8 - (qs[par] - p)
+                    if kh < k and 0 <= kw < k:
+                        out[par, q, lane, e] = (kh, kw)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _gray_index(kind, k, c, device):
+    """Flat indices into a weight (OIHW, flattened, a zero appended) that
+    give pack_gray_enter's or pack_gray_exit's layout."""
+    if kind == "enter":
+        cout, zero = c, c * k * k
+        nq = (k + 1) // 2
+        idx = np.full((2, nq, cout // 8, 32, 4), zero, np.int64)
+        for (par, q, lane, e), (kh, kw) in _enter_lanes(k).items():
+            for nt in range(cout // 8):
+                co = nt * 8 + lane // 4
+                idx[par, q, nt, lane, e] = (co * k + kh) * k + kw
+    else:
+        cin, zero = c, c * k * k
+        ks = -(-cin // 16)
+        idx = np.full((ks, k, 32, 4), zero, np.int64)
+        for s in range(ks):
+            for kh in range(k):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for e in range(4):
+                        ci = 16 * s + 2 * t + (e & 1) + 8 * (e >> 1)
+                        if ci < cin and g < k:
+                            idx[s, kh, lane, e] = (ci * k + kh) * k + g
+    return torch.from_numpy(idx.reshape(-1)).to(device)
+
+
+def _gather(weight, kind, c):
+    flat = F.pad(weight.detach().to(torch.bfloat16).reshape(-1), (0, 1))
+    return flat[_gray_index(kind, weight.shape[-1], c, flat.device)]
+
+
+def pack_gray_enter(weight):
+    """(Cout, 1, K, K) -> conv_gray_enter's bf16 B fragments, flat
+    [parity][(K + 1) / 2][Cout / 8][lane][4]: for even (parity 0) and odd
+    pixels, tap pair q, N tile nt and lane (g, t), the weights of output
+    channel nt * 8 + g at rows j = 2t, 2t+1, 2t+8, 2t+9 of the pair's B
+    (`_enter_lanes`), zero outside the taps."""
+    return _gather(weight, "enter", weight.shape[0])
+
+
+def pack_gray_exit(weight):
+    """(1, Cin, K, K) -> conv_gray_exit's bf16 B fragments, flat
+    [ceil(Cin / 16)][K][lane][4]: for k-step s, kernel row kh and lane (g,
+    t), w[ci][kh][g] at ci = 16 s + 2t, 2t+1, 2t+8, 2t+9 (N = kw = g), zero
+    past Cin and past the K taps."""
+    return _gather(weight, "exit", weight.shape[1])
+
+
+def gray_weights(kind, weight, bias, dtype):
+    """conv_gray_enter's or conv_gray_exit's weights and bias: bf16 packed
+    as B fragments (`pack_gray_enter`, `pack_gray_exit`); f32 [K][K][Cout]
+    for the enter, [ceil(Cin / 8)][K][K][8] (zero-padded channels) for the
+    exit. The bias in f32."""
+    bk = None if bias is None else bias.detach().float().contiguous()
+    if dtype == torch.bfloat16:
+        pack = pack_gray_enter if kind == "enter" else pack_gray_exit
+        return pack(weight), bk
+    if kind == "enter":
+        return weights_f32(weight, None)[0], bk
+    _, cin, k, _ = weight.shape
+    w0 = weight.detach()[0].float()
+    if cin % 8:
+        w0 = F.pad(w0, (0, 0, 0, 0, 0, -cin % 8))
+    return w0.reshape(-1, 8, k, k).permute(0, 2, 3, 1).contiguous(), bk
+
+
 def chain_weights(weight, bias, cins, dtype, fuse_n=0):
     """The conv_chain kernel's weights, bias and N block: bf16 packed for
     the wgmma body (`pack_weights_tc`, `pick_bn_tc` for the layer's
@@ -341,10 +459,7 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
         raise ValueError(f"conv_gray_enter: Cout must be a multiple of "
                          f"{_CO_TILE}, got {cout}")
     b_out = b * len(imgs)
-    if b_out * (cout // _CO_TILE) > _GRID_Z_MAX:
-        raise ValueError(f"conv_gray_enter: batch {b} too large for one "
-                         f"launch")
-    wk, bk = weights_f32(weight, bias)
+    wk, bk = gray_weights("enter", weight, bias, img1.dtype)
     y = torch.empty((b_out, h, w, cout), dtype=img1.dtype,
                     device=img1.device)
     fn = kernel_function("mmif_conv_gray_enter",
@@ -370,10 +485,7 @@ def conv_gray_exit(x, weight, bias=None, act=None):
     if weight.shape[0] != 1 or weight.shape[1] != cin:
         raise ValueError(f"conv_gray_exit: weight {tuple(weight.shape)} "
                          f"does not map {cin} channels to 1")
-    if b > _GRID_Z_MAX:
-        raise ValueError(f"conv_gray_exit: batch {b} too large for one "
-                         f"launch")
-    wk, bk = weights_f32(weight, bias)
+    wk, bk = gray_weights("exit", weight, bias, x.dtype)
     y = torch.empty((b, h, w, 1), dtype=x.dtype, device=x.device)
     fn = kernel_function("mmif_conv_gray_exit",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])

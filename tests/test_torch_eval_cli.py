@@ -154,7 +154,7 @@ def test_xlsx_writer_same_bytes_as_jax(tmp_path):
 
 
 def test_eval_cli_spatial_raises(dump):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         eval_cli.main(_args(dump, "port", "method") + ["--spatial", "2",
                                                        "--device", "cpu"])
 

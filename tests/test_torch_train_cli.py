@@ -141,7 +141,7 @@ def test_ae_then_init_from(root):
 
 @pytest.mark.parametrize("flag", [["--spatial", "2"], ["--multihost"]])
 def test_unported_options_raise(root, flag):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         _train(root, *flag)
 
 
