@@ -24,7 +24,11 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    and exit convs (csrc/conv_gray.cu): the warp-level bf16 MMAs (HMMA) of
    every bf16 instance (none in the f32 ones), failing on an instance
    without them or on a spill in the instances of the models' activations
-   (relu, none).
+   (relu, none). And for the pair kernels (csrc/conv_pair.cu): the HGMMA
+   and HMMA of the bf16 enter and exit (enc1 and dec1 on wgmma, enc0 and
+   dec2 on mma.sync), neither in the f32 ones, failing on a wgmma that
+   ptxas serialized or a spill in the instances of the models'
+   activations.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
    the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones, DBNet's 32-channel enter, UNFusion's k1 exit and its nine encoder
@@ -184,8 +188,9 @@ versions at 1224x1024, bf16 at the bench's 16 pairs and f32 at the test
 CLI's pair: the pair and the packed conv within conv_wide's tolerance
 (f32 1e-4 of max|y|, bf16 1e-3 beyond one ulp of each output), each with
 a control that must miss by 10x (the mid's halo computed over the
-extended input; the phase-blind reflect of the packed tensor), and the
-packed dec2 (4 output channels, 8-byte stores) written into the head of a
+extended input, and for the pair also that control on the bf16 walk's
+bottom-right tile only; the phase-blind reflect of the packed tensor), and
+the packed dec2 (4 output channels, 8-byte stores) written into the head of a
 buffer prefilled with a sentinel that must stay past the output; the pack
 and unpack bit for bit, with a pack whose px phases are swapped as the
 control. Times beside the plain versions and the library: two F.conv2d a
@@ -415,8 +420,41 @@ def tensor_core_report(build, lib_path):
     print(f"SASS and ptxas -v, conv_gray.cu: {json.dumps(gray)}")
     gray_sum = {"hmma": sum(v["hmma"] for v in gray.values()),
                 "instances": len(gray)}
+    # row 10 (csrc/conv_pair.cu): the bf16 enter and exit run their wide
+    # conv (enc1, dec1) on wgmma (HGMMA) and their thin one (enc0, dec2) on
+    # mma.sync (HMMA), the f32 kernels neither; no spill in the bf16
+    # instances of the models' activations (not n1: apply_act's switch), no
+    # wgmma that ptxas serialized
+    pair = {}
+    p_ptxas = _ptxas_props(log, lambda f: "pair_e" in f
+                           or "conv_pair_kernel" in f)
+    for f in sorted(f for f in counts if "pair_enter_kernel" in f
+                    or "pair_exit_kernel" in f or "conv_pair_kernel" in f):
+        bf16 = "conv_pair_kernel" not in f
+        args = "/".join(re.findall(r"Li(n?\d+)E", f))
+        name = ("{}/bf16/{}".format("enter" if "pair_enter" in f else "exit",
+                                    args) if bf16 else f"f32/{args}")
+        pair[name] = {"hgmma": counts[f], "hmma": hmma[f],
+                      **p_ptxas.get(f, {})}
+        spill = f not in p_ptxas or (bf16 and "n1" not in name and (
+            p_ptxas[f]["spill_stores"] or p_ptxas[f]["spill_loads"]))
+        if (bf16 and (counts[f] == 0 or hmma[f] == 0)) or (
+                not bf16 and (counts[f] or hmma[f])) or spill:
+            raise AssertionError(f"conv_pair {name}: {pair[name]}: want "
+                                 f"HGMMA and HMMA in the bf16 kernels only, "
+                                 f"no spills")
+    if len(pair) != 6:
+        raise AssertionError(f"conv_pair.cu instances: {sorted(pair)}")
+    serialized = [line.strip() for line in log.splitlines()
+                  if "serialized" in line and "pair_e" in line]
+    if serialized:
+        raise AssertionError("ptxas serialized the pair kernels' wgmmas: "
+                             + "; ".join(serialized))
+    print(f"SASS and ptxas -v, conv_pair.cu: {json.dumps(pair)}")
+    pair_sum = {name: {"hgmma": v["hgmma"], "hmma": v["hmma"]}
+                for name, v in pair.items() if "bf16" in name}
     return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl, int8, \
-        gray_sum
+        gray_sum, pair_sum
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
@@ -2606,7 +2644,7 @@ def check_variants(torch, F, dev, timer):
         apply_act
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
         ENTER_SHAPES, EXIT_SHAPES, conv_pair_enter, conv_pair_exit,
-        conv_pair_plain)
+        conv_pair_plain, pair_tile)
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import (
         conv_wide, conv_wide_into, conv_wide_plain)
     from multi_modal_image_fusion_tpu_torch.ops.cuda.s2d_io import (
@@ -2670,6 +2708,22 @@ def check_variants(torch, F, dev, timer):
             ctl = _extended_mid(torch, F, x, wa, ba, wb, bb, act_b)
             note(kern, key, got, want, dt, ctl, "mid halo over the "
                  "extended input")
+            # the second control: the fix-up left out on the bottom-right
+            # tile of the bf16 walk only
+            _, n_t = pair_tile(kind, 1, H, W, 0)
+            (_, ty0, tx0, _, _), _ = pair_tile(kind, 1, H, W, n_t - 1)
+            c2 = _wide_rel(torch, ctl[:, ty0:, tx0:], want[:, ty0:, tx0:],
+                           dt)[1] * float(want[:, ty0:, tx0:].float().abs()
+                                          .max()) / float(want.float().abs()
+                                                          .max())
+            if c2 <= 10 * WIDE_TOL[dt]:
+                raise AssertionError(f"{kern} {key}: the corner control "
+                                     f"misses by {c2:.3g} only")
+            recs[kern]["min_corner_control_rel_err"] = min(
+                recs[kern].get("min_corner_control_rel_err", float("inf")),
+                c2)
+            print(f"{kern} {key}: corner control (no fix-up on the "
+                  f"bottom-right tile) {c2:.3g}", flush=True)
             del got, want, ctl
             torch.cuda.empty_cache()
             # FLOP a pixel: 2 (k_a^2 c_in c_mid + k_b^2 c_mid c_out)
@@ -2877,8 +2931,8 @@ def main():
     lib_path = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     build.library()
-    sass, nl_sass, int8_sass, gray_sass = tensor_core_report(build,
-                                                           lib_path)
+    sass, nl_sass, int8_sass, gray_sass, pair_sass = tensor_core_report(
+        build, lib_path)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -3285,6 +3339,9 @@ def main():
             "library_ms": sum(v["library_ms"] for v in ls),
             **({"sentinel_untouched": r["sentinel_untouched"]}
                if "sentinel_untouched" in r else {}),
+            **({"sass": {k: v for k, v in pair_sass.items()
+                         if k.startswith(name.split("_")[-1])}}
+               if name.startswith("conv_pair") else {}),
             "layers": r["layers"],
         })
     # conv_valid: the sums are one train step's 9 launches in f32, the

@@ -1,35 +1,44 @@
 """Device times of the bf16 `wgmma` conv layers of DeepFuse, DenseFuse,
 VIFNet, Res2Fusion and UNFusion's encoder, of the models' enter and exit
-convs, and of their benches, from one checkout of the port: run it once
-per checkout, in turns, to compare two commits on one card. With `--int8`,
-the same for the int8 kernels (rows 11 and 12) and the `--int8` benches.
+convs, of DeepFuse's pair kernels, and of their benches, from one checkout
+of the port: run it once per checkout, in turns, to compare two commits on
+one card. With `--int8`, the same for the int8 kernels (rows 11 and 12) and
+the `--int8` benches. With `--valid`, also row 8's train-step launches
+against their library calls, in five rounds.
 
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
-        [--tag parent] [--benches deepfuse,densefuse,vifnet,res2fusion]
-        [--int8] [--profile densefuse]
+        [--tag parent] [--benches deepfuse,deepfuse_pair,densefuse,...]
+        [--int8] [--profile densefuse] [--valid]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
 the wrappers whose signatures every checkout since the `wgmma` body shares
-(`conv_chain`, `conv_multi`, `conv_gray_enter`, `conv_gray_exit`; with
-`--int8` every checkout since the int8 kernels': `conv_int8` on one tensor,
+(`conv_chain`, `conv_multi`, `conv_gray_enter`, `conv_gray_exit`,
+`conv_pair_enter`, `conv_pair_exit`, `conv_valid`; with `--int8` every
+checkout since the int8 kernels': `conv_int8` on one tensor,
 `conv_int8_chain`). Layers: bf16, 16 pairs of 1224x1024 (DeepFuse enc1 and
 dec0, DenseFuse dec0, VIFNet dec0; UNFusion's encoder convs at their scale,
 32 images; Res2Fusion's RB2 pwconv1 at 2 pairs, its bench batch); the
 enter and exit convs (`gray_cases`: DeepFuse enc0 and dec2 k5, DenseFuse
 conv_in and dec3 k3, UNFusion conv_out k1, DBNet's 32-channel enter) in
 bf16 at 16 pairs and DeepFuse's two in f32 at the test CLI's one pair;
+DeepFuse's pair kernels (`pair_cases`: enc0 + enc1, dec1 + dec2) likewise;
 `--int8`: DeepFuse's chain legs
 (enc1 to int8, dec0 int8 with fuse_n to int8, dec1 int8 to bf16),
 DenseFuse's dense2 and dec0 (their concat) and UNFusion's DB3_1 conv1
-(1280 -> 640 at 306x256), bf16 16 pairs. Random centred inputs from a
+(1280 -> 640 at 306x256), bf16 16 pairs. `--valid`: the nine conv_valid
+launches of a DeepFuse train step (f32, 16 patches of 64x64: five
+forwards, four dx) against F.conv2d and torch.nn.grad.conv2d_input on the
+same inputs (TF32 off), each timed once a round, kernel then library.
+Random centred inputs from a
 seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
 between runs) after a warmup. Benches: `bench.run` (10 timed forwards
-after one warmup; `--int8`: DeepFuse, DenseFuse and UNFusion under
+after one warmup; `deepfuse_pair` is DeepFuse under MMIF_CHAIN_PAIR=1;
+`--int8`: DeepFuse, DenseFuse and UNFusion under
 `--int8`). `--profile NAME`: one `--int8` forward of NAME at the bench's
 shapes under torch.profiler, its device time by op name (the largest 15).
 Prints one JSON line with the card, the tag, the layers' ms and the
-benches' pairs/s (and the profile). Needs a CUDA card.
+benches' pairs/s (and the profile, and row 8's rounds). Needs a CUDA card.
 """
 
 import argparse
@@ -101,6 +110,80 @@ def gray_layer(torch, case, gen, dev):
     x = (torch.rand((n, H, W, cin), generator=gen, device=dev)
          - 0.5).to(dtype)
     return lambda: conv_gray_exit(x, wt, bias, act)
+
+
+def pair_cases():
+    """(name, kind, pairs, dtype): DeepFuse's pair kernels (row 10) as the
+    MMIF_CHAIN_PAIR route launches them."""
+    cases = [("deepfuse.pair_enter", "enter"), ("deepfuse.pair_exit", "exit")]
+    return ([c + (PAIRS, "bf16") for c in cases]
+            + [(f"{c[0]}.f32", c[1], 1, "f32") for c in cases])
+
+
+def pair_layer(torch, case, gen, dev):
+    """The call of one pair case on seeded inputs and weights."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        ENTER_SHAPES, EXIT_SHAPES, conv_pair_enter, conv_pair_exit)
+    _, kind, n, dt = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    wa, wb = (((torch.rand(s, generator=gen, device=dev) - 0.5)
+               * (2.0 / (s[1] * s[2] * s[3]) ** 0.5)).to(dtype)
+              for s in (ENTER_SHAPES if kind == "enter" else EXIT_SHAPES))
+    ba = torch.rand((wa.shape[0],), generator=gen, device=dev) - 0.5
+    bb = torch.rand((wb.shape[0],), generator=gen, device=dev) - 0.5
+    if kind == "enter":
+        a, b = (torch.rand((n, H, W, 1), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        return lambda: conv_pair_enter(a, b, wa, ba, "relu", wb, bb, "relu")
+    x = (torch.rand((n, H, W, 32), generator=gen, device=dev)
+         - 0.5).to(dtype)
+    return lambda: conv_pair_exit(x, wa, ba, "relu", wb, bb, None)
+
+
+# a DeepFuse train step's VALID convs (f32, 64x64 patches): (name, images,
+# c_in, c_out, k); a dx launch for each but enc0
+VALID = [("enc0", 32, 1, 16, 5), ("enc1", 32, 16, 32, 7),
+         ("dec0", 16, 32, 32, 7), ("dec1", 16, 32, 16, 5),
+         ("dec2", 16, 16, 1, 5)]
+
+
+def valid_rounds(torch, timed, gen, dev, rounds=5):
+    """Row 8: each train-step launch of conv_valid and its library call
+    (F.conv2d forward, conv2d_input dx), timed once a round, and the step's
+    sums a round."""
+    import torch.nn.functional as F
+
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import \
+        conv_valid
+    calls = {}
+    for name, b, cin, cout, k in VALID:
+        wt = (torch.rand((cout, cin, k, k), generator=gen, device=dev)
+              - 0.5) * 0.2
+        x = torch.rand((b, 63 + k, 63 + k, cin), generator=gen,
+                       device=dev) - 0.5
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        calls[f"{name}.fwd"] = (
+            lambda x=x, wt=wt: conv_valid(x, wt, None, None, "forward"),
+            lambda xn=xn, wt=wt: F.conv2d(xn, wt))
+        if name == "enc0":
+            continue
+        dy = torch.rand((b, 64, 64, cout), generator=gen, device=dev) - 0.5
+        xp = F.pad(dy, (0, 0, k - 1, k - 1, k - 1, k - 1))
+        wk = wt.flip(2, 3).transpose(0, 1).contiguous()
+        dyn = dy.permute(0, 3, 1, 2).contiguous()
+        size = (b, cin, 63 + k, 63 + k)
+        calls[f"{name}.dx"] = (
+            lambda xp=xp, wk=wk: conv_valid(xp, wk, None, None, "dx"),
+            lambda size=size, wt=wt, dyn=dyn: torch.nn.grad.conv2d_input(
+                size, wt, dyn))
+    out = {key: {"ms": [], "library_ms": []} for key in calls}
+    for _ in range(rounds):
+        for key, (kern, lib) in calls.items():
+            out[key]["ms"].append(timed(kern))
+            out[key]["library_ms"].append(timed(lib))
+    step = {m: [sum(v[m][i] for v in out.values()) for i in range(rounds)]
+            for m in ("ms", "library_ms")}
+    return {"launches": out, "step": step}
 
 
 def int8_layer_cases():
@@ -186,6 +269,9 @@ def main(argv=None):
                    help="the int8 kernels' layers and the --int8 benches")
     p.add_argument("--profile", default="",
                    help="a model whose --int8 forward is profiled")
+    p.add_argument("--valid", action="store_true",
+                   help="row 8's train-step launches against their "
+                        "library calls, five rounds")
     args = p.parse_args(argv)
     if args.benches is None:
         args.benches = ("deepfuse,densefuse,unfusion" if args.int8
@@ -233,8 +319,9 @@ def main(argv=None):
             layers[case[0]] = timed(fn)
             del fn
             torch.cuda.empty_cache()
-        for case in [] if args.int8 else gray_cases():
-            fn = gray_layer(torch, case, gen, dev)
+        for case in [] if args.int8 else gray_cases() + pair_cases():
+            fn = (gray_layer if case in gray_cases() else pair_layer)(
+                torch, case, gen, dev)
             if not bool(torch.isfinite(fn().float()).all()):
                 raise RuntimeError(f"{case[0]}: output not finite")
             layers[case[0]] = timed(fn)
@@ -260,16 +347,26 @@ def main(argv=None):
             layers[name] = timed(fn)
             del legs, wt, bias, y
             torch.cuda.empty_cache()
+    valid = valid_rounds(torch, timed, gen, dev) if args.valid else None
     benches = {}
     for name in filter(None, args.benches.split(",")):
         batch = 2 if name == "res2fusion" else bench.BATCH
-        result, _ = bench.run(seed=0, model_name=name, batch=batch,
-                              int8=args.int8)
+        pair = name == "deepfuse_pair"
+        if pair:
+            os.environ["MMIF_CHAIN_PAIR"] = "1"
+        try:
+            result, _ = bench.run(seed=0, model_name=name.split("_")[0],
+                                  batch=batch, int8=args.int8)
+        finally:
+            if pair:
+                os.environ.pop("MMIF_CHAIN_PAIR")
         benches[name] = result["value"]
         torch.cuda.empty_cache()
     out = {"card": card(), "tag": args.tag, "int8": args.int8,
            "root": os.path.abspath(args.root), "layers_ms": layers,
            "benches_pairs_per_sec": benches}
+    if valid is not None:
+        out["valid"] = valid
     if args.profile:
         out["profile"] = {args.profile: int8_profile(torch, args.profile)}
     print(json.dumps(out))

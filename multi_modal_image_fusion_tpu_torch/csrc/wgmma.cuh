@@ -1,6 +1,7 @@
 // Hopper warpgroup MMA (wgmma) and asynchronous-copy helpers of the bf16
-// conv_chain body (conv_chain.cuh), the int8 conv body (conv_int8.cuh) and
-// the bf16 nl kernels (nl_attention.cu). sm_90a only.
+// conv_chain body (conv_chain.cuh), the int8 conv body (conv_int8.cuh), the
+// bf16 nl kernels (nl_attention.cu) and the bf16 pair kernels
+// (conv_pair.cu). sm_90a only.
 //
 // wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate): the 128 threads of a
 // warpgroup multiply A (64 x 16, M x K) by B (16 x N, K x N), both read from
@@ -343,7 +344,7 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// ---- register A, and a transposed B (the nl kernels) ----
+// ---- register A, and a transposed B (the nl kernels, the pair exit) ----
 //
 // D (+)= A * B with A (64 x 16) in registers: four 32-bit registers a
 // thread, warp w holding rows 16w..16w+15 in mma.sync m16n8k16's A layout
@@ -358,6 +359,19 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16_ra(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_ra<16, 0>(float (&d)[8], const uint32_t (&a)[4],
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_bf16_ra<64, 0>(float (&d)[32], const uint32_t (&a)[4],

@@ -16,8 +16,12 @@ then conv_b (bias, activation). DeepFuse's `MMIF_CHAIN_PAIR` route
   then dec2 (16 -> 1, k5) on t (B, H, W, 32): (B, H, W, 1) in t's dtype.
 
 Weights are OIHW, biases (C,) or None. In bf16 the wide conv of each pair
-runs on the tensor cores (bf16 weights, f32 sums), the thin one as f32
-FMAs; f32 runs f32 FMAs, never TF32.
+(enc1, dec1) runs on `wgmma` with the mid in shared memory in the wgmma
+body's staging layout, its weights packed by `pack_weights_tc` (N block 32
+and 16), and the thin one (enc0, dec2) on `mma.sync` with conv_gray.cu's
+products and packing (`pack_gray_enter`, `pack_gray_exit`); both kernels
+walk `PAIR_TILES` on a persistent grid (`pair_tile` mirrors the walk). f32
+runs f32 FMAs, never TF32. csrc/conv_pair.cu's header has the design.
 
 The plain version (`conv_pair_plain`) is two `conv_chain_plain` calls with
 the mid cast to the chain dtype in between: what two launches compute.
@@ -31,15 +35,19 @@ import torch
 
 from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
-from .conv_chain import DTYPE_CODES, act_code, check_tensors, conv_chain_plain
+from .conv_chain import (DTYPE_CODES, act_code, check_tensors,
+                         conv_chain_plain, pack_gray_enter, pack_gray_exit,
+                         pack_weights_tc)
 
-__all__ = ["ENTER_SHAPES", "EXIT_SHAPES", "conv_pair_enter",
-           "conv_pair_exit", "conv_pair_plain"]
+__all__ = ["ENTER_SHAPES", "EXIT_SHAPES", "PAIR_TILES", "conv_pair_enter",
+           "conv_pair_exit", "conv_pair_plain", "pair_tile", "pair_weights"]
 
 # (wa, wb) OIHW shapes of the two instances built (DeepFuse's pairs)
 ENTER_SHAPES = ((16, 1, 5, 5), (32, 16, 7, 7))
 EXIT_SHAPES = ((16, 32, 5, 5), (1, 16, 5, 5))
-_GRID_Z_MAX = 65535
+# csrc/conv_pair.cu's bf16 tiles: (output rows, output pixels a row)
+PAIR_TILES = {"enter": (8, 64), "exit": (20, 56)}
+_GRID_Z_MAX = 65535     # the f32 kernel's grid: one z a batch image
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 
@@ -65,13 +73,6 @@ def _check(name, shapes, wa, ba, wb, bb, dev):
                         f"bfloat16), got {wa.dtype} and {wb.dtype}")
 
 
-def _mma_rows(w):
-    """OIHW -> (k*k, O, I) bf16: the tensor-core conv's weight rows."""
-    k = w.shape[-1]
-    return w.detach().permute(2, 3, 0, 1).reshape(k * k, *w.shape[:2]).to(
-        torch.bfloat16).contiguous()
-
-
 def _fma_rows(w):
     """OIHW -> (k*k, I, O) f32: the FMA conv's weight rows."""
     k = w.shape[-1]
@@ -81,6 +82,32 @@ def _fma_rows(w):
 
 def _bias(b):
     return None if b is None else b.detach().float().contiguous()
+
+
+def pair_weights(kind, wa, wb):
+    """The kernel's weights of the pair `kind` ('enter' or 'exit') in the
+    weights' dtype. bf16: the enter's enc0 as B fragments
+    (`pack_gray_enter`) and enc1 for the wgmma body (`pack_weights_tc`, N
+    block 32); the exit's dec1 for the wgmma body (N block 16, two k-steps)
+    and dec2 as B fragments (`pack_gray_exit`). f32: (k*k, I, O) rows for
+    the FMAs."""
+    if wa.dtype != torch.bfloat16:
+        return _fma_rows(wa), _fma_rows(wb)
+    if kind == "enter":
+        return pack_gray_enter(wa), pack_weights_tc(wb, [wb.shape[1]], 32)
+    return pack_weights_tc(wa, [wa.shape[1]], 16), pack_gray_exit(wb)
+
+
+def pair_tile(kind, b_out, h, w, tile):
+    """(image, first row, first column, rows, pixels) of output tile `tile`
+    of csrc/conv_pair.cu's bf16 walk for `kind`, x fastest, and the tile
+    count: the last tile of a row or band is ragged where H or W is not a
+    multiple of PAIR_TILES[kind]."""
+    th, tw = PAIR_TILES[kind]
+    ty, tx = -(-h // th), -(-w // tw)
+    b, r = divmod(tile, ty * tx)
+    y0, x0 = r // tx * th, r % tx * tw
+    return (b, y0, x0, min(th, h - y0), min(tw, w - x0)), b_out * ty * tx
 
 
 def conv_pair_enter(img1, img2, wa, ba, act_a, wb, bb, act_b):
@@ -101,11 +128,10 @@ def conv_pair_enter(img1, img2, wa, ba, act_a, wb, bb, act_b):
     if h <= 3 or w <= 3:
         raise ValueError(f"conv_pair_enter: reflect padding 3 needs H and W "
                          f"above it, got {h}x{w}")
-    if 2 * b > _GRID_Z_MAX:
+    if dtype == torch.float32 and 2 * b > _GRID_Z_MAX:
         raise ValueError(f"conv_pair_enter: batch {b} too large for one "
                          f"launch")
-    wak = _fma_rows(wa)
-    wbk = _mma_rows(wb) if dtype == torch.bfloat16 else _fma_rows(wb)
+    wak, wbk = pair_weights("enter", wa, wb)
     bak, bbk = _bias(ba), _bias(bb)
     y = torch.empty((2 * b, h, w, 32), dtype=dtype, device=img1.device)
     fn = kernel_function("mmif_conv_pair_enter",
@@ -136,11 +162,10 @@ def conv_pair_exit(t, wa, ba, act_a, wb, bb, act_b):
     if h <= 2 or w <= 2:
         raise ValueError(f"conv_pair_exit: reflect padding 2 needs H and W "
                          f"above it, got {h}x{w}")
-    if b > _GRID_Z_MAX:
+    if t.dtype == torch.float32 and b > _GRID_Z_MAX:
         raise ValueError(f"conv_pair_exit: batch {b} too large for one "
                          f"launch")
-    wak = _mma_rows(wa) if t.dtype == torch.bfloat16 else _fma_rows(wa)
-    wbk = _fma_rows(wb)
+    wak, wbk = pair_weights("exit", wa, wb)
     bak, bbk = _bias(ba), _bias(bb)
     y = torch.empty((b, h, w, 1), dtype=t.dtype, device=t.device)
     fn = kernel_function("mmif_conv_pair_exit",

@@ -1355,8 +1355,16 @@ def test_train_conv_reflect_pad_past_int32(cuda):
 # both sides; an f32 sum taken in another order flips a mid value by one
 # ulp now and then, which moves an output by |w| * 2^-8 of one of its
 # 400-784 terms: far inside 1e-3 of max|y|.
-PAIR_CASES = [("enter", 2, 45, 61), ("enter", 1, 20, 130),
-              ("exit", 2, 45, 61), ("exit", 1, 33, 70), ("exit", 1, 16, 5)]
+PAIR_CASES = [("enter", 2, 45, 61, "f32"), ("enter", 1, 20, 130, "f32"),
+              ("exit", 2, 45, 61, "f32"), ("exit", 1, 33, 70, "f32"),
+              ("exit", 1, 16, 5, "f32"),
+              # the bench's size; a height whose last tile is one row
+              # (PAIR_TILES: 8 and 20 rows); the enter narrower than a tile.
+              # "chain": the enter's images in the weights' dtype (bf16: the
+              # cp.async staging, W a multiple of 8)
+              ("enter", 2, 1224, 1024, "chain"), ("exit", 2, 1224, 1024, "f32"),
+              ("enter", 1, 41, 72, "chain"), ("exit", 1, 41, 70, "f32"),
+              ("enter", 1, 24, 40, "chain")]
 
 
 def _pair_weights(kind, dev, dtype):
@@ -1385,22 +1393,37 @@ def _extended_mid(x, wa, ba, wb, bb, act_b):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def _corner_unfixed(kind, want, ext):
+    """The second control: the pair with the mid's reflect fix-up left out
+    on the tile at the image's bottom-right corner (PAIR_TILES), there the
+    extended-input mid of `ext`, the plain pair elsewhere."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import \
+        pair_tile
+    h, w = want.shape[1:3]
+    _, n = pair_tile(kind, 1, h, w, 0)
+    (_, y0, x0, _, _), _ = pair_tile(kind, 1, h, w, n - 1)
+    ctl = want.clone()
+    ctl[:, y0:, x0:] = ext[:, y0:, x0:]
+    return ctl
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("case", PAIR_CASES, ids=[
-    f"{c[0]}-{c[1]}x{c[2]}x{c[3]}" for c in PAIR_CASES])
+    f"{c[0]}-{c[1]}x{c[2]}x{c[3]}-{c[4]}" for c in PAIR_CASES])
 def test_conv_pair(cuda, case, dt):
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
         conv_pair_enter, conv_pair_exit, conv_pair_plain)
-    kind, b, h, w = case
+    kind, b, h, w, imgs = case
     dtype = DTYPES[dt]
     args = _pair_weights(kind, cuda, dtype)
     name = f"conv_pair_{kind}"
     before = build.LAUNCHES[name]
     if kind == "enter":
-        img1 = _drand((b, h, w, 1), 320, cuda, torch.float32)
-        img2 = _drand((b, h, w, 1), 321, cuda, torch.float32)
+        idt = torch.float32 if imgs == "f32" else dtype
+        img1 = _drand((b, h, w, 1), 320, cuda, idt)
+        img2 = _drand((b, h, w, 1), 321, cuda, idt)
         x = torch.cat([img1, img2]).to(dtype)
-        got = conv_pair_enter(img1, img2, *args)   # f32 images, cast inside
+        got = conv_pair_enter(img1, img2, *args)   # the cast inside
     else:
         x = _drand((b, h, w, 32), 322, cuda, dtype)
         got = conv_pair_exit(x, *args)
@@ -1411,7 +1434,9 @@ def test_conv_pair(cuda, case, dt):
     tol = WIDE_TOL[dtype]
     assert _wide_rel(got, want, dtype) <= tol
     if min(h, w) > 8:
-        ctl = _extended_mid(x, args[0], args[1], args[3], args[4], args[5])
+        ext = _extended_mid(x, args[0], args[1], args[3], args[4], args[5])
+        assert _wide_rel(got, ext, dtype) > 10 * tol
+        ctl = _corner_unfixed(kind, want, ext)
         assert _wide_rel(got, ctl, dtype) > 10 * tol
 
 
@@ -1424,6 +1449,27 @@ def test_conv_pair_bf16_images(cuda):
     img2 = _drand((1, 40, 70, 1), 324, cuda, torch.bfloat16)
     got = conv_pair_enter(img1, img2, *args)
     want = conv_pair_plain(torch.cat([img1, img2]), *args)
+    assert _wide_rel(got, want, torch.bfloat16) <= WIDE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("kind,acts", [("enter", ("lrelu", "relu6")),
+                                       ("exit", ("tanh", "lrelu"))])
+def test_conv_pair_other_activations(cuda, kind, acts):
+    """The bf16 kernels compile in the models' activations (relu/relu,
+    relu/none); any other pair goes through the activation switch."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_pair import (
+        conv_pair_enter, conv_pair_exit, conv_pair_plain)
+    wa, ba, _, wb, bb, _ = _pair_weights(kind, cuda, torch.bfloat16)
+    args = (wa, ba, acts[0], wb, bb, acts[1])
+    if kind == "enter":
+        imgs = [_drand((1, 45, 72, 1), 330 + i, cuda, torch.bfloat16)
+                for i in range(2)]
+        got = conv_pair_enter(*imgs, *args)
+        x = torch.cat(imgs)
+    else:
+        x = _drand((1, 45, 61, 32), 332, cuda, torch.bfloat16)
+        got = conv_pair_exit(x, *args)
+    want = conv_pair_plain(x, *args)
     assert _wide_rel(got, want, torch.bfloat16) <= WIDE_TOL[torch.bfloat16]
 
 
