@@ -28,7 +28,11 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    and HMMA of the bf16 enter and exit (enc1 and dec1 on wgmma, enc0 and
    dec2 on mma.sync), neither in the f32 ones, failing on a wgmma that
    ptxas serialized or a spill in the instances of the models'
-   activations.
+   activations. And for the train step's VALID conv (csrc/conv_valid.cuh):
+   the HMMA of every conv_valid_tc_kernel and conv_valid_dw_kernel
+   instance, TF32 ones only in f32 (a multiple of 3: the 3xTF32 split) and
+   BF16 ones only in bf16, failing on fewer than one split product a tap
+   and n tile or on a spill.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
    the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones, DBNet's 32-channel enter, UNFusion's k1 exit and its nine encoder
@@ -68,23 +72,33 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    the reference defaults (bs 16, 64x64 patches, f32, --fast_train), 2
    epochs of 32 train steps and 8 valid batches. Counts are read just
    after: conv_valid must have launched exactly 9 times a train step (5
-   forward, 4 dx) and 5 times a valid batch. Each train step is timed (host
+   forward, 4 dx) and 5 times a valid batch, conv_valid_dw 5 times a train
+   step. Each train step is timed (host
    clock, synchronised before and after); the median and spread exclude
    the first epoch's first 3 steps. Then one train step of the same
-   weights and batch through the kernels and through F.conv2d (TF32 off):
-   loss parts within 1e-5 relative, gradients within 1e-4 of the largest
-   gradient magnitude, every parameter's gradient non-zero. Then 20 steps
-   under torch.profiler on one device batch: summed kernel time against
-   the wall time of the same steps without the profiler (the device's busy
-   share), and the conv_valid, dw, loss and optimizer shares. Last, the
+   weights and batch through the kernels, through F.conv2d (TF32 off) and
+   through F.conv2d in float64: loss parts within 1e-5 relative and
+   gradients within 1e-4 of the largest gradient magnitude of the f32
+   route's, each gradient within 1e-4 of its own largest magnitude of the
+   float64 route's, every parameter's gradient non-zero; the same for a
+   DenseFuse step (its k3 convs). Then 20 steps under torch.profiler on one
+   device batch: summed kernel time against the wall time of the same steps
+   without the profiler (the device's busy share), and the conv_valid
+   kernels', the dw kernel's (by name and by its range), the loss's and the
+   optimizer's device time. Last, the
    port's test CLI on the checkpoint the training wrote: its SSIM must be
    finite.
 
-Phase 3 also holds conv_valid against its plain version (TF32 off): the 5
-forward and 4 dx launches of a train step in f32 and bf16, the valid
-step's bias+relu and bias+none epilogues, and enc1 at 1224x1024 in bf16,
-batch 2; the library time is one F.conv2d on the same pre-padded input
-(forward) or one torch.nn.grad.conv2d_input (dx). It holds moments against
+Phase 3 also holds conv_valid (forward and dx modes) and conv_valid_dw
+against their plain versions (TF32 off; f32 1e-4, bf16 1e-3 of the largest
+output, a bf16 output beyond one ulp): the 5 forward, 4 dx and 5 dw
+launches of a train step in f32 and bf16, a k3 layer and a 1-image 20x50
+case of each mode, the valid step's bias+relu and bias+none epilogues, and
+enc1 at 1224x1024 in bf16, batch 2; controls that must miss by 10x (dx:
+the taps not flipped, the halo shifted by one; dw: kh and kw swapped), and
+dw's bits equal on two runs. The library time is one F.conv2d on the same
+pre-padded input (forward), one torch.nn.grad.conv2d_input (dx) or one
+torch.nn.grad.conv2d_weight (dw); f32 bounds also at the 3xTF32 rate. It holds moments against
 its five plain Gaussian filters at the four VIF scales of 1224x1024, batch
 16 (an eval chunk), f32 at 1e-4, VALID and once with use_padding (no
 library call computes the five maps: library_ms is null); and conv_multi
@@ -292,15 +306,18 @@ def tensor_core_report(build, lib_path):
                           capture_output=True, text=True, check=True,
                           timeout=600).stdout
     counts, hmma, igmma, imma, fn = {}, {}, {}, {}, None
+    hmma_ops = {}
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             counts[fn] = hmma[fn] = igmma[fn] = imma[fn] = 0
+            hmma_ops[fn] = set()
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
         elif fn is not None and "HMMA" in line:
             hmma[fn] += 1
+            hmma_ops[fn].add(re.search(r"HMMA[\w.]*", line).group(0))
         elif fn is not None and "IGMMA" in line:
             igmma[fn] += 1
         elif fn is not None and "IMMA" in line:
@@ -453,8 +470,44 @@ def tensor_core_report(build, lib_path):
     print(f"SASS and ptxas -v, conv_pair.cu: {json.dumps(pair)}")
     pair_sum = {name: {"hgmma": v["hgmma"], "hmma": v["hmma"]}
                 for name, v in pair.items() if "bf16" in name}
+    # rows 8 and 15 (csrc/conv_valid.cuh): mma.sync (HMMA) in every
+    # conv_valid_tc_kernel and conv_valid_dw_kernel instance, the thin
+    # launches' instances too. f32 instances hold TF32 HMMAs only, a
+    # multiple of 3 (the 3xTF32 split: lo*hi, hi*lo, hi*hi) and at least 3
+    # a tap and n tile of the unrolled stage body (conv) or k-step (dw);
+    # bf16 instances BF16 ones only; no spill anywhere
+    valid = {}
+    v_ptxas = _ptxas_props(log, lambda f: "conv_valid_tc_kernel" in f
+                           or "conv_valid_dw_kernel" in f)
+    for f in sorted(f for f in counts if "conv_valid_tc_kernel" in f
+                    or "conv_valid_dw_kernel" in f):
+        op, k, bn = re.search(r"(VaF32|VaBf16)ELi(\d+)ELi(\d+)E",
+                              f).groups()
+        k, bn, f32 = int(k), int(bn), op == "VaF32"
+        dw = "dw_kernel" in f
+        name = "{}/{}/k{}/bn{}".format("dw" if dw else "conv",
+                                       "f32" if f32 else "bf16", k, bn)
+        want_min = (3 if f32 else 1) * (bn // 8) * (1 if dw else k)
+        valid[name] = {"hmma": hmma[f], "ops": sorted(hmma_ops[f]),
+                       **v_ptxas.get(f, {})}
+        kind_ok = all(("TF32" if f32 else "BF16") in o for o in hmma_ops[f])
+        spill = f not in v_ptxas or v_ptxas[f]["spill_stores"] \
+            or v_ptxas[f]["spill_loads"]
+        if (hmma[f] < want_min or not kind_ok or spill
+                or (f32 and hmma[f] % 3)):
+            raise AssertionError(f"conv_valid {name}: {valid[name]}: want "
+                                 f">= {want_min} "
+                                 f"{'TF32' if f32 else 'BF16'} HMMA"
+                                 f"{' (a multiple of 3)' if f32 else ''} "
+                                 f"and no spills")
+    if len(valid) != 2 * 2 * 3 * 3:
+        raise AssertionError(f"conv_valid.cuh instances: {sorted(valid)}")
+    print(f"SASS and ptxas -v, conv_valid.cuh: {json.dumps(valid)}")
+    valid_sum = {"hmma": sum(v["hmma"] for v in valid.values()),
+                 "instances": len(valid),
+                 "min_hmma": min(v["hmma"] for v in valid.values())}
     return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl, int8, \
-        gray_sum, pair_sum
+        gray_sum, pair_sum, valid_sum
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
@@ -787,27 +840,65 @@ def _bound(nbytes, flops, dt):
     return max(t_b, t_f) * 1e3, "bytes" if t_b > t_f else "operations"
 
 
-def check_conv_valid(torch, F, dev, timer):
-    """conv_valid against its plain version at the train step's launches,
-    the valid step's epilogues and one full-resolution shape, with times."""
-    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import (
-        conv_valid, conv_valid_plain)
-    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+# conv_valid and conv_valid_dw: f32 within 1e-4, bf16 within 1e-3 of the
+# plain output's largest magnitude (bf16 outputs beyond one bf16 ulp of
+# each value); the f32 kernels' products are a 3xTF32 split, so an f32
+# bound is also given at that rate: three TF32 products (495 TFLOP/s dense,
+# H100 SXM data sheet) for each f32 one
+VALID_TOL = {"f32": 1e-4, "bf16": 1e-3}
+PEAK_3XTF32 = 495e12 / 3
 
-    def check(got, want, dt):
-        err, rel = _err(torch, got, want, dt)
+
+def check_conv_valid(torch, F, dev, timer):
+    """conv_valid (forward and dx) and conv_valid_dw against their plain
+    versions at the train step's launches (f32 and bf16), a k3 layer, one
+    20x50 image, the valid step's epilogues and one full-resolution
+    forward, with controls that must miss by 10x (dx: the taps not flipped,
+    the halo shifted by one pixel; dw: kh and kw swapped), dw's bits equal
+    on two runs, and times: the kernel, its plain version and its library
+    call (F.conv2d, conv2d_input, conv2d_weight on the same inputs, TF32
+    off)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import (
+        conv_valid, conv_valid_dw, conv_valid_dw_plain, conv_valid_dx,
+        conv_valid_dx_plain, conv_valid_plain)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+         "min_control_rel_err": float("inf"), "tolerance_rel": VALID_TOL,
+         "layers": {}}
+
+    def check(key, got, want, dt, controls=(), ulp=True):
+        # ulp: a bf16 output may round to the neighbouring bf16 value (dw
+        # writes f32 from bf16 inputs: no rounding allowance)
+        def rel(a, b):
+            return _wide_rel(torch, a, b, dt if ulp else "f32")
+        err, rel_ = rel(got, want)
+        if rel_ > VALID_TOL[dt]:
+            raise AssertionError(f"conv_valid {key}: err {err} is {rel_:.3g} "
+                                 f"of max|y|, above {VALID_TOL[dt]}")
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        r["max_rel_err"] = max(r["max_rel_err"], rel_)
+        for name, ctl in controls:
+            c_rel = rel(got, ctl)[1]
+            if c_rel <= 10 * VALID_TOL[dt]:
+                raise AssertionError(f"conv_valid {key}: control {name} "
+                                     f"passes ({c_rel:.3g})")
+            r["min_control_rel_err"] = min(r["min_control_rel_err"], c_rel)
 
     cases = []
     for dt in ("f32", "bf16"):
         for name, b, cin, cout, k in VALID_FWD:
             cases.append((f"{name}.fwd.{dt}", "fwd", dt, b, PATCH, PATCH,
                           cin, cout, k, None, None))
+            cases.append((f"{name}.dw.{dt}", "dw", dt, b, PATCH, PATCH, cin,
+                          cout, k, None, None))
         for name, b, cin, cout, k in VALID_DX:
             cases.append((f"{name}.dx.{dt}", "dx", dt, b, PATCH, PATCH, cin,
                           cout, k, None, None))
+        for kind in ("fwd", "dx", "dw"):
+            cases += [(f"k3.{kind}.{dt}.check", kind, dt, TRAIN_BS, PATCH,
+                       PATCH, 16, 32, 3, None, None),
+                      (f"dec1.{kind}.{dt}.20x50", kind, dt, 1, 20, 50, 32, 16,
+                       5, None, None)]
     cases += [("enc1.valid_relu.f32", "fwd", "f32", 2 * TRAIN_BS, PATCH,
                PATCH, 16, 32, 7, "relu", True),
               ("dec2.valid_none.f32", "fwd", "f32", TRAIN_BS, PATCH, PATCH,
@@ -820,48 +911,79 @@ def check_conv_valid(torch, F, dev, timer):
                    lo=-0.5, scale=2.0 / np.sqrt(cin * k * k)).to(dtype)
         bias = (_rand(torch, (cout,), 60 + cout, dev, torch.float32, lo=-0.5,
                       scale=0.1) if with_bias else None)
+        macs = b * h * w * cin * cout * k * k
+        esz = 2 if dt == "bf16" else 4
+        controls = []
         if kind == "fwd":
             x = _rand(torch, (b, h + k - 1, w + k - 1, cin), 7, dev, dtype)
-            wk = wt
             lib_in = x.permute(0, 3, 1, 2).contiguous()
-            lib_w = wt
+
+            def run():
+                return conv_valid(x, wt, bias, act)
+
+            def plain():
+                return conv_valid_plain(x, wt, bias, act)
 
             def library():
-                return F.conv2d(lib_in, lib_w, bias)
-            in_bytes = x.numel()
-            macs = b * h * w * cin * cout * k * k
-            out_c = cout
-        else:
-            # dx: the cotangent of a (h, w) output with c_out channels,
-            # zero-padded by k-1, through the flipped, io-swapped weight
-            dy = _rand(torch, (b, h, w, cout), 8, dev, dtype, lo=-0.5)
-            x = F.pad(dy, (0, 0, k - 1, k - 1, k - 1, k - 1))
-            wk = wt.flip(2, 3).transpose(0, 1).contiguous()
-            dy_nchw = dy.permute(0, 3, 1, 2).contiguous()
+                return F.conv2d(lib_in, wt, bias)
+            want = plain()
+            nbytes = (x.numel() + b * h * w * cout + wt.numel()) * esz
+            shape = f"{tuple(x.shape)}->{(b, h, w, cout)}"
+        elif kind == "dx":
+            # the cotangent of a (h, w) output with c_out channels
+            x = _rand(torch, (b, h, w, cout), 8, dev, dtype, lo=-0.5)
+            lib_in = x.permute(0, 3, 1, 2).contiguous()
             in_size = (b, cin, h + k - 1, w + k - 1)
 
+            def run():
+                return conv_valid_dx(x, wt)
+
+            def plain():
+                return conv_valid_dx_plain(x, wt)
+
             def library():
-                return torch.nn.grad.conv2d_input(in_size, wt, dy_nchw)
-            in_bytes = dy.numel()
-            macs = b * h * w * cin * cout * k * k
-            out_c = cin
-            h, w = h + k - 1, w + k - 1
+                return torch.nn.grad.conv2d_input(in_size, wt, lib_in)
+            want = plain()
+            controls = [("taps not flipped",
+                         conv_valid_dx_plain(x, wt.flip(2, 3))),
+                        ("halo shifted by one", torch.roll(want, 1, dims=2))]
+            nbytes = (x.numel() + b * (h + k - 1) * (w + k - 1) * cin
+                      + wt.numel()) * esz
+            shape = f"{tuple(x.shape)}->{(b, h + k - 1, w + k - 1, cin)}"
+        else:
+            x = _rand(torch, (b, h + k - 1, w + k - 1, cin), 7, dev, dtype,
+                      lo=-0.5)
+            dy = _rand(torch, (b, h, w, cout), 8, dev, dtype, lo=-0.5)
+            lib_in = x.permute(0, 3, 1, 2).contiguous()
+            lib_dy = dy.permute(0, 3, 1, 2).contiguous()
 
-        def run():
-            return conv_valid(x, wk, bias, act)
+            def run():
+                return conv_valid_dw(x, dy)
 
-        def plain():
-            return conv_valid_plain(x, wk, bias, act)
-        check(run(), plain(), dt)
-        esz = 2 if dt == "bf16" else 4
-        nbytes = (in_bytes + b * h * w * out_c) * esz + wt.numel() * esz
+            def plain():
+                return conv_valid_dw_plain(x, dy)
+
+            def library():
+                return torch.nn.grad.conv2d_weight(lib_in, wt.shape, lib_dy)
+            want = conv_valid_dw_plain(x.double(), dy.double()).float()
+            got = run()
+            if not torch.equal(got, run()):
+                raise AssertionError(f"conv_valid_dw {key}: two runs differ")
+            controls = [("kh and kw swapped", want.transpose(2, 3))]
+            nbytes = (x.numel() + dy.numel()) * esz + wt.numel() * 4
+            shape = f"{tuple(x.shape)},{tuple(dy.shape)}->{tuple(wt.shape)}"
+        check(key, run(), want, dt, controls, ulp=kind != "dw")
         bound, by = _bound(nbytes, 2.0 * macs, dt)
-        r["layers"][key] = {
+        layer = {
             "ms": timer(run), "plain_ms": timer(plain),
             "library_ms": timer(library), "bound_ms": bound, "bound_by": by,
-            "shape": f"{tuple(x.shape)}->{(b, h, w, out_c)} k{k} {dt}"
+            "shape": f"{shape} k{k} {dt}"
                      + (f" bias+{act}" if with_bias else "")}
-        del x, wk, library, run, plain
+        if dt == "f32":
+            layer["bound_3xtf32_ms"] = max(nbytes / PEAK_BYTES_S,
+                                           2.0 * macs / PEAK_3XTF32) * 1e3
+        r["layers"][key] = layer
+        del x, run, plain, library, want, controls
     return r
 
 
@@ -883,49 +1005,80 @@ def write_train_fixture(torch, root, n_pairs=10, n_test=2, size=512):
                                      f"{i + 1}.bmp"), img.astype(np.uint8))
 
 
-def train_step_check(torch, dev):
-    """One DeepFuse train step of the same weights and batch through the
-    kernels (fast_training) and through F.conv2d, TF32 off."""
+def train_step_check(torch, dev, model_name="deepfuse"):
+    """One train step of the same weights and batch through the kernels
+    (fast_training), through F.conv2d in f32 (TF32 off) and through F.conv2d
+    in float64: DeepFuse (k5/k7) or DenseFuse (k3). The kernels' loss parts
+    within 1e-5 relative of the f32 route's and every gradient within 1e-4
+    of the largest gradient magnitude of the f32 route's; and each gradient
+    within 1e-4 of its own largest magnitude of the float64 route's (the
+    two f32 routes differ by both their roundings, cuDNN's weight gradient
+    among them; the float64 route is exact to far below 1e-4). Every
+    gradient non-zero."""
+    import copy
     from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import build
     from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
     from multi_modal_image_fusion_tpu_torch.train.trainer import \
         make_loss_bundle
-    model = create_model("deepfuse",
+    model = create_model(model_name,
                          generator=torch.Generator().manual_seed(5)).to(dev)
     x1 = _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 12, dev, torch.float32)
     x2 = _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 13, dev, torch.float32)
     bundle = make_loss_bundle()
     out = {}
-    for fast in (True, False):
-        with fast_training(fast):
-            total, parts = bundle(x1, x2, model(x1, x2))
-            grads = torch.autograd.grad(total, list(model.parameters()))
-        out[fast] = ({k: float(v.detach()) for k, v in parts.items()}, grads)
-    (pf, gf), (pp, gp) = out[True], out[False]
+    for route in ("kernels", "f32", "f64"):
+        m = copy.deepcopy(model).double() if route == "f64" else model
+        a, b = (x1.double(), x2.double()) if route == "f64" else (x1, x2)
+        before = dict(build.LAUNCHES)
+        with fast_training(route == "kernels"):
+            total, parts = bundle(a, b, m(a, b))
+            grads = torch.autograd.grad(total, list(m.parameters()))
+        torch.cuda.synchronize()
+        launches = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        out[route] = ({k: float(v.detach()) for k, v in parts.items()},
+                      [g.double() for g in grads], launches)
+    (pf, gf, lf), (pp, gp, lp), (_, g64, l64) = (out["kernels"], out["f32"],
+                                                 out["f64"])
+    if (lp or l64 or not lf.get("conv_valid/forward")
+            or not lf.get("conv_valid_dw")):
+        raise AssertionError(f"train step ({model_name}) launches: kernels "
+                             f"{lf}, F.conv2d {lp}, float64 {l64}")
     for k in pf:
         if abs(pf[k] - pp[k]) > 1e-5 * abs(pp[k]):
             raise AssertionError(f"train step {k}: kernels {pf[k]} vs "
                                  f"F.conv2d {pp[k]}")
-    worst = 0.0
-    for (name, _), a, b in zip(model.named_parameters(), gf, gp):
-        scale = float(b.abs().max())
+    largest = max(float(b.abs().max()) for b in gp)
+    worst, worst_own, f32_own = 0.0, 0.0, 0.0
+    for (name, _), a, b, c in zip(model.named_parameters(), gf, gp, g64):
         if float(a.abs().max()) == 0.0:
             raise AssertionError(f"train step: no gradient reaches {name}")
         err = float((a - b).abs().max())
-        if err > 1e-4 * scale:
+        if err > 1e-4 * largest:
             raise AssertionError(f"train step grad {name}: {err} above "
-                                 f"1e-4 x {scale}")
-        worst = max(worst, err / scale)
+                                 f"1e-4 x {largest} (F.conv2d f32)")
+        own = float(c.abs().max())
+        err64 = float((a - c).abs().max())
+        if err64 > 1e-4 * own:
+            raise AssertionError(f"train step grad {name}: {err64} above "
+                                 f"1e-4 x {own} (F.conv2d float64)")
+        worst = max(worst, err / largest)
+        worst_own = max(worst_own, err64 / own)
+        f32_own = max(f32_own, float((b - c).abs().max()) / own)
     return {"loss_parts": pf, "max_grad_rel_err": worst,
-            "params": len(gf)}
+            "max_grad_rel_err_own_f64": worst_own,
+            "f32_conv2d_rel_err_own_f64": f32_own,
+            "params": len(gf), "launches": lf}
 
 
 def profile_steps(torch, dev, steps=20):
     """Busy share of the card over `steps` train steps of one device batch
     (bs 16, 64x64, f32, fast): summed kernel time over wall time, from
-    torch.profiler; the share of the conv_valid kernel, of the dw matmuls,
-    of the loss and of the optimizer update. Also the steps' wall time
-    without the profiler."""
+    torch.profiler; the device time of the conv_valid kernels (forward and
+    dx), of the dw kernel (by its name, and by the `conv_valid_dw` range
+    around its wrapper), of the loss and of the optimizer update. Also the
+    steps' wall time without the profiler."""
     from torch.autograd import DeviceType
     from multi_modal_image_fusion_tpu_torch.models import create_model
     from multi_modal_image_fusion_tpu_torch.train.schedules import \
@@ -958,7 +1111,9 @@ def profile_steps(torch, dev, steps=20):
                and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3
     conv_ms = sum(e.device_time_total for e in kernels
-                  if "conv_valid_kernel" in e.name) / 1e3
+                  if "conv_valid_tc_kernel" in e.name) / 1e3
+    dw_kernel_ms = sum(e.device_time_total for e in kernels
+                       if "conv_valid_dw_kernel" in e.name) / 1e3
 
     def range_ms(name):
         return sum(e.device_time_total for e in events
@@ -987,6 +1142,7 @@ def profile_steps(torch, dev, steps=20):
                    source="cuda events behind a sleep")
     rec.update({k + "_ms": v / steps for k, v in (
         ("conv_valid", conv_ms), ("dw", range_ms("conv_valid_dw")),
+        ("dw_kernel", dw_kernel_ms),
         ("loss", range_ms("loss")), ("optimizer", range_ms("optimizer")))})
     return rec
 
@@ -2931,8 +3087,8 @@ def main():
     lib_path = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     build.library()
-    sass, nl_sass, int8_sass, gray_sass, pair_sass = tensor_core_report(
-        build, lib_path)
+    sass, nl_sass, int8_sass, gray_sass, pair_sass, valid_sass = \
+        tensor_core_report(build, lib_path)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -3173,7 +3329,8 @@ def main():
         steps, valid_batches = 2 * 32, 2 * 8
         want = {"conv_valid": 9 * steps + 5 * valid_batches,
                 "conv_valid/forward": 5 * steps, "conv_valid/dx": 4 * steps,
-                "conv_valid/valid": 5 * valid_batches}
+                "conv_valid/valid": 5 * valid_batches,
+                "conv_valid_dw": 5 * steps}
         if train_counts != want or len(step_s) != steps:
             raise AssertionError(f"training launches {train_counts} over "
                                  f"{len(step_s)} steps, want {want} over "
@@ -3191,11 +3348,17 @@ def main():
               f"min {step_stats['min_ms']:.3f}, max "
               f"{step_stats['max_ms']:.3f}), "
               f"{step_stats['patches_per_s']:.1f} patches/s")
-        step_check = train_step_check(torch, dev)
-        print(f"train step, kernels vs F.conv2d: loss parts "
-              f"{step_check['loss_parts']}, max grad err "
-              f"{step_check['max_grad_rel_err']:.3g} of the largest "
-              f"gradient, all {step_check['params']} parameters reached")
+        step_check = {name: train_step_check(torch, dev, name)
+                      for name in ("deepfuse", "densefuse")}
+        for name, c in step_check.items():
+            print(f"train step ({name}), kernels vs F.conv2d: loss parts "
+                  f"{c['loss_parts']}, max grad err "
+                  f"{c['max_grad_rel_err']:.3g} of the largest gradient, "
+                  f"{c['max_grad_rel_err_own_f64']:.3g} of a gradient's own "
+                  f"largest against float64 (F.conv2d f32: "
+                  f"{c['f32_conv2d_rel_err_own_f64']:.3g}), all "
+                  f"{c['params']} parameters reached, launches "
+                  f"{c['launches']}")
         busy = profile_steps(torch, dev)
         stamp("training done")
         print(f"train step profile: {json.dumps(busy)}")
@@ -3345,31 +3508,42 @@ def main():
             "layers": r["layers"],
         })
     # conv_valid: the sums are one train step's 9 launches in f32, the
-    # training CLI's dtype; every shape checked is under "layers"
+    # training CLI's dtype; conv_valid_dw: its 5 dw launches; every shape
+    # checked is under conv_valid's "layers"
     r = rec["conv_valid"]
-    step = [v for key, v in r["layers"].items()
-            if key.endswith((".fwd.f32", ".dx.f32"))]
-    kernels.append({
-        "name": "conv_valid", "route": "cuda",
-        "source": "multi_modal_image_fusion_tpu_torch/csrc/conv_valid.cu",
-        "replaces": "multi_modal_image_fusion_tpu/ops/pallas/"
-                    "conv_kernel.py:161 (conv_tlane_dma), "
-                    "multi_modal_image_fusion_tpu/ops/pallas/conv_vjp.py:71 "
-                    "(conv_valid_fast)",
-        "launches": train_counts["conv_valid"],
-        "launches_by_site": {k.split("/")[1]: v for k, v in
-                             train_counts.items() if "/" in k},
-        "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
-        "tolerance_rel": TOL,
-        "ms": sum(v["ms"] for v in step),
-        "layers_summed": len(step),
-        "plain_ms": sum(v["plain_ms"] for v in step),
-        "bound_ms": sum(v["bound_ms"] for v in step),
-        "bound_by": "operations" if any(
-            v["bound_by"] == "operations" for v in step) else "bytes",
-        "library_ms": sum(v["library_ms"] for v in step),
-        "layers": r["layers"],
-    })
+    for name, ends in (("conv_valid", (".fwd.f32", ".dx.f32")),
+                       ("conv_valid_dw", (".dw.f32",))):
+        step = [v for key, v in r["layers"].items() if key.endswith(ends)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multi_modal_image_fusion_tpu_torch/csrc/"
+                      "conv_valid.cuh",
+            "replaces": ("multi_modal_image_fusion_tpu/ops/pallas/"
+                         "conv_kernel.py:161 (conv_tlane_dma), "
+                         "multi_modal_image_fusion_tpu/ops/pallas/"
+                         "conv_vjp.py:71 (conv_valid_fast)"
+                         if name == "conv_valid" else
+                         "no Pallas kernel: the XLA einsums of "
+                         "multi_modal_image_fusion_tpu/ops/pallas/"
+                         "conv_vjp.py:94-106 (conv_valid_fast's dw)"),
+            "launches": train_counts.get(name, 0),
+            **({"launches_by_site": {k.split("/")[1]: v for k, v in
+                                     train_counts.items() if "/" in k}}
+               if name == "conv_valid" else {}),
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "min_control_rel_err": r["min_control_rel_err"],
+            "tolerance_rel": r["tolerance_rel"],
+            "sass": valid_sass,
+            "ms": sum(v["ms"] for v in step),
+            "layers_summed": len(step),
+            "plain_ms": sum(v["plain_ms"] for v in step),
+            "bound_ms": sum(v["bound_ms"] for v in step),
+            "bound_3xtf32_ms": sum(v["bound_3xtf32_ms"] for v in step),
+            "bound_by": "operations" if any(
+                v["bound_by"] == "operations" for v in step) else "bytes",
+            "library_ms": sum(v["library_ms"] for v in step),
+            **({"layers": r["layers"]} if name == "conv_valid" else {}),
+        })
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")

@@ -3,7 +3,8 @@ VIFNet, Res2Fusion and UNFusion's encoder, of the models' enter and exit
 convs, of DeepFuse's pair kernels, and of their benches, from one checkout
 of the port: run it once per checkout, in turns, to compare two commits on
 one card. With `--int8`, the same for the int8 kernels (rows 11 and 12) and
-the `--int8` benches. With `--valid`, also row 8's train-step launches
+the `--int8` benches. With `--valid`, also rows 8 and 15: the train step's conv
+launches, each layer's forward and backward and the whole train step,
 against their library calls, in five rounds.
 
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
@@ -29,7 +30,10 @@ DenseFuse's dense2 and dec0 (their concat) and UNFusion's DB3_1 conv1
 (1280 -> 640 at 306x256), bf16 16 pairs. `--valid`: the nine conv_valid
 launches of a DeepFuse train step (f32, 16 patches of 64x64: five
 forwards, four dx) against F.conv2d and torch.nn.grad.conv2d_input on the
-same inputs (TF32 off), each timed once a round, kernel then library.
+same inputs (TF32 off), each layer's forward and backward through
+conv_valid_fast against F.conv2d's autograd, and Trainer.train_step by
+wall clock, each timed once a round, kernel then library; the train
+step's device time and launches by torch.profiler.
 Random centred inputs from a
 seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
 between runs) after a warmup. Benches: `bench.run` (10 timed forwards
@@ -46,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 H, W, PAIRS = 1224, 1024, 16
 REPS = 5
@@ -148,13 +153,22 @@ VALID = [("enc0", 32, 1, 16, 5), ("enc1", 32, 16, 32, 7),
 
 
 def valid_rounds(torch, timed, gen, dev, rounds=5):
-    """Row 8: each train-step launch of conv_valid and its library call
-    (F.conv2d forward, conv2d_input dx), timed once a round, and the step's
-    sums a round."""
+    """Rows 8 and 15: each train-step launch of conv_valid and its library
+    call (F.conv2d forward, conv2d_input dx; the dx through `conv_valid_dx`
+    where the checkout has it, else through `conv_valid` on the padded
+    cotangent with the flipped weight, made outside the timing); each
+    layer's forward and backward through `conv_valid_fast` (torch.autograd
+    .grad on xp and w, w alone for enc0, whose input needs none) against
+    F.conv2d's autograd; and `Trainer.train_step` (DeepFuse, f32, fast) by
+    wall clock (the median of 10 synchronised steps). Each timed once a
+    round, kernel then library; then the steps' device time a step
+    (torch.profiler over 10 steps)."""
+    import numpy as np
     import torch.nn.functional as F
 
-    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import \
-        conv_valid
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_valid as cv
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_vjp import \
+        conv_valid_fast
     calls = {}
     for name, b, cin, cout, k in VALID:
         wt = (torch.rand((cout, cin, k, k), generator=gen, device=dev)
@@ -163,27 +177,92 @@ def valid_rounds(torch, timed, gen, dev, rounds=5):
                        device=dev) - 0.5
         xn = x.permute(0, 3, 1, 2).contiguous()
         calls[f"{name}.fwd"] = (
-            lambda x=x, wt=wt: conv_valid(x, wt, None, None, "forward"),
+            lambda x=x, wt=wt: cv.conv_valid(x, wt, None, None, "forward"),
             lambda xn=xn, wt=wt: F.conv2d(xn, wt))
-        if name == "enc0":
-            continue
         dy = torch.rand((b, 64, 64, cout), generator=gen, device=dev) - 0.5
-        xp = F.pad(dy, (0, 0, k - 1, k - 1, k - 1, k - 1))
-        wk = wt.flip(2, 3).transpose(0, 1).contiguous()
         dyn = dy.permute(0, 3, 1, 2).contiguous()
         size = (b, cin, 63 + k, 63 + k)
+        grad_x = name != "enc0"
+        xg, wg = x.clone().requires_grad_(grad_x), wt.clone().requires_grad_()
+        xng = xn.clone().requires_grad_(grad_x)
+        ins, ins_n = ((xg, wg), (xng, wg)) if grad_x else ((wg,), (wg,))
+        calls[f"{name}.fwd_bwd"] = (
+            lambda xg=xg, wg=wg, dy=dy, ins=ins: torch.autograd.grad(
+                conv_valid_fast(xg, wg), ins, dy),
+            lambda xng=xng, wg=wg, dyn=dyn, ins=ins_n: torch.autograd.grad(
+                F.conv2d(xng, wg), ins, dyn))
+        if not grad_x:
+            continue
+        if hasattr(cv, "conv_valid_dx"):
+            def kern(dy=dy, wt=wt):
+                return cv.conv_valid_dx(dy, wt)
+        else:
+            xp = F.pad(dy, (0, 0, k - 1, k - 1, k - 1, k - 1))
+            wk = wt.flip(2, 3).transpose(0, 1).contiguous()
+
+            def kern(xp=xp, wk=wk):
+                return cv.conv_valid(xp, wk, None, None, "dx")
         calls[f"{name}.dx"] = (
-            lambda xp=xp, wk=wk: conv_valid(xp, wk, None, None, "dx"),
-            lambda size=size, wt=wt, dyn=dyn: torch.nn.grad.conv2d_input(
+            kern, lambda size=size, wt=wt, dyn=dyn: torch.nn.grad.conv2d_input(
                 size, wt, dyn))
+    trainer, batch = _train_step_setup(torch, gen, dev)
+
+    def step_wall():
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
     out = {key: {"ms": [], "library_ms": []} for key in calls}
+    out["train_step"] = {"wall_ms": []}
     for _ in range(rounds):
         for key, (kern, lib) in calls.items():
             out[key]["ms"].append(timed(kern))
             out[key]["library_ms"].append(timed(lib))
-    step = {m: [sum(v[m][i] for v in out.values()) for i in range(rounds)]
-            for m in ("ms", "library_ms")}
-    return {"launches": out, "step": step}
+        out["train_step"]["wall_ms"].append(step_wall())
+    launch_keys = [key for key in calls if not key.endswith("fwd_bwd")]
+    step = {m: [sum(out[key][m][i] for key in launch_keys)
+                for i in range(rounds)] for m in ("ms", "library_ms")}
+    return {"launches": out, "step": step,
+            "train_step_device": _train_step_device(torch, trainer, batch)}
+
+
+def _train_step_setup(torch, gen, dev):
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.train.schedules import \
+        make_lr_schedule
+    from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
+    model = create_model("deepfuse",
+                         generator=torch.Generator().manual_seed(6)).to(dev)
+    trainer = Trainer(model, make_lr_schedule(1e-4, 32, 12), fast=True)
+    batch = tuple(torch.rand((16, 64, 64, 1), generator=gen, device=dev)
+                  for _ in range(2))
+    for _ in range(3):
+        trainer.train_step(batch)
+    return trainer, batch
+
+
+def _train_step_device(torch, trainer, batch, steps=10):
+    """Device time and kernel launches a train step, torch.profiler."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": sum(e.device_time_total for e in kernels) / 1e3
+            / steps, "launches": len(kernels) / steps,
+            "top_ms": {n[:60]: v / 1e3 / steps for n, v in top}}
 
 
 def int8_layer_cases():
@@ -270,8 +349,8 @@ def main(argv=None):
     p.add_argument("--profile", default="",
                    help="a model whose --int8 forward is profiled")
     p.add_argument("--valid", action="store_true",
-                   help="row 8's train-step launches against their "
-                        "library calls, five rounds")
+                   help="rows 8 and 15 (the train step's convs and the "
+                        "step) against their library calls, five rounds")
     args = p.parse_args(argv)
     if args.benches is None:
         args.benches = ("deepfuse,densefuse,unfusion" if args.int8

@@ -1,0 +1,8 @@
+// The k7 instances of the train step's VALID conv kernels (conv_valid.cuh),
+// in a source of their own so nvcc builds them beside conv_valid.cu.
+#include "conv_valid.cuh"
+
+namespace mmif {
+template int valid_tc_by_bn<7>(int, int, const VaArgs&, cudaStream_t);
+template int valid_dw_by_bn<7>(int, int, const DwArgs&, cudaStream_t, int*);
+}  // namespace mmif

@@ -14,8 +14,8 @@ against the JAX package's kernels in interpret mode.
   2x24x40 pixels, whose rounding stays ~1e-6 of the largest value);
 - `torch.autograd.gradcheck` of conv_valid_fast in float64;
 - in a DeepFuse train step under `fast_training`, exactly 5 forward and 4
-  dx conv_valid calls (enc0's input carries no gradient), and 5 fused calls
-  in a valid step.
+  dx conv_valid calls (enc0's input carries no gradient) and 5 dw calls,
+  and 5 fused calls and no dw in a valid step.
 """
 
 import jax
@@ -100,8 +100,9 @@ def test_conv_valid_fast_gradcheck():
 
 def test_deepfuse_step_launch_plan(monkeypatch):
     """Under fast_training a DeepFuse train step calls the conv kernel 9
-    times (5 forward, 4 dx) and a valid step 5 times (bias+act fused): the
-    counts chip_smoke.py asserts on the card."""
+    times (5 forward, 4 dx) and the dw kernel 5 times, and a valid step
+    the conv kernel 5 times (bias+act fused) and dw never: the counts
+    chip_smoke.py asserts on the card."""
     from multi_modal_image_fusion_tpu_torch.models import create_model
     from multi_modal_image_fusion_tpu_torch.ops import layers
     from multi_modal_image_fusion_tpu_torch.train.schedules import \
@@ -118,6 +119,10 @@ def test_deepfuse_step_launch_plan(monkeypatch):
 
     monkeypatch.setattr(conv_vjp, "conv_valid",
                         counting("?", conv_vjp.conv_valid))
+    monkeypatch.setattr(conv_vjp, "conv_valid_dx",
+                        counting("dx", conv_vjp.conv_valid_dx))
+    monkeypatch.setattr(conv_vjp, "conv_valid_dw",
+                        counting("dw", conv_vjp.conv_valid_dw))
     monkeypatch.setattr(layers, "conv_valid", counting("valid", conv_valid))
     r = np.random.RandomState(2)
     batch = tuple(torch.from_numpy(r.rand(2, 20, 24, 1).astype(np.float32))
@@ -126,7 +131,7 @@ def test_deepfuse_step_launch_plan(monkeypatch):
                          generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, make_lr_schedule(1e-4, 10, 12), fast=True)
     trainer.train_step(batch)
-    assert sorted(calls) == ["dx"] * 4 + ["forward"] * 5
+    assert sorted(calls) == ["dw"] * 5 + ["dx"] * 4 + ["forward"] * 5
     calls.clear()
     trainer.valid_step(batch)
     assert calls == ["valid"] * 5

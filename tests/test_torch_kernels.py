@@ -28,7 +28,8 @@ from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import (
     conv_multi, conv_multi_plain, identity_weights)
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_valid import (
-    conv_valid, conv_valid_plain)
+    conv_valid, conv_valid_dw, conv_valid_dw_plain, conv_valid_dx,
+    conv_valid_dx_plain, conv_valid_plain)
 from multi_modal_image_fusion_tpu_torch.ops.cuda.moments import (
     moments, moments_plain)
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_vjp import \
@@ -241,12 +242,11 @@ def test_conv_valid_epilogue(cuda, act, cout):
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("cin,cout,k", _VALID_FWD)
+@pytest.mark.parametrize("cin,cout,k", _VALID_FWD + [(16, 32, 3)])
 def test_conv_valid_fast_grads(cuda, dt, cin, cout, k):
-    """conv_valid_fast's forward and dx (kernel launches) and dw (torch
-    matmuls) against F.conv2d's autograd on the same inputs in float64 (an
-    f32 reference through cuDNN's weight gradient was itself 1e-3 off at
-    c_in=1)."""
+    """conv_valid_fast's forward, dx and dw (kernel launches) against
+    F.conv2d's autograd on the same inputs in float64 (an f32 reference
+    through cuDNN's weight gradient was itself 1e-3 off at c_in=1)."""
     dtype = DTYPES[dt]
     xp = _rand((4, 64 + k - 1, 64 + k - 1, cin), k, cuda, dtype)
     wt = (_rand((cout, cin, k, k), cin, cuda) * 0.2).to(dtype)
@@ -262,6 +262,8 @@ def test_conv_valid_fast_grads(cuda, dt, cin, cout, k):
         before.get("conv_valid/forward", 0) + 1
     assert build.LAUNCHES["conv_valid/dx"] == \
         before.get("conv_valid/dx", 0) + 1
+    assert build.LAUNCHES["conv_valid_dw"] == \
+        before.get("conv_valid_dw", 0) + 1
     yb = F.conv2d(xb.permute(0, 3, 1, 2), wb).permute(0, 2, 3, 1)
     (torch.tanh(yb) * cot.double()).sum().backward()
     _close(ya, yb, dtype)
@@ -277,10 +279,105 @@ def test_conv_valid_full_resolution(cuda):
     _close(conv_valid(xp, wt), conv_valid_plain(xp, wt), torch.bfloat16)
 
 
+VALID_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+# (c_in, c_out, k) of the forward layer whose dx or dw a train step runs,
+# with its images and output size: DeepFuse's at 16 pairs of 64x64 (the
+# encoder runs both images of a pair), a k3 layer, and one 20x50 image
+_DX_CASES = [(cin, cout, k, 2 * 16 if cin == 16 and cout == 32 else 16, 64,
+              64) for cin, cout, k in _VALID_FWD[1:]] + [
+    (16, 32, 3, 16, 64, 64), (32, 16, 5, 1, 20, 50)]
+_DW_CASES = [(1, 16, 5, 32, 64, 64)] + _DX_CASES
+
+
+def _centred(shape, seed, dev, dtype):
+    return _rand(shape, seed, dev, torch.float32, lo=-0.5).to(dtype)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("cin,cout,k,b,h,w", _DX_CASES)
+def test_conv_valid_dx(cuda, dt, cin, cout, k, b, h, w):
+    """The dx mode (the cotangent read in place, its zero halo and the
+    flipped taps in the kernel's loads) against the plain full
+    correlation, f32 1e-4 and bf16 1e-3 of max|dx| (bf16 beyond one ulp of
+    each output); controls that must miss by 10x: the taps not flipped,
+    the output shifted by one pixel (a halo off by one)."""
+    dtype = DTYPES[dt]
+    dy = _centred((b, h, w, cout), 70 + k, cuda, dtype)
+    wt = (_centred((cout, cin, k, k), 71 + cin, cuda, torch.float32)
+          / np.sqrt(cout * k * k)).to(dtype)
+    before = build.LAUNCHES["conv_valid/dx"]
+    got = conv_valid_dx(dy, wt)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_valid/dx"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h + k - 1, w + k - 1, cin)
+    want = conv_valid_dx_plain(dy, wt)
+    tol = VALID_TOL[dtype]
+    assert _wide_rel(got, want, dtype) <= tol
+    for control in (conv_valid_dx_plain(dy, wt.flip(2, 3)),
+                    torch.roll(want, 1, dims=2)):
+        assert _wide_rel(got, control, dtype) > 10 * tol
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("cin,cout,k,b,h,w", _DW_CASES)
+def test_conv_valid_dw(cuda, dt, cin, cout, k, b, h, w):
+    """conv_valid_dw against the plain per-tap contraction in float64, f32
+    1e-4 and bf16 1e-3 of max|dw|, the same bits on two runs; the control
+    (kh and kw swapped) must miss by 10x."""
+    dtype = DTYPES[dt]
+    xp = _centred((b, h + k - 1, w + k - 1, cin), 72 + k, cuda, dtype)
+    dy = _centred((b, h, w, cout), 73 + cin, cuda, dtype)
+    before = build.LAUNCHES["conv_valid_dw"]
+    got = conv_valid_dw(xp, dy)
+    again = conv_valid_dw(xp, dy)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["conv_valid_dw"] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (cout, cin, k, k)
+    assert torch.equal(got, again)
+    want = conv_valid_dw_plain(xp.double(), dy.double())
+    tol = VALID_TOL[dtype]
+    assert _wide_rel(got, want, torch.float32) <= tol
+    assert _wide_rel(got, want.transpose(2, 3), torch.float32) > 10 * tol
+
+
+def test_densefuse_k3_train_step_through_kernels(cuda):
+    """One DenseFuse (k3) train step through the kernels (fast_training)
+    and through F.conv2d, f32, TF32 off: loss parts within 1e-5 relative,
+    every gradient non-zero and within 1e-4 of the largest."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    from multi_modal_image_fusion_tpu_torch.train.trainer import \
+        make_loss_bundle
+    model = create_model("densefuse",
+                         generator=torch.Generator().manual_seed(4)).to(cuda)
+    x1 = _rand((4, 64, 64, 1), 74, cuda, lo=0.0)
+    x2 = _rand((4, 64, 64, 1), 75, cuda, lo=0.0)
+    bundle = make_loss_bundle()
+    out = {}
+    for fast in (True, False):
+        build.LAUNCHES.clear()
+        with fast_training(fast):
+            total, parts = bundle(x1, x2, model(x1, x2))
+            grads = torch.autograd.grad(total, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[fast] = ({k: float(v) for k, v in parts.items()}, grads,
+                     dict(build.LAUNCHES))
+    (pf, gf, lf), (pp, gp, lp) = out[True], out[False]
+    assert lf["conv_valid/forward"] > 0 and lf["conv_valid_dw"] > 0
+    assert lp == {}
+    for key in pf:
+        assert abs(pf[key] - pp[key]) <= 1e-5 * abs(pp[key]), key
+    scale = max(float(b.abs().max()) for b in gp)
+    for a, b in zip(gf, gp):
+        assert float(a.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
 def test_conv_valid_raises_on_unsupported(cuda):
     xp = torch.zeros((1, 20, 20, 8), device=cuda)
-    with pytest.raises(ValueError):       # k3 is not built
-        conv_valid(xp, torch.zeros((8, 8, 3, 3), device=cuda))
+    with pytest.raises(ValueError):       # k1 is not built
+        conv_valid(xp, torch.zeros((8, 8, 1, 1), device=cuda))
     with pytest.raises(TypeError):        # weight in another dtype
         conv_valid(xp, torch.zeros((8, 8, 5, 5), device=cuda).bfloat16())
     with pytest.raises(ValueError):       # channel mismatch
@@ -301,6 +398,8 @@ def test_forward_only_kernels_raise_with_grad(cuda):
              lambda: conv_gray_enter(img, img, w_in, None, "relu"),
              lambda: conv_gray_exit(x, w_out, None, None),
              lambda: conv_valid(xp, w16),
+             lambda: conv_valid_dx(x, w16),
+             lambda: conv_valid_dw(xp, x.clone().requires_grad_()),
              lambda: ssim_maps(img.clone().requires_grad_(), img, 11),
              lambda: conv_multi([(x, 0), (x, 0)], w16.repeat(1, 2, 1, 1)),
              lambda: moments(img.clone().requires_grad_(), img, 9, 1.8)]
@@ -335,7 +434,7 @@ def test_deepfuse_train_step_reaches_every_parameter(cuda):
         launches = dict(build.LAUNCHES)
         if fast:
             assert launches == {"conv_valid": 9, "conv_valid/forward": 5,
-                                "conv_valid/dx": 4}
+                                "conv_valid/dx": 4, "conv_valid_dw": 5}
         else:
             assert launches == {}
     # against the largest gradient magnitude, as chip_smoke.py phase 6: a
@@ -376,6 +475,7 @@ def test_trainer_fast_on_card(cuda, mode):
             losses.append(float(parts["loss"]))
         assert build.LAUNCHES["conv_valid/forward"] == 5
         assert build.LAUNCHES["conv_valid/dx"] == 4
+        assert build.LAUNCHES["conv_valid_dw"] == 5
         assert imgf.dtype == torch.float32 and imgf.shape == x1.shape
         assert all(np.isfinite(losses))
         assert all(p.dtype == torch.float32 for p in model.parameters())
