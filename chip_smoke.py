@@ -33,8 +33,8 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    instance, TF32 ones only in f32 (a multiple of 3: the 3xTF32 split) and
    BF16 ones only in bf16, failing on fewer than one split product a tap
    and n tile or on a spill.
-3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit, ssim_maps;
-   the convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
+3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit; the
+   convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones, DBNet's 32-channel enter, UNFusion's k1 exit and its nine encoder
    convs at their scales) against its
    plain PyTorch version on the card: at the main path's shapes (1224x1024;
@@ -98,10 +98,17 @@ enc1 at 1224x1024 in bf16, batch 2; controls that must miss by 10x (dx:
 the taps not flipped, the halo shifted by one; dw: kh and kw swapped), and
 dw's bits equal on two runs. The library time is one F.conv2d on the same
 pre-padded input (forward), one torch.nn.grad.conv2d_input (dx) or one
-torch.nn.grad.conv2d_weight (dw); f32 bounds also at the 3xTF32 rate. It holds moments against
-its five plain Gaussian filters at the four VIF scales of 1224x1024, batch
-16 (an eval chunk), f32 at 1e-4, VALID and once with use_padding (no
-library call computes the five maps: library_ms is null); and conv_multi
+torch.nn.grad.conv2d_weight (dw); f32 bounds also at the 3xTF32 rate. It
+holds ssim_maps and moments (rows 4 and 6, one window-stencil body)
+against their plain versions at every shape the test and eval CLIs launch
+(the test CLI's 1x1224x1024 pair, the eval chunk's 16 pairs at its five
+MS-SSIM levels and its four VIF scales, ab_times.window_cases), f32 at
+1e-4 of max(|y|, 1), with controls that must miss by 10x (the plain maps
+of the pair shifted by one row and by one column), and at 45x61 with
+use_padding; times per shape the raw launch (its C entry on outputs allocated beforehand: `ms`),
+the wrapper call and the wrapper's host time a call, the plain version,
+and as the library two grouped F.conv2d passes over the five stacked
+products (the products timed apart); and conv_multi
 against the concat of its legs and conv_chain_plain at DenseFuse's dense
 convs and dec0 and VIFNet's 8-leg dec0 at 1224x1024 (bf16 batch 16, f32
 one pair) and at k1, k5, 1-channel-leg and identity-leg cases at 45x61,
@@ -169,7 +176,10 @@ launches per eval_metrics call, one call per chunk of at most 16 images;
 51 rows plus mean and std; every value finite; the first 3 images' card
 values within 1e-4 relative, VIFF 1e-3, of the same function on CPU
 tensors, and so are image 16's (the last of a full chunk) and image 51's;
-its wall seconds and ms a pair); the test CLI on a seeded
+its wall seconds and ms a pair; then, outside the counts, its time split
+chunk by chunk into BMP decoding, eval_metrics and xlsx writing, and one
+chunk's eval_metrics device time by kernel: ssim_maps, moments, the torch
+rest); the test CLI on a seeded
 DenseFuse checkpoint with fusion_mode l1 over 11 pairs and on a seeded
 Res2Fusion checkpoint over 3 pairs (SSIM within 1e-4 of the f32 plain path
 on the card: F.conv2d for every conv, TF32 off, and the plain 'nl'
@@ -639,9 +649,6 @@ def check_kernels(torch, F, dev, timer):
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
         conv_chain, conv_chain_plain, conv_gray_enter, conv_gray_enter_plain,
         conv_gray_exit, conv_gray_exit_plain)
-    from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import (
-        ssim_maps, ssim_maps_plain)
-    from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
 
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     # DeepFuse's layers, the k3 instances of DenseFuse and VIFNet (their
@@ -788,37 +795,6 @@ def check_kernels(torch, F, dev, timer):
         torch.cuda.empty_cache()
         stamp(f"{kern} {name} checked")
 
-    # SSIM: test-CLI pairs (1, H, W, 1) f32, VALID, window 11
-    ws = 11
-    taps = gaussian_kernel(ws, 1.5)
-    r = rec["ssim_maps"] = {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                            "layers": {}}
-    for n, h, w in ((1, H, W), (2, 45, 61)):
-        a = _rand(torch, (n, h, w, 1), 4, dev, torch.float32)
-        b = (a + _rand(torch, (n, h, w, 1), 5, dev, torch.float32, lo=-0.5,
-                       scale=0.2)).clamp(0, 1)
-        for pad in (False, True):
-            got = ssim_maps(a, b, ws, 1.0, pad, sigma=1.5)
-            want = ssim_maps_plain(a, b, taps, 1.0, pad)
-            for g, wnt in zip(got, want):
-                err, rel = _err(torch, g, wnt, "f32")
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["max_rel_err"] = max(r["max_rel_err"], rel)
-        if h == H:
-            px = n * (h - ws + 1) * (w - ws + 1)
-            # 3 products + 5 maps x ws taps x 2 passes x 2 flops + algebra
-            flops = px * (3 + 5 * ws * 4 + 20)
-            nbytes = n * h * w * 4 * 2 + px * 4 * 3
-            r["layers"]["ssim"] = {
-                "ms": timer(lambda: ssim_maps(a, b, ws, 1.0, False, 1.5)),
-                "plain_ms": timer(
-                    lambda: ssim_maps_plain(a, b, taps, 1.0, False)),
-                "library_ms": None,
-                "bound_ms": max(nbytes / PEAK_BYTES_S,
-                                flops / PEAK_FLOPS["f32"]) * 1e3,
-                "bound_by": ("bytes" if nbytes / PEAK_BYTES_S
-                             > flops / PEAK_FLOPS["f32"] else "operations"),
-                "shape": f"{n}x{h}x{w}x1 pair f32 ws{ws}"}
     return rec
 
 
@@ -1231,55 +1207,117 @@ def write_cli_fixture(torch, root, n_pairs=CLI_PAIRS):
     return model
 
 
-def vif_scales(h, w):
-    """(ws, h, w) of the moments launch at each VIF scale of an h x w image
-    (ops/metrics.calc_vif: scale s > 1 filters VALID with its own window,
-    then keeps every second row and column)."""
-    out = []
-    for scale in range(1, 5):
-        ws = 2 ** (5 - scale) + 1
-        if scale > 1:
-            h, w = (h - ws + 2) // 2, (w - ws + 2) // 2
-        out.append((ws, h, w))
-    return out
+def _window_control(torch, got, want, what):
+    """How far the kernel's maps miss the plain maps of the pair shifted by
+    one row or one column, relative to max(|y|, 1): a control the checks
+    must catch (10x TOL)."""
+    worst = float("inf")
+    for g, c in zip(got, want):
+        g = g[:, :-1] if what == "row" else g[:, :, :-1]
+        rel = float((g - c).abs().max()) / max(float(c.abs().max()), 1.0)
+        if rel <= 10 * TOL["f32"]:
+            raise AssertionError(f"control (shifted by one {what}) misses "
+                                 f"by {rel:.3g} only")
+        worst = min(worst, rel)
+    return worst
 
 
-def check_moments(torch, dev, timer):
-    """moments against its plain version (five separable Gaussian filters,
-    TF32 off) at the VIF scales of 1224x1024, batch 16 (an eval chunk), f32,
-    VALID, plus the use_padding variant at the last scale; times per
-    scale."""
+def check_window(torch, F, dev, timer):
+    """Rows 4 and 6: ssim_maps and moments at every shape the test and eval
+    CLIs launch (ab_times.window_cases: the test CLI's 1x1224x1024 pair in
+    0..1, the eval chunk's 16 pairs in 0..255 at its five MS-SSIM levels and
+    its four VIF scales), f32, against their plain versions (TF32 off) at
+    1e-4 of max(|y|, 1), each with the controls (the plain maps of the pair
+    shifted by one row and by one column must miss by 10x); the 45x61 pairs
+    with use_padding. Times per shape: the raw launch (the C entry on
+    outputs allocated beforehand), the wrapper call, the wrapper's host time
+    a call (host clock over 50 calls), the plain version, and the library:
+    the five products stacked (timed apart), then two grouped F.conv2d
+    passes (groups 5, a (ws, 1) then a (1, ws) window)."""
+    from multi_modal_image_fusion_tpu_torch.ab_times import (
+        window_cases, window_pair, window_raw)
     from multi_modal_image_fusion_tpu_torch.ops.cuda.moments import (
         moments, moments_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import (
+        ssim_maps, ssim_maps_plain)
     from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
-    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
-    for i, (ws, h, w) in enumerate(vif_scales(H, W)):
-        a = _rand(torch, (BATCH, h, w, 1), 30 + i, dev, torch.float32,
-                  scale=255.0)
-        b = (a + _rand(torch, (BATCH, h, w, 1), 40 + i, dev, torch.float32,
-                       lo=-0.5, scale=80.0)).clamp(0, 255)
+    recs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                   "min_control_rel_err": float("inf"),
+                   "tolerance_rel": TOL["f32"], "layers": {}}
+            for name in ("ssim_maps", "moments")}
+    gen = torch.Generator(device=dev).manual_seed(60)
+
+    def calls(kern, ws, rng):
+        if kern == "ssim_maps":
+            taps = gaussian_kernel(ws, 1.5)
+            return (taps, lambda x, y, pad=False: ssim_maps(x, y, ws, rng,
+                                                            pad, 1.5),
+                    lambda x, y, pad=False: ssim_maps_plain(x, y, taps, rng,
+                                                            pad))
         taps = gaussian_kernel(ws, ws / 5)
-        for pad in (False, True) if ws == 3 else (False,):
-            got = moments(a, b, ws, ws / 5, pad)
-            want = moments_plain(a, b, taps, pad)
-            for g, wnt in zip(got, want):
-                err, rel = _err(torch, g, wnt, "f32")
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["max_rel_err"] = max(r["max_rel_err"], rel)
-            del got, want
-        px_in = BATCH * h * w
-        px = BATCH * (h - ws + 1) * (w - ws + 1)
-        # 3 products a pixel; 5 maps x ws taps x 2 passes x 2 flops an output
-        bound, by = _bound(px_in * 2 * 4 + px * 5 * 4,
-                           3 * px_in + 20 * ws * px, "f32")
-        r["layers"][f"scale{i + 1}.ws{ws}"] = {
-            "ms": timer(lambda: moments(a, b, ws, ws / 5)),
-            "plain_ms": timer(lambda: moments_plain(a, b, taps)),
-            "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "shape": f"{BATCH}x{h}x{w}x1 pair f32 ws{ws} VALID"}
-        del a, b
-    torch.cuda.empty_cache()
-    return r
+        return (taps, lambda x, y, pad=False: moments(x, y, ws, ws / 5, pad),
+                lambda x, y, pad=False: moments_plain(x, y, taps, pad))
+
+    def hold(r, got, want):
+        for g, w_ in zip(got, want):
+            err, rel = _err(torch, g, w_, "f32")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+
+    for name, kern, n, h, w, ws in window_cases():
+        r = recs[kern]
+        rng = 1.0 if name.endswith("test_cli") else 255.0
+        a, b = window_pair(torch, n, h, w, gen, dev)
+        a, b = a * (rng / 255), b * (rng / 255)
+        taps, call, plain = calls(kern, ws, rng)
+        got = call(a, b)
+        hold(r, got, plain(a, b))
+        for what, sl in (("row", (slice(None), slice(1, None))),
+                         ("column", (slice(None), slice(None),
+                                     slice(1, None)))):
+            r["min_control_rel_err"] = min(
+                r["min_control_rel_err"],
+                _window_control(torch, got, plain(a[sl], b[sl]), what))
+        del got
+        raw = window_raw(torch, kern, a, b, ws, rng)
+        x5 = torch.stack((a, b, a * a, b * b, a * b), 1)[..., 0]
+        t = torch.as_tensor(taps, device=dev)
+        wv, wh = t.view(1, 1, ws, 1).expand(5, 1, ws, 1), \
+            t.view(1, 1, 1, ws).expand(5, 1, 1, ws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call(a, b)
+        host = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        px = n * (h - ws + 1) * (w - ws + 1)
+        if kern == "ssim_maps":
+            # 3 products + 5 maps x ws taps x 2 passes x 2 flops + algebra
+            bound, by = _bound(n * h * w * 8 + px * 12,
+                               px * (3 + 20 * ws + 20), "f32")
+        else:
+            # 3 products a pixel; 5 maps x ws taps x 2 passes x 2 flops
+            bound, by = _bound(n * h * w * 8 + px * 20,
+                               3 * n * h * w + 20 * ws * px, "f32")
+        r["layers"][name] = {
+            "ms": timer(raw), "wrapper_ms": timer(lambda: call(a, b)),
+            "wrapper_host_ms": host,
+            "plain_ms": timer(lambda: plain(a, b)),
+            "library_ms": timer(lambda: F.conv2d(
+                F.conv2d(x5, wv, groups=5), wh, groups=5)),
+            "library_products_ms": timer(lambda: torch.stack(
+                (a, b, a * a, b * b, a * b), 1)),
+            "bound_ms": bound, "bound_by": by,
+            "shape": f"{n}x{h}x{w}x1 pair f32 ws{ws} VALID"}
+        print(f"{kern} {name}: {json.dumps(r['layers'][name])}")
+        del a, b, raw, x5
+        torch.cuda.empty_cache()
+    for kern, ws in (("ssim_maps", 11), ("moments", 3)):
+        a, b = window_pair(torch, 2, 45, 61, gen, dev)
+        _, call, plain = calls(kern, ws, 255.0)
+        for pad in (False, True):
+            hold(recs[kern], call(a, b, pad), plain(a, b, pad))
+    return recs
 
 
 def check_conv_multi(torch, F, dev, timer):
@@ -2130,6 +2168,89 @@ def read_workbook(path):
                 for i, name in enumerate(names)}
 
 
+def eval_split(torch, root, eval_cli, imread_gray, eval_metrics):
+    """Where the eval CLI's time goes, chunk by chunk over the same 51 dumped
+    pairs, as eval_method and write_workbook spend it: the host decoding of
+    a chunk's BMP files (3 a pair), eval_metrics on the card (host clock
+    around the call and the copy of its values back, synchronised), and
+    the xlsx writing of the 51 rows in each layout; then one full chunk's
+    eval_metrics under torch.profiler, its device time by kernel name
+    (ssim_maps and moments, whose kernels are the window_kernel instances
+    with the SSIM and moments epilogues, and the torch rest) beside the
+    chunk's host clock without the profiler. Run after the CLI's counts
+    are read: its launches are not a path's."""
+    from torch.autograd import DeviceType
+    data = os.path.join(root, "data", "synth", "test")
+    fused = os.path.join(root, "ckpt", "run", "synth")
+    paths = [(os.path.join(data, "vis", f"{i}.bmp"),
+              os.path.join(data, "ir", f"{i}.bmp"),
+              os.path.join(fused, f"{i:0>2}.bmp"))
+             for i in range(1, CLI_PAIRS + 1)]
+    dev = torch.device("cuda")
+    chunks, rows, full = [], [], None
+    for lo in range(0, CLI_PAIRS, eval_cli.CHUNK):
+        part = paths[lo:lo + eval_cli.CHUNK]
+        t0 = time.perf_counter()
+        imgs = [[imread_gray(p) for p in trio] for trio in part]
+        t1 = time.perf_counter()
+        stacks = [torch.from_numpy(np.stack([im[k] for im in imgs])[..., None])
+                  .to(dev) for k in range(3)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            out = {k: v.cpu().numpy() for k, v in eval_metrics(*stacks)
+                   .items()}
+        t3 = time.perf_counter()
+        rows += [{k: float(v[j]) for k, v in out.items()}
+                 for j in range(len(part))]
+        chunks.append({"pairs": len(part), "decode_ms": (t1 - t0) * 1e3,
+                       "upload_ms": (t2 - t1) * 1e3,
+                       "eval_metrics_ms": (t3 - t2) * 1e3})
+        if len(part) == eval_cli.CHUNK:
+            full = stacks
+    names = [f"{i}.bmp" for i in range(1, CLI_PAIRS + 1)]
+    xlsx = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sheet in ("method", "metric"):
+            t0 = time.perf_counter()
+            eval_cli.write_workbook(os.path.join(tmp, f"{sheet}.xlsx"),
+                                    "deepfuse", names, rows, sheet)
+            xlsx[sheet] = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        eval_metrics(*full)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_metrics(*full)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=acts) as prof:
+            eval_metrics(*full)
+            torch.cuda.synchronize()
+    by = {"ssim_maps": 0.0, "moments": 0.0, "rest": 0.0}
+    launches = {"ssim_maps": 0, "moments": 0, "rest": 0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        key = ("ssim_maps" if "EpiSsim" in e.name else "moments"
+               if "EpiMoments" in e.name else "rest")
+        by[key] += e.device_time_total / 1e3
+        launches[key] += 1
+    n = sum(c["pairs"] for c in chunks)
+    rec = {"chunks": chunks,
+           "per_pair_ms": {k: sum(c[k] for c in chunks) / n for k in
+                           ("decode_ms", "upload_ms", "eval_metrics_ms")},
+           "xlsx_ms": xlsx,
+           "xlsx_per_pair_ms": {k: v / n for k, v in xlsx.items()},
+           "profiled_chunk": {"pairs": eval_cli.CHUNK, "wall_ms": wall,
+                              "device_ms": by, "kernels": launches,
+                              "device_busy": sum(by.values()) / wall}}
+    print(f"eval split: {json.dumps(rec)}")
+    return rec
+
+
 def eval_path(torch, build, root):
     """The port's eval CLI in both sheet layouts over the 51 NN.bmp files
     the DeepFuse test CLI dumped, every count set to 0 just before; exact
@@ -2193,7 +2314,8 @@ def eval_path(torch, build, root):
                 raise AssertionError(f"eval {key} image {img}: card {card} "
                                      f"vs CPU {want_v}")
     wall = sum(walls.values())
-    rec = {"pairs": CLI_PAIRS, "runs": 2, "wall_s": walls,
+    split = eval_split(torch, root, eval_cli, imread_gray, eval_metrics)
+    rec = {"pairs": CLI_PAIRS, "runs": 2, "wall_s": walls, "split": split,
            "ms_per_pair": wall * 1e3 / (2 * CLI_PAIRS), "chunks": chunks,
            "card_vs_cpu_images": list(picks), "card_vs_cpu_max_rel": worst,
            "mean": {k: rows[(cols[j], 2)]
@@ -3093,12 +3215,12 @@ def main():
     # phase 3
     timer = Timer(torch, dev)
     rec = check_kernels(torch, F, dev, timer)
-    stamp("conv_chain, enter, exit and ssim checked")
+    stamp("conv_chain, enter and exit checked")
     rec["conv_valid"] = check_conv_valid(torch, F, dev, timer)
     torch.cuda.empty_cache()
     stamp("conv_valid checked")
-    rec["moments"] = check_moments(torch, dev, timer)
-    stamp("moments checked")
+    rec.update(check_window(torch, F, dev, timer))
+    stamp("ssim_maps and moments checked")
     rec["conv_multi"] = check_conv_multi(torch, F, dev, timer)
     torch.cuda.empty_cache()
     stamp("conv_multi checked")

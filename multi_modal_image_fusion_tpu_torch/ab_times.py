@@ -5,11 +5,14 @@ of the port: run it once per checkout, in turns, to compare two commits on
 one card. With `--int8`, the same for the int8 kernels (rows 11 and 12) and
 the `--int8` benches. With `--valid`, also rows 8 and 15: the train step's conv
 launches, each layer's forward and backward and the whole train step,
-against their library calls, in five rounds.
+against their library calls, in five rounds. With `--metrics`, instead of the
+conv layers, rows 4 and 6: `ssim_maps` and `moments` at every shape the test
+and eval CLIs launch, each as a raw launch of its C entry and as a wrapper
+call, and one `eval_metrics` chunk.
 
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
         [--tag parent] [--benches deepfuse,deepfuse_pair,densefuse,...]
-        [--int8] [--profile densefuse] [--valid]
+        [--int8] [--profile densefuse] [--valid] [--metrics]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
@@ -33,7 +36,15 @@ forwards, four dx) against F.conv2d and torch.nn.grad.conv2d_input on the
 same inputs (TF32 off), each layer's forward and backward through
 conv_valid_fast against F.conv2d's autograd, and Trainer.train_step by
 wall clock, each timed once a round, kernel then library; the train
-step's device time and launches by torch.profiler.
+step's device time and launches by torch.profiler. `--metrics`
+(`window_cases`): `ssim_maps` at the test CLI's pair (1x1224x1024) and an
+eval chunk's five MS-SSIM levels (16 pairs, 1224x1024 to 77x64), `moments` at
+the chunk's four VIF scales (1224x1024 ws 17 to 150x125 ws 3), each raw (the
+C entry, whose arguments every checkout of the port shares, on outputs
+allocated beforehand), as a wrapper call and as the wrapper's host time a
+call (host clock over 50 calls, no synchronisation inside); and
+`eval_metrics` on one chunk of 16 pairs by wall clock (the median of 5
+synchronised calls) and by CUDA events.
 Random centred inputs from a
 seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
 between runs) after a warmup. Benches: `bench.run` (10 timed forwards
@@ -265,6 +276,123 @@ def _train_step_device(torch, trainer, batch, steps=10):
             "top_ms": {n[:60]: v / 1e3 / steps for n, v in top}}
 
 
+def window_cases():
+    """(name, kernel, images, h, w, ws) of the window kernels' launches:
+    ssim_maps at the test CLI's pair and the eval chunk's MS-SSIM levels
+    (ops/ssim.downsample_half: ceil(h / 2)), moments at its VIF scales
+    (ops/metrics.calc_vif: a VALID filter, then every second pixel)."""
+    cases = [("ssim_maps.test_cli", "ssim_maps", 1, H, W, 11)]
+    h, w = H, W
+    for level in range(5):
+        cases.append((f"ssim_maps.eval.{h}x{w}", "ssim_maps", PAIRS, h, w,
+                      11))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    h, w = H, W
+    for scale in range(1, 5):
+        ws = 2 ** (5 - scale) + 1
+        if scale > 1:
+            h, w = (h - ws + 2) // 2, (w - ws + 2) // 2
+        cases.append((f"moments.eval.{h}x{w}.ws{ws}", "moments", PAIRS, h,
+                      w, ws))
+    return cases
+
+
+def window_pair(torch, n, h, w, gen, dev):
+    """A seeded pair of (n, h, w, 1) images in 0..255, correlated."""
+    a = torch.rand((n, h, w, 1), generator=gen, device=dev) * 255
+    b = (0.6 * a + 102 * torch.rand((n, h, w, 1), generator=gen,
+                                    device=dev)).clamp(0, 255)
+    return a, b
+
+
+def window_raw(torch, kern, a, b, ws, data_range=255.0):
+    """A zero-argument raw launch of `kern`'s C entry on (n, h, w, 1) f32
+    images, its outputs allocated here once (ssim_maps: sigma 1.5; moments:
+    sigma ws / 5)."""
+    import ctypes
+
+    import numpy as np
+
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.build import \
+        kernel_function
+    from multi_modal_image_fusion_tpu_torch.ops.ssim import gaussian_kernel
+    n, h, w, _ = a.shape
+    k = 3 if kern == "ssim_maps" else 5
+    outs = [torch.empty((n, h - ws + 1, w - ws + 1), device=a.device)
+            for _ in range(k)]
+    taps = np.ascontiguousarray(gaussian_kernel(
+        ws, 1.5 if kern == "ssim_maps" else ws / 5), np.float32)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    head = [a.data_ptr(), b.data_ptr()] + [o.data_ptr() for o in outs]
+    dims = [n, h, w, ws, taps.ctypes.data]
+    if kern == "ssim_maps":
+        fn = kernel_function("mmif_ssim_maps",
+                             [P, P, P, P, P, I, I, I, I, P, Fl, Fl, P])
+        args = head + dims + [(0.01 * data_range) ** 2,
+                              (0.03 * data_range) ** 2]
+    else:
+        fn = kernel_function("mmif_moments",
+                             [P, P, P, P, P, P, P, I, I, I, I, P, P])
+        args = head + dims
+
+    def launch(outs=outs, taps=taps):   # keeps both alive
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{kern}: launch failed with error {err}")
+        return outs
+    return launch
+
+
+def window_wrapper(kern, a, b, ws):
+    """The wrapper call of one window case (the test and eval CLIs' args)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.moments import moments
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.ssim_kernel import \
+        ssim_maps
+    if kern == "ssim_maps":
+        return lambda: ssim_maps(a, b, ws, 255.0, False, 1.5)
+    return lambda: moments(a, b, ws, ws / 5, False)
+
+
+def window_times(torch, timed, gen, dev):
+    """Rows 4 and 6 (`--metrics`): per window case the raw launch, the
+    wrapper call, the wrapper's host time a call; one eval_metrics chunk."""
+    import numpy as np
+
+    from multi_modal_image_fusion_tpu_torch.ops.metrics import eval_metrics
+    out = {}
+    for name, kern, n, h, w, ws in window_cases():
+        a, b = window_pair(torch, n, h, w, gen, dev)
+        raw, wrap = window_raw(torch, kern, a, b, ws), \
+            window_wrapper(kern, a, b, ws)
+        ok = all(bool(torch.isfinite(t).all()) for t in raw() + list(wrap()))
+        if not ok:
+            raise RuntimeError(f"{name}: output not finite")
+        rec = {"raw_ms": timed(raw), "wrapper_ms": timed(wrap)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            wrap()
+        rec["wrapper_host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        out[name] = rec
+        del a, b, raw, wrap
+        torch.cuda.empty_cache()
+    a, b = window_pair(torch, PAIRS, H, W, gen, dev)
+    f = (0.5 * a + 0.5 * b).round()
+    eval_metrics(a, b, f)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_metrics(a, b, f)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["eval_metrics.chunk16"] = {"wall_ms": float(np.median(walls)),
+                                   "event_ms": timed(
+                                       lambda: eval_metrics(a, b, f))}
+    return out
+
+
 def int8_layer_cases():
     """(name, kernel, c_in, c_out, k, fuse_n, input images, h, w, input,
     output): "int8" an int8-resident tensor, "float" bf16."""
@@ -351,9 +479,14 @@ def main(argv=None):
     p.add_argument("--valid", action="store_true",
                    help="rows 8 and 15 (the train step's convs and the "
                         "step) against their library calls, five rounds")
+    p.add_argument("--metrics", action="store_true",
+                   help="rows 4 and 6 (ssim_maps, moments) at the test and "
+                        "eval CLIs' shapes and one eval_metrics chunk, "
+                        "instead of the conv layers")
     args = p.parse_args(argv)
     if args.benches is None:
-        args.benches = ("deepfuse,densefuse,unfusion" if args.int8
+        args.benches = ("" if args.metrics
+                        else "deepfuse,densefuse,unfusion" if args.int8
                         else "deepfuse,densefuse,vifnet,res2fusion")
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -398,7 +531,8 @@ def main(argv=None):
             layers[case[0]] = timed(fn)
             del fn
             torch.cuda.empty_cache()
-        for case in [] if args.int8 else gray_cases() + pair_cases():
+        convs = not (args.int8 or args.metrics)
+        for case in gray_cases() + pair_cases() if convs else []:
             fn = (gray_layer if case in gray_cases() else pair_layer)(
                 torch, case, gen, dev)
             if not bool(torch.isfinite(fn().float()).all()):
@@ -407,7 +541,7 @@ def main(argv=None):
             del fn
             torch.cuda.empty_cache()
         for name, kern, cins, cout, k, fuse_n, n, h, w in (
-                [] if args.int8 else layer_cases()):
+                layer_cases() if convs else []):
             b_in = 2 * fuse_n if fuse_n else n
             legs = [((torch.rand((b_in, h, w, c), generator=gen, device=dev)
                       - 0.5).to(torch.bfloat16), 0) for c in cins]
@@ -426,6 +560,8 @@ def main(argv=None):
             layers[name] = timed(fn)
             del legs, wt, bias, y
             torch.cuda.empty_cache()
+        if args.metrics:
+            layers.update(window_times(torch, timed, gen, dev))
     valid = valid_rounds(torch, timed, gen, dev) if args.valid else None
     benches = {}
     for name in filter(None, args.benches.split(",")):

@@ -57,3 +57,35 @@ def test_moments_smaller_than_window_is_empty():
     want = jgaussian_filter(jnp.asarray(a), gaussian_kernel(3, 0.6))
     assert want.shape == (2, 0, 0, 1)
     assert all(tuple(g.shape) == want.shape for g in got)
+
+
+def test_vif_pyramid_40x38():
+    """A 4-scale VIF pyramid of a 40x38 pair: each scale's moments (17, 9,
+    5, 3 taps on 40x38, 16x15, 6x6, 2x2) against moments_pallas(...,
+    interpret=True) where the level holds the window and against the JAX
+    filters' empty maps where it does not (the last scale), at 1e-5 of the
+    largest moment (the masking chain after them: tests/test_torch_metrics.
+    py)."""
+    a, b = _pair(5, 1, 40, 38)
+    im1, im2 = torch.from_numpy(a), torch.from_numpy(b)
+    j1, j2 = jnp.asarray(a), jnp.asarray(b)
+    for scale in range(1, 5):
+        ws = 2 ** (5 - scale) + 1
+        taps = gaussian_kernel(ws, ws / 5)
+        if scale > 1:
+            im1, im2 = (moments_plain(x, x, taps)[0][:, ::2, ::2]
+                        for x in (im1, im2))
+            j1, j2 = (jgaussian_filter(x, taps)[:, ::2, ::2]
+                      for x in (j1, j2))
+        got = moments(im1, im2, ws, ws / 5)
+        if min(im1.shape[1:3]) >= ws:
+            want = moments_pallas(j1, j2, ws, ws / 5, interpret=True)
+        else:
+            want = [jgaussian_filter(x, taps) for x in
+                    (j1, j2, j1 * j1, j2 * j2, j1 * j2)]
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert g.shape == w.shape
+            if w.size:
+                np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                           atol=1e-5 * np.abs(w).max())

@@ -87,3 +87,25 @@ def test_calc_ssim_vs_jax(shape):
                             size_average=False)
     np.testing.assert_allclose(got_map.numpy(), np.asarray(want_map),
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 23), (2, 7, 12), (2, 13, 3)])
+def test_ssim_maps_plain_small_windows(shape):
+    """Images below 11 pixels on a side, where calc_ssim picks the window
+    min(11, h, w) (9, 7, 3): the plain maps against
+    ssim_maps_pallas(..., interpret=True) at 1e-5, and calc_ssim against
+    the JAX calc_ssim at 1e-4."""
+    a, b = _pair(2, *shape)
+    ws = min(11, *shape[1:])
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = ssim_maps(ta, tb, ws, 1.0, sigma=1.5)
+    want_k = ssim_maps_pallas(jnp.asarray(a), jnp.asarray(b), ws, 1.0,
+                              sigma=1.5, interpret=True)
+    for g, wk in zip(got, want_k):
+        assert g.shape == np.asarray(wk).shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(wk), atol=1e-5,
+                                   rtol=1e-5)
+    np.testing.assert_allclose(
+        float(calc_ssim(ta, tb, data_range=1.0)),
+        float(JM.calc_ssim(jnp.asarray(a), jnp.asarray(b), data_range=1.0)),
+        atol=1e-4)
