@@ -32,7 +32,10 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    the HMMA of every conv_valid_tc_kernel and conv_valid_dw_kernel
    instance, TF32 ones only in f32 (a multiple of 3: the 3xTF32 split) and
    BF16 ones only in bf16, failing on fewer than one split product a tap
-   and n tile or on a spill.
+   and n tile or on a spill. And ptxas's registers and spills of every
+   conv_dw instance (csrc/conv_dw.cu: k1, and the k3 tile kernel's
+   channel slices with and without the add, bf16 and f32), failing on a
+   spill.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit; the
    convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones, DBNet's 32-channel enter, UNFusion's k1 exit and its nine encoder
@@ -135,10 +138,14 @@ must fail them too. nl_apply's library time is one
 scaled_dot_product_attention(q, k, k, scale=1/(hi-lo)) (the same
 function: softmax is shift-invariant), nl_minmax has none; the bf16
 wrappers' key repack is timed apart. And conv_dw
-against F.conv2d(groups=C) in f32 at Res2Fusion's RB1 and RB2 windows (k1,
-k3, with and without the added previous group): 1224x1024 bf16 batch 4
-and f32 batch 2, and 45x61; its library time is one F.conv2d(groups=C) on
-the padded window (the window's copy and the pad timed apart).
+against F.conv2d(groups=C) in f32 at all 12 of a Res2Fusion forward's
+depthwise layers (RB1 dw0-dw3, RB2 dw0-dw7: k1, k3, with and without the
+added previous group): 1224x1024 bf16 batch 4 and f32 batch 2, and 45x61,
+with controls at the full sizes (the window shifted by 8 channels, a zero
+halo) that must fail; timed at the full sizes as wrapper calls, raw
+launches and the wrapper's host time; its library time is one
+F.conv2d(groups=C) on the padded window (the window's copy and the pad
+timed apart).
 
 Phase 3 also holds conv_wide (the wide chain conv of UNFusion and DBNet;
 in bf16 the wgmma body of conv_chain, its N block and weight plan beside
@@ -518,6 +525,29 @@ def tensor_core_report(build, lib_path):
                  "min_hmma": min(v["hmma"] for v in valid.values())}
     return {"hgmma": sum(tc.values()), "instances": len(tc)}, nl, int8, \
         gray_sum, pair_sum, valid_sum
+
+
+def dw_ptxas_report(build):
+    """Phase 2 for conv_dw (csrc/conv_dw.cu): ptxas's registers and spills
+    of every instance (k1 and the k3 tile kernel's slices and add, in bf16
+    and f32), failing on a spill or a missing instance."""
+    props = _ptxas_props(build.build_log(), lambda f: "conv_dw_" in f)
+    dw = {}
+    for f, v in props.items():
+        m = re.search(r"conv_dw_(k1|tile)_kernelI(13__nv_bfloat16|f)"
+                      r"(?:Li(\d+)ELi(\d+)ELb(\d))?", f)
+        kind, dt = m.group(1), "bf16" if "bfloat" in m.group(2) else "f32"
+        name = (f"k1/{dt}" if kind == "k1" else
+                f"k{m.group(3)}/{dt}/ng{m.group(4)}"
+                f"{'/add' if m.group(5) == '1' else ''}")
+        dw[name] = v
+        if v["spill_stores"] or v["spill_loads"]:
+            raise AssertionError(f"conv_dw {name} spills: {v}")
+    if len(dw) != 2 * (1 + 3 * 2):
+        raise AssertionError(f"conv_dw instances: {sorted(dw)}")
+    print(f"ptxas -v, conv_dw.cu: {json.dumps(dw)}")
+    return {"instances": len(dw), "spills": 0,
+            "max_registers": max(v["registers"] for v in dw.values())}
 
 
 def _rand(torch, shape, seed, dev, dtype, lo=0.0, scale=1.0):
@@ -1663,28 +1693,68 @@ def check_nl(torch, F, dev, timer):
     return rec
 
 
-# Res2Fusion's depthwise convs: (name, hexp channels, group width, k,
-# window base, with the add of the previous group's output)
-DW_LAYERS = [("RB1.dw0", 64, 16, 1, 0, False),
-             ("RB1.dw1", 64, 16, 3, 16, False),
-             ("RB1.dw3", 64, 16, 3, 48, True),
-             ("RB2.dw0", 384, 48, 1, 0, False),
-             ("RB2.dw1", 384, 48, 3, 48, False),
-             ("RB2.dw7", 384, 48, 3, 336, True)]
+# Res2Fusion's depthwise convs, all 12 of a forward: (name, hexp channels,
+# group width, k, window base, with the add of the previous group's output)
+DW_LAYERS = ([("RB1.dw0", 64, 16, 1, 0, False)]
+             + [(f"RB1.dw{i}", 64, 16, 3, 16 * i, i > 1) for i in (1, 2, 3)]
+             + [("RB2.dw0", 384, 48, 1, 0, False)]
+             + [(f"RB2.dw{i}", 384, 48, 3, 48 * i, i > 1) for i in range(1, 8)])
+
+
+def _dw_raw(torch, x, wt, lo, add):
+    """A zero-argument raw launch of conv_dw's C entry (taps packed, output
+    allocated here once): the kernel without the wrapper's host work."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        DTYPE_CODES
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import (
+        ARGTYPES, pack_taps)
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.window import \
+        window_entry
+    fn = window_entry("mmif_conv_dw", ARGTYPES)
+    b, h, w, cx = x.shape
+    c, k = wt.shape[0], wt.shape[-1]
+    wk, _ = pack_taps(wt)
+    y = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+    args = (DTYPE_CODES[x.dtype], x.data_ptr(), cx, lo,
+            None if add is None else add.data_ptr(), c, wk.data_ptr(), None,
+            y.data_ptr(), b, h, w, c, k, 0)
+
+    def launch(wk=wk, y=y):   # keeps both alive
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"conv_dw: raw launch failed with error {err}")
+        return y
+    return launch
+
+
+def _host_us(torch, fn, calls=50):
+    """Host time of a call (no synchronisation inside the calls)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def check_conv_dw(torch, F, dev, timer):
     """conv_dw against F.conv2d(groups=C) in f32 on the window (its plain
-    version) at Res2Fusion's RB1 and RB2 windows, with and without the
-    add: 1224x1024 bf16 batch 4 (the res2fusion bench's two pairs) and f32
-    batch 2 (the test CLI's pair), and 45x61 in both dtypes. Times at the
-    bench's shape; the library time is one F.conv2d(groups=C) on the
-    reflect-padded window in the same dtype (the window's copy, the add
-    and the pad timed apart)."""
+    version) at all 12 of Res2Fusion's depthwise layers, with and without
+    the add: 1224x1024 bf16 batch 4 (the res2fusion bench's two pairs) and
+    f32 batch 2 (the test CLI's pair), and 45x61 in both dtypes. Controls at
+    the two full sizes must miss by more than TOL: the plain output of the
+    window shifted by 8 channels and, at k3, of a zero halo. Times at both
+    full sizes: the wrapper call, the raw launch (the C entry on an output
+    allocated beforehand) and the wrapper's host time a call; the library
+    time is one F.conv2d(groups=C) on the reflect-padded window in the same
+    dtype (the window's copy, the add and the pad timed apart)."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import (
         conv_dw, conv_dw_plain)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    r = {"max_abs_err": 0.0, "max_rel_err": 0.0, "layers": {}}
+    r = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+         "min_control_rel_err": float("inf"), "tolerance_rel": TOL,
+         "layers": {}}
     for dt, b, h, w in (("bf16", 2 * RES2_BATCH, H, W), ("f32", 2, H, W),
                         ("bf16", 2, 45, 61), ("f32", 2, 45, 61)):
         dtype = dts[dt]
@@ -1692,16 +1762,35 @@ def check_conv_dw(torch, F, dev, timer):
                           scale=6.0) for cx in (64, 384)}
         for name, cx, c, k, lo, with_add in DW_LAYERS:
             x = hexp[cx]
-            wt = _rand(torch, (c, 1, k, k), 140 + k + c, dev, torch.float32,
-                       lo=-0.5, scale=2.0 / k).to(dtype)
-            add = (_rand(torch, (b, h, w, c), 150 + c, dev, dtype, scale=3.0)
-                   if with_add else None)
-            err, rel = _err(torch, conv_dw(x, wt, None, None, lo, add),
-                            conv_dw_plain(x, wt, None, None, lo, add), dt)
+            wt = _rand(torch, (c, 1, k, k), 140 + k + c + lo, dev,
+                       torch.float32, lo=-0.5, scale=2.0 / k).to(dtype)
+            add = (_rand(torch, (b, h, w, c), 150 + c + lo, dev, dtype,
+                         scale=3.0) if with_add else None)
+            got = conv_dw(x, wt, None, None, lo, add)
+            err, rel = _err(torch, got, conv_dw_plain(x, wt, None, None, lo,
+                                                      add), dt)
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["max_rel_err"] = max(r["max_rel_err"], rel)
-            if not (dt == "bf16" and h == H):
+            if h != H:
                 continue
+            scale = max(float(got.float().abs().max()), 1.0)
+            shifted = lo + 8 if lo + 8 + c <= cx else lo - 8
+            ctl = [conv_dw_plain(x, wt, None, None, shifted, add)]
+            if k > 1:
+                xin = x[..., lo:lo + c].float()
+                if add is not None:
+                    xin = xin + add.float()
+                ctl.append(F.conv2d(F.pad(xin.permute(0, 3, 1, 2),
+                                          (1, 1, 1, 1)), wt.float(),
+                                    groups=c).permute(0, 2, 3, 1).to(dtype))
+                del xin
+            for want in ctl:
+                miss = float((got.float() - want.float()).abs().max()) / scale
+                if miss <= TOL[dt]:
+                    raise AssertionError(f"conv_dw {name} {dt}: a control "
+                                         f"passes ({miss:.3g})")
+                r["min_control_rel_err"] = min(r["min_control_rel_err"], miss)
+            del got, ctl
 
             def window():
                 xw = x[..., lo:lo + c]
@@ -1710,11 +1799,15 @@ def check_conv_dw(torch, F, dev, timer):
             p = k // 2
             parts, xp = _library_parts(F, xn, k, c)
             reads = 2 if with_add else 1
+            esize = 2 if dt == "bf16" else 4
             bound, by = _bound(
-                (reads + 1) * b * h * w * c * 2 + wt.numel() * 4,
+                (reads + 1) * b * h * w * c * esize + wt.numel() * 4,
                 2.0 * b * h * w * c * k * k, dt)
-            r["layers"][name] = {
-                "ms": timer(lambda: conv_dw(x, wt, None, None, lo, add)),
+            wrap = lambda: conv_dw(x, wt, None, None, lo, add)
+            r["layers"][f"{name} {dt}"] = {
+                "ms": timer(wrap),
+                "raw_ms": timer(_dw_raw(torch, x, wt, lo, add)),
+                "wrapper_host_us": _host_us(torch, wrap),
                 "plain_ms": timer(
                     lambda: conv_dw_plain(x, wt, None, None, lo, add)),
                 "library_ms": timer(lambda: [F.conv2d(t, wt, groups=c)
@@ -3211,6 +3304,7 @@ def main():
     build.library()
     sass, nl_sass, int8_sass, gray_sass, pair_sass, valid_sass = \
         tensor_core_report(build, lib_path)
+    dw_ptxas = dw_ptxas_report(build)
 
     # phase 3
     timer = Timer(torch, dev)
@@ -3535,9 +3629,12 @@ def main():
                  "conv_dw", "conv_wide"):
         r = rec[name]
         # conv_wide: the sums are one bf16 bench forward of each model (16
-        # pairs); its f32 launches at the test CLI's pair are under "layers"
+        # pairs); conv_dw: the 12 layers of one bf16 res2fusion bench
+        # forward (2 pairs); their f32 launches at the test CLI's pair are
+        # under "layers"
         ls = [v for key, v in r["layers"].items()
-              if name != "conv_wide" or key.endswith(" bf16")]
+              if name not in ("conv_wide", "conv_dw")
+              or key.endswith(" bf16")]
         lib = [v["library_ms"] for v in ls]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3561,6 +3658,7 @@ def main():
                                           "conv_wide")
                else {"sass": nl_sass[name]} if name in nl_sass
                else {"sass": gray_sass} if name.startswith("conv_gray")
+               else {"ptxas": dw_ptxas} if name == "conv_dw"
                else {}),
             **({"body": "multi_modal_image_fusion_tpu_torch/csrc/"
                         "conv_chain.cuh (conv_chain_tc_kernel; f32: "

@@ -13,6 +13,7 @@ call, and one `eval_metrics` chunk.
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
         [--tag parent] [--benches deepfuse,deepfuse_pair,densefuse,...]
         [--int8] [--profile densefuse] [--valid] [--metrics]
+        [--dw [--against <checkout>]]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
@@ -44,7 +45,17 @@ C entry, whose arguments every checkout of the port shares, on outputs
 allocated beforehand), as a wrapper call and as the wrapper's host time a
 call (host clock over 50 calls, no synchronisation inside); and
 `eval_metrics` on one chunk of 16 pairs by wall clock (the median of 5
-synchronised calls) and by CUDA events.
+synchronised calls) and by CUDA events. With `--dw`, instead of the conv
+layers, row 1's depthwise instance: the 12 `conv_dw` launches of a
+Res2Fusion forward (`dw_cases`: RB1 dw0-dw3, RB2 dw0-dw7) at the
+res2fusion bench's 4x1224x1024 in bf16 and the test CLI's 2x1224x1024 in
+f32, each raw (the C entry, whose arguments are those of the kernel's
+first version, on taps packed and an output allocated beforehand), raw on
+a contiguous copy of the window (what reading the window in place costs),
+as a wrapper call and as the wrapper's host time a call; with `--against
+<checkout>` also the largest difference between this checkout's outputs
+and that checkout's (its library built and loaded beside this one) on the
+same inputs; the bench default is res2fusion.
 Random centred inputs from a
 seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
 between runs) after a warmup. Benches: `bench.run` (10 timed forwards
@@ -393,6 +404,100 @@ def window_times(torch, timed, gen, dev):
     return out
 
 
+def dw_cases():
+    """(name, channels of the expanded tensor, group width, k, window base,
+    with the add, dtype, images): the 12 conv_dw launches of a Res2Fusion
+    forward in bf16 at the bench's 2 pairs and in f32 at the test CLI's
+    one."""
+    layers = ([("RB1.dw0", 64, 16, 1, 0, False)]
+              + [(f"RB1.dw{i}", 64, 16, 3, 16 * i, i > 1) for i in (1, 2, 3)]
+              + [("RB2.dw0", 384, 48, 1, 0, False)]
+              + [(f"RB2.dw{i}", 384, 48, 3, 48 * i, i > 1)
+                 for i in range(1, 8)])
+    return ([lay + ("bf16", 4) for lay in layers]
+            + [lay + ("f32", 2) for lay in layers])
+
+
+def dw_entry(lib):
+    """mmif_conv_dw of a loaded kernel library, typed."""
+    import ctypes
+    I, P = ctypes.c_int, ctypes.c_void_p
+    fn = lib.mmif_conv_dw
+    fn.argtypes = [I, P, I, I, P, I, P, P, P, I, I, I, I, I, I, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def against_library(root):
+    """The kernel library of another checkout, built into its own _build/
+    and loaded beside this one."""
+    import ctypes
+    import importlib.util
+    path = os.path.join(os.path.abspath(root), "multi_modal_image_fusion_"
+                        "tpu_torch", "ops", "cuda", "build.py")
+    spec = importlib.util.spec_from_file_location("mmif_against_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return ctypes.CDLL(str(mod.build()))
+
+
+def dw_times(torch, timed, gen, dev, other):
+    """Row 1's depthwise instance (`--dw`): per case the raw launch, the
+    wrapper call, the wrapper's host time a call and, with another
+    checkout's library, the largest difference of the outputs."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import build
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import conv_dw
+    own = dw_entry(build.library())
+    theirs = None if other is None else dw_entry(other)
+    out = {}
+    for name, cx, c, k, lo, with_add, dt, n in dw_cases():
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = ((torch.rand((n, H, W, cx), generator=gen, device=dev) - 0.3)
+             * 6).to(dtype)
+        wt = ((torch.rand((c, 1, k, k), generator=gen, device=dev) - 0.5)
+              * 2 / k).to(dtype)
+        add = (((torch.rand((n, H, W, c), generator=gen, device=dev) - 0.3)
+                * 3).to(dtype) if with_add else None)
+        wk = wt.reshape(c, k * k).t().float().contiguous()
+
+        def raw(fn, x=x, cx=cx, lo=lo):
+            y = torch.empty((n, H, W, c), dtype=dtype, device=dev)
+            args = (1 if dt == "bf16" else 0, x.data_ptr(), cx, lo,
+                    None if add is None else add.data_ptr(), c,
+                    wk.data_ptr(), None, y.data_ptr(), n, H, W, c, k, 0)
+
+            def launch():
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: launch failed with {err}")
+                return y
+            return launch
+        mine = raw(own)
+
+        def wrap():
+            return conv_dw(x, wt, None, None, lo, add)
+        y = mine()
+        if not bool(torch.isfinite(y.float()).all()):
+            raise RuntimeError(f"{name} {dt}: output not finite")
+        rec = {"raw_ms": timed(mine), "wrapper_ms": timed(wrap)}
+        xc = x[..., lo:lo + c].contiguous()
+        rec["raw_contiguous_input_ms"] = timed(raw(own, xc, c, 0))
+        del xc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            wrap()
+        rec["wrapper_host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        if theirs is not None:
+            rec["max_abs_diff_vs_against"] = float(
+                (mine().float() - raw(theirs)().float()).abs().max())
+        out[f"conv_dw.{name}.{dt}"] = rec
+        del x, add, y, mine
+        torch.cuda.empty_cache()
+    return out
+
+
 def int8_layer_cases():
     """(name, kernel, c_in, c_out, k, fuse_n, input images, h, w, input,
     output): "int8" an int8-resident tensor, "float" bf16."""
@@ -483,9 +588,17 @@ def main(argv=None):
                    help="rows 4 and 6 (ssim_maps, moments) at the test and "
                         "eval CLIs' shapes and one eval_metrics chunk, "
                         "instead of the conv layers")
+    p.add_argument("--dw", action="store_true",
+                   help="row 1's depthwise instance (the 12 conv_dw "
+                        "launches of a Res2Fusion forward) instead of the "
+                        "conv layers")
+    p.add_argument("--against", default=None,
+                   help="with --dw, a checkout whose conv_dw outputs are "
+                        "compared with this one's")
     args = p.parse_args(argv)
     if args.benches is None:
         args.benches = ("" if args.metrics
+                        else "res2fusion" if args.dw
                         else "deepfuse,densefuse,unfusion" if args.int8
                         else "deepfuse,densefuse,vifnet,res2fusion")
     sys.path.insert(0, os.path.abspath(args.root))
@@ -531,7 +644,7 @@ def main(argv=None):
             layers[case[0]] = timed(fn)
             del fn
             torch.cuda.empty_cache()
-        convs = not (args.int8 or args.metrics)
+        convs = not (args.int8 or args.metrics or args.dw)
         for case in gray_cases() + pair_cases() if convs else []:
             fn = (gray_layer if case in gray_cases() else pair_layer)(
                 torch, case, gen, dev)
@@ -562,6 +675,10 @@ def main(argv=None):
             torch.cuda.empty_cache()
         if args.metrics:
             layers.update(window_times(torch, timed, gen, dev))
+        if args.dw:
+            other = (None if args.against is None
+                     else against_library(args.against))
+            layers.update(dw_times(torch, timed, gen, dev, other))
     valid = valid_rounds(torch, timed, gen, dev) if args.valid else None
     benches = {}
     for name in filter(None, args.benches.split(",")):

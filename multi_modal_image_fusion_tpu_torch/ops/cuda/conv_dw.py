@@ -11,7 +11,8 @@ never sliced into copies. An optional `add` (B, H, W, C) is summed into the
 input before the conv (the Res2 hierarchy y = y_prev + x_i, JAX
 ops/blocks.py:286-292). Bias and activation are optional and fused; the
 output is contiguous (B, H, W, C) in x's dtype, the arithmetic f32. On an
-H100 it is bound by bytes (csrc/conv_dw.cu header).
+H100 it is bound by bytes; the kernel stages 2-D tiles with their reflect
+halo and keeps the vertical taps in registers (csrc/conv_dw.cu header).
 
 The plain version (`conv_dw_plain`) is F.conv2d(groups=C) in f32 on the
 window (plus `add`), reflect-padded in batch chunks under torch's 32-bit
@@ -20,21 +21,60 @@ raises. The kernel is forward-only (it raises when an input needs a
 gradient; ConvLayer's training route runs F.conv2d(groups=C)). Built for
 k1 and k3, C a multiple of 8 up to 512, and a window whose base and pixel
 stride are multiples of 8 channels.
+
+A call's host work is kept small (a Res2Fusion forward makes 12): the
+taps are packed once a layer (`pack_taps`), the C entry is typed once, the
+output is one allocation.
 """
 
+import collections
 import ctypes
+import threading
+import weakref
 
 import torch
 
-from .build import check_launch, check_no_grad, kernel_function, ptr, \
-    stream_handle
+from .build import check_no_grad
 from .conv_chain import DTYPE_CODES, _conv_nhwc_f32, act_code, apply_act
+from .window import window_entry, window_launch
 
-__all__ = ["conv_dw", "conv_dw_plain"]
+__all__ = ["conv_dw", "conv_dw_plain", "pack_taps"]
 
 MAX_C = 512
 _I = ctypes.c_int
 _P = ctypes.c_void_p
+ARGTYPES = (_I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# packed taps by (weight storage, version, ...), least recently used first
+_TAPS = collections.OrderedDict()
+_TAPS_KEPT = 64
+_TAPS_LOCK = threading.Lock()
+
+
+def pack_taps(weight, bias=None):
+    """The kernel's [K*K][C] f32 taps of weight (C, 1, K, K) and its C f32
+    bias (or None), packed once a layer: reused while the weight and bias
+    are the same tensors at the same storage and version, so loading a
+    checkpoint, an in-place copy under torch.no_grad or an optimizer step
+    packs them anew."""
+    key = (weight.data_ptr(), weight._version, weight.dtype, weight.device,
+           tuple(weight.shape), None if bias is None else
+           (bias.data_ptr(), bias._version, bias.dtype))
+    with _TAPS_LOCK:
+        hit = _TAPS.get(key)
+        if hit is not None and hit[0]() is weight and (
+                bias is None or hit[1]() is bias):
+            _TAPS.move_to_end(key)
+            return hit[2], hit[3]
+    c, k = weight.shape[0], weight.shape[-1]
+    with torch.no_grad():
+        wk = weight.detach().reshape(c, k * k).t().float().contiguous()
+        bk = None if bias is None else bias.detach().float().contiguous()
+    with _TAPS_LOCK:
+        _TAPS[key] = (weakref.ref(weight),
+                      None if bias is None else weakref.ref(bias), wk, bk)
+        if len(_TAPS) > _TAPS_KEPT:
+            _TAPS.popitem(last=False)
+    return wk, bk
 
 
 def conv_dw_plain(x, weight, bias=None, act=None, lo=0, add=None):
@@ -95,14 +135,11 @@ def conv_dw(x, weight, bias=None, act=None, lo=0, add=None):
     k = _check(x, weight, bias, lo, add)
     b, h, w, pitch = x.shape
     c = weight.shape[0]
-    wk = weight.detach().reshape(c, k * k).t().float().contiguous()
-    bk = None if bias is None else bias.detach().float().contiguous()
+    wk, bk = pack_taps(weight, bias)
     y = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
-    fn = kernel_function("mmif_conv_dw", [_I, _P, _I, _I, _P, _I, _P, _P, _P,
-                                          _I, _I, _I, _I, _I, _I, _P])
-    with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], ptr(x), pitch, lo, ptr(add), c,
-                 ptr(wk), ptr(bk), ptr(y), b, h, w, c, k, act_code(act),
-                 stream_handle(x.device))
-    check_launch("conv_dw", err)
+    window_launch("conv_dw", window_entry("mmif_conv_dw", ARGTYPES), x,
+                  DTYPE_CODES[x.dtype], x.data_ptr(), pitch, lo,
+                  None if add is None else add.data_ptr(), c, wk.data_ptr(),
+                  None if bk is None else bk.data_ptr(), y.data_ptr(), b, h,
+                  w, c, k, act_code(act))
     return y

@@ -13,7 +13,11 @@ ConvLayer's depthwise routes, CPU) against the JAX package and F.conv2d.
   too (the JAX package's gate sends a depthwise conv to XLA's conv there);
 - `use_bias=False` leaves no bias key; only dense or depthwise groups are
   accepted; the wrapper's refusals on tensors that are not on the CPU
-  (meta tensors: the checks run before any launch).
+  (meta tensors: the checks run before any launch);
+- the kernel's tap packing (`pack_taps`, called directly: CPU tensors take
+  the plain version): [K*K][C] f32 taps and f32 bias, packed once and
+  reused while the tensors keep their storage and version, packed anew
+  after an in-place change, a checkpoint load or an optimizer step.
 """
 
 import jax
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 
 from multi_modal_image_fusion_tpu.ops.layers import ConvLayer as JConvLayer
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import (
-    conv_dw, conv_dw_plain)
+    conv_dw, conv_dw_plain, pack_taps)
 from multi_modal_image_fusion_tpu_torch.ops.layers import (ConvLayer,
                                                            fast_training)
 
@@ -152,3 +156,59 @@ def test_wrapper_refuses(case, err):
         wt.requires_grad_()
     with pytest.raises(err):
         conv_dw(x, wt, None, None, lo, add)
+
+
+@pytest.mark.parametrize("k,use_bias", [(1, False), (3, False), (3, True)])
+def test_pack_taps_layout(k, use_bias):
+    r = np.random.RandomState(k)
+    wt = _rand(r, 48, 1, k, k).to(torch.bfloat16)
+    bias = _rand(r, 48).to(torch.bfloat16) if use_bias else None
+    wk, bk = pack_taps(wt, bias)
+    assert wk.dtype == torch.float32 and wk.shape == (k * k, 48)
+    assert wk.is_contiguous()
+    for dy in range(k):
+        for dx in range(k):
+            np.testing.assert_array_equal(
+                wk[dy * k + dx].numpy(), wt[:, 0, dy, dx].float().numpy())
+    if use_bias:
+        assert bk.dtype == torch.float32
+        np.testing.assert_array_equal(bk.numpy(), bias.float().numpy())
+    else:
+        assert bk is None
+
+
+def test_pack_taps_cache():
+    """Packed once a layer; packed anew after the weight or bias changes in
+    place, after a load_state_dict and after an optimizer step; a tensor of
+    equal values is packed on its own."""
+    r = np.random.RandomState(5)
+    wt, bias = _rand(r, 16, 1, 3, 3), _rand(r, 16)
+    wk, bk = pack_taps(wt, bias)
+    again = pack_taps(wt, bias)
+    assert again[0] is wk and again[1] is bk
+    with torch.no_grad():
+        wt.mul_(2.0)
+    wk2, _ = pack_taps(wt, bias)
+    assert wk2 is not wk
+    np.testing.assert_array_equal(wk2.numpy(),
+                                  wt.reshape(16, 9).t().numpy())
+    with torch.no_grad():
+        bias.add_(1.0)
+    _, bk2 = pack_taps(wt, bias)
+    np.testing.assert_array_equal(bk2.numpy(), bias.numpy())
+    twin = wt.clone()
+    assert pack_taps(twin)[0] is not pack_taps(wt)[0]
+
+    layer = ConvLayer(16, 16, ksize=3, act=None, groups=16, use_bias=False)
+    first = pack_taps(layer.weight)[0]
+    assert pack_taps(layer.weight)[0] is first
+    layer.load_state_dict({"layers.0.weight": 0.5 * layer.weight.detach()})
+    loaded = pack_taps(layer.weight)[0]
+    assert loaded is not first
+    np.testing.assert_allclose(loaded.numpy(), 0.5 * first.numpy())
+    opt = torch.optim.SGD(layer.parameters(), lr=0.1)
+    layer.weight.grad = torch.ones_like(layer.weight)
+    opt.step()
+    stepped = pack_taps(layer.weight)[0]
+    np.testing.assert_allclose(stepped.numpy(), loaded.numpy() - 0.1,
+                               atol=1e-7)
