@@ -8,10 +8,12 @@ bench's BENCH_BATCH), device-resident; the first run is excluded as warmup;
 every timed iteration (10, as BENCH_ITERS) chains on the full previous
 output (its mean feeds the next input), and the timed region ends with
 torch.cuda.synchronize() and a host fetch of the accumulated sum.
-The models are the port's zoo: deepfuse, densefuse, vifnet, dbnet and
-unfusion at batch 16; Res2Fusion is benched at --batch 2: its 384-channel
-Res2 expansion takes ~2 GB an image in bf16, so 16 pairs do not fit on an
-80 GB card.
+The models are the port's zoo: deepfuse, densefuse, vifnet, dbnet,
+unfusion, nestfuse and rfnnest at batch 16; Res2Fusion is benched at
+--batch 2: its 384-channel Res2 expansion takes ~2 GB an image in bf16, so
+16 pairs do not fit on an 80 GB card; MAFusion at --batch 4: its
+decoder's 960-channel legs at full resolution take 2.4 GB an image, its
+480-channel hidden layer 1.2 GB more.
 
     python -m multi_modal_image_fusion_tpu_torch.bench [--model deepfuse]
         [--batch 16] [--seed 0] [--int8]

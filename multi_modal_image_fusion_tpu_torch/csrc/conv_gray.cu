@@ -8,7 +8,8 @@
 //                      hiw_kernel.py:87 hiw_enter) fused with the c_in=1
 //                      entry conv that conv_hiw_chain (hiw_kernel.py:335)
 //                      runs on it (DeepFuse enc0, DenseFuse/VIFNet/
-//                      Res2Fusion conv_in, DBNet's encode, UNFusion CB1_0)
+//                      Res2Fusion conv_in, DBNet's encode, UNFusion CB1_0,
+//                      the k1 conv_in of NestFuse, RFNNest and MAFusion)
 //   conv_gray_exit  <- conv_kernel.py:383 _chain_exit_gray (via
 //                      hiw_kernel.py:105 hiw_exit) fused with the c_out=1
 //                      exit conv (DeepFuse dec2, the dec3 of DenseFuse,
@@ -489,10 +490,12 @@ static int launch_enter(GrayArgs a, int b_out, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The models' entry convs: k3 (DenseFuse, VIFNet, Res2Fusion, DBNet,
-// UNFusion) and k5 (DeepFuse); Cout a multiple of 16, in passes of 32
-// channels where Cout is a multiple of 32, else 16. Adding k1 or k7 is a
-// case here (EnGeom takes K up to 7).
+// The models' entry convs: k1 (NestFuse, RFNNest, MAFusion: one tap, at
+// row 0 of the even pixels' B and row 1 of the odd ones', the second
+// kernel row of the k16 step zero), k3 (DenseFuse, VIFNet, Res2Fusion,
+// DBNet, UNFusion) and k5 (DeepFuse); Cout a multiple of 16, in passes of
+// 32 channels where Cout is a multiple of 32, else 16. Adding k7 is a case
+// here (EnGeom takes K up to 7).
 template <typename T, int K, int NTG>
 static int enter_by_act(GrayArgs a, int b_out, cudaStream_t s) {
   switch (a.act) {
@@ -507,6 +510,7 @@ static int enter_by_k(int k, GrayArgs a, int b_out, cudaStream_t s) {
   if (a.C % 16) return (int)cudaErrorInvalidValue;
   const bool n32 = a.C % 32 == 0;
   switch (k) {
+    case 1: return n32 ? enter_by_act<T, 1, 4>(a, b_out, s) : enter_by_act<T, 1, 2>(a, b_out, s);
     case 3: return n32 ? enter_by_act<T, 3, 4>(a, b_out, s) : enter_by_act<T, 3, 2>(a, b_out, s);
     case 5: return n32 ? enter_by_act<T, 5, 4>(a, b_out, s) : enter_by_act<T, 5, 2>(a, b_out, s);
     default: return (int)cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
-DenseFuse, VIFNet, DBNet, UNFusion and Res2Fusion; the other 10 models are
-queued in ROADMAP.md.
+DenseFuse, VIFNet, DBNet, UNFusion, Res2Fusion, NestFuse, RFNNest and
+MAFusion; the other 7 models are queued in ROADMAP.md.
 
 Models take NHWC single-channel images:
 
@@ -12,8 +12,9 @@ Models take NHWC single-channel images:
 import torch
 from torch import nn
 
-from ..ops.blocks import (DenseBlock, NestDecoder, NestEncoder, Res2ConvBlock,
-                          down, upsample)
+from ..ops.blocks import (RFN, DenseBlock, FSDecoder, NestDecoder,
+                          NestEncoder, Res2ConvBlock, down, nest_block,
+                          upsample, wide_block)
 from ..ops.cuda.conv_pair import conv_pair_enter, conv_pair_exit
 from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
 from ..ops.fusion import attention_fusion, element_fusion
@@ -24,8 +25,9 @@ from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
 from ..ops.s2d import (chain_pair_enabled, hiw_enabled, s2d_enabled,
                        s2d_io_enabled, s2d_io_ok, s2d_pack, s2d_unpack)
 
-__all__ = ["DBNet", "DeepFuse", "DenseFuse", "MODEL_ZOO", "Res2Fusion",
-           "UNFusion", "VIFNet", "create_model"]
+__all__ = ["DBNet", "DeepFuse", "DenseFuse", "MAFusion", "MODEL_ZOO",
+           "NestFuse", "RFNNest", "Res2Fusion", "UNFusion", "VIFNet",
+           "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -478,8 +480,119 @@ class UNFusion(nn.Module):
         return self.conv_out(self.decode(feats))
 
 
+class NestFuse(nn.Module):
+    """4-scale ConvBlock encoder, per-scale attention fusion, U-Net++
+    nested decoder of ConvBlocks (reference core/model.py NestFuse; JAX
+    models/zoo.py:853-991).
+
+    Serving follows the JAX package's H-major multi-leg path
+    (`_hiw_forward`, zoo.py:940-984): the encoder runs once over the
+    batch-concatenated pair: conv_in (1 -> 16, k1) through
+    conv_gray_enter, then CB1_0-CB4_0 with a 2x2 max pool (or, with
+    down_mode 'stride', the stride-2 convs down1-down3 on F.conv2d) between
+    scales; each scale's halves are fused by `fusion` (attention_fusion,
+    `fusion_mode` 'sca' by default; sa, ca, sca and wavg, the modes of the
+    JAX fast route, zoo.py:906-909); the nested decoder's blocks read their
+    concats as legs; conv_out (64 -> 1, k1) runs conv_gray_exit. Each
+    ConvBlock's convs take the route `nest_block` fixes (ops/blocks.py):
+    conv_wide where the output width is 8 mod 16, else conv_chain on one
+    tensor and conv_multi on legs. `up_mode` 'nearest' (the default) or
+    'bilinear'; `num_ch` the encoder's widths (64, 112, 160, 208).
+    Autoencoder mode (`model(img1)`) decodes one batch's features."""
+
+    num_ch = (64, 112, 160, 208)
+    up_mode = "nearest"
+    block = staticmethod(nest_block)
+
+    def __init__(self, down_mode="maxpool", up_mode=None, fusion_mode="sca",
+                 num_ch=None, generator=None):
+        super().__init__()
+        up_mode = up_mode or self.up_mode
+        if down_mode not in ("stride", "maxpool"):
+            raise ValueError(f"down_mode {down_mode!r} not in stride/maxpool")
+        if up_mode not in ("bilinear", "nearest"):
+            raise ValueError(f"up_mode {up_mode!r} not in bilinear/nearest")
+        if fusion_mode not in ("sa", "ca", "sca", "wavg"):
+            raise ValueError("only supported ['sa', 'ca', 'sca', 'wavg'] "
+                             "mode")
+        self.down_mode, self.fusion_mode = down_mode, fusion_mode
+        g = generator
+        c = self.num_ch = tuple(num_ch or self.num_ch)
+        self.conv_in = ConvLayer(1, 16, ksize=1, generator=g)
+        self.CB1_0 = self.block(16, c[0], g)
+        self.CB2_0 = self.block(c[0], c[1], g)
+        self.CB3_0 = self.block(c[1], c[2], g)
+        self.CB4_0 = self.block(c[2], c[3], g)
+        if down_mode == "stride":
+            for i in (1, 2, 3):
+                setattr(self, f"down{i}", ConvLayer(c[i - 1], c[i - 1],
+                                                    stride=2, generator=g))
+        self.decode = self.decoder(up_mode, g)
+        self.conv_out = ConvLayer(c[0], 1, ksize=1, generator=g)
+
+    def decoder(self, up_mode, generator):
+        return NestDecoder(self.num_ch, up_mode, generator, self.block)
+
+    def encoder(self, img1, img2=None):
+        x1_0 = self.CB1_0(self.conv_in.enter(img1, img2))
+        x2_0 = self.CB2_0(down(self, 1, x1_0))
+        x3_0 = self.CB3_0(down(self, 2, x2_0))
+        x4_0 = self.CB4_0(down(self, 3, x3_0))
+        return x1_0, x2_0, x3_0, x4_0
+
+    def fusion(self, feats, n):
+        """Each scale's halves (the 2n-image encoder batch) fused."""
+        return [attention_fusion(f[:n], f[n:], self.fusion_mode)
+                for f in feats]
+
+    def forward(self, img1, img2=None):
+        feats = self.encoder(img1, img2)
+        if img2 is not None:
+            feats = self.fusion(feats, img1.shape[0])
+        return self.conv_out(self.decode(feats))
+
+
+class RFNNest(NestFuse):
+    """NestFuse with a learned residual fusion network (`RFN`, ops/blocks.
+    py) at each scale in place of the attention fusion (reference
+    core/model.py RFN_Nest; JAX models/zoo.py:993-1021). Serving follows the
+    JAX H-major route (`_hiw_fuse`, zoo.py:1017-1021): RFN{i} reads the
+    2n-image encoder batch of scale i in place (its 2c-input convs over the
+    two halves as legs). Autoencoder mode has no fusion, as NestFuse's."""
+
+    def __init__(self, generator=None, **kwargs):
+        super().__init__(generator=generator, **kwargs)
+        for i, c in enumerate(self.num_ch):
+            setattr(self, f"RFN{i + 1}", RFN(c, generator))
+
+    def fusion(self, feats, n):
+        return [getattr(self, f"RFN{i + 1}")(f, n)
+                for i, f in enumerate(feats)]
+
+
+class MAFusion(NestFuse):
+    """NestFuse's encoder at (64, 128, 256, 512), per-scale attention
+    fusion, U-Net3+ full-scale decoder (`FSDecoder`, ops/blocks.py;
+    reference core/model.py MAFusion; JAX models/zoo.py:1237-1257).
+
+    Serving follows the JAX package's C-major chain route (zoo.py:910-935;
+    MAFusion is in HIW_MULTI_BLOCKLIST, ops/pallas/hiw_kernel.py:72): every
+    ConvBlock conv is a conv_tlane_chain call site and runs conv_wide
+    (`wide_block`), over its legs in the decoder; conv_in and conv_out run
+    conv_gray_enter and conv_gray_exit. `up_mode` 'bilinear' by default."""
+
+    num_ch = (64, 128, 256, 512)
+    up_mode = "bilinear"
+    block = staticmethod(wide_block)
+
+    def decoder(self, up_mode, generator):
+        return FSDecoder(self.num_ch, self.block, up_mode, generator)
+
+
 MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
-             "res2fusion": Res2Fusion, "unfusion": UNFusion, "vifnet": VIFNet}
+             "mafusion": MAFusion, "nestfuse": NestFuse, "res2fusion":
+             Res2Fusion, "rfnnest": RFNNest, "unfusion": UNFusion,
+             "vifnet": VIFNet}
 
 
 def create_model(name, **kwargs):

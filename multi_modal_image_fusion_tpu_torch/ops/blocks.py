@@ -2,19 +2,23 @@
 ops/blocks.py, reference core/block.py). Ported: `DenseBlock`, for DenseFuse,
 VIFNet and DBNet; `Res2ConvBlock`, for Res2Fusion; `ConvBlock`, `ECB`,
 `DCB`, `NestEncoder`, `NestDecoder`, `upsample` and `pad_to`, for UNFusion
-(and DBNet's x8 upsample); the other blocks come with the models that use
-them (ROADMAP.md queue 1 item 6)."""
+(and DBNet's x8 upsample); `nest_block`, `wide_block`, `RFN`, `downsample`
+and `FSDecoder` (and `NestDecoder` over `ConvBlock`), for NestFuse, RFNNest
+and MAFusion; the other blocks come with the models that use them
+(ROADMAP.md queue 1 items 2-4)."""
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .cuda.conv_chain import CO_TILE
 from .cuda.conv_multi import concat_legs
 from .layers import ConvLayer, interpolate
 from .quant import record
 
-__all__ = ["ConvBlock", "DCB", "DenseBlock", "ECB", "NestDecoder",
-           "NestEncoder", "Res2ConvBlock", "pad_to", "upsample"]
+__all__ = ["ConvBlock", "DCB", "DenseBlock", "ECB", "FSDecoder",
+           "NestDecoder", "NestEncoder", "RFN", "Res2ConvBlock", "downsample",
+           "nest_block", "pad_to", "upsample", "wide_block"]
 
 
 class DenseBlock(nn.Module):
@@ -128,6 +132,14 @@ def upsample(feat, scale, mode="bilinear", hw=None):
     return out if hw is None else pad_to(out, hw)
 
 
+def downsample(feat, window, hw):
+    """The Downsample block (JAX ops/blocks.py:785): a `window` x `window`
+    max pool, stride `window`, VALID, NHWC, then pad_to `hw` (the shape
+    repair of odd sizes)."""
+    out = F.max_pool2d(feat.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
+    return pad_to(out.contiguous(), hw)
+
+
 class ConvBlock(nn.Module):
     """Two-conv block, hidden width in_ch // 2 (reference block.py:708-722;
     JAX ops/blocks.py:640): conv1 (`ksize1`) then conv2 (`ksize2`), relu
@@ -163,6 +175,26 @@ class DCB(ConvBlock):
 
     def __init__(self, in_ch, out_ch, generator=None):
         super().__init__(in_ch, out_ch, 3, 3, (True, True), generator)
+
+
+def nest_block(in_ch, out_ch, generator=None):
+    """NestFuse's and RFNNest's ConvBlock (k3 -> k1), each conv's serving
+    route decided here, where the block is built: a conv whose c_out is not
+    a multiple of CO_TILE (conv_chain's and conv_multi's 16 output
+    channels a block) takes conv_wide, which takes any multiple of 4 (the
+    hidden width in_ch // 2 is 8 mod 16 at CB1_0, CB3_0 and five of the six
+    decoder blocks); the others take ConvLayer's route (conv_chain on one
+    tensor, conv_multi on legs)."""
+    return ConvBlock(in_ch, out_ch, 3, 1,
+                     ((in_ch // 2) % CO_TILE != 0, out_ch % CO_TILE != 0),
+                     generator)
+
+
+def wide_block(in_ch, out_ch, generator=None):
+    """MAFusion's ConvBlock (k3 -> k1): both convs take conv_wide, as the
+    JAX package runs MAFusion on its C-major chain conv conv_tlane_chain
+    (MAFusion is in HIW_MULTI_BLOCKLIST, ops/pallas/hiw_kernel.py:72)."""
+    return ConvBlock(in_ch, out_ch, 3, 1, (True, True), generator)
 
 
 def _legs(*tensors):
@@ -219,23 +251,27 @@ def down(owner, which, x):
 
 
 class NestDecoder(nn.Module):
-    """UNFusion's U-Net++ nested decoder (JAX ops/blocks.py:882, its chain
-    route :941-966; reference block.py:836-867): DCB blocks DB1_1 ... DB1_3,
-    each over the legs of its concat (never built), each scale change an x2
-    upsample of the coarser feature repaired to the finer one's size
-    (`upsample`, the chain route's chain_upsample). `num_ch` is UNFusion's
-    (16, 64, 256, 1024)."""
+    """The U-Net++ nested decoder (JAX ops/blocks.py:882, its H-major and
+    chain routes :897-966; reference block.py:836-867): blocks DB1_1 ...
+    DB1_3, each over the legs of its concat (never built), each scale
+    change an x2 upsample of the coarser feature repaired to the finer
+    one's size (`upsample`, the chain routes' hiw_upsample and
+    chain_upsample). `block(in_ch, out_ch, generator)` builds each block,
+    as the JAX decoder takes its block class: DCB for UNFusion at (16, 64,
+    256, 1024), `nest_block` (ConvBlock) for NestFuse and RFNNest at (64,
+    112, 160, 208)."""
 
-    def __init__(self, num_ch, up_mode="bilinear", generator=None):
+    def __init__(self, num_ch, up_mode="bilinear", generator=None,
+                 block=DCB):
         super().__init__()
         g, c = generator, num_ch
         self.up_mode = up_mode
-        self.DB1_1 = DCB(c[0] + c[1], c[0], g)
-        self.DB2_1 = DCB(c[1] + c[2], c[1], g)
-        self.DB3_1 = DCB(c[2] + c[3], c[2], g)
-        self.DB1_2 = DCB(c[0] * 2 + c[1], c[0], g)
-        self.DB2_2 = DCB(c[1] * 2 + c[2], c[1], g)
-        self.DB1_3 = DCB(c[0] * 3 + c[1], c[0], g)
+        self.DB1_1 = block(c[0] + c[1], c[0], g)
+        self.DB2_1 = block(c[1] + c[2], c[1], g)
+        self.DB3_1 = block(c[2] + c[3], c[2], g)
+        self.DB1_2 = block(c[0] * 2 + c[1], c[0], g)
+        self.DB2_2 = block(c[1] * 2 + c[2], c[1], g)
+        self.DB1_3 = block(c[0] * 3 + c[1], c[0], g)
 
     def forward(self, feats):
         f0, f1, f2, f3 = feats
@@ -248,3 +284,70 @@ class NestDecoder(nn.Module):
         x1_2 = self.DB1_2(_legs(f0, x1_1, up(x2_1, f0)))
         x2_2 = self.DB2_2(_legs(f1, x2_1, up(x3_1, f1)))
         return self.DB1_3(_legs(f0, x1_1, x1_2, up(x2_2, f0)))
+
+
+class FSDecoder(nn.Module):
+    """The U-Net3+ full-scale decoder (JAX ops/blocks.py:986, its chain
+    route :1042-1069; reference block.py FSDecoder): DB3, DB2 and DB1, each
+    over four legs (never concatenated), one from every scale, each moved
+    to the block's scale and repaired to its size: max pools x4 and x2
+    (`downsample`) from the finer scales, x2, x4 and x8 upsamples
+    (`upsample`, `up_mode`) from the coarser ones. `block(in_ch, out_ch,
+    generator)` builds each block; MAFusion's is `wide_block` at (64, 128,
+    256, 512), whose blocks read 960 channels."""
+
+    def __init__(self, num_ch, block, up_mode="bilinear", generator=None):
+        super().__init__()
+        g, c = generator, num_ch
+        self.up_mode = up_mode
+        cat = sum(c)
+        self.DB3 = block(cat, c[2], g)
+        self.DB2 = block(cat, c[1], g)
+        self.DB1 = block(cat, c[0], g)
+
+    def forward(self, feats):
+        f0, f1, f2, f3 = feats
+        hw0, hw1, hw2 = (f.shape[1:3] for f in (f0, f1, f2))
+
+        def up(x, scale, hw):
+            return upsample(x, scale, self.up_mode, hw)
+        y3 = self.DB3(_legs(downsample(f0, 4, hw2), downsample(f1, 2, hw2),
+                            f2, up(f3, 2, hw2)))
+        y2 = self.DB2(_legs(downsample(f0, 2, hw1), f1, up(y3, 2, hw1),
+                            up(f3, 4, hw1)))
+        return self.DB1(_legs(f0, up(y2, 2, hw0), up(y3, 4, hw0),
+                              up(f3, 8, hw0)))
+
+
+class RFN(nn.Module):
+    """Residual fusion network of RFN-Nest (JAX ops/blocks.py:690, its
+    H-major multi-leg route :699-727; reference block.py RFN_block): the
+    learned fusion of one scale's two feature batches, `num_ch` channels
+    each, all convs reflect-SAME relu:
+
+        f_res = res([f1, f2])                   k3, 2c -> c
+        y     = fuse1([conv1(f1), conv2(f2)])   k3 each, then k1 2c -> c
+        out   = fuse3(fuse2(y)) + f_res         k3, k3
+
+    forward(f, n) takes the encoder's 2n-image batch f = [f1; f2]: `res`
+    reads f's two halves as legs [(f, 0), (f, n)] (conv_multi, no concat
+    and no copy of a half), conv1 and conv2 run on f[:n] and f[n:]
+    (conv_chain), `fuse1` reads their outputs as legs. State-dict names
+    are the reference's (`res`, `conv1`, `conv2`, `layers.{0,1,2}` for
+    fuse1-3)."""
+
+    def __init__(self, num_ch, generator=None):
+        super().__init__()
+        g, c = generator, num_ch
+        self.res = ConvLayer(2 * c, c, 3, generator=g)
+        self.conv1 = ConvLayer(c, c, 3, generator=g)
+        self.conv2 = ConvLayer(c, c, 3, generator=g)
+        self.layers = nn.ModuleList([ConvLayer(2 * c, c, 1, generator=g),
+                                     ConvLayer(c, c, 3, generator=g),
+                                     ConvLayer(c, c, 3, generator=g)])
+
+    def forward(self, f, n):
+        f_res = self.res([(f, 0), (f, n)])
+        fuse1, fuse2, fuse3 = self.layers
+        y = fuse1(_legs(self.conv1(f[:n]), self.conv2(f[n:])))
+        return fuse3(fuse2(y)) + f_res

@@ -38,8 +38,9 @@ forward-only: on a CUDA tensor with grad mode on and an input, weight or
 bias that requires grad, the wrappers raise (training goes through
 ops/cuda/conv_vjp.py). They are built for
 what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
-and k7 (DeepFuse), `conv_gray_enter` k3 and k5, `conv_gray_exit` k1
-(UNFusion), k3 and k5 (any Cin), output channels a multiple of 16 (but the
+and k7 (DeepFuse), `conv_gray_enter` k1 (NestFuse, RFNNest, MAFusion), k3
+and k5, `conv_gray_exit` k1 (UNFusion, NestFuse, RFNNest, MAFusion), k3 and
+k5 (any Cin), output channels a multiple of 16 (but the
 exit's 1), input and output in one dtype. The wrappers raise on anything
 else.
 """
@@ -54,7 +55,7 @@ import torch.nn.functional as F
 from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
 
-__all__ = ["ACT_CODES", "apply_act", "chain_weights", "conv_chain",
+__all__ = ["ACT_CODES", "CO_TILE", "apply_act", "chain_weights", "conv_chain",
            "conv_chain_plain", "conv_gray_enter", "conv_gray_enter_plain",
            "conv_gray_exit", "conv_gray_exit_plain", "GRAY_TILES",
            "gray_tile", "gray_weights", "pack_gray_enter", "pack_gray_exit",
@@ -65,7 +66,7 @@ __all__ = ["ACT_CODES", "apply_act", "chain_weights", "conv_chain",
 ACT_CODES = {None: 0, "relu": 1, "relu6": 2, "lrelu": 3, "tanh": 4}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_CO_TILE = 16          # output channels per block (csrc/conv_chain.cu)
+CO_TILE = 16           # output channels per block (csrc/conv_chain.cu)
 _GRID_Z_MAX = 65535
 
 _I = ctypes.c_int
@@ -413,14 +414,14 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
     if weight.shape[1] != cin:
         raise ValueError(f"conv_chain: weight takes {weight.shape[1]} input "
                          f"channels, x has {cin}")
-    if cout % _CO_TILE:
+    if cout % CO_TILE:
         raise ValueError(f"conv_chain: Cout must be a multiple of "
-                         f"{_CO_TILE}, got {cout}")
+                         f"{CO_TILE}, got {cout}")
     if fuse_n and b_in != 2 * fuse_n:
         raise ValueError(f"conv_chain: fuse_n={fuse_n} needs {2 * fuse_n} "
                          f"input images, got {b_in}")
     b_out = fuse_n or b_in
-    if b_out * (cout // _CO_TILE) > _GRID_Z_MAX:
+    if b_out * (cout // CO_TILE) > _GRID_Z_MAX:
         raise ValueError(f"conv_chain: batch {b_out} too large for one "
                          f"launch")
     wk, bk, bn = chain_weights(weight, bias, [cin], x.dtype, fuse_n)
@@ -446,7 +447,7 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
     b, h, w, c = img1.shape
     imgs = [img1] if img2 is None else [img1, img2]
     k = _check_cuda_args("conv_gray_enter", imgs, weight, bias, h, w,
-                          (3, 5))
+                          (1, 3, 5))
     cout = weight.shape[0]
     if c != 1 or weight.shape[1] != 1:
         raise ValueError("conv_gray_enter: inputs and weight must have one "
@@ -455,9 +456,9 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
         raise ValueError("conv_gray_enter: img1 and img2 shapes differ")
     if img2 is not None and img2.dtype != img1.dtype:
         raise TypeError("conv_gray_enter: img1 and img2 dtypes differ")
-    if cout % _CO_TILE:
+    if cout % CO_TILE:
         raise ValueError(f"conv_gray_enter: Cout must be a multiple of "
-                         f"{_CO_TILE}, got {cout}")
+                         f"{CO_TILE}, got {cout}")
     b_out = b * len(imgs)
     wk, bk = gray_weights("enter", weight, bias, img1.dtype)
     y = torch.empty((b_out, h, w, cout), dtype=img1.dtype,

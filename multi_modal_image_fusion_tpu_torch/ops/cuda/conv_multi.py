@@ -32,14 +32,13 @@ import torch
 
 from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
-from .conv_chain import (DTYPE_CODES, act_code, chain_weights,
+from .conv_chain import (CO_TILE, DTYPE_CODES, act_code, chain_weights,
                          check_tensors, conv_chain_plain)
 
 __all__ = ["check_legs", "concat_legs", "conv_multi", "conv_multi_plain",
            "identity_weights", "legs_n_out"]
 
 MAX_LEGS = 8
-_CO_TILE = 16          # output channels per block (csrc/conv_chain.cu)
 _GRID_Z_MAX = 65535
 
 
@@ -84,7 +83,7 @@ def conv_multi_plain(legs, weight, bias=None, act=None, fuse_n=0,
 
 
 def check_legs(legs, weight, bias, fuse_n, n_out, name="conv_multi",
-               ksizes=(1, 3, 5, 7), co_tile=_CO_TILE):
+               ksizes=(1, 3, 5, 7), co_tile=CO_TILE):
     """The multi-leg kernels' contract (conv_multi; conv_wide with its own
     kernel sizes and output-channel multiple); returns (k, c_out)."""
     if not 1 <= len(legs) <= MAX_LEGS:

@@ -1,9 +1,9 @@
 """Weight carry from the JAX package's variables to the port's state dict:
 the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
 (`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, `_conv_block`
-:92-95, `_res2_block` :109-119, `_nest_decoder` :223-225, the DeepFuse,
-DenseFuse, VIFNet, DBNet, Res2Fusion and UNFusion mappings :365-384,
-:441-445 and :464-478).
+:92-95, `_rfn` :98-106, `_res2_block` :109-119, `_nest_decoder` :223-225,
+the DeepFuse, DenseFuse, VIFNet, DBNet, Res2Fusion, NestFuse, RFNNest,
+MAFusion and UNFusion mappings :365-384 and :441-478).
 
 Input is the JAX variables as a nested dict of numpy arrays, to any depth,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}}` (e.g. from
@@ -54,10 +54,34 @@ def _unfusion():
     return m
 
 
+def _rfn(name):
+    """An RFN: res, conv1, conv2 keep their names, fuse1-3 -> layers.0-2."""
+    return {f"{name}/{conv}": f"{name}.{conv}"
+            for conv in ("res", "conv1", "conv2")} | {
+        f"{name}/fuse{i + 1}": f"{name}.layers.{i}" for i in range(3)}
+
+
+def _nest(decoder_blocks, rfn=False):
+    """NestFuse, RFNNest and MAFusion in stride mode (maxpool mode has no
+    down convs: their entries are skipped when the JAX tree lacks them)."""
+    m = {"conv_in": "conv_in", "conv_out": "conv_out",
+         **{f"down{i}": f"down{i}" for i in (1, 2, 3)}}
+    for i in range(1, 5):
+        m |= _conv_block(f"CB{i}_0", f"CB{i}_0")
+        if rfn:
+            m |= _rfn(f"RFN{i}")
+    for n in decoder_blocks:
+        m |= _conv_block(f"decode/{n}", f"decode.{n}")
+    return m
+
+
+_NEST_DECODER = ("DB1_1", "DB2_1", "DB3_1", "DB1_2", "DB2_2", "DB1_3")
+
 # flax submodule path -> reference state-dict prefix, per ported model
 _DENSE_ENCODER = {"conv_in": "encode.0", **_dense_block("dense", "encode.1")}
-_OPTIONAL = {"unfusion": {f"{p}down{i}" for p in ("", "encode/")
-                          for i in (1, 2, 3)}}
+_DOWNS = {f"down{i}" for i in (1, 2, 3)}
+_OPTIONAL = {"unfusion": _DOWNS | {f"encode/{d}" for d in _DOWNS},
+             "nestfuse": _DOWNS, "rfnnest": _DOWNS, "mafusion": _DOWNS}
 _LAYOUTS = {
     "deepfuse": {"enc0": "encode.0", "enc1": "encode.1", "dec0": "decode.0",
                  "dec1": "decode.1", "dec2": "decode.2"},
@@ -73,6 +97,9 @@ _LAYOUTS = {
               **{f"semantic{i}": f"semantic.{i}" for i in range(3)},
               **{f"dec{i}": f"decode.{i}" for i in range(4)}},
     "unfusion": _unfusion(),
+    "nestfuse": _nest(_NEST_DECODER),
+    "rfnnest": _nest(_NEST_DECODER, rfn=True),
+    "mafusion": _nest(("DB1", "DB2", "DB3")),
 }
 
 

@@ -47,7 +47,7 @@ def _conv_f32(x, weight, bias, act):
     return apply_act(y, act).permute(0, 2, 3, 1)
 
 
-@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("k", [1, 3, 5])
 def test_enter_plain_rounds_weight_to_bf16(k):
     img1 = torch.from_numpy(_rand((2, 21, 37, 1), 0, 0.0)).to(BF)
     img2 = torch.from_numpy(_rand((2, 21, 37, 1), 1, 0.0)).to(BF)
@@ -173,7 +173,8 @@ def _emulate_enter(img, packed, k, cout):
     return out
 
 
-@pytest.mark.parametrize("k,cout", [(3, 16), (5, 16), (3, 32), (5, 32)])
+@pytest.mark.parametrize("k,cout", [(1, 16), (3, 16), (5, 16), (1, 32),
+                                    (3, 32), (5, 32)])
 def test_pack_gray_enter_reproduces_the_conv(k, cout):
     img = torch.from_numpy(_rand((2, 13, 22, 1), 20 + k, 0.0)).to(BF)
     w = torch.from_numpy(_rand((cout, 1, k, k), 30 + cout))

@@ -6,7 +6,7 @@ GPU machine with (the JAX-importing conftest is skipped):
 
     python -m pytest --noconftest tests/test_torch_gray_card.py
 
-Every built instance (enter k3 and k5 at Cout 16 and 32, exit k1, k3 and
+Every built instance (enter k1, k3 and k5 at Cout 16 and 32, exit k1, k3 and
 k5 from 16 channels, and exit channel counts that take several k-steps or
 the element-wise copy) in bf16 and f32, at the bench's 16 pairs of
 1224x1024, at an odd 45x61, and where the persistent grid's last tile is
@@ -16,7 +16,8 @@ f32 products summed in another order); bf16 1e-3 beyond one bf16 ulp of
 each output (the same exact products of bf16 weights and inputs summed in
 f32 in another order, one rounding to bf16). At the bench's shape, controls
 that must miss by 10x: the taps transposed, the halo zero-padded instead of
-reflected, and for the enter the two images swapped.
+reflected, and for the enter the two images swapped; a k1 enter (no halo, one
+tap) has the bias dropped and its output channels reversed in their place.
 """
 
 import pytest
@@ -78,7 +79,8 @@ def _launched(name, fn):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("k,cout", [(3, 16), (5, 16), (3, 32), (5, 32)])
+@pytest.mark.parametrize("k,cout", [(1, 16), (3, 16), (5, 16), (1, 32),
+                                    (3, 32), (5, 32)])
 def test_conv_gray_enter(cuda, k, cout, dt, shape):
     n, h, w = shape
     dtype = DTYPES[dt]
@@ -94,11 +96,16 @@ def test_conv_gray_enter(cuda, k, cout, dt, shape):
     if dt != "bf16" or n != 16:
         return
     wq = wt.to(dtype)
-    ctls = {"taps transposed": conv_gray_enter(img1, img2, wq.transpose(2, 3),
-                                               bias, "relu"),
-            "zero halo": _zero_halo(torch.cat([img1, img2]), wq, bias,
-                                    "relu"),
-            "images swapped": conv_gray_enter(img2, img1, wq, bias, "relu")}
+    ctls = {"images swapped": conv_gray_enter(img2, img1, wq, bias, "relu")}
+    if k > 1:
+        ctls["taps transposed"] = conv_gray_enter(
+            img1, img2, wq.transpose(2, 3), bias, "relu")
+        ctls["zero halo"] = _zero_halo(torch.cat([img1, img2]), wq, bias,
+                                       "relu")
+    else:
+        ctls["bias dropped"] = conv_gray_enter(img1, img2, wq, None, "relu")
+        ctls["channels reversed"] = conv_gray_enter(img1, img2, wq.flip(0),
+                                                    bias, "relu")
     for what, y in ctls.items():
         assert _rel(y, want, dtype) > 10 * TOL[dtype], what
 
