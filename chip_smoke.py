@@ -257,6 +257,25 @@ default route; the bench --int8 with MMIF_CHAIN_PAIR=1, whose forwards
 take the float pair route (no conv_int8_chain launch). Every kernel of
 the `kernels` line must have launched on a path.
 
+PFNetv1, PFNetv2, IFCNN, DIFNet and PMGI: phase 2 counts the
+k7 and two-gray-leg enter instances (no spill in the two-leg ones, whose
+lrelu takes the switch); phase 3 holds the k7 enter (IFCNN's enc0, 1 ->
+64, with the enter's controls and ragged tiles), the two-gray-leg enter
+and the exit over eight legs (`check_gray_legs`: controls in bf16 and f32
+at 1224x1024: the second leg's weight dropped, the legs' weights swapped,
+taps transposed, a zero halo; the tanh left out, two legs swapped, a leg's
+batch offset wrong), their conv_chain shapes (IFCNN's 64 channels,
+DIFNet's and PMGI's 16, PFNetv2's fuse1 and fuse2) and conv_multi shapes
+(DIFNet's identity leg and batch-half fuse, PMGI's 4-leg conv), and times
+PFNetv2's fuse net three ways (`check_fuse_net`: the block-diagonal
+route, `F.conv2d(groups=64)`, the grouped work's bound). Later paths, each
+with counts from 0: their benches (16 pairs, exact FORWARD_LAUNCHES,
+profiled forwards, peak memory) and contracts, and their test CLIs (3
+pairs), with weights from `seeded_model` (batch norms with seeded random
+statistics). IFCNN's, DIFNet's and PMGI's f32 plain path is the serving
+kernels' plain versions on the folded weights (`plain_kernels`): a
+normed layer's F.conv2d route is its training route, which raises.
+
 Progress lines `[N s] what (M GiB held)` stamp the phases with the device
 memory live tensors hold. Prints the `kernels` JSON line, the card line,
 and last
@@ -458,8 +477,10 @@ def tensor_core_report(build, lib_path):
     print(f"SASS and ptxas -v, int8 conv_int8_tc_kernel: {json.dumps(int8)}")
     # rows 2 and 3 (csrc/conv_gray.cu): warp-level bf16 MMAs (HMMA) in every
     # bf16 instance, none in the f32 ones; no spill in the instances of the
-    # models' activations (relu, none: the last template argument 1 or 0;
-    # the others, n1, take apply_act's switch and are reported)
+    # models' activations (relu, none: the last template argument 1 or 0),
+    # nor in the two-gray-leg enter's (PMGI's lrelu takes the switch); the
+    # other switch instances, n1, are reported. Names: enter/dtype/K/legs/
+    # pass width/act, exit/dtype/K/act
     gray = {}
     g_ptxas = _ptxas_props(log, lambda f: "gray_e" in f)
     for f in sorted(f for f in counts if "gray_enter_kernel" in f
@@ -469,14 +490,17 @@ def tensor_core_report(build, lib_path):
         name = "{}/{}/{}".format(kind, "bf16" if bf16 else "f32", "/".join(
             re.findall(r"Li(n?\d+)E", f)))
         gray[name] = {"hmma": hmma[f], **g_ptxas.get(f, {})}
-        spill = f not in g_ptxas or (not name.endswith("/n1") and (
-            g_ptxas[f]["spill_stores"] or g_ptxas[f]["spill_loads"]))
+        two_legs = kind == "enter" and name.split("/")[3] == "2"
+        spill = f not in g_ptxas or (
+            (two_legs or not name.endswith("/n1")) and (
+                g_ptxas[f]["spill_stores"] or g_ptxas[f]["spill_loads"]))
         if (bf16 and hmma[f] == 0) or (not bf16 and hmma[f]) or spill:
             raise AssertionError(f"{name}: {gray[name]}: want HMMA in the "
                                  f"bf16 instances only, no spills")
-    # per dtype: the enter's k1, k3 and k5 at two pass widths and the
-    # exit's k1, k3 and k5, each with three activations
-    if len(gray) != 2 * (3 * 2 * 3 + 3 * 3):
+    # per dtype: the enter's k1, k3, k5 and k7 on one gray leg and k5 on
+    # two, each at two pass widths, and the exit's k1, k3 and k5, each with
+    # three activations
+    if len(gray) != 2 * ((4 + 1) * 2 * 3 + 3 * 3):
         raise AssertionError(f"conv_gray.cu instances: {sorted(gray)}")
     print(f"SASS and ptxas -v, conv_gray.cu: {json.dumps(gray)}")
     gray_sum = {"hmma": sum(v["hmma"] for v in gray.values()),
@@ -723,19 +747,23 @@ NEST_CHAIN = [("nestfuse.CB1_0.conv2", 8, 64, 1, 0, 2),
 def _gray_enter_raw(torch, a, b, wt, bias, act):
     """A zero-argument raw launch of conv_gray_enter's C entry on the pair
     (a, b) (weights packed, output allocated here once): the kernel without
-    the wrapper's host work."""
+    the wrapper's host work. A (Cout, 2, K, K) weight takes the two-leg
+    entry (a and b the two input channels)."""
     import ctypes
     from multi_modal_image_fusion_tpu_torch.ops.cuda.build import \
         kernel_function
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
         ACT_CODES, DTYPE_CODES, gray_weights)
     I, P = ctypes.c_int, ctypes.c_void_p
-    fn = kernel_function("mmif_conv_gray_enter",
+    legs = wt.shape[1]
+    fn = kernel_function("mmif_conv_gray_enter" if legs == 1
+                         else "mmif_conv_gray_enter_legs",
                          [I, P, P, P, P, P, I, I, I, I, I, I, P])
     n, h, w, _ = a.shape
     cout, k = wt.shape[0], wt.shape[-1]
     wk, bk = gray_weights("enter", wt, bias, a.dtype)
-    y = torch.empty((2 * n, h, w, cout), dtype=a.dtype, device=a.device)
+    y = torch.empty((n * (3 - legs), h, w, cout), dtype=a.dtype,
+                    device=a.device)
     args = (DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), wk.data_ptr(),
             None if bk is None else bk.data_ptr(), y.data_ptr(), n, h, w,
             cout, k, ACT_CODES[act])
@@ -752,8 +780,8 @@ def _gray_enter_raw(torch, a, b, wt, bias, act):
 def check_kernels(torch, F, dev, timer):
     """Phase 3. Returns {kernel name: record} for the kernels line."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
-        conv_chain, conv_chain_plain, conv_gray_enter, conv_gray_enter_plain,
-        conv_gray_exit, conv_gray_exit_plain)
+        apply_act, conv_chain, conv_chain_plain, conv_gray_enter,
+        conv_gray_enter_plain, conv_gray_exit, conv_gray_exit_plain)
 
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     # DeepFuse's layers, the k3 instances of DenseFuse and VIFNet (their
@@ -785,7 +813,20 @@ def check_kernels(torch, F, dev, timer):
                False, 0, 1),
               ("vifnet.dec1", "conv_chain", 128, 64, 3, "relu", False, 0, 1),
               ("vifnet.dec2", "conv_chain", 64, 32, 3, "relu", False, 0, 1),
-              ("vifnet.dec3", "conv_chain", 32, 16, 3, "relu", False, 0, 1)]
+              ("vifnet.dec3", "conv_chain", 32, 16, 3, "relu", False, 0, 1),
+              # IFCNN's k7 enc0 (64 out, no activation), the new
+              # conv_chain shapes of IFCNN, DIFNet, PMGI and PFNetv2's
+              # block-diagonal fuse net (fuse1 128 -> 128, fuse2 -> 64)
+              ("ifcnn.enc0", "conv_gray_enter", 1, 64, 7, None, False, 0,
+               1),
+              ("ifcnn.enc1", "conv_chain", 64, 64, 3, "relu", False, 0, 2),
+              ("difnet.enc1.conv1", "conv_chain", 16, 16, 3, "relu", False,
+               0, 2),
+              ("pmgi.gradient1", "conv_chain", 16, 16, 3, "lrelu", False, 0,
+               1),
+              ("pfnetv2.fuse1", "conv_chain", 128, 128, 3, "relu", False, 0,
+               1),
+              ("pfnetv2.fuse2", "conv_chain", 128, 64, 3, None, False, 0, 1)]
     layers += [(name, "conv_chain", cin, cout, 3, "relu", False, s, 2)
                for name, cin, cout, s in UNFUSION_CHAIN]
     layers += [(name, "conv_chain", cin, cout, k, "relu", False, s, per_pair)
@@ -916,13 +957,242 @@ def check_kernels(torch, F, dev, timer):
                     "raw_ms": timer(raw),
                     "host_us": _host_us(torch, run),
                     "library_act_ms": timer(lambda: [
-                        torch.relu(F.conv2d(t, wb, bb)) for t in xp])})
+                        apply_act(F.conv2d(t, wb, bb), act) for t in xp])})
                 del raw
             del xp, xnchw, xn
         del xin
         torch.cuda.empty_cache()
         stamp(f"{kern} {name} checked")
 
+    return rec
+
+
+def check_gray_legs(torch, F, dev, timer, rec):
+    """Rows 2 and 3's PMGI instances against their plain versions:
+    the two-gray-leg enter (gradient0: img1 and img2 the two channels of
+    one input, 2 -> 16, k5, lrelu) and the exit over legs (decode: eight
+    16-channel legs -> 1, k1, tanh; leg 3 read at batch offset 1 of a
+    tensor with one more image), at 1224x1024 in bf16 (the bench's 16
+    pairs) and f32 (the test CLI's pair) and at 45x61, CHAIN_TOL. At both
+    full shapes controls that must miss by 10x: the enter's second leg's
+    weight dropped, the legs' weights swapped, the taps transposed, a zero
+    halo; the exit's tanh left out, two legs swapped, leg 3's offset wrong.
+    Timed at the bench's shape beside the plain version and one F.conv2d
+    on the padded channel concat (the concat and the pad timed apart; the
+    enter also as its raw launch). The records join rec's conv_gray_enter
+    and conv_gray_exit layers."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
+        apply_act, conv_gray_enter, conv_gray_enter_plain, conv_gray_exit,
+        conv_gray_exit_plain, gray_legs_input)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for kern, key in (("conv_gray_enter", "pmgi.gradient0"),
+                      ("conv_gray_exit", "pmgi.decode")):
+        r = rec[kern]
+        for dt, n, h, w in (("bf16", BATCH, H, W), ("f32", 1, H, W),
+                            ("bf16", 2, 45, 61), ("f32", 2, 45, 61)):
+            dtype = dts[dt]
+            if kern == "conv_gray_enter":
+                cin, cout, k, act = 2, 16, 5, "lrelu"
+                a = _rand(torch, (n, h, w, 1), 1, dev, dtype)
+                b = _rand(torch, (n, h, w, 1), 2, dev, dtype)
+                wk = _rand(torch, (cout, cin, k, k), 130, dev, torch.float32,
+                           lo=-0.5, scale=2.0 / np.sqrt(cin * k * k)
+                           ).to(dtype)
+                bias = _rand(torch, (cout,), 131, dev, torch.float32,
+                             lo=-0.5, scale=0.1)
+
+                def run(wk=wk):
+                    return conv_gray_enter(a, b, wk, bias, act)
+
+                def plain():
+                    return conv_gray_enter_plain(a, b, wk, bias, act)
+
+                def cat():
+                    return torch.cat([a, b], -1)
+
+                def ctls():
+                    return {"second leg dropped": run(torch.cat(
+                                [wk[:, :1], 0 * wk[:, 1:]], 1)),
+                            "legs' weights swapped": run(wk.flip(1)),
+                            "taps transposed": run(wk.transpose(2, 3)),
+                            "zero halo": _zero_halo_plain(
+                                torch, F, cat(), wk, bias, act)}
+                in_elems = 2 * n * h * w
+            else:
+                cin, cout, k, act = 128, 1, 1, "tanh"
+                ts = [_rand(torch, (n + (i == 3), h, w, 16), 140 + i, dev,
+                            dtype, lo=-0.5) for i in range(8)]
+                legs = [(t, int(i == 3)) for i, t in enumerate(ts)]
+                wk = _rand(torch, (cout, cin, k, k), 150, dev, torch.float32,
+                           lo=-0.5, scale=4.0 / np.sqrt(cin)).to(dtype)
+                bias = _rand(torch, (cout,), 151, dev, torch.float32,
+                             lo=-0.5, scale=0.1)
+
+                def run(legs=legs, act=act):
+                    return conv_gray_exit(legs, wk, bias, act)
+
+                def plain():
+                    return conv_gray_exit_plain(legs, wk, bias, act)
+
+                def cat():
+                    return gray_legs_input(legs)
+
+                def ctls():
+                    return {"tanh left out": run(act=None),
+                            "two legs swapped": run(
+                                [legs[1], legs[0], *legs[2:]]),
+                            "leg 3's offset wrong": run(
+                                [(t, 0) for t in ts])}
+                in_elems = n * h * w * cin
+            want = plain()
+            err, rel = _chain_err(torch, run(), want, dt)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+            if h != H:
+                continue
+            r.setdefault("min_control_rel_err", float("inf"))
+            _check_controls(torch, r, f"{kern} {key} {dt}", want, ctls())
+            del want
+            if dt != "bf16":
+                continue
+            xn = cat().permute(0, 3, 1, 2)
+            p = k // 2
+            parts, xp = _library_parts(F, xn, k, cout)
+            bb = bias.to(dtype)
+            bound, by = _bound((in_elems + n * h * w * cout) * 2
+                               + wk.numel() * 2,
+                               2.0 * n * h * w * cin * k * k * cout, dt)
+            lay = r["layers"][key] = {
+                "ms": timer(run), "plain_ms": timer(plain),
+                "library_ms": timer(lambda: [F.conv2d(t, wk, bb)
+                                             for t in xp]),
+                "library_act_ms": timer(lambda: [
+                    apply_act(F.conv2d(t, wk, bb), act) for t in xp]),
+                "library_concat_ms": timer(cat),
+                "library_pad_ms": timer(lambda: [
+                    F.pad(xn[sl], (p, p, p, p), mode="reflect")
+                    for sl in parts]),
+                "library_calls": len(parts),
+                "host_us": _host_us(torch, run),
+                "bound_ms": bound, "bound_by": by,
+                "shape": (f"2 gray legs {n}x{h}x{w} -> {n}x{h}x{w}x{cout} "
+                          f"k{k} {dt}" if kern == "conv_gray_enter" else
+                          f"8 legs of 16 -> {n}x{h}x{w}x1 k{k} {dt}")}
+            if kern == "conv_gray_enter":
+                raw = _gray_enter_raw(torch, a, b, wk, bias, act)
+                _chain_err(torch, raw(), plain(), dt)
+                lay["raw_ms"] = timer(raw)
+                del raw
+            del xn, xp
+        torch.cuda.empty_cache()
+        stamp(f"{kern} {key} checked")
+
+
+def check_fuse_net(torch, F, dev, timer):
+    """PFNetv2's fuse net at the bench's 16 pairs of 1224x1024 in bf16, timed
+    three ways: the serving route (PFNetv2.fusion: the
+    block-diagonal fuse0 on conv_multi over the eight legs, fuse1 and
+    fuse2 on conv_chain, the residual added a leg) and its three kernel
+    launches alone; the library call, one grouped F.conv2d(groups=64) a
+    layer on the channel-interleaved input (the interleave, pads and
+    activations timed apart); and the bound of the grouped work (2 -> 2 ->
+    2 -> 1 a channel) beside the block-diagonal convs' own bound (64x the
+    operations). The route is checked against the f32 channels-into-batch
+    fold on F.conv2d (TF32 off) over 2 of the pairs: within 2e-2 of its
+    largest magnitude (bf16 storage between the three layers)."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        apply_act, conv_chain
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import \
+        conv_multi
+    n, dt = BATCH, torch.bfloat16
+    model = seeded_model(torch, "pfnetv2", 0).to(dev, dt).eval()
+    legs = [_rand(torch, (2 * n, H, W, 16), 160 + i, dev, dt)
+            for i in range(4)]
+    (w0, b0), (w1, b1), (w2, b2) = model.fuse_weights()
+    acts = [layer.act for layer in model.fuse]
+    with torch.no_grad():
+        y = model.fusion(legs, n)
+        m32 = seeded_model(torch, "pfnetv2", 0).to(dev).eval()
+        f32 = torch.cat([t.float() for t in legs], -1)
+        ref = m32._fold(torch.cat([f32[:2], f32[n:n + 2]]), 2)
+        scale = float(ref.abs().max())
+        err = float((y[:2].float() - ref).abs().max())
+        del m32, f32, ref
+        if not err <= 2e-2 * scale:
+            raise AssertionError(f"pfnetv2 fuse net: max err {err} of "
+                                 f"{scale} against the f32 fold")
+        z0 = conv_multi([(t, 0) for t in legs] + [(t, n) for t in legs],
+                        w0, b0, acts[0])
+        z1 = conv_chain(z0, w1, b1, acts[1])
+
+        def convs():
+            conv_multi([(t, 0) for t in legs] + [(t, n) for t in legs], w0,
+                       b0, acts[0])
+            conv_chain(z0, w1, b1, acts[1])
+            conv_chain(z1, w2, b2, acts[2])
+        # the library: grouped convs on the (c, {f1, f2}) interleaved input,
+        # in batch chunks (torch's reflect pad indexes with 32 bits)
+        gw = [layer.weight.detach().repeat(64, 1, 1, 1) for layer in
+              model.fuse]
+        gb = [layer.bias.detach().repeat(64) for layer in model.fuse]
+
+        def interleave():
+            f = torch.cat(legs, -1)
+            return torch.stack([f[:n], f[n:]], -1).reshape(
+                n, H, W, 128).permute(0, 3, 1, 2)
+        zin = interleave()
+        parts, xp0 = _library_parts(F, zin, 3, 128)
+
+        def pad(t):
+            return F.pad(t, (1, 1, 1, 1), mode="reflect")
+        xps = [xp0]
+        for i in range(2):
+            xps.append([pad(apply_act(F.conv2d(t, gw[i], gb[i], groups=64),
+                                      acts[i])) for t in xps[-1]])
+
+        def grouped(sls=parts):
+            outs = []
+            for sl in sls:
+                t = zin[sl]
+                for i in range(3):
+                    t = apply_act(F.conv2d(pad(t), gw[i], gb[i], groups=64),
+                                  acts[i])
+                outs.append(t)
+            return outs
+        f = torch.cat(legs, -1)
+        check = grouped([slice(0, 2)])[0].float().permute(0, 2, 3, 1) + (
+            f[:2].float() + f[n:n + 2].float())
+        gerr = float((check - y[:2].float()).abs().max())
+        del check, f
+        hw = n * H * W
+        io = (2 * hw * 64 + hw * 64) * 2          # f1 and f2 in, z out
+        bd_ops = 2.0 * hw * 9 * (128 * 128 + 128 * 128 + 64 * 128)
+        g_ops = 2.0 * hw * 9 * (64 * 2 * 2 + 64 * 2 * 2 + 64 * 1 * 2)
+        bd_io = io + (2 * hw * 128 * 2) * 2       # z0 and z1 out and in
+        rec = {
+            "route_ms": timer(lambda: model.fusion(legs, n)),
+            "block_diagonal_convs_ms": timer(convs),
+            "library_ms": timer(lambda: [F.conv2d(t, gw[i], gb[i],
+                                                  groups=64)
+                                         for i in range(3) for t in xps[i]]),
+            "library_calls": 3 * len(parts),
+            "library_with_pads_and_acts_ms": timer(grouped),
+            "library_interleave_ms": timer(interleave),
+            "grouped_bound_ms": max(io / PEAK_BYTES_S,
+                                    g_ops / PEAK_FLOPS["bf16"]) * 1e3,
+            "grouped_bound_by": ("bytes" if io / PEAK_BYTES_S
+                                 > g_ops / PEAK_FLOPS["bf16"]
+                                 else "operations"),
+            "block_diagonal_bound_ms": max(
+                bd_io / PEAK_BYTES_S, bd_ops / PEAK_FLOPS["bf16"]) * 1e3,
+            "block_diagonal_tflop": bd_ops / 1e12,
+            "grouped_tflop": g_ops / 1e12,
+            "max_rel_err_vs_f32_fold": err / scale,
+            "max_abs_err_vs_grouped_bf16": gerr,
+            "pairs": n}
+    del legs, y, z0, z1, zin, xps, xp0, model
+    torch.cuda.empty_cache()
+    print(f"pfnetv2 fuse net: {json.dumps(rec)}")
     return rec
 
 
@@ -1584,6 +1854,23 @@ def check_conv_multi(torch, F, dev, timer):
              dt, timed)
         del f
         torch.cuda.empty_cache()
+        # DIFNet's ResBlock conv2 with its residual as an identity
+        # leg (32 images), its fuse over the encoder batch's halves, PMGI's
+        # 4-leg gradient3 (16-channel legs)
+        t = [_rand(torch, (2 * n, H, W, 16), 130 + i, dev, dtype, lo=-0.5)
+             for i in range(4)]
+        wt, bias = weights(16, 16, 3, 134)
+        wt = torch.cat([wt, identity_weights(3, 16).to(dev)], 1)
+        case("difnet.enc1.conv2+identity", [(t[0], 0), (t[1], 0)], wt, bias,
+             0, 2 * n, dt, timed)
+        wt, bias = weights(16, 32, 3, 136)
+        case("difnet.fuse", [(t[0], 0), (t[0], n)], wt, bias, 0, n, dt,
+             timed)
+        wt, bias = weights(16, 64, 3, 138)
+        case("pmgi.gradient3", [(x[:n], 0) for x in t], wt, bias, 0, n, dt,
+             timed)
+        del t
+        torch.cuda.empty_cache()
     for dt, dtype in dts.items():
         x = [_rand(torch, (2, 45, 61, 16), 100 + i, dev, dtype)
              for i in range(2)]
@@ -2241,17 +2528,62 @@ FORWARD_LAUNCHES = {
                 "conv_multi": 9, "conv_gray_exit": 1},
     # every ConvBlock conv on conv_wide (4 encoder blocks, DB3, DB2, DB1)
     "mafusion": {"conv_gray_enter": 1, "conv_wide": 14, "conv_gray_exit": 1},
+    # PFNetv1: two unshared encoders (1 enter, 3 conv_multi each), the 8-leg
+    # decode0, decode1-3 conv_chain, decode4 the exit
+    "pfnetv1": {"conv_gray_enter": 2, "conv_multi": 7, "conv_chain": 3,
+                "conv_gray_exit": 1},
+    # the dense growth and the block-diagonal fuse0 (8 legs) conv_multi;
+    # fuse1, fuse2 and decode0-2 conv_chain
+    "pfnetv2": {"conv_gray_enter": 1, "conv_multi": 4, "conv_chain": 5,
+                "conv_gray_exit": 1},
+    # the k7 enter over both images, enc1 and dec0 (batch norms folded),
+    # the k1 exit
+    "ifcnn": {"conv_gray_enter": 1, "conv_chain": 2, "conv_gray_exit": 1},
+    # five ResBlocks (conv1 conv_chain; conv2 + the residual as an identity
+    # leg, conv_multi) and the fuse over the batch halves (conv_multi)
+    "difnet": {"conv_gray_enter": 1, "conv_chain": 5, "conv_multi": 6,
+               "conv_gray_exit": 1},
+    # the two two-gray-leg entries, gradient1 and intensity1 conv_chain,
+    # the transfers and the later path convs over legs, decode over 8 legs
+    "pmgi": {"conv_gray_enter": 2, "conv_chain": 2, "conv_multi": 8,
+             "conv_gray_exit": 1},
 }
+# benched, contract-held and CLI-tested like the nest models; IFCNN,
+# DIFNet and PMGI have batch norms
+FIVE_MODELS = ("pfnetv1", "pfnetv2", "ifcnn", "difnet", "pmgi")
+NORM_MODELS = ("ifcnn", "difnet", "pmgi")
 L1_PAIRS = 11
 RES2_PAIRS = 3        # the res2fusion test CLI's pairs (the first, warmup)
 WIDE_PAIRS = 3        # the dbnet, unfusion and nest models' test CLIs' pairs
 NEST_MODELS = ("nestfuse", "rfnnest", "mafusion")
 
 
+def seeded_model(torch, name, seed, **cfg):
+    """create_model(name) with its weights drawn from `seed` and, where it
+    has batch norms, their scale, bias and statistics too (from seed +
+    1000; scale in [0.5, 1.5], bias and mean within +-0.1, variance in
+    [0.5, 2]): a norm at its init (1, 0, 0, 1) would fold to nothing."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    m = create_model(name, generator=torch.Generator().manual_seed(seed),
+                     **cfg)
+    g = torch.Generator().manual_seed(1000 + seed)
+    with torch.no_grad():
+        for bn in m.modules():
+            if isinstance(bn, torch.nn.BatchNorm2d):
+                c = bn.num_features
+                bn.weight.copy_(0.5 + torch.rand(c, generator=g))
+                bn.bias.copy_(0.2 * torch.rand(c, generator=g) - 0.1)
+                bn.running_mean.copy_(0.2 * torch.rand(c, generator=g) - 0.1)
+                bn.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=g))
+    return m
+
+
 def live_seed(torch, dev, name, min_live=0.99):
-    """The first weight seed of `name` whose fused image is live: above 0
-    at `min_live` of the pixels of 2 seeded 128x128 pairs (f32, the card's
-    F.conv2d route). The zoo's models end in a relu conv over non-negative
+    """The first weight seed of `name` (seeded_model) whose fused image is
+    live: above the image's minimum at `min_live` of the pixels of 2
+    seeded 128x128 pairs (f32, the card's F.conv2d route; the serving route
+    where the model has batch norms, whose training route is not ported).
+    Most of the zoo's models end in a relu conv over non-negative
     features, so at a random init the sign of that conv's mean
     pre-activation is a coin flip a draw: NestFuse's seed-0 weights fuse
     every pair to 0 on every route, which would hold its contract
@@ -2259,30 +2591,66 @@ def live_seed(torch, dev, name, min_live=0.99):
     to a constant and flips the pixels near the clip under bf16's rounding
     of the weights (RFNNest's seed 1, a quarter of its pixels clipped,
     moved the mean SSIM by 1.28e-3 on the kernels and on F.conv2d in bf16
-    alike)."""
-    from multi_modal_image_fusion_tpu_torch.models import create_model
-    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    alike). An output without relu (IFCNN, DIFNet, PMGI, PFNet) is live
+    unless constant."""
     g = torch.Generator(device=dev).manual_seed(7)
     x1, x2 = (torch.rand((2, 128, 128, 1), generator=g, device=dev)
               for _ in range(2))
     for seed in range(64):
-        m = create_model(name, generator=torch.Generator().manual_seed(seed))
-        with torch.no_grad(), fast_training(False):
-            live = float((m.to(dev).eval()(x1, x2) > 0).float().mean())
+        m = seeded_model(torch, name, seed)
+        with torch.no_grad(), plain_route(name):
+            y = m.to(dev).eval()(x1, x2)
+        live = float((y > y.min()).float().mean())
         if live >= min_live:
             print(f"{name}: weight seed {seed}, {live:.3f} of the fused "
-                  f"pixels above 0")
+                  f"pixels above the image's minimum")
             return seed
     raise AssertionError(f"{name}: no live weight seed below 64")
 
 
-def bench_path(build, bench, name, batch=BATCH, model=None, seed=0):
+def plain_route(name):
+    """The f32 plain path's scope on the card: F.conv2d for every conv
+    (fast_training(False)), or for a model with batch norms (whose
+    training route is not ported) the serving kernels' plain versions,
+    the layers' convs on F.conv2d in f32 (`plain_kernels`)."""
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    if name in NORM_MODELS:
+        return plain_kernels()
+    return fast_training(False)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """ConvLayer's serving kernels replaced by their plain versions (F.pad
+    + F.conv2d in f32 on the folded weight, rounded to the input's dtype
+    first) on the card too: the plain path of a model with batch norms."""
+    from multi_modal_image_fusion_tpu_torch.ops import layers
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_chain as cc
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import \
+        conv_multi_plain
+    swap = {"conv_gray_enter": cc.conv_gray_enter_plain,
+            "conv_gray_exit": cc.conv_gray_exit_plain,
+            "conv_chain": cc.conv_chain_plain,
+            "conv_multi": conv_multi_plain}
+    kept = {k: getattr(layers, k) for k in swap}
+    try:
+        for k, fn in swap.items():
+            setattr(layers, k, fn)
+        yield
+    finally:
+        for k, fn in kept.items():
+            setattr(layers, k, fn)
+
+
+def bench_path(build, bench, name, batch=BATCH, model=None, seed=0,
+               net=None):
     """The port's bench of `model` (default `name`) at `batch` pairs with
     every count set to 0 just before it; the counts must be exactly
-    FORWARD_LAUNCHES[name] x (warmup + timed)."""
+    FORWARD_LAUNCHES[name] x (warmup + timed). `net`: the built model to
+    time (seeded_model), else the bench's own init from `seed`."""
     build.LAUNCHES.clear()
     result, last = bench.run(seed=seed, model_name=model or name,
-                             batch=batch)
+                             batch=batch, model=net)
     counts = dict(build.LAUNCHES)
     want = {k: v * (bench.ITERS + 1)
             for k, v in FORWARD_LAUNCHES[name].items()}
@@ -2350,17 +2718,17 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
     convs). Held within 1e-3 of f32 for every model, VIFNet too; the gap
     to the bf16 F.conv2d forward is printed beside it (for VIFNet the JAX
     package recorded a bf16 floor of 2.1e-3 dSSIM, docs/PARITY.md). The
-    fused images must not be constant (std > 0)."""
-    from multi_modal_image_fusion_tpu_torch.models import create_model
-    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
-    m32, m16 = (create_model(name, generator=torch.Generator().manual_seed(
-        seed)).to(dev, dt).eval() for dt in (torch.float32, torch.bfloat16))
+    fused images must not be constant (std > 0). Weights from
+    `seeded_model`; a model with batch norms takes the plain versions of
+    the serving kernels for both references (`plain_route`)."""
+    m32, m16 = (seeded_model(torch, name, seed).to(dev, dt).eval()
+                for dt in (torch.float32, torch.bfloat16))
     vals = {"kernel_bf16": [], "f32": [], "conv2d_bf16": []}
     with torch.no_grad():
         for lo in range(0, a16.shape[0], chunk):
             sl = slice(lo, lo + chunk)
             x1, x2 = a16[sl].float(), b16[sl].float()
-            with fast_training(False), plain_nl():
+            with plain_route(name), plain_nl():
                 y32 = m32(x1, x2)
                 yb = m16(a16[sl], b16[sl]).float()
             for key, y in (("kernel_bf16", y16[sl].float()), ("f32", y32),
@@ -2407,13 +2775,13 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
     `cfg`) over the first `pairs` synthetic pairs, every count set to 0
     just before it (exactly FORWARD_LAUNCHES[key] a pair, 2 ssim_maps); its
     SSIM against the f32 plain path on the card: F.conv2d for every conv
-    (TF32 off) and the plain 'nl' attention; and each pair's fused image
-    through the kernels against that path's, within the f32 tolerance."""
+    (TF32 off; a model with batch norms: the serving kernels' plain
+    versions, `plain_route`) and the plain 'nl' attention; and each pair's
+    fused image through the kernels against that path's, within the f32
+    tolerance. Weights from `seeded_model`."""
     import shutil
     from multi_modal_image_fusion_tpu_torch.data.dataset import \
         FusionDataset
-    from multi_modal_image_fusion_tpu_torch.models import create_model
-    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
     from multi_modal_image_fusion_tpu_torch.train.checkpoint import \
         save_state_dict
     data = f"synth{pairs}"
@@ -2423,8 +2791,7 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
         for i in range(pairs):
             shutil.copy(os.path.join(root, "data", "synth", "test", mod,
                                      f"{i + 1}.bmp"), dst)
-    model = create_model(name, generator=torch.Generator().manual_seed(seed),
-                         **cfg)
+    model = seeded_model(torch, name, seed, **cfg)
     save_state_dict(os.path.join(root, "ckpt", f"{key}run", "epoch_best.pth"),
                     model.state_dict(), meta={"model": name, "model_cfg": cfg})
     build.LAUNCHES.clear()
@@ -2446,7 +2813,7 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
             a, b = (torch.from_numpy(v)[None, ..., None].to(dev)
                     for v in ds[i])
             y_kernels = model(a, b)
-            with fast_training(False), plain_nl():
+            with plain_route(name), plain_nl():
                 y = model(a, b)
             y_err = max(y_err, float((y_kernels - y).abs().max()))
             y_max = max(y_max, float(y.abs().max()))
@@ -3530,6 +3897,9 @@ def main():
     timer = Timer(torch, dev)
     rec = check_kernels(torch, F, dev, timer)
     stamp("conv_chain, enter and exit checked")
+    check_gray_legs(torch, F, dev, timer, rec)
+    fuse_net = check_fuse_net(torch, F, dev, timer)
+    stamp("pfnetv2 fuse net timed")
     rec["conv_valid"] = check_conv_valid(torch, F, dev, timer)
     torch.cuda.empty_cache()
     stamp("conv_valid checked")
@@ -3553,7 +3923,8 @@ def main():
         print(f"{name} layers: {json.dumps(rec[name]['layers'])}")
     print("kernel checks passed")
     # the weight seed of each new model's bench, contract and test CLI
-    seeds = {name: live_seed(torch, dev, name) for name in NEST_MODELS}
+    seeds = {name: live_seed(torch, dev, name)
+             for name in (*NEST_MODELS, *FIVE_MODELS)}
     torch.cuda.empty_cache()
 
     # phase 4: main path, counts from 0
@@ -3644,7 +4015,7 @@ def main():
         main_counts.update(res2_counts)
         stamp("res2fusion test CLI done")
         wide_cli = {}
-        for name in ("dbnet", "unfusion", *NEST_MODELS):
+        for name in ("dbnet", "unfusion", *NEST_MODELS, *FIVE_MODELS):
             wide_cli[name], counts = model_cli_path(
                 torch, build, test_cli, root, dev, name, name, {}, WIDE_PAIRS,
                 seeds.get(name, 0))
@@ -3699,10 +4070,12 @@ def main():
     for name, batch in (("densefuse", BATCH), ("vifnet", BATCH),
                         ("res2fusion", RES2_BATCH), ("dbnet", BATCH),
                         ("unfusion", BATCH), ("nestfuse", BATCH),
-                        ("rfnnest", BATCH), ("mafusion", MAFUSION_BATCH)):
+                        ("rfnnest", BATCH), ("mafusion", MAFUSION_BATCH),
+                        *((m, BATCH) for m in FIVE_MODELS)):
         torch.cuda.reset_peak_memory_stats()
         benches[name], (a16, b16, y16), counts = bench_path(
-            build, bench, name, batch, seed=seeds.get(name, 0))
+            build, bench, name, batch, seed=seeds.get(name, 0),
+            net=seeded_model(torch, name, seeds.get(name, 0)))
         benches[name]["weight_seed"] = seeds.get(name, 0)
         benches[name]["peak_memory_gb"] = (torch.cuda.max_memory_allocated()
                                            / 2 ** 30)
@@ -3710,9 +4083,10 @@ def main():
               f"{benches[name]['peak_memory_gb']:.2f} GiB")
         main_counts.update(counts)
         torch.cuda.empty_cache()
-        if name in ("res2fusion", "dbnet", "unfusion", *NEST_MODELS):
-            model = create_model(name, generator=torch.Generator().manual_seed(
-                seeds.get(name, 0))).to(dev, torch.bfloat16).eval()
+        if name in ("res2fusion", "dbnet", "unfusion", *NEST_MODELS,
+                    *FIVE_MODELS):
+            model = seeded_model(torch, name, seeds.get(name, 0)).to(
+                dev, torch.bfloat16).eval()
             benches[name]["profile"] = profile_forward(torch, model, a16, b16)
             print(f"{name} forward profile: "
                   f"{json.dumps(benches[name]['profile'])}")
@@ -4013,6 +4387,7 @@ def main():
                       "cli_latency": cli_lat,
                       "test_cli_densefuse_l1": l1_rec,
                       "test_cli_res2fusion": res2_rec,
+                      "pfnetv2_fuse_net": fuse_net,
                       **{f"test_cli_{k}": v for k, v in wide_cli.items()},
                       "int8_benches": int8_benches,
                       "int8_quality": int8_gap,

@@ -9,7 +9,8 @@ every timed iteration (10, as BENCH_ITERS) chains on the full previous
 output (its mean feeds the next input), and the timed region ends with
 torch.cuda.synchronize() and a host fetch of the accumulated sum.
 The models are the port's zoo: deepfuse, densefuse, vifnet, dbnet,
-unfusion, nestfuse and rfnnest at batch 16; Res2Fusion is benched at
+unfusion, nestfuse, rfnnest, pfnetv1, pfnetv2, ifcnn, difnet and pmgi at
+batch 16; Res2Fusion is benched at
 --batch 2: its 384-channel Res2 expansion takes ~2 GB an image in bf16, so
 16 pairs do not fit on an 80 GB card; MAFusion at --batch 4: its
 decoder's 960-channel legs at full resolution take 2.4 GB an image, its
@@ -59,18 +60,21 @@ def bench_loop(model, a, b, iters):
 
 
 def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH,
-        int8=False):
+        int8=False, model=None):
     """Time the fused forward of `model_name` on `batch` pairs (int8: under
     quantized_inference after a calibration forward); returns the result
     dict that main prints and (img1, img2, fused) of the last timed
-    forward, so a caller can check what was timed."""
+    forward, so a caller can check what was timed. `model`: a built
+    `model_name` (a checkpoint's weights, or batch norms with statistics)
+    in place of the init drawn from `seed`."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the bench measures the CUDA card; none is "
                            "available")
     dt = torch.bfloat16
-    model = create_model(model_name,
-                         generator=torch.Generator().manual_seed(seed))
+    if model is None:
+        model = create_model(model_name,
+                             generator=torch.Generator().manual_seed(seed))
     model = model.to(device=device, dtype=dt).eval()
     r = np.random.RandomState(seed)
 

@@ -5,15 +5,23 @@
 //
 // Replaces two TPU kernels of multi_modal_image_fusion_tpu/ops/pallas/:
 //   conv_gray_enter <- conv_kernel.py:357 _chain_enter_gray (via
-//                      hiw_kernel.py:87 hiw_enter) fused with the c_in=1
-//                      entry conv that conv_hiw_chain (hiw_kernel.py:335)
-//                      runs on it (DeepFuse enc0, DenseFuse/VIFNet/
-//                      Res2Fusion conv_in, DBNet's encode, UNFusion CB1_0,
-//                      the k1 conv_in of NestFuse, RFNNest and MAFusion)
+//                      hiw_kernel.py:87 hiw_enter) fused with the entry
+//                      conv that conv_hiw_chain (hiw_kernel.py:335) runs on
+//                      it: c_in=1 over a pair as batch halves (DeepFuse
+//                      enc0, DenseFuse/VIFNet/Res2Fusion/PFNet/DIFNet
+//                      conv_in, DBNet's encode, UNFusion CB1_0, the k1
+//                      conv_in of NestFuse, RFNNest and MAFusion, IFCNN's
+//                      k7 enc0), or c_in=2 over two gray legs, the images
+//                      as the two channels of one input (PMGI's entry convs
+//                      over concat(i, i, j), zoo.py:1521-1526: the
+//                      duplicate channel's weights summed on the host)
 //   conv_gray_exit  <- conv_kernel.py:383 _chain_exit_gray (via
 //                      hiw_kernel.py:105 hiw_exit) fused with the c_out=1
 //                      exit conv (DeepFuse dec2, the dec3 of DenseFuse,
-//                      VIFNet, Res2Fusion and DBNet, UNFusion conv_out)
+//                      VIFNet, Res2Fusion and DBNet, UNFusion conv_out, the
+//                      last conv of IFCNN, DIFNet and PFNet), over one
+//                      tensor or over up to 8 legs read in place (PMGI's
+//                      decode over its 8-leg concat, zoo.py:1549-1551)
 //
 // The function is the JAX chain's: in bf16 the weights are rounded to bf16
 // (hiw_kernel.py:387), the products are exact and summed in f32.
@@ -63,11 +71,19 @@
 // (pack_gray_exit), copied by one thread a staged column half (its reflect
 // computed once); the next stage's copy is issued behind this stage's
 // products. A channel count that is not a multiple of 8 is copied element
-// by element (zero-filled to the k-step). The shift-sum's P tile takes the
+// by element (zero-filled to the k-step). Over legs (each a multiple of 8
+// channels) a staged half of a k-step (8 channels bf16, 4 f32) lies in one
+// leg: each copying thread finds its leg, tensor and batch offset from the
+// half's channel in the concat, so the legs are read in place and never
+// concatenated. The shift-sum's P tile takes the
 // slot of the tile's last stage once every warp has read it, so a ring of
 // two 8-row stages leaves room for two blocks an SM at k5 (gray_variants.py
 // times the first design, a ring of 3 with P apart and one block an SM,
 // and other tile heights).
+//
+// The enter's two-leg mode stages both images' rows (plane 0 then plane 1
+// in a slot) and runs the tap pairs of each plane against its own B
+// fragments, [parity][leg][tap pair][N tile][lane][4]: NQ more k16 steps.
 //
 // f32 (the test CLI, batch 1): the same tiles, staging, ring, grid and
 // stores; the products are f32 FMAs (TF32 or bf16 would miss the 1e-4
@@ -92,17 +108,24 @@ __device__ __forceinline__ float gray_act(float v, int act) {
     return apply_act_c<ACT>(v);
 }
 
+constexpr int EX_MAX_LEGS = 8;
+
 struct GrayArgs {
-  const void* x;     // enter: img1 (B, H, W, 1); exit: x (B, H, W, Cin)
+  const void* x;     // enter: img1 (B, H, W, 1)
   const void* x2;    // enter: img2 or null
   const void* w;     // packed weights (ops/cuda/conv_chain.py gray_weights)
   const float* bias;
   void* y;
-  int B;             // images of x
+  int B;             // enter: images of img1; exit: output images
   int H, W;
-  int C;             // enter: Cout; exit: Cin
+  int C;             // enter: Cout; exit: Cin, the legs' channels summed
   int act;
   int tiles_x, tiles_y, n_tiles;
+  // exit: leg l is (B_l, H, W, leg_c[l]) at leg[l], its first channel
+  // leg_c0[l] in the concat, output image b reading its image b + leg_b[l]
+  int n_legs;
+  const void* leg[EX_MAX_LEGS];
+  int leg_c0[EX_MAX_LEGS], leg_c[EX_MAX_LEGS], leg_b[EX_MAX_LEGS];
 };
 
 // tile -> (image, first row, first column), x fastest
@@ -182,6 +205,8 @@ constexpr int EN_SW = EN_TW + 2 * EN_HALO;    // staged columns a row
 template <int K>
 struct EnGeom {
   static_assert(K % 2 == 1 && K <= 7, "the taps and their shift fit 8 columns");
+  // k7: QE 4 and QO 3 put the even pixels' taps at B rows 1-7 and the odd
+  // ones' at 0-6 of a k16 step's two kernel rows, four steps a plane
   static constexpr int P = K / 2;
   static constexpr int QE = P + (P & 1);      // window offset of even pixels
   static constexpr int QO = P + 1 - (P & 1);  // of odd pixels
@@ -189,16 +214,17 @@ struct EnGeom {
   static constexpr int IN_H = EN_TH + K - 1;  // staged rows
 };
 
-// Bytes of the enter's shared memory: a ring of two staged tiles, the
-// weights (bf16: B fragments [parity][NQ][Cout / 8][lane][4]; f32: [K][K]
-// [Cout]) and the output tile of one pass of CG channels.
-template <typename T, int K>
+// Bytes of the enter's shared memory: a ring of two staged tiles of LEGS
+// image planes, the weights (bf16: B fragments [parity][LEGS][NQ][Cout / 8]
+// [lane][4]; f32: [LEGS][K][K][Cout]) and the output tile of one pass of CG
+// channels.
+template <typename T, int K, int LEGS>
 __host__ __device__ constexpr int en_in_bytes() {
-  return 2 * EnGeom<K>::IN_H * EN_SW * (int)sizeof(T);
+  return 2 * LEGS * EnGeom<K>::IN_H * EN_SW * (int)sizeof(T);
 }
-template <typename T, int K>
+template <typename T, int K, int LEGS>
 __host__ __device__ inline int en_w_bytes(int cout) {
-  return sizeof(T) == 2 ? 2 * EnGeom<K>::NQ * (cout / 8) * 256 : K * K * cout * 4;
+  return sizeof(T) == 2 ? 2 * LEGS * EnGeom<K>::NQ * (cout / 8) * 256 : LEGS * K * K * cout * 4;
 }
 
 // Stage one tile's image rows and halo, columns x0 - EN_HALO .. x0 + EN_TW
@@ -207,18 +233,25 @@ __host__ __device__ inline int en_w_bytes(int cout) {
 // are 16-byte cp.async, the outside ones (the reflect halo at the image's
 // left and right edge) are filled from the staged row by en_halo once the
 // copies have landed. Otherwise the whole tile is reflected element loads.
-template <typename T, int K>
+// LEGS == 1: image b of the pair's 2B (img1's, then img2's); LEGS == 2:
+// image b of img1 (plane 0) and of img2 (plane 1), plane l's rows from
+// staged row l * IN_H.
+template <typename T, int K, int LEGS>
 __device__ __forceinline__ void en_stage(const GrayArgs& a, int tile, T* dst, bool vec) {
   using G = EnGeom<K>;
   constexpr int EPC = 16 / (int)sizeof(T);
   constexpr int CPR = EN_SW / EPC;
   int b, y0, x0;
   gray_tile(a, tile, EN_TH, EN_TW, b, y0, x0);
-  const T* img = b < a.B ? static_cast<const T*>(a.x) + (size_t)b * a.H * a.W
-                         : static_cast<const T*>(a.x2) + (size_t)(b - a.B) * a.H * a.W;
-  for (int i = threadIdx.x; i < G::IN_H * CPR; i += EN_THREADS) {
+  const size_t plane = (size_t)a.H * a.W;
+  const T* img0 = LEGS == 2 || b < a.B ? static_cast<const T*>(a.x) + (size_t)b * plane
+                                       : static_cast<const T*>(a.x2) + (size_t)(b - a.B) * plane;
+  const T* img1 = LEGS == 2 ? static_cast<const T*>(a.x2) + (size_t)b * plane : img0;
+  for (int i = threadIdx.x; i < LEGS * G::IN_H * CPR; i += EN_THREADS) {
     const int r = i / CPR, c = i - r * CPR;
-    const T* row = img + (size_t)reflect_index(y0 - G::P + r, a.H) * a.W;
+    const int l = LEGS == 2 && r >= G::IN_H;
+    const T* row =
+        (l ? img1 : img0) + (size_t)reflect_index(y0 - G::P + r - l * G::IN_H, a.H) * a.W;
     const int xc = x0 - EN_HALO + c * EPC;
     T* d = dst + r * EN_SW + c * EPC;
     if (vec) {
@@ -234,7 +267,7 @@ __device__ __forceinline__ void en_stage(const GrayArgs& a, int tile, T* dst, bo
 // edge, and past W in a ragged tile) from the staged columns they mirror. A
 // column past W + EN_HALO - 2 feeds no stored pixel (an A row is one pixel)
 // and may mirror one outside the stage: it takes the nearest staged value.
-template <typename T, int K>
+template <typename T, int K, int LEGS>
 __device__ __forceinline__ void en_halo(const GrayArgs& a, int x0, T* in) {
   using G = EnGeom<K>;
   for (int sc = threadIdx.x; sc < EN_SW; sc += EN_THREADS) {
@@ -242,7 +275,7 @@ __device__ __forceinline__ void en_halo(const GrayArgs& a, int x0, T* in) {
     if (xc < 0 || xc >= a.W) {
       const int src = min(max(reflect_index(xc, a.W) - x0 + EN_HALO, 0), EN_SW - 1);
 #pragma unroll
-      for (int r = 0; r < G::IN_H; ++r) in[r * EN_SW + sc] = in[r * EN_SW + src];
+      for (int r = 0; r < LEGS * G::IN_H; ++r) in[r * EN_SW + sc] = in[r * EN_SW + src];
     }
   }
 }
@@ -305,22 +338,24 @@ __device__ __forceinline__ void en_epilogue(unsigned char* s_out, const int (&so
                        acc[par][nt][2 * hh], acc[par][nt][2 * hh + 1], act, T());
 }
 
-template <int K, int NTG, int ACT>
+template <int K, int LEGS, int NTG, int ACT>
 __device__ __forceinline__ void en_compute(const __nv_bfloat16* in, const unsigned char* s_w,
                                            unsigned char* s_out, int cout, int pass,
-                                           const float (&bb)[NTG][2], uint2 (&bq)[2][EnGeom<K>::NQ][NTG],
-                                           bool load_b, int act) {
+                                           const float (&bb)[NTG][2],
+                                           uint2 (&bq)[2][LEGS * EnGeom<K>::NQ][NTG], bool load_b,
+                                           int act) {
   using G = EnGeom<K>;
+  constexpr int NQL = LEGS * G::NQ;  // k16 steps over the planes
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if (load_b) {
     const uint2* wb = reinterpret_cast<const uint2*>(s_w);
 #pragma unroll
     for (int par = 0; par < 2; ++par)
 #pragma unroll
-      for (int q = 0; q < G::NQ; ++q)
+      for (int q = 0; q < NQL; ++q)
 #pragma unroll
         for (int nt = 0; nt < NTG; ++nt)
-          bq[par][q][nt] = wb[((par * G::NQ + q) * (cout / 8) + pass * NTG + nt) * 32 + lane];
+          bq[par][q][nt] = wb[((par * NQL + q) * (cout / 8) + pass * NTG + nt) * 32 + lane];
   }
   const uint32_t* rows = reinterpret_cast<const uint32_t*>(in) + warp * (EN_SW / 2);
   int so[2][2];
@@ -334,8 +369,9 @@ __device__ __forceinline__ void en_compute(const __nv_bfloat16* in, const unsign
       // word of the pair (pixel 2 g + par, taps 2 t, 2 t + 1) in a staged row
       const int wo = (par ? (EN_HALO + 1 - G::QO) / 2 : (EN_HALO - G::QE) / 2) + 16 * gp + g + t;
 #pragma unroll
-      for (int q = 0; q < G::NQ; ++q) {
-        const uint32_t* r0 = rows + 2 * q * (EN_SW / 2);
+      for (int lq = 0; lq < NQL; ++lq) {
+        const int l = lq / G::NQ, q = lq - l * G::NQ;  // plane, tap pair
+        const uint32_t* r0 = rows + (l * G::IN_H + 2 * q) * (EN_SW / 2);
         uint32_t av[4];
         av[0] = r0[wo];
         av[1] = r0[wo + 8];
@@ -347,7 +383,7 @@ __device__ __forceinline__ void en_compute(const __nv_bfloat16* in, const unsign
         }
 #pragma unroll
         for (int nt = 0; nt < NTG; ++nt) {
-          uint32_t b[2] = {bq[par][q][nt].x, bq[par][q][nt].y};
+          uint32_t b[2] = {bq[par][lq][nt].x, bq[par][lq][nt].y};
           mma_bf16(acc[par][nt], av, b[0], b[1]);
         }
       }
@@ -357,12 +393,12 @@ __device__ __forceinline__ void en_compute(const __nv_bfloat16* in, const unsign
 }
 
 // f32: the same pixels and channels a thread as the bf16 accumulators, by
-// FMAs; ws is [K][K][Cout] f32.
-template <int K, int NTG, int ACT>
+// FMAs; ws is [LEGS][K][K][Cout] f32.
+template <int K, int LEGS, int NTG, int ACT>
 __device__ __forceinline__ void en_compute(const float* in, const unsigned char* s_w,
                                            unsigned char* s_out, int cout, int pass,
-                                           const float (&bb)[NTG][2], uint2 (&)[2][EnGeom<K>::NQ][NTG],
-                                           bool, int act) {
+                                           const float (&bb)[NTG][2],
+                                           uint2 (&)[2][LEGS * EnGeom<K>::NQ][NTG], bool, int act) {
   using G = EnGeom<K>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float* ws = reinterpret_cast<const float*>(s_w) + pass * 8 * NTG + 2 * t;
@@ -373,9 +409,10 @@ __device__ __forceinline__ void en_compute(const float* in, const unsigned char*
     float acc[2][NTG][4];
     en_acc_init(acc, bb);
 #pragma unroll
-    for (int kh = 0; kh < K; ++kh) {
+    for (int lk = 0; lk < LEGS * K; ++lk) {
+      const int l = lk / K, kh = lk - l * K;  // plane, kernel row
       // staged column of pixel 32 gp + 2 g is EN_HALO + 32 gp + 2 g
-      const float* r = in + (warp + kh) * EN_SW + EN_HALO + 32 * gp + 2 * g - G::P;
+      const float* r = in + (l * G::IN_H + warp + kh) * EN_SW + EN_HALO + 32 * gp + 2 * g - G::P;
       float v[K + 1], u[K + 1];
 #pragma unroll
       for (int j = 0; j <= K; ++j) {
@@ -386,7 +423,7 @@ __device__ __forceinline__ void en_compute(const float* in, const unsigned char*
       for (int kw = 0; kw < K; ++kw)
 #pragma unroll
         for (int nt = 0; nt < NTG; ++nt) {
-          const float2 wv = *reinterpret_cast<const float2*>(ws + (kh * K + kw) * cout + nt * 8);
+          const float2 wv = *reinterpret_cast<const float2*>(ws + (lk * K + kw) * cout + nt * 8);
           acc[0][nt][0] = fmaf(v[kw], wv.x, acc[0][nt][0]);
           acc[0][nt][1] = fmaf(v[kw], wv.y, acc[0][nt][1]);
           acc[1][nt][0] = fmaf(v[kw + 1], wv.x, acc[1][nt][0]);
@@ -422,15 +459,15 @@ __device__ __forceinline__ void en_store(const GrayArgs& a, const unsigned char*
   }
 }
 
-template <typename T, int K, int NTG, int ACT>
+template <typename T, int K, int LEGS, int NTG, int ACT>
 __global__ void __launch_bounds__(EN_THREADS)
 gray_enter_kernel(const __grid_constant__ GrayArgs a) {
   using G = EnGeom<K>;
-  constexpr int SLOT = G::IN_H * EN_SW;
+  constexpr int SLOT = LEGS * G::IN_H * EN_SW;
   extern __shared__ __align__(128) unsigned char smem[];
   T* s_in = reinterpret_cast<T*>(smem);
-  unsigned char* s_w = smem + en_in_bytes<T, K>();
-  const int wbytes = en_w_bytes<T, K>(a.C);
+  unsigned char* s_w = smem + en_in_bytes<T, K, LEGS>();
+  const int wbytes = en_w_bytes<T, K, LEGS>(a.C);
   unsigned char* s_out = s_w + (wbytes + 127) / 128 * 128;
   const bool vec = a.W % (16 / (int)sizeof(T)) == 0;
   const int passes = a.C / (8 * NTG);
@@ -438,9 +475,9 @@ gray_enter_kernel(const __grid_constant__ GrayArgs a) {
   for (int i = threadIdx.x; i < wbytes / 16; i += EN_THREADS)
     reinterpret_cast<uint4*>(s_w)[i] = __ldg(static_cast<const uint4*>(a.w) + i);
   float bb[NTG][2];
-  uint2 bq[2][G::NQ][NTG];
+  uint2 bq[2][LEGS * G::NQ][NTG];
   int tile = blockIdx.x;
-  if (tile < a.n_tiles) en_stage<T, K>(a, tile, s_in, vec);
+  if (tile < a.n_tiles) en_stage<T, K, LEGS>(a, tile, s_in, vec);
   cp_async_commit();
   for (int it = 0; tile < a.n_tiles; ++it, tile += gridDim.x) {
     cp_async_wait<0>();
@@ -448,7 +485,7 @@ gray_enter_kernel(const __grid_constant__ GrayArgs a) {
     int b, y0, x0;
     gray_tile(a, tile, EN_TH, EN_TW, b, y0, x0);
     if (vec && (x0 < EN_HALO || x0 + EN_TW + EN_HALO > a.W)) {
-      en_halo<T, K>(a, x0, s_in + (it & 1) * SLOT);
+      en_halo<T, K, LEGS>(a, x0, s_in + (it & 1) * SLOT);
       __syncthreads();
     }
     for (int pass = 0; pass < passes; ++pass) {
@@ -462,11 +499,11 @@ gray_enter_kernel(const __grid_constant__ GrayArgs a) {
         }
       }
       if (pass) __syncthreads();  // the last pass's output tile read back
-      en_compute<K, NTG, ACT>(s_in + (it & 1) * SLOT, s_w, s_out, a.C, pass, bb, bq, load,
-                              a.act);
+      en_compute<K, LEGS, NTG, ACT>(s_in + (it & 1) * SLOT, s_w, s_out, a.C, pass, bb, bq, load,
+                                    a.act);
       if (pass == 0) {  // the next tile's copy, behind this tile's products
         const int next = tile + gridDim.x;
-        if (next < a.n_tiles) en_stage<T, K>(a, next, s_in + ((it + 1) & 1) * SLOT, vec);
+        if (next < a.n_tiles) en_stage<T, K, LEGS>(a, next, s_in + ((it + 1) & 1) * SLOT, vec);
         cp_async_commit();
       }
       __syncthreads();
@@ -476,43 +513,51 @@ gray_enter_kernel(const __grid_constant__ GrayArgs a) {
   cp_async_wait<0>();
 }
 
-template <typename T, int K, int NTG, int ACT>
+template <typename T, int K, int LEGS, int NTG, int ACT>
 static int launch_enter(GrayArgs a, int b_out, cudaStream_t s) {
-  const auto kernel = gray_enter_kernel<T, K, NTG, ACT>;
-  const size_t smem = en_in_bytes<T, K>() + (en_w_bytes<T, K>(a.C) + 127) / 128 * 128 +
+  const auto kernel = gray_enter_kernel<T, K, LEGS, NTG, ACT>;
+  const size_t smem = en_in_bytes<T, K, LEGS>() + (en_w_bytes<T, K, LEGS>(a.C) + 127) / 128 * 128 +
                       (size_t)EN_TH * EN_TW * 8 * NTG * sizeof(T);
   static GridCache cache;
   int grid = 0;
   const int e =
       gray_grid((const void*)kernel, cache, EN_THREADS, smem, EN_TH, EN_TW, b_out, a, grid);
   if (e) return e;
-  if (grid > 0) gray_enter_kernel<T, K, NTG, ACT><<<grid, EN_THREADS, smem, s>>>(a);
+  if (grid > 0) gray_enter_kernel<T, K, LEGS, NTG, ACT><<<grid, EN_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The models' entry convs: k1 (NestFuse, RFNNest, MAFusion: one tap, at
-// row 0 of the even pixels' B and row 1 of the odd ones', the second
-// kernel row of the k16 step zero), k3 (DenseFuse, VIFNet, Res2Fusion,
-// DBNet, UNFusion) and k5 (DeepFuse); Cout a multiple of 16, in passes of
-// 32 channels where Cout is a multiple of 32, else 16. Adding k7 is a case
-// here (EnGeom takes K up to 7).
-template <typename T, int K, int NTG>
+// The models' entry convs, one gray leg: k1 (NestFuse, RFNNest, MAFusion:
+// one tap, at row 0 of the even pixels' B and row 1 of the odd ones', the
+// second kernel row of the k16 step zero), k3 (DenseFuse, VIFNet,
+// Res2Fusion, DBNet, UNFusion, PFNet, DIFNet), k5 (DeepFuse) and k7
+// (IFCNN's enc0: four k16 steps, the last one's second kernel row zero);
+// two gray legs: k5 (PMGI's gradient0 and intensity0). Cout a multiple of
+// 16, in passes of 32 channels where Cout is a multiple of 32, else 16.
+template <typename T, int K, int LEGS, int NTG>
 static int enter_by_act(GrayArgs a, int b_out, cudaStream_t s) {
   switch (a.act) {
-    case ACT_NONE: return launch_enter<T, K, NTG, ACT_NONE>(a, b_out, s);
-    case ACT_RELU: return launch_enter<T, K, NTG, ACT_RELU>(a, b_out, s);
-    default: return launch_enter<T, K, NTG, ACT_ANY>(a, b_out, s);
+    case ACT_NONE: return launch_enter<T, K, LEGS, NTG, ACT_NONE>(a, b_out, s);
+    case ACT_RELU: return launch_enter<T, K, LEGS, NTG, ACT_RELU>(a, b_out, s);
+    default: return launch_enter<T, K, LEGS, NTG, ACT_ANY>(a, b_out, s);
   }
 }
 
+template <typename T, int K, int LEGS>
+static int enter_by_n(GrayArgs a, int b_out, cudaStream_t s) {
+  return a.C % 32 == 0 ? enter_by_act<T, K, LEGS, 4>(a, b_out, s)
+                       : enter_by_act<T, K, LEGS, 2>(a, b_out, s);
+}
+
 template <typename T>
-static int enter_by_k(int k, GrayArgs a, int b_out, cudaStream_t s) {
+static int enter_by_k(int k, int legs, GrayArgs a, int b_out, cudaStream_t s) {
   if (a.C % 16) return (int)cudaErrorInvalidValue;
-  const bool n32 = a.C % 32 == 0;
+  if (legs == 2) return k == 5 ? enter_by_n<T, 5, 2>(a, b_out, s) : (int)cudaErrorInvalidValue;
   switch (k) {
-    case 1: return n32 ? enter_by_act<T, 1, 4>(a, b_out, s) : enter_by_act<T, 1, 2>(a, b_out, s);
-    case 3: return n32 ? enter_by_act<T, 3, 4>(a, b_out, s) : enter_by_act<T, 3, 2>(a, b_out, s);
-    case 5: return n32 ? enter_by_act<T, 5, 4>(a, b_out, s) : enter_by_act<T, 5, 2>(a, b_out, s);
+    case 1: return enter_by_n<T, 1, 1>(a, b_out, s);
+    case 3: return enter_by_n<T, 3, 1>(a, b_out, s);
+    case 5: return enter_by_n<T, 5, 1>(a, b_out, s);
+    case 7: return enter_by_n<T, 7, 1>(a, b_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -558,9 +603,10 @@ __host__ __device__ constexpr int ex_smem_bytes() {
 // Stage k-step ks of a tile: its rows and halo as [row][pixel][32 bytes],
 // the two 16-byte halves of a pixel swapped when bit 2 of its column is
 // set; then the k-step's weights. Thread 2c + h copies half h of staged
-// column c in every row (the column's reflect computed once): 16-byte
-// cp.async from the reflected pixel when a channel row is 16-byte aligned
-// (zero-filled past Cin), else element loads.
+// column c in every row (the column's reflect computed once) from the leg
+// that holds the half's channels: 16-byte cp.async from the reflected
+// pixel when a channel row is 16-byte aligned (zero-filled past Cin), else
+// element loads (one leg).
 template <typename T, int K>
 __device__ __forceinline__ void ex_stage(const GrayArgs& a, int tile, int ks, unsigned char* slot,
                                          bool vec) {
@@ -569,13 +615,17 @@ __device__ __forceinline__ void ex_stage(const GrayArgs& a, int tile, int ks, un
   static_assert(2 * G::SC <= G::THREADS, "a thread a staged column half");
   int b, y0, x0;
   gray_tile(a, tile, EX_TH, EX_TW, b, y0, x0);
-  const T* xb = static_cast<const T*>(a.x) + (size_t)b * a.H * a.W * a.C;
   const uint32_t s = smem_u32(slot);
   if (threadIdx.x < 2 * G::SC) {
     const int h = threadIdx.x & 1, c = threadIdx.x >> 1;
-    const int ch = ks * 2 * EPC + h * EPC;
-    const size_t rs = (size_t)a.W * a.C;
-    const T* col = xb + (size_t)reflect_index(x0 - G::P + c, a.W) * a.C + ch;
+    const int ch = ks * 2 * EPC + h * EPC;  // the half's channel in the concat
+    int l = 0;
+#pragma unroll 1
+    while (l + 1 < a.n_legs && ch >= a.leg_c0[l + 1]) ++l;
+    const int lc = a.leg_c[l];
+    const T* xb = static_cast<const T*>(a.leg[l]) + (size_t)(b + a.leg_b[l]) * a.H * a.W * lc;
+    const size_t rs = (size_t)a.W * lc;
+    const T* col = xb + (size_t)reflect_index(x0 - G::P + c, a.W) * lc + (ch - a.leg_c0[l]);
     const uint32_t dst = s + c * 32 + ((h ^ ((c >> 2) & 1)) << 4);
     const bool live = ch < a.C;
     if (vec && y0 - G::P >= 0 && y0 - G::P + G::IN_H <= a.H) {
@@ -593,7 +643,7 @@ __device__ __forceinline__ void ex_stage(const GrayArgs& a, int tile, int ks, un
         } else {
           alignas(16) T v[EPC];
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) v[e] = ch + e < a.C ? src[e] : from_f32<T>(0.f);
+          for (int e = 0; e < EPC; ++e) v[e] = ch + e < lc ? src[e] : from_f32<T>(0.f);
           const uint4 u = *reinterpret_cast<const uint4*>(v);
           asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d), "r"(u.x), "r"(u.y),
                        "r"(u.z), "r"(u.w)
@@ -799,8 +849,11 @@ static int exit_by_act(GrayArgs a, cudaStream_t s) {
   }
 }
 
-// The models' exit convs: k1 (UNFusion conv_out), k3 (DenseFuse, VIFNet,
-// Res2Fusion and DBNet dec3) and k5 (DeepFuse dec2); any Cin.
+// The models' exit convs: k1 (UNFusion's, NestFuse's, RFNNest's and
+// MAFusion's conv_out, IFCNN's dec1; PMGI's decode over 8 legs, tanh
+// through the activation switch), k3 (DenseFuse, VIFNet, Res2Fusion and
+// DBNet dec3, DIFNet, PFNet) and k5 (DeepFuse dec2); any Cin on one leg,
+// legs of a multiple of 8 channels.
 template <typename T>
 static int exit_by_k(int k, const GrayArgs& a, cudaStream_t s) {
   switch (k) {
@@ -809,6 +862,31 @@ static int exit_by_k(int k, const GrayArgs& a, cudaStream_t s) {
     case 5: return exit_by_act<T, 5>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The enter in either mode (legs 1: a pair as batch halves; 2: two gray
+// legs), its arguments as the C entries below take them.
+static int gray_enter(int legs, int dtype, const void* img1, const void* img2, const void* w,
+                      const float* bias, void* y, int b, int h, int wd, int cout, int k, int act,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b < 1 || h <= k / 2 || wd <= k / 2 || (legs == 2 && !img2))
+    return (int)cudaErrorInvalidValue;
+  GrayArgs a = {};
+  a.x = img1;
+  a.x2 = img2;
+  a.w = w;
+  a.bias = bias;
+  a.y = y;
+  a.B = b;
+  a.H = h;
+  a.W = wd;
+  a.C = cout;
+  a.act = act;
+  const int b_out = legs == 1 && img2 ? 2 * b : b;
+  if (dtype == DT_F32) return enter_by_k<float>(k, legs, a, b_out, s);
+  if (dtype == DT_BF16) return enter_by_k<__nv_bfloat16>(k, legs, a, b_out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace mmif
@@ -823,44 +901,58 @@ extern "C" {
 int mmif_conv_gray_enter(int dtype, const void* img1, const void* img2, const void* w,
                          const float* bias, void* y, int b, int h, int wd, int cout, int k,
                          int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b < 1 || h <= k / 2 || wd <= k / 2) return (int)cudaErrorInvalidValue;
-  GrayArgs a = {};
-  a.x = img1;
-  a.x2 = img2;
-  a.w = w;
-  a.bias = bias;
-  a.y = y;
-  a.B = b;
-  a.H = h;
-  a.W = wd;
-  a.C = cout;
-  a.act = act;
-  const int b_out = img2 ? 2 * b : b;
-  if (dtype == DT_F32) return enter_by_k<float>(k, a, b_out, s);
-  if (dtype == DT_BF16) return enter_by_k<__nv_bfloat16>(k, a, b_out, s);
-  return (int)cudaErrorInvalidValue;
+  return gray_enter(1, dtype, img1, img2, w, bias, y, b, h, wd, cout, k, act, stream);
 }
 
-// x (b, h, w, cin) in dtype; w packed by gray_weights (bf16: pack_gray_exit;
-// f32: [ceil(cin / 8)][k][k][8] f32); bias f32 or null; y (b, h, w, 1).
-int mmif_conv_gray_exit(int dtype, const void* x, const void* w, const float* bias, void* y,
-                        int b, int h, int wd, int cin, int k, int act, void* stream) {
+// Two gray legs: img1 and img2 (b, h, w, 1) the two input channels of one
+// conv; w packed for a (cout, 2, k, k) weight (bf16 [parity][leg][...], f32
+// [2][k][k][cout]); y (b, h, w, cout).
+int mmif_conv_gray_enter_legs(int dtype, const void* img1, const void* img2, const void* w,
+                              const float* bias, void* y, int b, int h, int wd, int cout, int k,
+                              int act, void* stream) {
+  return gray_enter(2, dtype, img1, img2, w, bias, y, b, h, wd, cout, k, act, stream);
+}
+
+// n_legs legs xs[l] (b_l, h, w, cins[l]) in dtype, output image i reading
+// image i + boffs[l] of leg l; w packed by gray_weights for the legs'
+// concat (bf16: pack_gray_exit; f32: [ceil(cin / 8)][k][k][8] f32); bias
+// f32 or null; y (b_out, h, w, 1). More than one leg: each a multiple of 8
+// channels.
+int mmif_conv_gray_exit_legs(int dtype, int n_legs, const void* const* xs, const int* cins,
+                             const int* boffs, const void* w, const float* bias, void* y,
+                             int b_out, int h, int wd, int k, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b < 1 || cin < 1 || h <= k / 2 || wd <= k / 2) return (int)cudaErrorInvalidValue;
+  if (n_legs < 1 || n_legs > EX_MAX_LEGS || b_out < 1 || h <= k / 2 || wd <= k / 2)
+    return (int)cudaErrorInvalidValue;
   GrayArgs a = {};
-  a.x = x;
   a.w = w;
   a.bias = bias;
   a.y = y;
-  a.B = b;
+  a.B = b_out;
   a.H = h;
   a.W = wd;
-  a.C = cin;
   a.act = act;
+  a.n_legs = n_legs;
+  for (int l = 0; l < n_legs; ++l) {
+    if (cins[l] < 1 || boffs[l] < 0 || (n_legs > 1 && cins[l] % 8))
+      return (int)cudaErrorInvalidValue;
+    a.leg[l] = xs[l];
+    a.leg_c0[l] = a.C;
+    a.leg_c[l] = cins[l];
+    a.leg_b[l] = boffs[l];
+    a.C += cins[l];
+  }
   if (dtype == DT_F32) return exit_by_k<float>(k, a, s);
   if (dtype == DT_BF16) return exit_by_k<__nv_bfloat16>(k, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// x (b, h, w, cin) in dtype: the exit over one leg.
+int mmif_conv_gray_exit(int dtype, const void* x, const void* w, const float* bias, void* y,
+                        int b, int h, int wd, int cin, int k, int act, void* stream) {
+  const int boff = 0;
+  return mmif_conv_gray_exit_legs(dtype, 1, &x, &cin, &boff, w, bias, y, b, h, wd, k, act,
+                                  stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
-DenseFuse, VIFNet, DBNet, UNFusion, Res2Fusion, NestFuse, RFNNest and
-MAFusion; the other 7 models are queued in ROADMAP.md.
+DenseFuse, VIFNet, DBNet, UNFusion, Res2Fusion, NestFuse, RFNNest,
+MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet and PMGI; SEDRFuse and MyFusion
+are queued in ROADMAP.md.
 
 Models take NHWC single-channel images:
 
@@ -9,25 +10,28 @@ Models take NHWC single-channel images:
     model(img1)         -> autoencoder reconstruction (two-stage training)
 """
 
+import contextlib
+
 import torch
 from torch import nn
 
 from ..ops.blocks import (RFN, DenseBlock, FSDecoder, NestDecoder,
-                          NestEncoder, Res2ConvBlock, down, nest_block,
-                          upsample, wide_block)
+                          NestEncoder, Res2ConvBlock, ResBlock, down,
+                          nest_block, upsample, wide_block)
 from ..ops.cuda.conv_pair import conv_pair_enter, conv_pair_exit
 from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
 from ..ops.fusion import attention_fusion, element_fusion
-from ..ops.layers import ConvLayer, int8_ctx
+from ..ops import layers
+from ..ops.layers import ConvLayer, fast_training, in_training_scope, int8_ctx
 from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
                          hiw_int8_enabled, hiw_res_enabled, name_layers,
                          quant_off, quant_skipped)
 from ..ops.s2d import (chain_pair_enabled, hiw_enabled, s2d_enabled,
                        s2d_io_enabled, s2d_io_ok, s2d_pack, s2d_unpack)
 
-__all__ = ["DBNet", "DeepFuse", "DenseFuse", "MAFusion", "MODEL_ZOO",
-           "NestFuse", "RFNNest", "Res2Fusion", "UNFusion", "VIFNet",
-           "create_model"]
+__all__ = ["DBNet", "DIFNet", "DeepFuse", "DenseFuse", "IFCNN", "MAFusion",
+           "MODEL_ZOO", "NestFuse", "PFNetv1", "PFNetv2", "PMGI", "RFNNest",
+           "Res2Fusion", "UNFusion", "VIFNet", "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -589,10 +593,311 @@ class MAFusion(NestFuse):
         return FSDecoder(self.num_ch, self.block, up_mode, generator)
 
 
+def _legs(*tensors):
+    return [(t, 0) for t in tensors]
+
+
+class PFNetv1(nn.Module):
+    """Two unshared dense encoders (conv_in + 3-conv DenseBlock each),
+    concat fusion, 5-conv k3 decoder from 128 channels (reference
+    core/model.py:69-111; JAX models/zoo.py:144-197).
+
+    Serving follows the JAX package's H-major path (zoo.py:156-178): each
+    encoder runs on its own image (conv_gray_enter, then conv_multi over
+    the dense growth) and yields four 16-channel legs; the 128-channel
+    concat fusion is decode0 reading the eight legs (conv_multi), never
+    built; decode1-decode3 run conv_chain, decode4 conv_gray_exit. The
+    model takes two images only, as in the JAX package."""
+
+    def __init__(self, generator=None):
+        super().__init__()
+        g = generator
+        self.encode1 = _dense_encoder(g)
+        self.encode2 = _dense_encoder(g)
+        self.decode = nn.ModuleList([
+            ConvLayer(128, 128, generator=g),
+            ConvLayer(128, 64, generator=g),
+            ConvLayer(64, 32, generator=g),
+            ConvLayer(32, 16, generator=g),
+            ConvLayer(16, 1, act=None, generator=g),
+        ])
+
+    def forward(self, img1, img2=None):
+        if img2 is None:
+            raise ValueError("PFNetv1 has no autoencoder mode: its decoder "
+                             "takes the concat of both encoders' features")
+        legs = []
+        for (conv_in, dense), img in ((self.encode1, img1),
+                                      (self.encode2, img2)):
+            legs += dense(conv_in.enter(img))
+        dec0, *rest = self.decode
+        t = dec0(_legs(*legs))
+        for layer in rest:
+            t = layer(t)
+        return t
+
+
+def _group_weights(w, groups):
+    """Shared per-group OIHW weights (cg_out, cg_in, k, k) -> the
+    block-diagonal (groups * cg_out, groups * cg_in, k, k): group g's output
+    channels g * cg_out + o read its input channels g * cg_in + i (the JAX
+    package's `hiw_group_weights`, ops/pallas/hiw_scale.py:79)."""
+    cgo, cgi, k, _ = w.shape
+    eye = torch.eye(groups, dtype=w.dtype, device=w.device)
+    return (eye[:, None, :, None, None, None]
+            * w[None, :, None, :, :, :]).reshape(groups * cgo, groups * cgi,
+                                                 k, k)
+
+
+class PFNetv2(nn.Module):
+    """Shared dense encoder (64 channels), a learned per-channel fusion net
+    (2 -> 2 -> 2 -> 1, k3, shared by the 64 channels) plus both features,
+    4-conv k3 decoder (reference core/model.py:114-141; JAX models/zoo.py:
+    200-314).
+
+    Serving follows the JAX package's H-major path (`_hiw_forward`,
+    zoo.py:272-314): conv_in (conv_gray_enter) and the dense block run once
+    over the batch-concatenated pair, the growth a list of four legs. The
+    fuse net runs as dense block-diagonal convs of 64 groups, their
+    weights built once from the shared ones (`fuse_weights`): fuse0 is one
+    conv_multi over the eight legs (f1's four at offset 0, f2's at n), its
+    weight mapping input channel c of f1 and of f2 to outputs 2c and 2c + 1,
+    so no interleaved copy of the features is built; fuse1 (128 -> 128)
+    and fuse2 (128 -> 64, no activation) run conv_chain. The residual
+    + (f1 + f2) is a torch add a leg, into fuse2's output (nine legs would
+    pass conv_multi's eight). decode0-decode2 run conv_chain, decode3
+    conv_gray_exit.
+
+    On a training route and during calibration or int8 the fuse net is the
+    JAX package's channels-into-batch fold (zoo.py:226-235) on F.conv2d.
+    Autoencoder mode (`model(img1)`) has no fuse net: decode0 reads the
+    legs (conv_multi)."""
+
+    groups = 64
+
+    def __init__(self, generator=None):
+        super().__init__()
+        g = generator
+        self.encode = _dense_encoder(g)
+        self.fuse = nn.ModuleList([
+            ConvLayer(2, 2, generator=g),
+            ConvLayer(2, 2, generator=g),
+            ConvLayer(2, 1, act=None, generator=g),
+        ])
+        self.decode = nn.ModuleList([
+            ConvLayer(64, 64, generator=g),
+            ConvLayer(64, 32, generator=g),
+            ConvLayer(32, 16, generator=g),
+            ConvLayer(16, 1, act=None, generator=g),
+        ])
+        self._fuse_cache = (None, None)
+
+    def fuse_weights(self):
+        """[(weight, bias)] of the block-diagonal fuse0, fuse1, fuse2 from
+        the layers' folded (2, 2, 3, 3), (2, 2, 3, 3) and (1, 2, 3, 3)
+        weights, built once a set of parameter values: fuse0 reads f1's 64
+        channels, then f2's."""
+        key = tuple((p.data_ptr(), p._version, p.dtype, p.device)
+                    for p in (*self.fuse.parameters(), *self.fuse.buffers()))
+        if self._fuse_cache[0] != key:
+            gr = self.groups
+            out = []
+            for i, layer in enumerate(self.fuse):
+                w, b = (p.detach() for p in layer.folded())
+                if i == 0:
+                    eye = torch.eye(gr, dtype=w.dtype, device=w.device)
+                    wf = (eye[:, None, None, :, None, None]
+                          * w[None, :, :, None, :, :]).reshape(
+                              2 * gr, 2 * gr, *w.shape[2:])
+                else:
+                    wf = _group_weights(w, gr)
+                out.append((wf, b.repeat(gr)))
+            self._fuse_cache = (key, out)
+        return self._fuse_cache[1]
+
+    def fusion(self, legs, n):
+        """The fused 64-channel feature of the encoder's legs (2n images)."""
+        fuse0 = self.fuse[0]
+        if fuse0._training_route(*legs) or fuse0._whole_input():
+            return self._fold(torch.cat(legs, dim=-1), n)
+        (w0, b0), (w1, b1), (w2, b2) = self.fuse_weights()
+        acts = [layer.act for layer in self.fuse]
+        # through the layers module's names, as ConvLayer's own routes
+        z = layers.conv_multi(_legs(*legs) + [(t, n) for t in legs], w0, b0,
+                              acts[0])
+        z = layers.conv_chain(z, w1, b1, acts[1])
+        z = layers.conv_chain(z, w2, b2, acts[2])
+        c = 0
+        for t in legs:
+            z[..., c:c + t.shape[-1]] += t[:n] + t[n:]
+            c += t.shape[-1]
+        return z
+
+    def _fold(self, f, n):
+        """The channels-into-batch fold (JAX zoo.py:226-235): each channel's
+        (f1, f2) pair an image of the shared 2 -> 2 -> 2 -> 1 net, on the
+        training route's F.conv2d (a trainer's scope is kept; outside one,
+        fast_training(False))."""
+        f1, f2 = f[:n], f[n:]
+        b, h, w, c = f1.shape
+        z = torch.stack([f1, f2], dim=-1).permute(0, 3, 1, 2, 4).reshape(
+            b * c, h, w, 2)
+        scope = (contextlib.nullcontext() if in_training_scope()
+                 else fast_training(False))
+        with scope:
+            for layer in self.fuse:
+                z = layer(z)
+        return z.reshape(b, c, h, w).permute(0, 2, 3, 1) + f1 + f2
+
+    def forward(self, img1, img2=None):
+        conv_in, dense = self.encode
+        legs = dense(conv_in.enter(img1, img2))
+        dec0, *rest = self.decode
+        if img2 is None:
+            t = dec0(_legs(*legs))
+        else:
+            t = dec0(self.fusion(legs, img1.shape[0]))
+        for layer in rest:
+            t = layer(t)
+        return t
+
+
+class IFCNN(nn.Module):
+    """k7 conv and a conv + batch norm encoder, elementwise-max fusion,
+    conv + batch norm and k1 decoder (reference core/model.py:514-528; JAX
+    models/zoo.py:1265-1330).
+
+    Serving follows the JAX package's H-major path (`_hiw_forward`,
+    zoo.py:1312-1330): the batch norms fold into their convs (ConvLayer.
+    folded); enc0 (1 -> 64, k7, no activation) runs the k7 conv_gray_enter
+    over both images in one launch, enc1 and dec0 conv_chain, dec1 (64 ->
+    1, k1) conv_gray_exit. `norm` None or "batch" (the JAX field).
+    Autoencoder mode (`model(img1)`) decodes one image batch."""
+
+    def __init__(self, norm="batch", generator=None):
+        super().__init__()
+        g = generator
+        self.encode = nn.ModuleList([
+            ConvLayer(1, 64, ksize=7, act=None, generator=g),
+            ConvLayer(64, 64, norm=norm, generator=g),
+        ])
+        self.decode = nn.ModuleList([
+            ConvLayer(64, 64, norm=norm, generator=g),
+            ConvLayer(64, 1, ksize=1, act=None, generator=g),
+        ])
+
+    def forward(self, img1, img2=None):
+        enc0, enc1 = self.encode
+        t = enc1(enc0.enter(img1, img2))
+        if img2 is not None:
+            n = img1.shape[0]
+            t = element_fusion(t[:n], t[n:], "max")
+        for layer in self.decode:
+            t = layer(t)
+        return t
+
+
+class DIFNet(nn.Module):
+    """conv_in and two ResBlocks (batch norm on their first conv), a learned
+    concat fusion conv (32 -> 16, no activation), three ResBlocks and a k3
+    exit (reference core/model.py:531-552; JAX models/zoo.py:1333-1414).
+
+    Serving follows the JAX package's H-major path (`_hiw_forward`,
+    zoo.py:1389-1414): the encoder runs once over the batch-concatenated
+    pair (enc0 conv_gray_enter); each ResBlock runs its first conv on
+    conv_chain and its second with the residual as an identity leg on
+    conv_multi; `fuse` reads the encoder batch's two halves as the legs
+    [(t, 0), (t, n)] of one conv_multi, no concat built; dec3 runs
+    conv_gray_exit. Autoencoder mode (`model(img1)`) has no fusion."""
+
+    def __init__(self, norm="batch", generator=None):
+        super().__init__()
+        g = generator
+        self.encode = nn.ModuleList([
+            ConvLayer(1, 16, generator=g),
+            ResBlock(16, norm1=norm, generator=g),
+            ResBlock(16, norm1=norm, generator=g),
+        ])
+        self.fuse = ConvLayer(32, 16, act=None, generator=g)
+        self.decode = nn.ModuleList([
+            ResBlock(16, norm1=norm, generator=g),
+            ResBlock(16, norm1=norm, generator=g),
+            ResBlock(16, norm1=norm, generator=g),
+            ConvLayer(16, 1, act=None, generator=g),
+        ])
+
+    def forward(self, img1, img2=None):
+        enc0, *blocks = self.encode
+        t = enc0.enter(img1, img2)
+        for block in blocks:
+            t = block(t)
+        if img2 is not None:
+            t = self.fuse([(t, 0), (t, img1.shape[0])])
+        for layer in self.decode:
+            t = layer(t)
+        return t
+
+
+class PMGI(nn.Module):
+    """Gradient and intensity paths of four convs (batch norm, lrelu 0.2),
+    cross-path k1 transfer convs, a k1 tanh head, out / 2 + 0.5 (reference
+    core/model.py:555-624; JAX models/zoo.py:1417-1551).
+
+    Serving follows the JAX package's H-major path (`_hiw_forward`,
+    zoo.py:1510-1551): the entry convs over concat(i, i, j) run the two-leg
+    conv_gray_enter over (img1, img2) and (img2, img1), the repeated
+    image's weights summed (ConvLayer.enter_stacked); gradient1 and
+    intensity1 run conv_chain; every cross-path concat is a list of legs on
+    conv_multi; `decode` is conv_gray_exit over the eight legs, tanh in its
+    epilogue; then out / 2 + 0.5 in torch. Reference quirks kept:
+    `f1_conv2` is transfer2[1] of f1, and transfer1[1] holds parameters but
+    never runs (model.py:591). `norm` and `act` are the JAX fields. The
+    model takes two images only, as in the JAX package."""
+
+    def __init__(self, norm="batch", act="lrelu", generator=None):
+        super().__init__()
+        kw = dict(norm=norm, act=act, generator=generator)
+        self.gradient = nn.ModuleList([
+            ConvLayer(3, 16, ksize=5, **kw), ConvLayer(16, 16, **kw),
+            ConvLayer(48, 16, **kw), ConvLayer(64, 16, **kw)])
+        self.intensity = nn.ModuleList([
+            ConvLayer(3, 16, ksize=5, **kw), ConvLayer(16, 16, **kw),
+            ConvLayer(48, 16, **kw), ConvLayer(64, 16, **kw)])
+        self.transfer1 = nn.ModuleList([ConvLayer(32, 16, ksize=1, **kw),
+                                        ConvLayer(32, 16, ksize=1, **kw)])
+        self.transfer2 = nn.ModuleList([ConvLayer(32, 16, ksize=1, **kw),
+                                        ConvLayer(32, 16, ksize=1, **kw)])
+        self.decode = ConvLayer(128, 1, ksize=1, act="tanh",
+                                generator=generator)
+
+    def forward(self, img1, img2=None):
+        if img2 is None:
+            raise ValueError("PMGI has no autoencoder mode: both paths take "
+                             "both images")
+        gr, it = self.gradient, self.intensity
+        f0_1 = gr[0].enter_stacked([img1, img1, img2])
+        f0_2 = it[0].enter_stacked([img2, img2, img1])
+        f1_1, f1_2 = gr[1](f0_1), it[1](f0_2)
+        f1_conv1 = self.transfer1[0](_legs(f1_1, f1_2))
+        f1_conv2 = self.transfer2[1](_legs(f1_1, f1_2))   # quirk
+        f2_1 = gr[2](_legs(f0_1, f1_1, f1_conv1))
+        f2_2 = it[2](_legs(f0_2, f1_2, f1_conv2))
+        f2_conv1 = self.transfer2[0](_legs(f2_1, f2_2))
+        f2_conv2 = self.transfer2[1](_legs(f2_1, f2_2))
+        f3_1 = gr[3](_legs(f0_1, f1_1, f2_1, f2_conv1))
+        f3_2 = it[3](_legs(f0_2, f1_2, f2_2, f2_conv2))
+        out = self.decode(_legs(f0_1, f0_2, f1_1, f1_2, f2_1, f2_2, f3_1,
+                                f3_2))
+        return out / 2.0 + 0.5
+
+
 MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
-             "mafusion": MAFusion, "nestfuse": NestFuse, "res2fusion":
-             Res2Fusion, "rfnnest": RFNNest, "unfusion": UNFusion,
-             "vifnet": VIFNet}
+             "difnet": DIFNet, "ifcnn": IFCNN, "mafusion": MAFusion,
+             "nestfuse": NestFuse, "pfnetv1": PFNetv1, "pfnetv2": PFNetv2,
+             "pmgi": PMGI, "res2fusion": Res2Fusion, "rfnnest": RFNNest,
+             "unfusion": UNFusion, "vifnet": VIFNet}
+# the zoo models the port does not serve yet (ROADMAP.md queue 1 items 3-4)
+NOT_PORTED = ("sedrfuse", "myfusion")
 
 
 def create_model(name, **kwargs):
@@ -600,6 +905,7 @@ def create_model(name, **kwargs):
     key = name.lower()
     if key not in MODEL_ZOO:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ported: {sorted(MODEL_ZOO)}); "
-            f"the queue of models to port is in ROADMAP.md")
+            f"model {name!r} is not ported yet (ported: {sorted(MODEL_ZOO)}; "
+            f"still to port: {', '.join(NOT_PORTED)}); the queue of models "
+            f"to port is in ROADMAP.md")
     return name_layers(MODEL_ZOO[key](**kwargs))

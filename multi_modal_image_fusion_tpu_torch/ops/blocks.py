@@ -1,11 +1,12 @@
 """Network blocks of the port (counterpart of multi_modal_image_fusion_tpu
 ops/blocks.py, reference core/block.py). Ported: `DenseBlock`, for DenseFuse,
-VIFNet and DBNet; `Res2ConvBlock`, for Res2Fusion; `ConvBlock`, `ECB`,
-`DCB`, `NestEncoder`, `NestDecoder`, `upsample` and `pad_to`, for UNFusion
-(and DBNet's x8 upsample); `nest_block`, `wide_block`, `RFN`, `downsample`
-and `FSDecoder` (and `NestDecoder` over `ConvBlock`), for NestFuse, RFNNest
-and MAFusion; the other blocks come with the models that use them
-(ROADMAP.md queue 1 items 2-4)."""
+VIFNet, DBNet, PFNetv1 and PFNetv2; `Res2ConvBlock`, for Res2Fusion;
+`ConvBlock`, `ECB`, `DCB`, `NestEncoder`, `NestDecoder`, `upsample` and
+`pad_to`, for UNFusion (and DBNet's x8 upsample); `nest_block`,
+`wide_block`, `RFN`, `downsample` and `FSDecoder` (and `NestDecoder` over
+`ConvBlock`), for NestFuse, RFNNest and MAFusion; `ResBlock`, for DIFNet;
+the other blocks come with the models that use them (ROADMAP.md queue 1
+items 3-4)."""
 
 import torch
 import torch.nn.functional as F
@@ -17,8 +18,8 @@ from .layers import ConvLayer, interpolate
 from .quant import record
 
 __all__ = ["ConvBlock", "DCB", "DenseBlock", "ECB", "FSDecoder",
-           "NestDecoder", "NestEncoder", "RFN", "Res2ConvBlock", "downsample",
-           "nest_block", "pad_to", "upsample", "wide_block"]
+           "NestDecoder", "NestEncoder", "RFN", "Res2ConvBlock", "ResBlock",
+           "downsample", "nest_block", "pad_to", "upsample", "wide_block"]
 
 
 class DenseBlock(nn.Module):
@@ -45,6 +46,26 @@ class DenseBlock(nn.Module):
         for conv in self.layers:
             legs.append(conv([(t, 0) for t in legs]))
         return legs
+
+
+class ResBlock(nn.Module):
+    """Two k3 convs and an identity add (reference core/block.py:121-134;
+    JAX ops/blocks.py:38): conv1 (`norm1`, relu), conv2 (`norm2`, no
+    activation), then + x, with no activation after the add; `ch` channels
+    in and out. Serving runs conv1 on conv_chain and conv2 with the residual
+    as an identity leg of one conv_multi (ConvLayer.plus_identity: the JAX
+    package's `_hiw_resblock`, models/zoo.py:115-124), so the add is no
+    pass of its own. State-dict names are the reference's
+    (`layers.{0,1}.layers.*`)."""
+
+    def __init__(self, ch, norm1=None, norm2=None, generator=None):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            ConvLayer(ch, ch, 3, norm=norm1, generator=generator),
+            ConvLayer(ch, ch, 3, act=None, norm=norm2, generator=generator)])
+
+    def forward(self, x):
+        return self.layers[1].plus_identity(self.layers[0](x), x)
 
 
 class Res2ConvBlock(nn.Module):

@@ -11,12 +11,18 @@ Three wrappers, all NHWC, f32 accumulation:
   (`hiw_kernel.py:619 conv_hiw_chain_multi`).
 - `conv_gray_enter(img1, img2, weight, ...)` (csrc/conv_gray.cu) replaces
   `ops/pallas/conv_kernel.py:357 _chain_enter_gray` (reached by
-  `hiw_enter`) together with the c_in=1 entry conv: it reads the grayscale
-  pair directly, so the concat, the cast to the chain dtype and the reflect
-  halo all happen in its load.
+  `hiw_enter`) together with the entry conv: it reads the grayscale
+  images directly, so the concat, the cast to the chain dtype and the
+  reflect halo all happen in its load. Two modes, by the weight's input
+  channels: a c_in=1 conv over img1 and img2 as batch halves with shared
+  weights (the siamese fold), or a c_in=2 conv over img1 and img2 as the
+  two channels of one input (PMGI's entry convs over concat(i, i, j), the
+  duplicate's weights summed: JAX models/zoo.py:1521-1526).
 - `conv_gray_exit(x, weight, ...)` (csrc/conv_gray.cu) replaces
   `ops/pallas/conv_kernel.py:383 _chain_exit_gray` (reached by `hiw_exit`)
-  together with the c_out=1 exit conv, writing (B, H, W, 1) directly.
+  together with the c_out=1 exit conv, writing (B, H, W, 1) directly. x is
+  one tensor or a list of legs [(tensor, b_off), ...] whose channel concat
+  is the conv's input (PMGI's decode over 8 legs), read in place.
 
 What bounds them on an H100 and what the design does about it is in the
 headers of csrc/conv_chain.cu, csrc/conv_chain.cuh and csrc/conv_gray.cu:
@@ -38,11 +44,12 @@ forward-only: on a CUDA tensor with grad mode on and an input, weight or
 bias that requires grad, the wrappers raise (training goes through
 ops/cuda/conv_vjp.py). They are built for
 what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
-and k7 (DeepFuse), `conv_gray_enter` k1 (NestFuse, RFNNest, MAFusion), k3
-and k5, `conv_gray_exit` k1 (UNFusion, NestFuse, RFNNest, MAFusion), k3 and
-k5 (any Cin), output channels a multiple of 16 (but the
-exit's 1), input and output in one dtype. The wrappers raise on anything
-else.
+and k7 (DeepFuse), `conv_gray_enter` k1 (NestFuse, RFNNest, MAFusion), k3,
+k5 and k7 (IFCNN's enc0) with one input channel and k5 with two (PMGI),
+`conv_gray_exit` k1 (UNFusion, NestFuse, RFNNest, MAFusion, PMGI), k3 and
+k5 (any Cin on one tensor; legs of a multiple of 8 channels each), output
+channels a multiple of 16 (but the exit's 1), input and output in one
+dtype. The wrappers raise on anything else.
 """
 
 import ctypes
@@ -57,8 +64,9 @@ from .build import check_launch, check_no_grad, kernel_function, ptr, \
 
 __all__ = ["ACT_CODES", "CO_TILE", "apply_act", "chain_weights", "conv_chain",
            "conv_chain_plain", "conv_gray_enter", "conv_gray_enter_plain",
-           "conv_gray_exit", "conv_gray_exit_plain", "GRAY_TILES",
-           "gray_tile", "gray_weights", "pack_gray_enter", "pack_gray_exit",
+           "conv_gray_exit", "conv_gray_exit_plain", "ENTER_KSIZES",
+           "ENTER_LEGS_KSIZES", "GRAY_TILES", "gray_legs_input", "gray_tile",
+           "gray_weights", "pack_gray_enter", "pack_gray_exit",
            "pack_weights_tc", "pick_bn_tc", "tc_plan", "tc_weight_index"]
 
 # epilogue activations the kernels fuse (csrc/common.cuh Act; the TPU
@@ -126,15 +134,29 @@ def conv_chain_plain(x, weight, bias=None, act=None, fuse_n=0):
 def conv_gray_enter_plain(img1, img2, weight, bias=None, act="relu"):
     """Plain version of conv_gray_enter, the JAX chain's function in the
     images' dtype: the weight rounded to it (hiw_kernel.py:387), the conv,
-    bias and activation in f32, the cast back."""
-    x = img1 if img2 is None else torch.cat([img1, img2], dim=0)
+    bias and activation in f32, the cast back. A c_in=2 weight convolves
+    the channel concat of img1 and img2."""
+    if weight.shape[1] == 2:
+        x = torch.cat([img1, img2], dim=-1)
+    else:
+        x = img1 if img2 is None else torch.cat([img1, img2], dim=0)
     return apply_act(_conv_nhwc_f32(x, weight.to(x.dtype), bias),
                      act).to(x.dtype)
 
 
+def gray_legs_input(legs):
+    """The channel concat of legs [(tensor, b_off), ...] at their batch
+    offsets, as many images as every leg can feed (conv_gray_exit's input
+    over legs, which the kernel never builds)."""
+    n = min(t.shape[0] - off for t, off in legs)
+    return torch.cat([t[off:off + n] for t, off in legs], dim=-1)
+
+
 def conv_gray_exit_plain(x, weight, bias=None, act=None):
     """Plain version of conv_gray_exit, in x.dtype as conv_gray_enter_plain
-    is in the images'."""
+    is in the images'; x one tensor or a list of legs (their concat)."""
+    if isinstance(x, (list, tuple)):
+        x = gray_legs_input(x)
     return apply_act(_conv_nhwc_f32(x, weight.to(x.dtype), bias),
                      act).to(x.dtype)
 
@@ -349,12 +371,16 @@ def _gather(weight, kind, c):
 
 
 def pack_gray_enter(weight):
-    """(Cout, 1, K, K) -> conv_gray_enter's bf16 B fragments, flat
-    [parity][(K + 1) / 2][Cout / 8][lane][4]: for even (parity 0) and odd
-    pixels, tap pair q, N tile nt and lane (g, t), the weights of output
-    channel nt * 8 + g at rows j = 2t, 2t+1, 2t+8, 2t+9 of the pair's B
-    (`_enter_lanes`), zero outside the taps."""
-    return _gather(weight, "enter", weight.shape[0])
+    """(Cout, L, K, K), L = 1 or 2 input channels (gray legs) ->
+    conv_gray_enter's bf16 B fragments, flat [parity][L][(K + 1) / 2][Cout /
+    8][lane][4]: for even (parity 0) and odd pixels, leg l, tap pair q, N
+    tile nt and lane (g, t), the weights of output channel nt * 8 + g at
+    rows j = 2t, 2t+1, 2t+8, 2t+9 of the pair's B (`_enter_lanes`), zero
+    outside the taps."""
+    cout, legs = weight.shape[:2]
+    return torch.stack([
+        _gather(weight[:, l:l + 1], "enter", cout).view(2, -1)
+        for l in range(legs)], dim=1).reshape(-1)
 
 
 def pack_gray_exit(weight):
@@ -367,9 +393,9 @@ def pack_gray_exit(weight):
 
 def gray_weights(kind, weight, bias, dtype):
     """conv_gray_enter's or conv_gray_exit's weights and bias: bf16 packed
-    as B fragments (`pack_gray_enter`, `pack_gray_exit`); f32 [K][K][Cout]
-    for the enter, [ceil(Cin / 8)][K][K][8] (zero-padded channels) for the
-    exit. The bias in f32."""
+    as B fragments (`pack_gray_enter`, `pack_gray_exit`); f32 [L][K][K]
+    [Cout] for the enter (L gray legs), [ceil(Cin / 8)][K][K][8]
+    (zero-padded channels) for the exit. The bias in f32."""
     bk = None if bias is None else bias.detach().float().contiguous()
     if dtype == torch.bfloat16:
         pack = pack_gray_enter if kind == "enter" else pack_gray_exit
@@ -437,21 +463,33 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
     return y
 
 
+ENTER_KSIZES = (1, 3, 5, 7)   # one gray input channel
+ENTER_LEGS_KSIZES = (5,)      # two gray legs (PMGI)
+
+
 def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
-    """c_in=1 entry conv of the chain: img1 (B, H, W, 1) and the optional
-    img2 (same shape and dtype), weight (Cout, 1, K, K) -> (B or 2B, H, W,
-    Cout) in the images' dtype, img1's batch first."""
+    """Entry conv of the chain on gray images img1 (B, H, W, 1) and the
+    optional img2 (same shape and dtype), in the images' dtype. Weight
+    (Cout, 1, K, K): the siamese mode, img1 and img2 as batch halves ->
+    (B or 2B, H, W, Cout), img1's batch first. Weight (Cout, 2, K, K): the
+    two-leg mode, img1 and img2 as the two input channels -> (B, H, W,
+    Cout)."""
     if img1.device.type == "cpu":
+        if weight.shape[1] == 2 and img2 is None:
+            raise ValueError("conv_gray_enter: two gray legs need img2")
         return conv_gray_enter_plain(img1, img2, weight, bias, act)
     check_no_grad("conv_gray_enter", img1, img2, weight, bias)
     b, h, w, c = img1.shape
     imgs = [img1] if img2 is None else [img1, img2]
+    legs = weight.shape[1] if weight.dim() == 4 else 0
+    if legs == 2 and img2 is None:
+        raise ValueError("conv_gray_enter: two gray legs need img2")
     k = _check_cuda_args("conv_gray_enter", imgs, weight, bias, h, w,
-                          (1, 3, 5))
+                          ENTER_LEGS_KSIZES if legs == 2 else ENTER_KSIZES)
     cout = weight.shape[0]
-    if c != 1 or weight.shape[1] != 1:
-        raise ValueError("conv_gray_enter: inputs and weight must have one "
-                         "channel")
+    if c != 1 or legs not in (1, 2):
+        raise ValueError("conv_gray_enter: inputs must have one channel and "
+                         "the weight one or two")
     if img2 is not None and img2.shape != img1.shape:
         raise ValueError("conv_gray_enter: img1 and img2 shapes differ")
     if img2 is not None and img2.dtype != img1.dtype:
@@ -459,11 +497,12 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
     if cout % CO_TILE:
         raise ValueError(f"conv_gray_enter: Cout must be a multiple of "
                          f"{CO_TILE}, got {cout}")
-    b_out = b * len(imgs)
+    b_out = b if legs == 2 else b * len(imgs)
     wk, bk = gray_weights("enter", weight, bias, img1.dtype)
     y = torch.empty((b_out, h, w, cout), dtype=img1.dtype,
                     device=img1.device)
-    fn = kernel_function("mmif_conv_gray_enter",
+    fn = kernel_function("mmif_conv_gray_enter" if legs == 1
+                         else "mmif_conv_gray_enter_legs",
                          [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P])
     with torch.cuda.device(img1.device):
@@ -474,24 +513,61 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
     return y
 
 
+EXIT_MAX_LEGS = 8      # csrc/conv_gray.cu EX_MAX_LEGS
+
+
+def _exit_legs(x):
+    """conv_gray_exit's input as (legs, output images): one tensor is one
+    leg at offset 0; legs each a multiple of 8 channels (a staged half of
+    a k-step never straddles two legs)."""
+    if not isinstance(x, (list, tuple)):
+        return [(x, 0)], x.shape[0]
+    legs = [(t, int(off)) for t, off in x]
+    if not 1 <= len(legs) <= EXIT_MAX_LEGS:
+        raise ValueError(f"conv_gray_exit: 1 to {EXIT_MAX_LEGS} legs, got "
+                         f"{len(legs)}")
+    x0 = legs[0][0]
+    for t, off in legs:
+        if t.shape[1:3] != x0.shape[1:3] or t.dtype != x0.dtype:
+            raise ValueError("conv_gray_exit: legs differ in H, W or dtype")
+        if t.shape[-1] % 8:
+            raise ValueError(f"conv_gray_exit: a leg of {t.shape[-1]} "
+                             f"channels (legs take multiples of 8)")
+        if not 0 <= off < t.shape[0]:
+            raise ValueError(f"conv_gray_exit: offset {off} past a leg of "
+                             f"{t.shape[0]} images")
+    return legs, min(t.shape[0] - off for t, off in legs)
+
+
 def conv_gray_exit(x, weight, bias=None, act=None):
-    """c_out=1 exit conv of the chain: x (B, H, W, Cin), weight (1, Cin, K,
-    K) -> (B, H, W, 1) in x.dtype."""
-    if x.device.type == "cpu":
+    """c_out=1 exit conv of the chain: x (B, H, W, Cin) or a list of legs
+    [(x_l, b_off_l), ...] whose channel concat (image b of the output reads
+    x_l[b + b_off_l]) has Cin channels, weight (1, Cin, K, K) -> (B, H, W,
+    1) in x's dtype, B = min(B_l - b_off_l) over legs."""
+    legs, b = _exit_legs(x)
+    x0 = legs[0][0]
+    if x0.device.type == "cpu":
         return conv_gray_exit_plain(x, weight, bias, act)
-    check_no_grad("conv_gray_exit", x, weight, bias)
-    b, h, w, cin = x.shape
-    k = _check_cuda_args("conv_gray_exit", [x], weight, bias, h, w,
-                          (1, 3, 5))
+    check_no_grad("conv_gray_exit", *[t for t, _ in legs], weight, bias)
+    h, w = x0.shape[1:3]
+    k = _check_cuda_args("conv_gray_exit", [t for t, _ in legs], weight,
+                          bias, h, w, (1, 3, 5))
+    cin = sum(t.shape[-1] for t, _ in legs)
     if weight.shape[0] != 1 or weight.shape[1] != cin:
         raise ValueError(f"conv_gray_exit: weight {tuple(weight.shape)} "
                          f"does not map {cin} channels to 1")
-    wk, bk = gray_weights("exit", weight, bias, x.dtype)
-    y = torch.empty((b, h, w, 1), dtype=x.dtype, device=x.device)
-    fn = kernel_function("mmif_conv_gray_exit",
-                         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    with torch.cuda.device(x.device):
-        err = fn(DTYPE_CODES[x.dtype], ptr(x), ptr(wk), ptr(bk), ptr(y),
-                 b, h, w, cin, k, act_code(act), stream_handle(x.device))
+    wk, bk = gray_weights("exit", weight, bias, x0.dtype)
+    y = torch.empty((b, h, w, 1), dtype=x0.dtype, device=x0.device)
+    n = len(legs)
+    ptrs = (_P * n)(*[t.data_ptr() for t, _ in legs])
+    cins = (_I * n)(*[t.shape[-1] for t, _ in legs])
+    offs = (_I * n)(*[off for _, off in legs])
+    fn = kernel_function("mmif_conv_gray_exit_legs",
+                         [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P])
+    with torch.cuda.device(x0.device):
+        err = fn(DTYPE_CODES[x0.dtype], n, ptrs, cins, offs, ptr(wk),
+                 ptr(bk), ptr(y), b, h, w, k, act_code(act),
+                 stream_handle(x0.device))
     check_launch("conv_gray_exit", err)
     return y

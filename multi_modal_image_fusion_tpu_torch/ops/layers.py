@@ -4,11 +4,21 @@ interpolate, and the fast-training scope and routes, :34-56 and :695-755).
 
 The port carries the part the ported models use: reflect-SAME k x k convs,
 dense or depthwise (groups == in_ch == out_ch), stride 1 or (dense) 2, with
-or without bias, and one of the kernel-fusable activations (relu, relu6,
-lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters are
-named as in the reference state dict (`layers.0.weight` OIHW,
-`layers.0.bias`; no bias key when use_bias=False), so reference `.pth`
-files load directly.
+or without bias, an optional batch norm after the conv, and one of the
+kernel-fusable activations (relu, relu6, lrelu 0.2, tanh, none). Tensors
+are NHWC at the boundary. Parameters are named as in the reference state
+dict (`layers.0.weight` OIHW, `layers.0.bias`; no bias key when
+use_bias=False; the norm's `layers.1.weight`, `bias`, `running_mean`,
+`running_var` and `num_batches_tracked`), so reference `.pth` files load
+directly.
+
+A batch norm (`norm="batch"`, the JAX package's `make_norm('batch')`,
+ops/layers.py:284: eps 1e-5, flax momentum 0.9 = torch momentum 0.1) is
+folded into the conv on every serving route, as the JAX chain routes fold
+it (`_BNParams`, ops/layers.py:320, :417-423): `folded()` is the one
+accessor of the weight and bias that every kernel and plain version
+convolves with. Its training route (batch statistics) and its int8 route
+are not ported (ROADMAP.md queue 1 item 5) and raise NotImplementedError.
 
 A layer takes one tensor, or a list of legs `[(tensor, b_off), ...]` whose
 channels concatenate to its input (the JAX package's multi-leg convs,
@@ -77,7 +87,8 @@ from .cuda.conv_chain import (ACT_CODES, apply_act, batch_step, conv_chain,
                               conv_gray_enter, conv_gray_exit)
 from .cuda.conv_dw import conv_dw
 from .cuda.conv_int8 import Int8Weights, conv_int8, conv_int8_chain
-from .cuda.conv_multi import concat_legs, conv_multi, legs_n_out
+from .cuda.conv_multi import (concat_legs, conv_multi, identity_weights,
+                              legs_n_out)
 from .cuda.conv_valid import conv_valid
 from .cuda.conv_vjp import conv_valid_fast
 from .cuda.conv_wide import conv_wide
@@ -85,10 +96,14 @@ from .quant import (calibrating, choose_fold, fold_weights, hiw_fold_scale,
                     quant_ctx, quant_skipped, quantize_weights, record)
 from .s2d import s2d_pack_bias, s2d_pack_weights
 
-__all__ = ["ACT_CODES", "ConvLayer", "apply_act", "fast_training",
-           "init_conv_", "int8_ctx", "interpolate"]
+__all__ = ["ACT_CODES", "BN_EPS", "ConvLayer", "NORMS", "apply_act",
+           "fast_training", "in_training_scope", "init_conv_", "int8_ctx",
+           "interpolate"]
 
 INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
+NORMS = (None, "batch")     # the norms ConvLayer ports
+BN_EPS = 1e-5
+_NORM_QUEUE = "ROADMAP.md queue 1 item 5"
 
 # None: no trainer scope (serving); False / True: the trainer's steps, on
 # F.conv2d / on the conv_valid kernels
@@ -105,6 +120,11 @@ def fast_training(enable=True):
         yield
     finally:
         _FAST_TRAINING.reset(token)
+
+
+def in_training_scope():
+    """True inside a `fast_training` scope (a trainer's step)."""
+    return _FAST_TRAINING.get() is not None
 
 
 def int8_ctx():
@@ -171,16 +191,20 @@ class _Conv(nn.Module):
 
 
 class ConvLayer(nn.Module):
-    """Reflect-SAME conv (+ bias) + activation, NHWC. groups is 1 or, for a
-    depthwise layer, in_ch == out_ch; stride 1, or 2 for a dense layer;
-    `wide` sends the serving route to conv_wide (module docstring)."""
+    """Reflect-SAME conv (+ bias) (+ batch norm) + activation, NHWC. groups
+    is 1 or, for a depthwise layer, in_ch == out_ch; stride 1, or 2 for a
+    dense layer; `wide` sends the serving route to conv_wide; `norm` None
+    or "batch" (module docstring)."""
 
     def __init__(self, in_ch, out_ch, ksize=3, act="relu", groups=1,
-                 use_bias=True, generator=None, stride=1, wide=False):
+                 use_bias=True, generator=None, stride=1, wide=False,
+                 norm=None):
         super().__init__()
         if act not in ACT_CODES:
             raise ValueError(f"activation {act!r} not ported (one of "
                              f"{sorted(a for a in ACT_CODES if a)} or None)")
+        if norm not in NORMS:
+            raise ValueError(f"norm {norm!r} not ported (one of {NORMS})")
         if ksize % 2 == 0:
             raise ValueError("reflect-SAME needs an odd kernel size")
         if groups != 1 and not groups == in_ch == out_ch:
@@ -191,9 +215,12 @@ class ConvLayer(nn.Module):
                              f"dense layer off the wide route, is ported")
         self.in_ch, self.out_ch, self.ksize, self.act = in_ch, out_ch, ksize, act
         self.groups, self.stride, self.wide = groups, stride, wide
+        self.norm = norm
         self.qpath = None     # flax path (ops/quant.name_layers)
-        self.layers = nn.ModuleList([_Conv(in_ch, out_ch, ksize, groups,
-                                           use_bias)])
+        mods = [_Conv(in_ch, out_ch, ksize, groups, use_bias)]
+        if norm == "batch":
+            mods.append(nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.1))
+        self.layers = nn.ModuleList(mods)
         init_conv_(self.layers[0].weight, self.layers[0].bias, act, generator)
 
     @property
@@ -204,10 +231,33 @@ class ConvLayer(nn.Module):
     def bias(self):
         return self.layers[0].bias
 
+    def folded(self, dtype=None):
+        """(weight, bias) of every serving route, in `dtype` (default the
+        weight's): the conv's own or, with a batch norm, its eval-mode fold
+        (JAX ops/layers.py:417-423): w * g and (b - mean) * g + beta with
+        g = scale / sqrt(var + 1e-5), computed in f32, then cast."""
+        dtype = dtype or self.weight.dtype
+        w, b = self.weight, self.bias
+        if self.norm is None:
+            return w.to(dtype), None if b is None else b.to(dtype)
+        bn = self.layers[1]
+        g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
+        b0 = 0.0 if b is None else b.float()
+        bf = (b0 - bn.running_mean.float()) * g + bn.bias.float()
+        return ((w.float() * g[:, None, None, None]).to(dtype),
+                bf.to(dtype))
+
+    def _no_norm(self, route):
+        if self.norm is not None:
+            raise NotImplementedError(
+                f"the {route} route of a conv with a {self.norm} norm is not "
+                f"ported ({_NORM_QUEUE}); its serving route folds the norm")
+
     def _needs_grad(self, *xs):
         return torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (self.weight, self.bias, *xs))
+            for t in (self.weight, self.bias, *xs,
+                      *self.layers[1:].parameters()))
 
     def _train_conv(self, x):
         """The training routes (module docstring) on an NHWC tensor, in
@@ -215,6 +265,7 @@ class ConvLayer(nn.Module):
         padded tensor of 2^31 elements or more ("input tensor must fit
         into 32-bit index math", e.g. DenseFuse's 64-channel concat of 32
         full-resolution images)."""
+        self._no_norm("training")
         step = batch_step(*x.shape[1:3], max(x.shape[-1], self.out_ch),
                           self.ksize)
         if x.shape[0] > step:
@@ -258,7 +309,31 @@ class ConvLayer(nn.Module):
         if self._training_route(img1, img2) or self._whole_input():
             return self(img1 if img2 is None
                         else torch.cat([img1, img2], dim=0))
-        return conv_gray_enter(img1, img2, self.weight, self.bias, self.act)
+        return conv_gray_enter(img1, img2, *self.folded(), self.act)
+
+    def enter_stacked(self, imgs):
+        """A c_in = len(imgs) layer over the channel concat of gray images
+        (B, H, W, 1), one of them repeated (PMGI's concat(i, i, j)): the
+        serving route sums the weights of a repeated image and runs the
+        two-leg conv_gray_enter over the two distinct images, read once
+        each (the JAX package's H-major entry, models/zoo.py:1521-1526;
+        the sum in f32 over the folded weight); the other routes convolve
+        the concat, the images cast to the parameters' dtype."""
+        uniq, which = [], []   # the distinct images; each channel's index
+        for t in imgs:
+            if not any(t is u for u in uniq):
+                uniq.append(t)
+            which.append(next(i for i, u in enumerate(uniq) if t is u))
+        if len(imgs) != self.in_ch or len(uniq) != 2:
+            raise ValueError(f"enter_stacked: {len(imgs)} images with two "
+                             f"distinct ones for {self.in_ch} input channels")
+        cast = [u.to(self.weight.dtype) for u in uniq]
+        if self._training_route(*cast) or self._whole_input():
+            return self(torch.cat([cast[i] for i in which], dim=-1))
+        w, b = self.folded(torch.float32)
+        wf = torch.stack([sum(w[:, j] for j, i in enumerate(which) if i == u)
+                          for u in range(2)], dim=1)
+        return conv_gray_enter(cast[0], cast[1], wf, b, self.act)
 
     def forward(self, x, fuse_n=0):
         """(B, H, W, in_ch) -> (B, H, W, out_ch). fuse_n > 0: x holds two
@@ -286,15 +361,32 @@ class ConvLayer(nn.Module):
             return self._strided(x)
         if self._training_route(x):
             return self._train_conv(x)
+        w, b = self.folded()
         if self.wide:
-            return conv_wide([(x, 0)], self.weight, self.bias, self.act,
-                             fuse_n)
+            return conv_wide([(x, 0)], w, b, self.act, fuse_n)
         if self.in_ch == 1 and not fuse_n:
-            return conv_gray_enter(x.to(self.weight.dtype), None,
-                                   self.weight, self.bias, self.act)
+            return conv_gray_enter(x.to(w.dtype), None, w, b, self.act)
         if self.out_ch == 1 and not fuse_n:
-            return conv_gray_exit(x, self.weight, self.bias, self.act)
-        return conv_chain(x, self.weight, self.bias, self.act, fuse_n)
+            return conv_gray_exit(x, w, b, self.act)
+        return conv_chain(x, w, b, self.act, fuse_n)
+
+    def plus_identity(self, x, res):
+        """conv(x) + res, res of out_ch channels (ResBlock's second conv
+        and its residual add, no activation between): on the serving route
+        one conv_multi over the legs [(x, 0), (res, 0)] whose weight is the
+        layer's (folded) weight beside a centre-tap identity, so the add
+        rides the conv (the JAX package's `_hiw_resblock`, models/zoo.py:
+        115-124); on the other routes the conv, then the add."""
+        if self.act is not None or self.stride != 1 or self.groups != 1:
+            raise ValueError("plus_identity: a stride-1 dense conv without "
+                             "activation")
+        if (self.wide or self._training_route(x, res)
+                or self._whole_input()):
+            return self(x) + res
+        w, b = self.folded()
+        eye = identity_weights(self.ksize, self.out_ch).to(w)
+        return conv_multi([(x, 0), (res, 0)], torch.cat([w, eye], 1), b,
+                          None)
 
     def packed(self, x, fuse_n=0):
         """The packed route (JAX ops/layers.py:409-437, `chain_s2d=2`): x
@@ -304,15 +396,16 @@ class ConvLayer(nn.Module):
         k5 conv). Serving only: a stride-1 dense layer, no gradient."""
         if self.stride != 1 or self.groups != 1:
             raise ValueError("packed route: stride-1 dense layers only")
-        w = s2d_pack_weights(self.weight.detach())
-        b = None if self.bias is None else s2d_pack_bias(self.bias.detach())
+        w, b = self.folded()
+        w = s2d_pack_weights(w.detach())
+        b = None if b is None else s2d_pack_bias(b.detach())
         return conv_wide([(x, 0)], w, b, self.act, fuse_n, s2d_f=2)
 
     def pair_args(self):
         """(weight, bias, k, act) for a model that runs this layer inside a
         fused pair (ops/cuda/conv_pair.py): the counterpart of the JAX
         package's `chain_defer_in_ch` (ops/layers.py:443-452)."""
-        return self.weight, self.bias, self.ksize, self.act
+        return (*self.folded(), self.ksize, self.act)
 
     def _int8_route(self):
         """The quantized_inference this layer runs int8 under now, or None:
@@ -341,6 +434,7 @@ class ConvLayer(nn.Module):
         then conv_int8 (JAX ops/layers.py:644-691) on x, a tensor or, for a
         calibrated layer, a list of legs, with fuse_n. The weights are
         packed for the kernel once per context (Int8Weights)."""
+        self._no_norm("int8")
         self._forward_only(*([t for t, _ in x] if isinstance(x, list)
                              else [x]))
         amax = qc.amax.get(self.qpath)
@@ -367,6 +461,7 @@ class ConvLayer(nn.Module):
         divided by its fold in f32 before the kernel. Otherwise the output
         is in the chain dtype (the parameters')."""
         qc = quant_ctx()
+        self._no_norm("int8")
         self._forward_only(x)
 
         def prepare():
@@ -395,7 +490,7 @@ class ConvLayer(nn.Module):
         if self._training_route(x, add):
             xw = x[..., lo:lo + self.in_ch]
             return self._train_conv(xw if add is None else xw + add)
-        return conv_dw(x, self.weight, self.bias, self.act, lo, add)
+        return conv_dw(x, *self.folded(), self.act, lo, add)
 
     def _strided(self, x):
         """The stride-2 conv: reflect pad k // 2, F.conv2d in x's dtype,
@@ -403,8 +498,7 @@ class ConvLayer(nn.Module):
         p = self.ksize // 2
         b, h, w, c = x.shape
         step = batch_step(h, w, max(c, self.out_ch), self.ksize)
-        wt = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        wt, bias = self.folded(x.dtype)
         outs = []
         for i in range(0, b, step):
             xp = F.pad(x[i:i + step].permute(0, 3, 1, 2), (p, p, p, p),
@@ -423,14 +517,18 @@ class ConvLayer(nn.Module):
         if self.stride != 1 or self._training_route(*[t for t, _ in legs]):
             x = concat_legs(legs, fuse_n, n_out)
             return self(x[:n_out] + x[n_out:] if fuse_n else x)
+        w, b = self.folded()
+        if self.out_ch == 1 and not (fuse_n or self.wide):
+            return conv_gray_exit([(t, off) for t, off in legs], w, b,
+                                  self.act)
         kernel = conv_wide if self.wide else conv_multi
-        return kernel(legs, self.weight, self.bias, self.act, fuse_n, n_out)
+        return kernel(legs, w, b, self.act, fuse_n, n_out)
 
     def extra_repr(self):
         return (f"{self.in_ch}, {self.out_ch}, ksize={self.ksize}, "
                 f"act={self.act!r}, groups={self.groups}, "
                 f"stride={self.stride}, wide={self.wide}, "
-                f"bias={self.bias is not None}")
+                f"bias={self.bias is not None}, norm={self.norm!r}")
 
 
 def interpolate(x, scale_factor, mode="nearest"):

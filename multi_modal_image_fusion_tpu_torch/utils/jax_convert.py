@@ -1,15 +1,20 @@
 """Weight carry from the JAX package's variables to the port's state dict:
 the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
-(`_conv_w` :27, `_conv`/`_seq` :54-75, `_dense_block` :88-89, `_conv_block`
-:92-95, `_rfn` :98-106, `_res2_block` :109-119, `_nest_decoder` :223-225,
-the DeepFuse, DenseFuse, VIFNet, DBNet, Res2Fusion, NestFuse, RFNNest,
-MAFusion and UNFusion mappings :365-384 and :441-478).
+(`_conv_w` :27, `_conv`/`_seq` :54-75, `_res_block` :79-85, `_dense_block`
+:88-89, `_conv_block` :92-95, `_rfn` :98-106, `_res2_block` :109-119,
+`_nest_decoder` :223-225, the DeepFuse, DenseFuse, VIFNet, DBNet, IFCNN,
+DIFNet, PFNetv1, PFNetv2, PMGI, Res2Fusion, NestFuse, RFNNest, MAFusion
+and UNFusion mappings :365-384 and :395-478).
 
 Input is the JAX variables as a nested dict of numpy arrays, to any depth,
-`{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}}` (e.g. from
+`{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}, "batch_stats":
+{"enc1": {"norm": {"mean": ..., "var": ...}}, ...}}` (e.g. from
 `flax.serialization.msgpack_restore` of a JAX checkpoint). Output is a
 `{name: torch.Tensor}` state dict with the reference names and OIHW conv
-weights. Conversion fails loudly if a JAX leaf is left unused.
+weights; a batch norm's scale and bias become `layers.1.weight` and
+`bias`, its statistics `running_mean` and `running_var`, and
+`num_batches_tracked` is 0. Conversion fails loudly if a JAX leaf, of the
+params or of the batch statistics, is left unused.
 
 `jax_train_state_to_torch` carries a whole JAX TrainState (train/trainer.py:
 29: step, params, batch_stats, and the optax chain's state with Adam's
@@ -77,6 +82,22 @@ def _nest(decoder_blocks, rfn=False):
 
 _NEST_DECODER = ("DB1_1", "DB2_1", "DB3_1", "DB1_2", "DB2_2", "DB1_3")
 
+
+def _res_block(name, prefix):
+    """ResBlock: flax ConvLayer_0, ConvLayer_1 -> layers.0, layers.1."""
+    return {f"{name}/ConvLayer_{i}": f"{prefix}.layers.{i}" for i in range(2)}
+
+
+def _pmgi():
+    m = {"decode": "decode"}
+    for i in range(4):
+        m[f"gradient{i}"] = f"gradient.{i}"
+        m[f"intensity{i}"] = f"intensity.{i}"
+    for i in range(2):
+        m[f"transfer1_{i}"] = f"transfer1.{i}"
+        m[f"transfer2_{i}"] = f"transfer2.{i}"
+    return m
+
 # flax submodule path -> reference state-dict prefix, per ported model
 _DENSE_ENCODER = {"conv_in": "encode.0", **_dense_block("dense", "encode.1")}
 _DOWNS = {f"down{i}" for i in (1, 2, 3)}
@@ -100,6 +121,21 @@ _LAYOUTS = {
     "nestfuse": _nest(_NEST_DECODER),
     "rfnnest": _nest(_NEST_DECODER, rfn=True),
     "mafusion": _nest(("DB1", "DB2", "DB3")),
+    "ifcnn": {"enc0": "encode.0", "enc1": "encode.1", "dec0": "decode.0",
+              "dec1": "decode.1"},
+    "difnet": {"enc0": "encode.0", **_res_block("enc1", "encode.1"),
+               **_res_block("enc2", "encode.2"), "fuse": "fuse",
+               **{k: v for i in range(3)
+                  for k, v in _res_block(f"dec{i}", f"decode.{i}").items()},
+               "dec3": "decode.3"},
+    "pmgi": _pmgi(),
+    "pfnetv1": {"conv_in_1": "encode1.0", "conv_in_2": "encode2.0",
+                **_dense_block("dense_1", "encode1.1"),
+                **_dense_block("dense_2", "encode2.1"),
+                **{f"decode{i}": f"decode.{i}" for i in range(5)}},
+    "pfnetv2": {**_DENSE_ENCODER,
+                **{f"fuse{i}": f"fuse.{i}" for i in range(3)},
+                **{f"decode{i}": f"decode.{i}" for i in range(4)}},
 }
 
 
@@ -123,6 +159,7 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
     if name not in _LAYOUTS:
         raise NotImplementedError(f"no weight carry for {model_name!r} yet")
     params = _copy_tree(variables["params"])
+    stats = _copy_tree(variables.get("batch_stats", {}))
     sd = {}
     for flax_path, prefix in _LAYOUTS[name].items():
         *outer, flax_name = flax_path.split("/")
@@ -137,13 +174,42 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
         if "bias" in leaf:
             sd[f"{prefix}.layers.0.bias"] = torch.from_numpy(
                 np.array(leaf.pop("bias"), np.float32))
+        if "norm" in leaf:
+            sd.update(_batch_norm(leaf.pop("norm"), stats, flax_path,
+                                  f"{prefix}.layers.1"))
         if leaf:
             raise ValueError(f"unconverted leaves under {flax_name}: "
                              f"{sorted(leaf)}")
     left = _leaf_paths(params)
     if left:
         raise ValueError(f"unconverted JAX params: {left}")
+    left = _leaf_paths(stats)
+    if left:
+        raise ValueError(f"unconverted JAX batch_stats: {left}")
     return sd
+
+
+def _batch_norm(norm, stats, flax_path, prefix):
+    """A batch norm's params (scale, bias) and its statistics under the
+    same flax path in `stats` (mean, var; popped) -> the BatchNorm2d state
+    dict entries under `prefix`."""
+    parent = stats
+    for key in flax_path.split("/"):
+        parent = parent.get(key, {})
+    st = parent.pop("norm", None) if parent else None
+    if st is None:
+        raise ValueError(f"no batch_stats for the norm of {flax_path}")
+    out = {f"{prefix}.{dst}": torch.from_numpy(np.array(tree.pop(src),
+                                                        np.float32))
+           for tree, src, dst in ((norm, "scale", "weight"),
+                                  (norm, "bias", "bias"),
+                                  (st, "mean", "running_mean"),
+                                  (st, "var", "running_var"))}
+    if norm or st:
+        raise ValueError(f"unconverted norm leaves under {flax_path}: "
+                         f"{sorted(norm) + sorted(st)}")
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out
 
 
 def _copy_tree(tree):
@@ -175,7 +241,9 @@ def jax_train_state_to_torch(state, model_name="deepfuse"):
     step = int(np.asarray(state.pop("step")))
     params = state.pop("params")
     if state.pop("batch_stats", None):
-        raise ValueError(f"{model_name} has no batch statistics to carry")
+        raise ValueError(f"{model_name}: a train state with batch "
+                         f"statistics (BatchNorm training) is not carried "
+                         f"yet (ROADMAP.md queue 1 item 5)")
     opt = state.pop("opt_state")
     if state:
         raise ValueError(f"unconverted TrainState fields: {sorted(state)}")
