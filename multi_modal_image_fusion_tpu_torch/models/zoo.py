@@ -1,8 +1,8 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
 DenseFuse, VIFNet, DBNet, UNFusion, Res2Fusion, NestFuse, RFNNest,
-MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet and PMGI; SEDRFuse and MyFusion
-are queued in ROADMAP.md.
+MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet, PMGI and SEDRFuse; MyFusion is
+queued in ROADMAP.md.
 
 Models take NHWC single-channel images:
 
@@ -20,7 +20,8 @@ from ..ops.blocks import (RFN, DenseBlock, FSDecoder, NestDecoder,
                           nest_block, upsample, wide_block)
 from ..ops.cuda.conv_pair import conv_pair_enter, conv_pair_exit
 from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
-from ..ops.fusion import attention_fusion, element_fusion
+from ..ops.fusion import (attention_fusion, element_fusion, spatial_pooling,
+                          weighted_fusion)
 from ..ops import layers
 from ..ops.layers import ConvLayer, fast_training, in_training_scope, int8_ctx
 from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
@@ -31,7 +32,7 @@ from ..ops.s2d import (chain_pair_enabled, hiw_enabled, s2d_enabled,
 
 __all__ = ["DBNet", "DIFNet", "DeepFuse", "DenseFuse", "IFCNN", "MAFusion",
            "MODEL_ZOO", "NestFuse", "PFNetv1", "PFNetv2", "PMGI", "RFNNest",
-           "Res2Fusion", "UNFusion", "VIFNet", "create_model"]
+           "Res2Fusion", "SEDRFuse", "UNFusion", "VIFNet", "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -891,13 +892,89 @@ class PMGI(nn.Module):
         return out / 2.0 + 0.5
 
 
+class SEDRFuse(nn.Module):
+    """Symmetric encoder-decoder with a residual block, group norms, max
+    fusion of the shallow features, softmax-attention fusion of the deep
+    one and cross encode/decode skips (reference core/model.py:247-316;
+    JAX models/zoo.py:801-850).
+
+        f_conv1 = enc0(img)      k3, 1 -> 64, norm, relu
+        f_conv2 = enc1(f_conv1)  k3 stride 2, 64 -> 128, norm, relu
+        f_conv3 = enc2(f_conv2)  k3 stride 2, 128 -> 256, norm, relu
+        f_res   = res(f_conv3)   ResBlock(256), norms on both convs
+        out = dec2(relu(f_conv1 + dec1(relu(f_conv2 + dec0(f_res)))))
+
+    dec0 and dec1 are k3 stride-2 transpose convs (256 -> 128 -> 64, norm,
+    relu), dec2 a k3 64 -> 1 relu conv. A fused pair takes the element max
+    of the two f_conv1 and of the two f_conv2 and `fusion` of the two
+    f_res; autoencoder mode (`model(img1)`) decodes one image's features.
+    The encoder runs once over the batch-concatenated pair (the JAX
+    package runs it twice, zoo.py:845-846): a group norm's statistics are
+    per image, so this is the same function.
+
+    Routes (ConvLayer): enc0 conv_gray_enter, the ResBlock's two convs
+    conv_chain, dec2 conv_gray_exit, each kernel without activation where a
+    group norm follows it; the stride-2 and transpose convs F.conv2d and
+    F.conv_transpose2d; the norms, the fusion and the skips torch ops. H
+    and W must be multiples of 4 (two stride-2 levels and back)."""
+
+    def __init__(self, norm="group", generator=None):
+        super().__init__()
+        g = generator
+        self.encode = nn.ModuleList([
+            ConvLayer(1, 64, norm=norm, generator=g),
+            ConvLayer(64, 128, stride=2, norm=norm, generator=g),
+            ConvLayer(128, 256, stride=2, norm=norm, generator=g),
+            ResBlock(256, norm1=norm, norm2=norm, generator=g),
+        ])
+        self.decode = nn.ModuleList([
+            ConvLayer(256, 128, stride=2, norm=norm, transpose=True,
+                      generator=g),
+            ConvLayer(128, 64, stride=2, norm=norm, transpose=True,
+                      generator=g),
+            ConvLayer(64, 1, generator=g),
+        ])
+
+    @staticmethod
+    def fusion(feat1, feat2):
+        """The softmax-attention fusion of the deep features (JAX zoo.py:
+        827-834): a = |f|, each pixel's channel softmax of a times a, summed
+        over channels, weights the two features (weighted_fusion). In f32
+        (float64 for float64 features) whatever the features' dtype, the
+        256-way softmax among it; the fused feature cast back."""
+        ct = torch.promote_types(feat1.dtype, torch.float32)
+        f1, f2 = feat1.to(ct), feat2.to(ct)
+        s1, s2 = (spatial_pooling(torch.softmax(t.abs(), dim=-1) * t.abs(),
+                                  "sum") for t in (f1, f2))
+        return weighted_fusion(f1, f2, s1, s2).to(feat1.dtype)
+
+    def forward(self, img1, img2=None):
+        h, w = img1.shape[1:3]
+        if h % 4 or w % 4:
+            raise ValueError(f"SEDRFuse needs H and W multiples of 4, got "
+                             f"{h}x{w}")
+        enc0, enc1, enc2, res = self.encode
+        dec0, dec1, dec2 = self.decode
+        f_conv1 = enc0.enter(img1, img2)
+        f_conv2 = enc1(f_conv1)
+        f_res = res(enc2(f_conv2))
+        if img2 is not None:
+            n = img1.shape[0]
+            f_conv1 = element_fusion(f_conv1[:n], f_conv1[n:], "max")
+            f_conv2 = element_fusion(f_conv2[:n], f_conv2[n:], "max")
+            f_res = self.fusion(f_res[:n], f_res[n:])
+        t = torch.relu(f_conv2 + dec0(f_res))
+        t = torch.relu(f_conv1 + dec1(t))
+        return dec2(t)
+
+
 MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
              "difnet": DIFNet, "ifcnn": IFCNN, "mafusion": MAFusion,
              "nestfuse": NestFuse, "pfnetv1": PFNetv1, "pfnetv2": PFNetv2,
              "pmgi": PMGI, "res2fusion": Res2Fusion, "rfnnest": RFNNest,
-             "unfusion": UNFusion, "vifnet": VIFNet}
-# the zoo models the port does not serve yet (ROADMAP.md queue 1 items 3-4)
-NOT_PORTED = ("sedrfuse", "myfusion")
+             "sedrfuse": SEDRFuse, "unfusion": UNFusion, "vifnet": VIFNet}
+# the zoo models the port does not serve yet (ROADMAP.md queue 1 item 4)
+NOT_PORTED = ("myfusion",)
 
 
 def create_model(name, **kwargs):

@@ -4,9 +4,9 @@ VIFNet, DBNet, PFNetv1 and PFNetv2; `Res2ConvBlock`, for Res2Fusion;
 `ConvBlock`, `ECB`, `DCB`, `NestEncoder`, `NestDecoder`, `upsample` and
 `pad_to`, for UNFusion (and DBNet's x8 upsample); `nest_block`,
 `wide_block`, `RFN`, `downsample` and `FSDecoder` (and `NestDecoder` over
-`ConvBlock`), for NestFuse, RFNNest and MAFusion; `ResBlock`, for DIFNet;
-the other blocks come with the models that use them (ROADMAP.md queue 1
-items 3-4)."""
+`ConvBlock`), for NestFuse, RFNNest and MAFusion; `ResBlock`, for DIFNet
+and SEDRFuse; the other blocks come with the models that use them
+(ROADMAP.md queue 1 item 4)."""
 
 import torch
 import torch.nn.functional as F
@@ -55,8 +55,9 @@ class ResBlock(nn.Module):
     in and out. Serving runs conv1 on conv_chain and conv2 with the residual
     as an identity leg of one conv_multi (ConvLayer.plus_identity: the JAX
     package's `_hiw_resblock`, models/zoo.py:115-124), so the add is no
-    pass of its own. State-dict names are the reference's
-    (`layers.{0,1}.layers.*`)."""
+    pass of its own; with a group norm on conv2 (SEDRFuse), which sits
+    between the conv and the add, conv2 runs conv_chain and its norm, then
+    the add. State-dict names are the reference's (`layers.{0,1}.layers.*`)."""
 
     def __init__(self, ch, norm1=None, norm2=None, generator=None):
         super().__init__()

@@ -43,8 +43,9 @@ launches the kernel or raises; there is no fallback. The kernels are
 forward-only: on a CUDA tensor with grad mode on and an input, weight or
 bias that requires grad, the wrappers raise (training goes through
 ops/cuda/conv_vjp.py). They are built for
-what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet), k5
-and k7 (DeepFuse), `conv_gray_enter` k1 (NestFuse, RFNNest, MAFusion), k3,
+what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet,
+SEDRFuse's 256-channel ResBlock), k5 and k7 (DeepFuse), `conv_gray_enter`
+k1 (NestFuse, RFNNest, MAFusion), k3,
 k5 and k7 (IFCNN's enc0) with one input channel and k5 with two (PMGI),
 `conv_gray_exit` k1 (UNFusion, NestFuse, RFNNest, MAFusion, PMGI), k3 and
 k5 (any Cin on one tensor; legs of a multiple of 8 channels each), output

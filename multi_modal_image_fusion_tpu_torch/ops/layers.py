@@ -3,12 +3,14 @@ ops/layers.py:339-360 ConvLayer, 195-215 activations, 237 pad2d, 842-898
 interpolate, and the fast-training scope and routes, :34-56 and :695-755).
 
 The port carries the part the ported models use: reflect-SAME k x k convs,
-dense or depthwise (groups == in_ch == out_ch), stride 1 or (dense) 2, with
-or without bias, an optional batch norm after the conv, and one of the
-kernel-fusable activations (relu, relu6, lrelu 0.2, tanh, none). Tensors
-are NHWC at the boundary. Parameters are named as in the reference state
-dict (`layers.0.weight` OIHW, `layers.0.bias`; no bias key when
-use_bias=False; the norm's `layers.1.weight`, `bias`, `running_mean`,
+dense or depthwise (groups == in_ch == out_ch), stride 1 or (dense) 2, the
+k3 stride-2 transpose conv (zero padding 1, output padding 1: exactly 2x,
+SEDRFuse's decoder), with or without bias, an optional batch or group norm
+after the conv, and one of the kernel-fusable activations (relu, relu6,
+lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters are
+named as in the reference state dict (`layers.0.weight` OIHW, IOHW for a
+transpose conv, `layers.0.bias`; no bias key when use_bias=False; the
+norm's `layers.1.weight`, `bias` and, for a batch norm, `running_mean`,
 `running_var` and `num_batches_tracked`), so reference `.pth` files load
 directly.
 
@@ -20,6 +22,15 @@ accessor of the weight and bias that every kernel and plain version
 convolves with. Its training route (batch statistics) and its int8 route
 are not ported (ROADMAP.md queue 1 item 5) and raise NotImplementedError.
 
+A group norm (`norm="group"`, the JAX package's `make_norm('group')`,
+ops/layers.py:299: torch GroupNorm(C, C), eps 1e-5, an instance norm with
+statistics per image and channel) cannot fold: every route runs the conv
+and its bias (a kernel with no activation), then `group_norm` (torch ops,
+statistics in f32, in batch chunks), then the activation, as the JAX
+package runs the norm on XLA after its conv. It has no running statistics,
+so its training route computes the serving route's function. Its int8
+route is not ported and raises NotImplementedError.
+
 A layer takes one tensor, or a list of legs `[(tensor, b_off), ...]` whose
 channels concatenate to its input (the JAX package's multi-leg convs,
 models/zoo.py:103 `_hiw_mconv`): dense growth and concat fusion without
@@ -27,8 +38,10 @@ building the concat.
 
 Routes of a conv:
 
-- a stride-2 layer: reflect pad, then F.conv2d(stride=2) on every route,
-  as the JAX package runs it on XLA's conv (ops/layers.py:747-755);
+- a stride-2 layer: reflect pad (NHWC), then F.conv2d(stride=2) on every
+  route, as the JAX package runs it on XLA's conv (ops/layers.py:747-755); a
+  transpose layer F.conv_transpose2d on every route (the JAX package's
+  lhs-dilated XLA conv, ops/layers.py:769-783); both in batch chunks;
 - serving (no `fast_training` scope and no gradient needed): the forward-only
   kernels of ops/cuda/ on CUDA tensors, their plain versions on CPU tensors.
   A `wide` layer (a call site of the JAX package's C-major chain conv
@@ -97,12 +110,13 @@ from .quant import (calibrating, choose_fold, fold_weights, hiw_fold_scale,
 from .s2d import s2d_pack_bias, s2d_pack_weights
 
 __all__ = ["ACT_CODES", "BN_EPS", "ConvLayer", "NORMS", "apply_act",
-           "fast_training", "in_training_scope", "init_conv_", "int8_ctx",
-           "interpolate"]
+           "fast_training", "group_norm", "in_training_scope", "init_conv_",
+           "int8_ctx", "interpolate"]
 
 INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
-NORMS = (None, "batch")     # the norms ConvLayer ports
+NORMS = (None, "batch", "group")    # the norms ConvLayer ports
 BN_EPS = 1e-5
+GN_CHUNK_ELEMS = 2 ** 28    # elements a batch chunk of group_norm (1 GB f32)
 _NORM_QUEUE = "ROADMAP.md queue 1 item 5"
 
 # None: no trainer scope (serving); False / True: the trainer's steps, on
@@ -153,6 +167,50 @@ def concat_sum(legs, fuse_n, n_out):
     return out
 
 
+def group_norm(x, weight, bias, act=None, eps=BN_EPS):
+    """GroupNorm(C, C) then `act` on an NHWC tensor (the JAX package's
+    `make_norm('group')`, flax GroupNorm with one channel a group): in f32
+    (float64 for a float64 x), the mean and biased variance of each image's
+    channel over H and W (`var_mean`), then (x - mean) * weight / sqrt(var
+    + eps) + bias and the activation, the cast back to x's dtype. Centred
+    before the scale, the backward's sums stay well conditioned where a
+    channel's mean is large against its spread (x * a + (bias - mean * a)
+    lost 10x more of SEDRFuse's f32 gradients against float64). In batch
+    chunks of GN_CHUNK_ELEMS elements (exact: the statistics are per
+    image), which bounds the f32 temporaries of a full-resolution batch."""
+    b = x.shape[0]
+    step = max(1, GN_CHUNK_ELEMS // max(1, x[0].numel()))
+    ct = torch.promote_types(x.dtype, torch.float32)
+    wf, bf = weight.to(ct), bias.to(ct)
+    out = None if b <= step else x.new_empty(x.shape)
+    for i in range(0, b, step):
+        xf = x[i:i + step].to(ct)
+        var, mean = torch.var_mean(xf, dim=(1, 2), correction=0,
+                                   keepdim=True)
+        y = apply_act(torch.addcmul(bf, xf - mean,
+                                    wf * torch.rsqrt(var + eps)),
+                      act).to(x.dtype)
+        if out is None:
+            return y
+        out[i:i + step] = y
+    return out
+
+
+def reflect_pad_nhwc(x, p):
+    """Reflect padding of H and W by p, written NHWC: the values of
+    F.pad(mode="reflect") on the NCHW view, without its copy of the
+    tensor into NCHW and back (a stride-2 conv's input of 32 images of 64
+    channels at 1224x1024 took 75.8 ms that way on an H100)."""
+    b, h, w, c = x.shape
+    xp = x.new_empty((b, h + 2 * p, w + 2 * p, c))
+    xp[:, p:p + h, p:p + w] = x
+    xp[:, :p, p:p + w] = x[:, 1:p + 1].flip(1)
+    xp[:, p + h:, p:p + w] = x[:, h - 1 - p:h - 1].flip(1)
+    xp[:, :, :p] = xp[:, :, p + 1:2 * p + 1].flip(2)
+    xp[:, :, p + w:] = xp[:, :, w - 1:w - 1 + p].flip(2)
+    return xp
+
+
 _KAIMING_FAMILY = ("relu", "relu6")
 
 
@@ -180,25 +238,29 @@ def init_conv_(weight, bias, act, generator=None):
 
 
 class _Conv(nn.Module):
-    """Parameter holder of one conv: weight (O, I / groups, K, K), bias (O,)
+    """Parameter holder of one conv: weight (O, I / groups, K, K), or (I, O,
+    K, K) for a transpose conv (torch's ConvTranspose2d layout), bias (O,)
     or None."""
 
-    def __init__(self, in_ch, out_ch, ksize, groups=1, use_bias=True):
+    def __init__(self, in_ch, out_ch, ksize, groups=1, use_bias=True,
+                 transpose=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, ksize,
-                                               ksize))
+        shape = ((in_ch, out_ch) if transpose
+                 else (out_ch, in_ch // groups))
+        self.weight = nn.Parameter(torch.empty(*shape, ksize, ksize))
         self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
 
 
 class ConvLayer(nn.Module):
-    """Reflect-SAME conv (+ bias) (+ batch norm) + activation, NHWC. groups
-    is 1 or, for a depthwise layer, in_ch == out_ch; stride 1, or 2 for a
-    dense layer; `wide` sends the serving route to conv_wide; `norm` None
-    or "batch" (module docstring)."""
+    """Reflect-SAME conv (+ bias) (+ batch or group norm) + activation,
+    NHWC. groups is 1 or, for a depthwise layer, in_ch == out_ch; stride 1,
+    or 2 for a dense layer; `transpose` the k3 stride-2 transpose conv;
+    `wide` sends the serving route to conv_wide; `norm` None, "batch" or
+    "group" (module docstring)."""
 
     def __init__(self, in_ch, out_ch, ksize=3, act="relu", groups=1,
                  use_bias=True, generator=None, stride=1, wide=False,
-                 norm=None):
+                 norm=None, transpose=False):
         super().__init__()
         if act not in ACT_CODES:
             raise ValueError(f"activation {act!r} not ported (one of "
@@ -213,13 +275,18 @@ class ConvLayer(nn.Module):
         if stride not in (1, 2) or (stride == 2 and (groups != 1 or wide)):
             raise ValueError(f"stride={stride}: only stride 1, or 2 for a "
                              f"dense layer off the wide route, is ported")
+        if transpose and (stride, ksize) != (2, 3):
+            raise ValueError("transpose: only the k3 stride-2 transpose conv "
+                             "is ported")
         self.in_ch, self.out_ch, self.ksize, self.act = in_ch, out_ch, ksize, act
         self.groups, self.stride, self.wide = groups, stride, wide
-        self.norm = norm
+        self.norm, self.transpose = norm, transpose
         self.qpath = None     # flax path (ops/quant.name_layers)
-        mods = [_Conv(in_ch, out_ch, ksize, groups, use_bias)]
+        mods = [_Conv(in_ch, out_ch, ksize, groups, use_bias, transpose)]
         if norm == "batch":
             mods.append(nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.1))
+        elif norm == "group":
+            mods.append(nn.GroupNorm(out_ch, out_ch, eps=BN_EPS))
         self.layers = nn.ModuleList(mods)
         init_conv_(self.layers[0].weight, self.layers[0].bias, act, generator)
 
@@ -233,12 +300,13 @@ class ConvLayer(nn.Module):
 
     def folded(self, dtype=None):
         """(weight, bias) of every serving route, in `dtype` (default the
-        weight's): the conv's own or, with a batch norm, its eval-mode fold
+        weight's): the conv's own (also with a group norm, which runs after
+        the conv: `_normed`) or, with a batch norm, its eval-mode fold
         (JAX ops/layers.py:417-423): w * g and (b - mean) * g + beta with
         g = scale / sqrt(var + 1e-5), computed in f32, then cast."""
         dtype = dtype or self.weight.dtype
         w, b = self.weight, self.bias
-        if self.norm is None:
+        if self.norm != "batch":
             return w.to(dtype), None if b is None else b.to(dtype)
         bn = self.layers[1]
         g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
@@ -251,7 +319,21 @@ class ConvLayer(nn.Module):
         if self.norm is not None:
             raise NotImplementedError(
                 f"the {route} route of a conv with a {self.norm} norm is not "
-                f"ported ({_NORM_QUEUE}); its serving route folds the norm")
+                f"ported ({_NORM_QUEUE}); its serving route "
+                f"{'folds' if self.norm == 'batch' else 'applies'} the norm")
+
+    def _kernel_act(self):
+        """The activation a kernel fuses: the layer's, or None where a group
+        norm sits between the conv and the activation (`_normed`)."""
+        return None if self.norm == "group" else self.act
+
+    def _normed(self, y):
+        """A conv's output with its bias and `_kernel_act` -> the layer's:
+        with a group norm, the norm and the activation after it."""
+        if self.norm != "group":
+            return y
+        gn = self.layers[1]
+        return group_norm(y, gn.weight, gn.bias, self.act, gn.eps)
 
     def _needs_grad(self, *xs):
         return torch.is_grad_enabled() and any(
@@ -264,8 +346,10 @@ class ConvLayer(nn.Module):
         batch chunks of `batch_step` images: torch's reflect pad refuses a
         padded tensor of 2^31 elements or more ("input tensor must fit
         into 32-bit index math", e.g. DenseFuse's 64-channel concat of 32
-        full-resolution images)."""
-        self._no_norm("training")
+        full-resolution images). A group norm follows the conv and its bias
+        (per image, so the chunks are exact); a batch norm raises."""
+        if self.norm == "batch":
+            self._no_norm("training")
         step = batch_step(*x.shape[1:3], max(x.shape[-1], self.out_ch),
                           self.ksize)
         if x.shape[0] > step:
@@ -273,15 +357,16 @@ class ConvLayer(nn.Module):
                               for i in range(0, x.shape[0], step)])
         p = self.ksize // 2
         xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
+        kact = self._kernel_act()
         if not (_FAST_TRAINING.get() and self._valid_eligible()):
             y = F.conv2d(xp, self.weight, self.bias, groups=self.groups)
-            return apply_act(y, self.act).permute(0, 2, 3, 1)
+            return self._normed(apply_act(y, kact).permute(0, 2, 3, 1))
         xp = xp.permute(0, 2, 3, 1).contiguous()
         if self._needs_grad(xp):
             y = conv_valid_fast(xp, self.weight)
-            return apply_act(y if self.bias is None else y + self.bias,
-                             self.act)
-        return conv_valid(xp, self.weight, self.bias, self.act)
+            return self._normed(apply_act(
+                y if self.bias is None else y + self.bias, kact))
+        return self._normed(conv_valid(xp, self.weight, self.bias, kact))
 
     def _valid_eligible(self):
         """The layers the JAX package's gate lets take the conv_valid kernel
@@ -309,7 +394,8 @@ class ConvLayer(nn.Module):
         if self._training_route(img1, img2) or self._whole_input():
             return self(img1 if img2 is None
                         else torch.cat([img1, img2], dim=0))
-        return conv_gray_enter(img1, img2, *self.folded(), self.act)
+        return self._normed(conv_gray_enter(img1, img2, *self.folded(),
+                                            self._kernel_act()))
 
     def enter_stacked(self, imgs):
         """A c_in = len(imgs) layer over the channel concat of gray images
@@ -333,7 +419,8 @@ class ConvLayer(nn.Module):
         w, b = self.folded(torch.float32)
         wf = torch.stack([sum(w[:, j] for j, i in enumerate(which) if i == u)
                           for u in range(2)], dim=1)
-        return conv_gray_enter(cast[0], cast[1], wf, b, self.act)
+        return self._normed(conv_gray_enter(cast[0], cast[1], wf, b,
+                                            self._kernel_act()))
 
     def forward(self, x, fuse_n=0):
         """(B, H, W, in_ch) -> (B, H, W, out_ch). fuse_n > 0: x holds two
@@ -362,13 +449,16 @@ class ConvLayer(nn.Module):
         if self._training_route(x):
             return self._train_conv(x)
         w, b = self.folded()
+        act = self._kernel_act()
         if self.wide:
-            return conv_wide([(x, 0)], w, b, self.act, fuse_n)
-        if self.in_ch == 1 and not fuse_n:
-            return conv_gray_enter(x.to(w.dtype), None, w, b, self.act)
-        if self.out_ch == 1 and not fuse_n:
-            return conv_gray_exit(x, w, b, self.act)
-        return conv_chain(x, w, b, self.act, fuse_n)
+            y = conv_wide([(x, 0)], w, b, act, fuse_n)
+        elif self.in_ch == 1 and not fuse_n:
+            y = conv_gray_enter(x.to(w.dtype), None, w, b, act)
+        elif self.out_ch == 1 and not fuse_n:
+            y = conv_gray_exit(x, w, b, act)
+        else:
+            y = conv_chain(x, w, b, act, fuse_n)
+        return self._normed(y)
 
     def plus_identity(self, x, res):
         """conv(x) + res, res of out_ch channels (ResBlock's second conv
@@ -376,12 +466,13 @@ class ConvLayer(nn.Module):
         one conv_multi over the legs [(x, 0), (res, 0)] whose weight is the
         layer's (folded) weight beside a centre-tap identity, so the add
         rides the conv (the JAX package's `_hiw_resblock`, models/zoo.py:
-        115-124); on the other routes the conv, then the add."""
+        115-124); on the other routes, and with a group norm (which sits
+        between the conv and the add), the conv, then the add."""
         if self.act is not None or self.stride != 1 or self.groups != 1:
             raise ValueError("plus_identity: a stride-1 dense conv without "
                              "activation")
-        if (self.wide or self._training_route(x, res)
-                or self._whole_input()):
+        if (self.wide or self.norm == "group"
+                or self._training_route(x, res) or self._whole_input()):
             return self(x) + res
         w, b = self.folded()
         eye = identity_weights(self.ksize, self.out_ch).to(w)
@@ -490,21 +581,32 @@ class ConvLayer(nn.Module):
         if self._training_route(x, add):
             xw = x[..., lo:lo + self.in_ch]
             return self._train_conv(xw if add is None else xw + add)
-        return conv_dw(x, *self.folded(), self.act, lo, add)
+        return self._normed(conv_dw(x, *self.folded(), self._kernel_act(),
+                                    lo, add))
 
     def _strided(self, x):
-        """The stride-2 conv: reflect pad k // 2, F.conv2d in x's dtype,
-        bias and activation, in batch chunks of `batch_step` images."""
+        """The stride-2 conv: reflect pad k // 2 (`reflect_pad_nhwc`),
+        F.conv2d in x's dtype on the channels-last view; or
+        the transpose conv: F.conv_transpose2d (zero padding 1, output
+        padding 1); then bias, the group norm if any and the activation,
+        in batch chunks whose padded input and output stay under 2^31
+        elements (`batch_step`; the transpose's output is 4x its input)."""
         p = self.ksize // 2
         b, h, w, c = x.shape
-        step = batch_step(h, w, max(c, self.out_ch), self.ksize)
+        up = 2 if self.transpose else 1
+        step = batch_step(h * up, w * up, max(c, self.out_ch), self.ksize)
         wt, bias = self.folded(x.dtype)
+        kact = self._kernel_act()
         outs = []
         for i in range(0, b, step):
-            xp = F.pad(x[i:i + step].permute(0, 3, 1, 2), (p, p, p, p),
-                       mode="reflect")
-            y = F.conv2d(xp, wt, bias, stride=self.stride)
-            outs.append(apply_act(y, self.act).permute(0, 2, 3, 1))
+            if self.transpose:
+                y = F.conv_transpose2d(x[i:i + step].permute(0, 3, 1, 2),
+                                       wt, bias, stride=2, padding=p,
+                                       output_padding=1)
+            else:
+                y = F.conv2d(reflect_pad_nhwc(x[i:i + step], p).permute(
+                    0, 3, 1, 2), wt, bias, stride=self.stride)
+            outs.append(self._normed(apply_act(y, kact).permute(0, 2, 3, 1)))
         return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
 
     def _forward_legs(self, legs, fuse_n):
@@ -518,17 +620,19 @@ class ConvLayer(nn.Module):
             x = concat_legs(legs, fuse_n, n_out)
             return self(x[:n_out] + x[n_out:] if fuse_n else x)
         w, b = self.folded()
+        act = self._kernel_act()
         if self.out_ch == 1 and not (fuse_n or self.wide):
-            return conv_gray_exit([(t, off) for t, off in legs], w, b,
-                                  self.act)
+            return self._normed(conv_gray_exit([(t, off) for t, off in legs],
+                                               w, b, act))
         kernel = conv_wide if self.wide else conv_multi
-        return kernel(legs, w, b, self.act, fuse_n, n_out)
+        return self._normed(kernel(legs, w, b, act, fuse_n, n_out))
 
     def extra_repr(self):
         return (f"{self.in_ch}, {self.out_ch}, ksize={self.ksize}, "
                 f"act={self.act!r}, groups={self.groups}, "
-                f"stride={self.stride}, wide={self.wide}, "
-                f"bias={self.bias is not None}, norm={self.norm!r}")
+                f"stride={self.stride}, transpose={self.transpose}, "
+                f"wide={self.wide}, bias={self.bias is not None}, "
+                f"norm={self.norm!r}")
 
 
 def interpolate(x, scale_factor, mode="nearest"):

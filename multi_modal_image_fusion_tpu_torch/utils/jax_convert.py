@@ -3,18 +3,20 @@ the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
 (`_conv_w` :27, `_conv`/`_seq` :54-75, `_res_block` :79-85, `_dense_block`
 :88-89, `_conv_block` :92-95, `_rfn` :98-106, `_res2_block` :109-119,
 `_nest_decoder` :223-225, the DeepFuse, DenseFuse, VIFNet, DBNet, IFCNN,
-DIFNet, PFNetv1, PFNetv2, PMGI, Res2Fusion, NestFuse, RFNNest, MAFusion
-and UNFusion mappings :365-384 and :395-478).
+DIFNet, PFNetv1, PFNetv2, PMGI, Res2Fusion, NestFuse, RFNNest, MAFusion,
+UNFusion and SEDRFuse mappings :365-393 and :395-478).
 
 Input is the JAX variables as a nested dict of numpy arrays, to any depth,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}, "batch_stats":
 {"enc1": {"norm": {"mean": ..., "var": ...}}, ...}}` (e.g. from
 `flax.serialization.msgpack_restore` of a JAX checkpoint). Output is a
 `{name: torch.Tensor}` state dict with the reference names and OIHW conv
-weights; a batch norm's scale and bias become `layers.1.weight` and
-`bias`, its statistics `running_mean` and `running_var`, and
-`num_batches_tracked` is 0. Conversion fails loudly if a JAX leaf, of the
-params or of the batch statistics, is left unused.
+weights (IOHW for a transpose conv: SEDRFuse's dec0 and dec1, the inverse
+of `_deconv_w` :31); a norm's scale and bias become `layers.1.weight` and
+`bias`, a batch norm's statistics `running_mean` and `running_var`, and
+its `num_batches_tracked` is 0 (SEDRFuse's group norms have no
+statistics). Conversion fails loudly if a JAX leaf, of the params or of
+the batch statistics, is left unused.
 
 `jax_train_state_to_torch` carries a whole JAX TrainState (train/trainer.py:
 29: step, params, batch_stats, and the optax chain's state with Adam's
@@ -136,7 +138,16 @@ _LAYOUTS = {
     "pfnetv2": {**_DENSE_ENCODER,
                 **{f"fuse{i}": f"fuse.{i}" for i in range(3)},
                 **{f"decode{i}": f"decode.{i}" for i in range(4)}},
+    "sedrfuse": {"enc0": "encode.0", "enc1": "encode.1", "enc2": "encode.2",
+                 **_res_block("res", "encode.3"), "dec0": "decode.0",
+                 "dec1": "decode.1", "dec2": "decode.2"},
 }
+
+
+# the models whose norms are group norms (params only), and their transpose
+# convs (flax HWIO (3, 3, I, O) -> torch IOHW)
+_GROUP_NORMED = {"sedrfuse"}
+_TRANSPOSED = {"sedrfuse": {"dec0", "dec1"}}
 
 
 def flax_paths(model_name):
@@ -151,6 +162,10 @@ def flax_paths(model_name):
 
 def _oihw(kernel_hwio):
     return np.ascontiguousarray(np.transpose(kernel_hwio, (3, 2, 0, 1)))
+
+
+def _iohw(kernel_hwio):
+    return np.ascontiguousarray(np.transpose(kernel_hwio, (2, 3, 0, 1)))
 
 
 def jax_to_state_dict(variables, model_name="deepfuse"):
@@ -169,12 +184,17 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
         if flax_name not in parent and flax_path in _OPTIONAL.get(name, ()):
             continue
         leaf = parent.pop(flax_name)
+        to_torch = (_iohw if flax_path in _TRANSPOSED.get(name, ())
+                    else _oihw)
         sd[f"{prefix}.layers.0.weight"] = torch.from_numpy(
-            _oihw(np.asarray(leaf.pop("kernel"), np.float32)))
+            to_torch(np.asarray(leaf.pop("kernel"), np.float32)))
         if "bias" in leaf:
             sd[f"{prefix}.layers.0.bias"] = torch.from_numpy(
                 np.array(leaf.pop("bias"), np.float32))
-        if "norm" in leaf:
+        if "norm" in leaf and name in _GROUP_NORMED:
+            sd.update(_group_norm(leaf.pop("norm"), flax_path,
+                                  f"{prefix}.layers.1"))
+        elif "norm" in leaf:
             sd.update(_batch_norm(leaf.pop("norm"), stats, flax_path,
                                   f"{prefix}.layers.1"))
         if leaf:
@@ -209,6 +229,18 @@ def _batch_norm(norm, stats, flax_path, prefix):
         raise ValueError(f"unconverted norm leaves under {flax_path}: "
                          f"{sorted(norm) + sorted(st)}")
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def _group_norm(norm, flax_path, prefix):
+    """A group norm's params (scale, bias) -> GroupNorm's state dict
+    entries under `prefix`."""
+    out = {f"{prefix}.{dst}": torch.from_numpy(np.array(norm.pop(src),
+                                                        np.float32))
+           for src, dst in (("scale", "weight"), ("bias", "bias"))}
+    if norm:
+        raise ValueError(f"unconverted norm leaves under {flax_path}: "
+                         f"{sorted(norm)}")
     return out
 
 
