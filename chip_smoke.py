@@ -298,6 +298,27 @@ seeded) at a `live_seed`; phase 6 checks one SEDRFuse train step
 (`train_step_check`: its stride-1 convs on conv_valid, the biases under a
 group norm at a zero gradient).
 
+MyFusion (its default configuration: sep encoder, nest decoder, 'sca'
+fusion, strided depthwise downs, every level shared): phase 2 counts the
+enter's 8-channel k1 instances (relu6 compiled in, so spill-checked);
+phase 3 holds its enter (1 -> 8, k1, relu6; the k1 enter's controls,
+ragged tiles), its exit (16 -> 1, k1, relu6; a k1 exit's control), three
+conv_chain shapes (level 1's pw 8 -> 16, pwconv1 16 -> 64, DB1_1's pw2
+24 -> 16), two conv_multi shapes (pwconv2 with its identity leg,
+DB2_1's k1 pw1 over two legs), conv_wide's k1 over two legs to 24
+(control: the input channels reversed, as for every k1 conv_multi check)
+and its two launches (DB1_1's and DB1_3's pw1),
+conv_dw at five shapes (`check_myfusion`: 8 k1 relu6, 64 and 512 k3, 24
+and 40 k3 relu6; controls a zero halo or the channels reversed), and
+times its three strided depthwise downs on cuDNN beside their bound.
+Later paths, counts from 0: its bench (16 pairs; exactly 1 enter, 14
+conv_chain, 8 conv_multi, 2 conv_wide, 11 conv_dw and 1 exit a forward;
+peak memory; a profiled forward), its contract, its test CLI (3 pairs)
+and the test CLI of the res2_plain_rfn configuration (res2 encoder, plain
+decoder, RFN, max-pool downs, no level shared; 3 pairs: 2 enters, 38
+conv_chain, 16 conv_multi, 37 conv_dw, 1 exit a pair), weights at a
+`live_seed` of each.
+
 Progress lines `[N s] what (M GiB held)` stamp the phases with the device
 memory live tensors hold. Prints the `kernels` JSON line, the card line,
 and last
@@ -521,8 +542,10 @@ def tensor_core_report(build, lib_path):
                                  f"bf16 instances only, no spills")
     # per dtype: the enter's k1, k3, k5 and k7 on one gray leg and k5 on
     # two, each at two pass widths, and the exit's k1, k3 and k5, each with
-    # three activations
-    if len(gray) != 2 * ((4 + 1) * 2 * 3 + 3 * 3):
+    # three activations; the enter's k1 8-channel pass (MyFusion's conv_in)
+    # with four: none, relu, relu6 (compiled in, so spill-checked) and the
+    # switch
+    if len(gray) != 2 * ((4 + 1) * 2 * 3 + 4 + 3 * 3):
         raise AssertionError(f"conv_gray.cu instances: {sorted(gray)}")
     print(f"SASS and ptxas -v, conv_gray.cu: {json.dumps(gray)}")
     gray_sum = {"hmma": sum(v["hmma"] for v in gray.values()),
@@ -848,7 +871,20 @@ def check_kernels(torch, F, dev, timer):
                1),
               ("pfnetv2.fuse1", "conv_chain", 128, 128, 3, "relu", False, 0,
                1),
-              ("pfnetv2.fuse2", "conv_chain", 128, 64, 3, None, False, 0, 1)]
+              ("pfnetv2.fuse2", "conv_chain", 128, 64, 3, None, False, 0, 1),
+              # MyFusion: conv_in (1 -> 8, the enter's 8-channel pass),
+              # conv_out (16 -> 1), level 1's pw, SepConvBlock pwconv1 and
+              # DB1_1's pw2 (24 -> 16), all k1 relu6
+              ("myfusion.conv_in", "conv_gray_enter", 1, 8, 1, "relu6",
+               False, 0, 1),
+              ("myfusion.conv_out", "conv_gray_exit", 16, 1, 1, "relu6",
+               False, 0, 1),
+              ("myfusion.down1_1.pw", "conv_chain", 8, 16, 1, "relu6", False,
+               0, 2),
+              ("myfusion.EB1_1.pwconv1", "conv_chain", 16, 64, 1, "relu6",
+               False, 0, 2),
+              ("myfusion.DB1_1.pw2", "conv_chain", 24, 16, 1, "relu6", False,
+               0, 1)]
     layers += [(name, "conv_chain", cin, cout, 3, "relu", False, s, 2)
                for name, cin, cout, s in UNFUSION_CHAIN]
     layers += [(name, "conv_chain", cin, cout, k, "relu", False, s, per_pair)
@@ -1983,12 +2019,15 @@ def check_window(torch, F, dev, timer):
 def check_conv_multi(torch, F, dev, timer):
     """conv_multi against its plain version (the legs' concat, then
     conv_chain_plain): DenseFuse's dense convs and dec0 (fuse_n), VIFNet's
-    8-leg dec0, NestFuse's 3-leg DB2_2 conv1 and RFNNest's RFN1 res (two
-    legs of one tensor at b_offs 0 and n) and fuse1 at their scales of
-    1224x1024, bf16 batch 16 (the bench) and f32 one pair (the test CLI);
+    8-leg dec0, NestFuse's 3-leg DB2_2 conv1, RFNNest's RFN1 res (two
+    legs of one tensor at b_offs 0 and n) and fuse1, DIFNet's and PMGI's
+    shapes and MyFusion's pwconv2 with its identity leg and DB2_1's k1 pw1
+    at their scales of 1224x1024, bf16 batch 16 (the bench) and f32 one
+    pair (the test CLI);
     k1, k5, 1-channel-leg and identity-leg cases at 45x61 in f32 and bf16;
     CHAIN_TOL, with the controls at the bench's shapes (for res the b_offs
-    of its legs swapped). Times at the bench's shapes; the library time is
+    of its legs swapped; a k1 conv's input channels reversed). Times at
+    the bench's shapes; the library time is
     one F.conv2d on the padded concat, the concat and the pad timed
     apart."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import (
@@ -2012,11 +2051,14 @@ def check_conv_multi(torch, F, dev, timer):
                     0, 3, 1, 2)
             xn = cat()
             ctls = {}
-            if wt.shape[-1] > 1:      # a k1 conv has one tap and no halo
+            if wt.shape[-1] > 1:
                 ctls["taps transposed"] = conv_multi(
                     legs, wt.transpose(2, 3), bias, "relu", fuse_n, n_out)
                 ctls["zero halo"] = _zero_halo_plain(
                     torch, F, xn.permute(0, 2, 3, 1), wt, bias, "relu")
+            else:                     # a k1 conv has one tap and no halo
+                ctls["input channels reversed"] = conv_multi(
+                    legs, wt.flip(1), bias, "relu", fuse_n, n_out)
             same = [(i, j) for i in range(len(legs))
                     for j in range(i + 1, len(legs))
                     if legs[i][0].shape[-1] == legs[j][0].shape[-1]
@@ -2130,6 +2172,23 @@ def check_conv_multi(torch, F, dev, timer):
              timed)
         wt, bias = weights(16, 64, 3, 138)
         case("pmgi.gradient3", [(x[:n], 0) for x in t], wt, bias, 0, n, dt,
+             timed)
+        del t
+        torch.cuda.empty_cache()
+        # MyFusion: EB1_1's pwconv2 (64 -> 16, k1) with the identity
+        # shortcut as a leg (32 images), DB2_1's pw1 over its legs (32 + 64
+        # -> 48, k1, at scale 1)
+        t = [_rand(torch, (2 * n, H, W, c), 140 + c, dev, dtype, lo=-0.5)
+             for c in (64, 16)]
+        wt, bias = weights(16, 64, 1, 141)
+        wt = torch.cat([wt, identity_weights(1, 16).to(dev)], 1)
+        case("myfusion.EB1_1.pwconv2+identity", [(x, 0) for x in t], wt,
+             bias, 0, 2 * n, dt, timed)
+        del t
+        t = [_rand(torch, (n, *_S[1], c), 143 + c, dev, dtype, lo=-0.5)
+             for c in (32, 64)]
+        wt, bias = weights(48, 96, 1, 144)
+        case("myfusion.DB2_1.pw1", [(x, 0) for x in t], wt, bias, 0, n, dt,
              timed)
         del t
         torch.cuda.empty_cache()
@@ -2507,6 +2566,129 @@ def check_conv_dw(torch, F, dev, timer):
     return r
 
 
+# MyFusion's conv_dw shapes in a default bf16 bench forward: (key, channels,
+# k, act, scale, images a pair): level 1's k1 down, the SepConvBlocks' dw
+# at levels 1 and 4, the DCBlocks' hidden widths 24 and 40 (DB1_1, DB1_3)
+MYF_DW = [("myfusion.down1_1.dw", 8, 1, "relu6", 0, 2),
+          ("myfusion.EB1_1.dwconv", 64, 3, None, 0, 2),
+          ("myfusion.EB4_1.dwconv", 512, 3, None, 3, 2),
+          ("myfusion.DB1_1.dw", 24, 3, "relu6", 0, 1),
+          ("myfusion.DB1_3.dw", 40, 3, "relu6", 0, 1)]
+# its strided depthwise downs (TransitionBlock, k2 stride 2 VALID, relu6):
+# (key, channels, scale of the input), 32 images
+MYF_DOWNS = [("down2_1.dw", 16, 0), ("down3_1.dw", 32, 1),
+             ("down4_1.dw", 64, 2)]
+
+
+def check_myfusion(torch, F, dev, timer, rec):
+    """MyFusion's conv_dw shapes (MYF_DW) against the plain version, bf16
+    at the bench's 16 pairs and f32 at the test CLI's pair (TOL of
+    max(|y|, 1)), with a control that must miss by more than TOL at the
+    bench's shape (k3: a zero halo; k1: the taps' channels reversed), timed
+    in bf16 beside the plain version and one F.conv2d(groups=C) on the
+    reflect-padded input (the pad timed apart); the records join rec's
+    conv_dw layers. Then its three strided depthwise downs as the port
+    runs them (F.conv2d(groups=C, stride=2) on the channels-last view,
+    bias-free, then relu6; no Pallas kernel in the JAX package, XLA's
+    grouped conv), each against the same conv in f32 and timed beside its
+    bound. Returns the downs' record."""
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
+        apply_act
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import (
+        conv_dw, conv_dw_plain)
+    from multi_modal_image_fusion_tpu_torch.ops.layers import ConvLayer
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    r = rec["conv_dw"]
+    for key, c, k, act, scale, per_pair in MYF_DW:
+        h, w = _S[scale]
+        for dt, n in (("bf16", BATCH), ("f32", 1)):
+            dtype, b = dts[dt], n * per_pair
+            x = _rand(torch, (b, h, w, c), 180 + c, dev, dtype, lo=-0.5,
+                      scale=4.0)
+            wt = _rand(torch, (c, 1, k, k), 181 + c, dev, torch.float32,
+                       lo=-0.5, scale=2.0 / k).to(dtype)
+            bias = _rand(torch, (c,), 182 + c, dev, torch.float32, lo=-0.5,
+                         scale=0.2)
+
+            def run(wt=wt):
+                return conv_dw(x, wt, bias, act)
+
+            def plain():
+                return conv_dw_plain(x, wt, bias, act)
+            want = plain()
+            err, rel = _err(torch, run(), want, dt)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+            if k > 1:
+                ctl = apply_act(F.conv2d(
+                    x.float().permute(0, 3, 1, 2), wt.float(), bias,
+                    padding=1, groups=c), act).permute(0, 2, 3, 1)
+                what = "zero halo"
+            else:
+                ctl, what = run(wt.flip(0)), "channels reversed"
+            scale_y = max(float(want.float().abs().max()), 1.0)
+            miss = float((ctl.float() - want.float()).abs().max()) / scale_y
+            if miss <= TOL[dt]:
+                raise AssertionError(f"conv_dw {key} {dt}: the control "
+                                     f"({what}) passes ({miss:.3g})")
+            r["min_control_rel_err"] = min(r["min_control_rel_err"], miss)
+            del want, ctl
+            if dt == "bf16":
+                xn = x.permute(0, 3, 1, 2)
+                parts, xp = _library_parts(F, xn, k, c)
+                p = k // 2
+                bb = bias.to(dtype)
+                bound, by = _bound(2 * b * h * w * c * 2 + wt.numel() * 2,
+                                   2.0 * b * h * w * c * k * k, dt)
+                r["layers"][f"{key} {dt}"] = {
+                    "ms": timer(run), "plain_ms": timer(plain),
+                    "library_ms": timer(lambda: [
+                        F.conv2d(t, wt, bb, groups=c) for t in xp]),
+                    "library_pad_ms": timer(lambda: [
+                        F.pad(xn[sl], (p, p, p, p), mode="reflect")
+                        for sl in parts]),
+                    "library_calls": len(parts),
+                    "host_us": _host_us(torch, run),
+                    "bound_ms": bound, "bound_by": by,
+                    "shape": f"{b}x{h}x{w}x{c} k{k} {act} {dt}"}
+                del xn, xp
+            del x
+            torch.cuda.empty_cache()
+        stamp(f"conv_dw {key} checked")
+
+    downs = {}
+    for key, c, scale in MYF_DOWNS:
+        h, w = _S[scale]
+        b = 2 * BATCH
+        layer = ConvLayer(c, c, 2, act="relu6", groups=c, use_bias=False,
+                          stride=2, padding=0).to(dev)
+        x = _rand(torch, (b, h, w, c), 185 + c, dev, torch.bfloat16,
+                  scale=6.0)
+        lb = layer.to(torch.bfloat16)
+        with torch.no_grad():
+            y = lb(x)
+            want = torch.clamp(F.conv2d(
+                x[:2].float().permute(0, 3, 1, 2), lb.weight.float(),
+                stride=2, groups=c), 0.0, 6.0).permute(0, 2, 3, 1)
+            err, rel = _wide_rel(torch, y[:2], want, "bf16")
+            if rel > CHAIN_TOL["bf16"]:
+                raise AssertionError(f"myfusion {key}: {rel:.3g} of the f32 "
+                                     f"conv")
+            ho, wo = y.shape[1:3]
+            bound, by = _bound((b * h * w * c + b * ho * wo * c) * 2
+                               + lb.weight.numel() * 2,
+                               2.0 * b * ho * wo * c * 4, "bf16")
+            downs[key] = {"library_ms": timer(lambda: lb(x)),
+                          "max_rel_err_vs_f32": rel, "bound_ms": bound,
+                          "bound_by": by,
+                          "shape": f"{b}x{h}x{w}x{c} -> {b}x{ho}x{wo}x{c} "
+                                   f"k2 s2 VALID depthwise + relu6 bf16"}
+        del x, y, want, layer, lb
+        torch.cuda.empty_cache()
+    print(f"myfusion strided downs (cuDNN): {json.dumps(downs)}")
+    return downs
+
+
 WIDE_REPLACES = ("multi_modal_image_fusion_tpu/ops/pallas/conv_kernel.py:719 "
                  "(conv_tlane_chain; pallas_call :799)")
 # conv_wide tolerances, relative to max|y| of the plain version on the same
@@ -2528,7 +2710,9 @@ WIDE_CHECKS = [("DB3_1.conv1", [256, 1024], 640, 3, 0, 2, 306, 256),
                ("nestfuse.CB3_0.conv1", [112], 56, 3, 0, 32, 306, 256),
                ("nestfuse.DB1_1.conv1", [64, 112], 88, 3, 0, 16, H, W),
                ("mafusion.DB1.conv1", [64, 128, 256, 512], 480, 3, 0, 4, H,
-                W)]
+                W),
+               # MyFusion's DB1_1 pw1: k1 over two legs to 24 (16 pairs)
+               ("myfusion.DB1_1.pw1", [16, 32], 24, 1, 0, 16, H, W)]
 # every conv_wide launch of one fused forward: (name, legs' channels, c_out,
 # k, fuse (the siamese sum of the two halves), scale, images per pair).
 # UNFusion's ECB k1 convs run on the siamese fold's 2 images a pair.
@@ -2580,6 +2764,9 @@ WIDE_LAYERS = [
     ("mafusion.DB2.conv2", [480], 128, 1, 0, 1, 1),
     ("mafusion.DB1.conv1", [64, 128, 256, 512], 480, 3, 0, 0, 1),
     ("mafusion.DB1.conv2", [480], 64, 1, 0, 0, 1),
+    # MyFusion: the DCBlocks' pw1 whose hidden width is 8 mod 16
+    ("myfusion.DB1_1.pw1", [16, 32], 24, 1, 0, 0, 1),
+    ("myfusion.DB1_3.pw1", [16, 16, 16, 32], 40, 1, 0, 0, 1),
 ]
 # bf16 pairs of a model's timed layers where its bench runs another batch
 WIDE_BENCH_PAIRS = {"mafusion": MAFUSION_BATCH}
@@ -2670,8 +2857,12 @@ def check_conv_wide(torch, F, dev, timer):
                         dt)
             same = [(i, j) for i in range(len(cins))
                     for j in range(i + 1, len(cins)) if cins[i] == cins[j]]
-            ctls = {"taps transposed": conv_wide(legs, wt.transpose(2, 3),
-                                                 bias, "relu", fuse_n)}
+            # a k1 conv has one tap: its input channels reversed instead
+            ctls = ({"taps transposed": conv_wide(legs, wt.transpose(2, 3),
+                                                  bias, "relu", fuse_n)}
+                    if k > 1 else
+                    {"input channels reversed": conv_wide(
+                        legs, wt.flip(1), bias, "relu", fuse_n)})
             if same:
                 i, j = same[0]
                 sw = list(legs)
@@ -2812,7 +3003,28 @@ FORWARD_LAUNCHES = {
     # enc0 over both images, the ResBlock's two convs (each followed by its
     # group norm), dec2; the stride-2 and transpose convs are cuDNN's
     "sedrfuse": {"conv_gray_enter": 1, "conv_chain": 2, "conv_gray_exit": 1},
+    # MyFusion's default: conv_in's 8-channel enter over both images;
+    # conv_chain: 4 TransitionBlock pw, 4 SepConvBlock pwconv1, 6 DCBlock
+    # pw2; conv_dw: down1's k1, 4 SepConvBlock dw, 6 DCBlock dw;
+    # conv_multi: 4 pwconv2 with the identity shortcut, the pw1 of DB2_1,
+    # DB3_1, DB1_2 and DB2_2 over their legs; conv_wide: DB1_1's and
+    # DB1_3's pw1 (24, 40); conv_out on the exit; the three strided
+    # depthwise downs are cuDNN's
+    "myfusion": {"conv_gray_enter": 1, "conv_chain": 14, "conv_dw": 11,
+                 "conv_multi": 8, "conv_wide": 2, "conv_gray_exit": 1},
+    # res2 + plain + rfn + maxpool, no level shared: each branch its
+    # conv_in, down1's k1 dw, 4 pw, 4 Res2 blocks (pwconv1, 4 dw, pwconv2
+    # over 4 legs); 4 RFNs; the plain decoder's 3 DCBlocks on one tensor
+    "myfusion_res2_plain_rfn": {"conv_gray_enter": 2, "conv_chain": 38,
+                                "conv_dw": 37, "conv_multi": 16,
+                                "conv_gray_exit": 1},
 }
+# MyFusion: its default benched, contract-held and CLI-tested; one more
+# configuration through the test CLI (the res2 encoder, the per-branch
+# route of unshared levels, the plain decoder, RFN, max-pool downs)
+MYF_MODELS = ("myfusion",)
+MYF_RES2 = dict(encoder="res2", decoder="plain", fusion_method="rfn",
+                down_mode="maxpool", share_weight_levels=0)
 # benched, contract-held and CLI-tested like the nest models; IFCNN,
 # DIFNet and PMGI have batch norms
 FIVE_MODELS = ("pfnetv1", "pfnetv2", "ifcnn", "difnet", "pmgi")
@@ -2850,7 +3062,7 @@ def seeded_model(torch, name, seed, **cfg):
     return m
 
 
-def live_seed(torch, dev, name, min_live=0.99):
+def live_seed(torch, dev, name, min_live=0.99, **cfg):
     """The first weight seed of `name` (seeded_model) whose fused image is
     live: above the image's minimum at `min_live` of the pixels of 2
     seeded 128x128 pairs (f32, the card's F.conv2d route; the serving route
@@ -2869,7 +3081,7 @@ def live_seed(torch, dev, name, min_live=0.99):
     x1, x2 = (torch.rand((2, 128, 128, 1), generator=g, device=dev)
               for _ in range(2))
     for seed in range(64):
-        m = seeded_model(torch, name, seed)
+        m = seeded_model(torch, name, seed, **cfg)
         with torch.no_grad(), plain_route(name):
             y = m.to(dev).eval()(x1, x2)
         live = float((y > y.min()).float().mean())
@@ -2974,10 +3186,16 @@ def profile_forward(torch, model, a, b):
     cudnn = sum(e.device_time_total for e in prof.events()
                 if e.name == "aten::convolution"
                 and e.device_type == DeviceType.CPU) / 1e3
+    # the torch ops by name: the aten ops' own device time (their kernels,
+    # not their children's), the largest 8
+    by_op = sorted(((getattr(a, "self_device_time_total", 0.0) / 1e3,
+                     a.key) for a in prof.key_averages()
+                    if a.key.startswith("aten::")), reverse=True)
     return {"wall_ms": wall, "kernel_ms": total, "busy_share": total / wall,
             "launches": len(kernels),
             **{f"{k}_ms": v for k, v in split.items()},
             "cudnn_conv_ms": cudnn, "torch_ops_ms": split["other"] - cudnn,
+            "top_aten_ms": {k: v for v, k in by_op[:8] if v > 0},
             "source": "torch.profiler"}
 
 
@@ -2998,12 +3216,17 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
     convs). Held within 1e-3 of f32 for every model, VIFNet too; the gap
     to the bf16 F.conv2d forward is printed beside it (for VIFNet the JAX
     package recorded a bf16 floor of 2.1e-3 dSSIM, docs/PARITY.md). The
-    fused images must not be constant (std > 0). Weights from
+    fused images must not be constant (std > 0); their largest |bf16 -
+    f32| over max|f32| is printed beside the gaps, not gated. Weights from
     `seeded_model`; a model with batch norms takes the plain versions of
     the serving kernels for both references (`plain_route`)."""
     m32, m16 = (seeded_model(torch, name, seed).to(dev, dt).eval()
                 for dt in (torch.float32, torch.bfloat16))
     vals = {"kernel_bf16": [], "f32": [], "conv2d_bf16": []}
+    # reported beside the gaps: the bf16 fused images' largest difference
+    # to the f32 forward's over its largest magnitude (scale-free, where a
+    # faint fused image makes the SSIM and Qabf gaps small too)
+    d_max, y_max = 0.0, 0.0
     with torch.no_grad():
         for lo in range(0, a16.shape[0], chunk):
             sl = slice(lo, lo + chunk)
@@ -3011,6 +3234,8 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
             with plain_route(name), plain_nl():
                 y32 = m32(x1, x2)
                 yb = m16(a16[sl], b16[sl]).float()
+            d_max = max(d_max, float((y16[sl].float() - y32).abs().max()))
+            y_max = max(y_max, float(y32.abs().max()))
             for key, y in (("kernel_bf16", y16[sl].float()), ("f32", y32),
                            ("conv2d_bf16", yb)):
                 vals[key].append(torch.stack(ssim_qabf(torch, x1, x2, y)))
@@ -3026,6 +3251,7 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
         raise AssertionError(f"{name} bf16 contract: {means}, fused std "
                              f"{std}")
     rec = {"ssim": {k: v[0] for k, v in means.items()}, "fused_std": std,
+           "fused_max_rel_err": d_max / y_max if y_max else float("inf"),
            "qabf": {k: v[1] for k, v in means.items()},
            "d_f32": {"ssim": gap[0], "qabf": gap[1]},
            "d_conv2d_bf16": {"ssim": d_bf16[0], "qabf": d_bf16[1]},
@@ -4194,6 +4420,8 @@ def main():
     stamp("nl_minmax and nl_apply checked")
     rec["conv_dw"] = check_conv_dw(torch, F, dev, timer)
     stamp("conv_dw checked")
+    myf_downs = check_myfusion(torch, F, dev, timer, rec)
+    stamp("myfusion conv_dw shapes and strided downs checked")
     rec["conv_wide"] = check_conv_wide(torch, F, dev, timer)
     stamp("conv_wide checked")
     print(f"conv_wide layers: {json.dumps(rec['conv_wide']['layers'])}")
@@ -4206,7 +4434,10 @@ def main():
     print("kernel checks passed")
     # the weight seed of each new model's bench, contract and test CLI
     seeds = {name: live_seed(torch, dev, name)
-             for name in (*NEST_MODELS, *FIVE_MODELS, *GROUP_MODELS)}
+             for name in (*NEST_MODELS, *FIVE_MODELS, *GROUP_MODELS,
+                          *MYF_MODELS)}
+    seeds["myfusion_res2_plain_rfn"] = live_seed(torch, dev, "myfusion",
+                                                 **MYF_RES2)
     torch.cuda.empty_cache()
 
     # phase 4: main path, counts from 0
@@ -4298,12 +4529,18 @@ def main():
         stamp("res2fusion test CLI done")
         wide_cli = {}
         for name in ("dbnet", "unfusion", *NEST_MODELS, *FIVE_MODELS,
-                     *GROUP_MODELS):
+                     *GROUP_MODELS, *MYF_MODELS):
             wide_cli[name], counts = model_cli_path(
                 torch, build, test_cli, root, dev, name, name, {}, WIDE_PAIRS,
                 seeds.get(name, 0))
             main_counts.update(counts)
             stamp(f"{name} test CLI done")
+        key = "myfusion_res2_plain_rfn"
+        wide_cli[key], counts = model_cli_path(
+            torch, build, test_cli, root, dev, key, "myfusion", MYF_RES2,
+            WIDE_PAIRS, seeds[key])
+        main_counts.update(counts)
+        stamp(f"{key} test CLI done")
         # the test CLI --int8 on the same 51 pairs, counts from 0
         int8_cli, counts = int8_cli_path(torch, build, test_cli, root, dev,
                                          cli_ssim)
@@ -4355,7 +4592,8 @@ def main():
                         ("unfusion", BATCH), ("nestfuse", BATCH),
                         ("rfnnest", BATCH), ("mafusion", MAFUSION_BATCH),
                         *((m, BATCH) for m in (*FIVE_MODELS,
-                                               *GROUP_MODELS))):
+                                               *GROUP_MODELS,
+                                               *MYF_MODELS))):
         torch.cuda.reset_peak_memory_stats()
         benches[name], (a16, b16, y16), counts = bench_path(
             build, bench, name, batch, seed=seeds.get(name, 0),
@@ -4368,7 +4606,7 @@ def main():
         main_counts.update(counts)
         torch.cuda.empty_cache()
         if name in ("res2fusion", "dbnet", "unfusion", *NEST_MODELS,
-                    *FIVE_MODELS, *GROUP_MODELS):
+                    *FIVE_MODELS, *GROUP_MODELS, *MYF_MODELS):
             model = seeded_model(torch, name, seeds.get(name, 0)).to(
                 dev, torch.bfloat16).eval()
             benches[name]["profile"] = profile_forward(torch, model, a16, b16)
@@ -4519,8 +4757,9 @@ def main():
         r = rec[name]
         # conv_wide: the sums are one bf16 bench forward of each model (16
         # pairs; MAFusion 4); conv_dw: the 12 layers of one bf16 res2fusion
-        # bench forward (2 pairs); their f32 launches at the test CLI's
-        # pair are under "layers"
+        # bench forward (2 pairs) and MyFusion's five shapes (MYF_DW, 16
+        # pairs); their f32 launches at the test CLI's pair are under
+        # "layers"
         ls = [v for key, v in r["layers"].items()
               if name not in ("conv_wide", "conv_dw")
               or key.endswith(" bf16")]
@@ -4675,6 +4914,7 @@ def main():
                       "test_cli_res2fusion": res2_rec,
                       "pfnetv2_fuse_net": fuse_net,
                       "sedrfuse_library": sedr_library,
+                      "myfusion_strided_downs": myf_downs,
                       **{f"test_cli_{k}": v for k, v in wide_cli.items()},
                       "int8_benches": int8_benches,
                       "int8_quality": int8_gap,

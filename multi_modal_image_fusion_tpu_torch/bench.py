@@ -9,8 +9,9 @@ every timed iteration (10, as BENCH_ITERS) chains on the full previous
 output (its mean feeds the next input), and the timed region ends with
 torch.cuda.synchronize() and a host fetch of the accumulated sum.
 The models are the port's zoo: deepfuse, densefuse, vifnet, dbnet,
-unfusion, nestfuse, rfnnest, pfnetv1, pfnetv2, ifcnn, difnet, pmgi and
-sedrfuse at batch 16; Res2Fusion is benched at
+unfusion, nestfuse, rfnnest, pfnetv1, pfnetv2, ifcnn, difnet, pmgi,
+sedrfuse and myfusion (its default configuration) at batch 16; Res2Fusion
+is benched at
 --batch 2: its 384-channel Res2 expansion takes ~2 GB an image in bf16, so
 16 pairs do not fit on an 80 GB card; MAFusion at --batch 4: its
 decoder's 960-channel legs at full resolution take 2.4 GB an image, its

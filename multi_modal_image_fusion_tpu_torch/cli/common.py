@@ -98,7 +98,9 @@ def get_train_parser():
     p.add_argument("--model_cfg", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="model constructor overrides, repeatable, e.g. "
-                        "--model_cfg fusion_mode=mean")
+                        "--model_cfg fusion_mode=mean, or for myfusion: "
+                        "--model_cfg encoder=res2 --model_cfg decoder=plain "
+                        "--model_cfg share_weight_levels=2")
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: the CUDA card; the run "
                         "fails without one unless --device cpu)")
@@ -135,7 +137,8 @@ def get_test_parser():
                    help="reflect-pad inputs to multiples of N and crop the "
                         "outputs (a border deviation within the model's "
                         "receptive field of the pad seam; 0 [default] = "
-                        "exact shapes)")
+                        "exact shapes; a negative N is the JAX CLI's auto, "
+                        "exact shapes off a TPU)")
     p.add_argument("--device", default=None, type=str,
                    help="torch device (default: the CUDA card; the run "
                         "fails without one unless --device cpu)")

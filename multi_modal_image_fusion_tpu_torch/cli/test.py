@@ -129,10 +129,14 @@ def main(argv=None):
 
     log_path = os.path.join(ckpt_dir, "train.log")
     log_file = open(log_path, "a") if os.path.isfile(log_path) else None
+    # a negative bucket is the JAX CLI's "auto": 128 on a TPU, where each
+    # new shape is a new compile, exact shapes elsewhere (JAX cli/test.py:
+    # 213-216); the card takes any shape
+    pad_bucket = max(args.pad_bucket, 0)
     try:
         with qctx:
             ssim, avg_time = test_model(model, dataset, device, save_dir,
-                                        log_file, pad_bucket=args.pad_bucket)
+                                        log_file, pad_bucket=pad_bucket)
         line = (f"ssim: {ssim:.4f}, time: {avg_time * 1000:.3f}ms, "
                 f"fps: {1.0 / avg_time:.3f}")
         print(line)

@@ -56,7 +56,9 @@
 // 128-byte row, so the accumulators' 4-byte writes and the 16-byte reads
 // hit 32 banks), read back as 16-byte chunks and written by consecutive
 // threads to consecutive addresses with a streaming hint: a tile row
-// segment is contiguous in NHWC.
+// segment is contiguous in NHWC. A pass is 32 or 16 output channels (4 or 2
+// N tiles), or 8 at k1 (MyFusion's conv_in: a pixel's pass is one 16-byte
+// chunk in bf16, so each pixel's chunk is its own global row of 16 bytes).
 //
 // conv_gray_exit: a tile is EX_TH output rows of EX_TW pixels. kw on N: P[x]
 // [kw] = sum_kh sum_ci in[y + kh][x][ci] w[ci][kh][kw] is one MMA a kernel
@@ -310,18 +312,29 @@ __device__ __forceinline__ void en_acc_init(float (&acc)[2][NTG][4], const float
       for (int e = 0; e < 4; ++e) acc[par][nt][e] = bb[nt][e & 1];
 }
 
-// so[par][hh]: the swizzled byte offset of the thread's first pair (group
-// 0, N tile 0) in the output tile. Group gp adds gp * 32 pixels, a whole
-// number of swizzle periods (1 KB), and N tile nt flips bits below the
-// swizzle key's: its offset is so ^ (nt * 8 * sizeof(T)).
+// True when a 32-pixel group of the output tile is a whole number of
+// swizzle periods (1 KB): a pixel's channels of a pass take 32 bytes or
+// more. The 8-channel bf16 pass (16 bytes a pixel) is half a period.
+template <int NTG, typename T>
+__host__ __device__ constexpr bool en_whole_periods() {
+  return 32 * 8 * NTG * (int)sizeof(T) % 1024 == 0;
+}
+
+// so[par][hh]: the byte offset of the thread's first pair (group 0, N tile
+// 0) in the output tile, swizzled when groups are whole periods (group gp
+// then adds gp * 32 pixels to it), else swizzled at each store with the
+// group's pixels added first. N tile nt flips bits below the swizzle key's:
+// its offset is the pair's ^ (nt * 8 * sizeof(T)).
 template <int NTG, typename T>
 __device__ __forceinline__ void en_offsets(int (&so)[2][2], int row, int g, int t) {
   constexpr int PXB = 8 * NTG * (int)sizeof(T);
 #pragma unroll
   for (int par = 0; par < 2; ++par)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      so[par][hh] = swz((row * EN_TW + 2 * g + par + 16 * hh) * PXB + 2 * t * (int)sizeof(T));
+    for (int hh = 0; hh < 2; ++hh) {
+      const int off = (row * EN_TW + 2 * g + par + 16 * hh) * PXB + 2 * t * (int)sizeof(T);
+      so[par][hh] = en_whole_periods<NTG, T>() ? swz(off) : off;
+    }
 }
 
 template <int NTG, int ACT, typename T>
@@ -333,9 +346,12 @@ __device__ __forceinline__ void en_epilogue(unsigned char* s_out, const int (&so
 #pragma unroll
     for (int nt = 0; nt < NTG; ++nt)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        store_act<ACT>(s_out + ((so[par][hh] + gp * 32 * PXB) ^ (nt * 8 * (int)sizeof(T))),
+      for (int hh = 0; hh < 2; ++hh) {
+        const int off = so[par][hh] + gp * 32 * PXB;
+        store_act<ACT>(s_out + ((en_whole_periods<NTG, T>() ? off : swz(off)) ^
+                                (nt * 8 * (int)sizeof(T))),
                        acc[par][nt][2 * hh], acc[par][nt][2 * hh + 1], act, T());
+      }
 }
 
 template <int K, int LEGS, int NTG, int ACT>
@@ -529,29 +545,37 @@ static int launch_enter(GrayArgs a, int b_out, cudaStream_t s) {
 
 // The models' entry convs, one gray leg: k1 (NestFuse, RFNNest, MAFusion:
 // one tap, at row 0 of the even pixels' B and row 1 of the odd ones', the
-// second kernel row of the k16 step zero), k3 (DenseFuse, VIFNet,
-// Res2Fusion, DBNet, UNFusion, PFNet, DIFNet), k5 (DeepFuse) and k7
-// (IFCNN's enc0: four k16 steps, the last one's second kernel row zero);
-// two gray legs: k5 (PMGI's gradient0 and intensity0). Cout a multiple of
-// 16, in passes of 32 channels where Cout is a multiple of 32, else 16.
+// second kernel row of the k16 step zero; MyFusion's conv_in, 8 channels),
+// k3 (DenseFuse, VIFNet, Res2Fusion, DBNet, UNFusion, PFNet, DIFNet), k5
+// (DeepFuse) and k7 (IFCNN's enc0: four k16 steps, the last one's second
+// kernel row zero); two gray legs: k5 (PMGI's gradient0 and intensity0).
+// Cout a multiple of 16, in passes of 32 channels where Cout is a multiple
+// of 32, else 16; at k1 on one leg also 8 mod 16, in passes of 8 (one N
+// tile: a pixel's 8 bf16 channels are one 16-byte row of the output tile),
+// with MyFusion's relu6 compiled in.
 template <typename T, int K, int LEGS, int NTG>
 static int enter_by_act(GrayArgs a, int b_out, cudaStream_t s) {
   switch (a.act) {
     case ACT_NONE: return launch_enter<T, K, LEGS, NTG, ACT_NONE>(a, b_out, s);
     case ACT_RELU: return launch_enter<T, K, LEGS, NTG, ACT_RELU>(a, b_out, s);
+    case ACT_RELU6:
+      if constexpr (NTG == 1) return launch_enter<T, K, LEGS, NTG, ACT_RELU6>(a, b_out, s);
+      [[fallthrough]];
     default: return launch_enter<T, K, LEGS, NTG, ACT_ANY>(a, b_out, s);
   }
 }
 
 template <typename T, int K, int LEGS>
 static int enter_by_n(GrayArgs a, int b_out, cudaStream_t s) {
-  return a.C % 32 == 0 ? enter_by_act<T, K, LEGS, 4>(a, b_out, s)
-                       : enter_by_act<T, K, LEGS, 2>(a, b_out, s);
+  if (a.C % 32 == 0) return enter_by_act<T, K, LEGS, 4>(a, b_out, s);
+  if (a.C % 16 == 0) return enter_by_act<T, K, LEGS, 2>(a, b_out, s);
+  if constexpr (K == 1 && LEGS == 1) return enter_by_act<T, K, LEGS, 1>(a, b_out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 static int enter_by_k(int k, int legs, GrayArgs a, int b_out, cudaStream_t s) {
-  if (a.C % 16) return (int)cudaErrorInvalidValue;
+  if (a.C % 8 || (a.C % 16 && (k != 1 || legs != 1))) return (int)cudaErrorInvalidValue;
   if (legs == 2) return k == 5 ? enter_by_n<T, 5, 2>(a, b_out, s) : (int)cudaErrorInvalidValue;
   switch (k) {
     case 1: return enter_by_n<T, 1, 1>(a, b_out, s);

@@ -1,8 +1,9 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
 DenseFuse, VIFNet, DBNet, UNFusion, Res2Fusion, NestFuse, RFNNest,
-MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet, PMGI and SEDRFuse; MyFusion is
-queued in ROADMAP.md.
+MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet, PMGI, SEDRFuse and MyFusion with
+its 'sep' and 'res2' encoders (its other encoders, and its 'layer' norm,
+are queued in ROADMAP.md queue 1 item 4b).
 
 Models take NHWC single-channel images:
 
@@ -15,15 +16,17 @@ import contextlib
 import torch
 from torch import nn
 
-from ..ops.blocks import (RFN, DenseBlock, FSDecoder, NestDecoder,
-                          NestEncoder, Res2ConvBlock, ResBlock, down,
+from ..ops.blocks import (RFN, DCBlock, Decoder, DenseBlock, FSDecoder,
+                          LSDecoder, NestDecoder, NestEncoder, Res2ConvBlock,
+                          ResBlock, SepConvBlock, TransitionBlock, down,
                           nest_block, upsample, wide_block)
 from ..ops.cuda.conv_pair import conv_pair_enter, conv_pair_exit
 from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
 from ..ops.fusion import (attention_fusion, element_fusion, spatial_pooling,
                           weighted_fusion)
 from ..ops import layers
-from ..ops.layers import ConvLayer, fast_training, in_training_scope, int8_ctx
+from ..ops.layers import (ACT_CODES, NORMS, ConvLayer, fast_training,
+                          in_training_scope, int8_ctx)
 from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
                          hiw_int8_enabled, hiw_res_enabled, name_layers,
                          quant_off, quant_skipped)
@@ -31,8 +34,9 @@ from ..ops.s2d import (chain_pair_enabled, hiw_enabled, s2d_enabled,
                        s2d_io_enabled, s2d_io_ok, s2d_pack, s2d_unpack)
 
 __all__ = ["DBNet", "DIFNet", "DeepFuse", "DenseFuse", "IFCNN", "MAFusion",
-           "MODEL_ZOO", "NestFuse", "PFNetv1", "PFNetv2", "PMGI", "RFNNest",
-           "Res2Fusion", "SEDRFuse", "UNFusion", "VIFNet", "create_model"]
+           "MODEL_ZOO", "MyFusion", "NestFuse", "PFNetv1", "PFNetv2", "PMGI",
+           "RFNNest", "Res2Fusion", "SEDRFuse", "UNFusion", "VIFNet",
+           "create_model"]
 
 
 class DeepFuse(nn.Module):
@@ -968,21 +972,193 @@ class SEDRFuse(nn.Module):
         return dec2(t)
 
 
+# MyFusion's design space still to port (ROADMAP.md queue 1 item 4b)
+_QUEUE_4B = "ROADMAP.md queue 1 item 4b"
+_UNPORTED_ENCODERS = ("mix", "conv_former", "mix_former", "res2_former",
+                      "transformer")
+_UNPORTED_ACTS = ("hswish", "silu", "gelu")
+_FUSION_MODES = {"elem": ("sum", "mean", "max"),
+                 "attn": ("sa", "ca", "sca", "wavg"),
+                 "concat": None, "rfn": None}
+_DECODERS = {"plain": Decoder, "ls": LSDecoder, "nest": NestDecoder,
+             "fs": FSDecoder}
+
+
+def _encoder_block(kind, ch, generator):
+    if kind == "sep":
+        return SepConvBlock(ch, ch, generator=generator)
+    return Res2ConvBlock(ch, ch, generator=generator)
+
+
+class MyFusion(nn.Module):
+    """The configurable 4-scale meta-model (reference core/model.py:630-842;
+    JAX models/zoo.py:1576-1759): a per-branch encoder of conv_in (k1, 1 ->
+    8) and four levels of TransitionBlock + encoder block at `num_ch`, the
+    two branches' features fused per scale, a decoder of DCBlocks, conv_out
+    (k1, num_ch[0] -> 1).
+
+    - `encoder`: 'sep' (SepConvBlock) or 'res2' (Res2ConvBlock), or a list
+      of four, one a level. The MetaFormer, MixConv and transformer
+      encoders raise NotImplementedError (ROADMAP.md queue 1 item 4b).
+    - `share_weight_levels` (4, 3, 2, 1 or 0): the levels from 4 -
+      share_weight_levels on share the first branch's modules and run both
+      images as one 2n batch; the levels below it run each image through
+      its branch's own modules (conv_in_2, down{i}_2, EB{i}_2), then the
+      first shared level's input is the two branches' concat.
+    - `fusion_method` 'elem' (`fusion_mode` sum, mean, max), 'attn' (sa,
+      ca, sca, wavg: ops/fusion.attention_fusion), 'concat' (fuse1-4, k3
+      2c -> c without activation, over the legs of the two features) or
+      'rfn' (`RFN` a scale).
+    - `decoder` 'plain', 'ls', 'nest' or 'fs', each of DCBlocks (pw1 over
+      the legs of its concat, conv_wide where the hidden width is 8 mod 16).
+    - `down_mode` 'stride' (a depthwise k2 stride-2 VALID conv, cuDNN's
+      grouped conv as the JAX package runs XLA's) or 'maxpool'; level 1's
+      TransitionBlock is always a k1 stride-1 depthwise conv.
+    - `up_mode` 'bilinear' (align_corners=True) or 'nearest'.
+    - `act` (relu6 by default), `norm` (None, 'batch' folded into the
+      serving convs, 'group') and `use_bias` apply to conv_in, the
+      TransitionBlocks and conv_out; the encoder and decoder blocks keep
+      their own (relu6, no norm, no bias), as in the reference. 'layer'
+      (ChannelLayerNorm) and the activations hswish, silu and gelu raise
+      NotImplementedError (queue 1 item 4b).
+
+    Serving routes: conv_in on conv_gray_enter (one launch over the pair
+    when conv_in is shared, else one a branch; its 8-channel k1 pass),
+    conv_out on conv_gray_exit; every other conv as its block routes it
+    (conv_chain, conv_multi, conv_wide, conv_dw). MyFusion is in the JAX
+    package's HIW_MULTI_BLOCKLIST, so its TPU default is its eager route;
+    every conv of the port's serving path takes a hand-written kernel all
+    the same (the JAX H-major route `_hiw_forward`, zoo.py:1761-1822, is
+    the same function). There is no autoencoder mode (the model needs two
+    images)."""
+
+    def __init__(self, encoder="sep", decoder="nest", use_bias=False,
+                 norm=None, act="relu6", fusion_method="attn",
+                 fusion_mode="sca", down_mode="stride", up_mode="bilinear",
+                 share_weight_levels=4, num_ch=(16, 32, 64, 128),
+                 generator=None):
+        super().__init__()
+        enc = [encoder] * 4 if isinstance(encoder, str) else list(encoder)
+        if len(enc) != 4:
+            raise ValueError(f"encoder: one kind or four, got {encoder!r}")
+        for kind in enc:
+            if kind in _UNPORTED_ENCODERS:
+                raise NotImplementedError(
+                    f"MyFusion encoder {kind!r} is not ported yet "
+                    f"({_QUEUE_4B}); ported: 'sep', 'res2'")
+            if kind not in ("sep", "res2"):
+                raise ValueError(f"unknown MyFusion encoder {kind!r}")
+        if norm == "layer":
+            raise NotImplementedError(f"MyFusion norm 'layer' "
+                                      f"(ChannelLayerNorm) is not ported yet "
+                                      f"({_QUEUE_4B})")
+        if norm not in NORMS:
+            raise ValueError(f"norm {norm!r} not in {NORMS} or 'layer'")
+        if act in _UNPORTED_ACTS:
+            raise NotImplementedError(f"MyFusion act {act!r} is not ported "
+                                      f"yet ({_QUEUE_4B})")
+        if act not in ACT_CODES:
+            raise ValueError(f"unknown activation {act!r}")
+        if fusion_method not in _FUSION_MODES:
+            raise ValueError("only supported ['elem', 'attn', 'concat', "
+                             "'rfn'] method")
+        modes = _FUSION_MODES[fusion_method]
+        if modes is not None and fusion_mode not in modes:
+            raise ValueError(f"fusion_mode {fusion_mode!r} not in {modes}")
+        if decoder not in _DECODERS:
+            raise ValueError(f"decoder {decoder!r} not in {sorted(_DECODERS)}")
+        if up_mode not in ("bilinear", "nearest"):
+            raise ValueError(f"up_mode {up_mode!r} not in bilinear/nearest")
+        if share_weight_levels not in range(5):
+            raise ValueError(f"share_weight_levels {share_weight_levels!r} "
+                             f"not in 0-4")
+        g, c = generator, tuple(num_ch)
+        self.num_ch, self.fusion_method = c, fusion_method
+        self.fusion_mode = fusion_mode
+        self.share_weight_levels = share_weight_levels
+        # what the weight carry and the flax paths need (utils/jax_convert)
+        self.layout_cfg = dict(encoder=enc, decoder=decoder,
+                               fusion_method=fusion_method,
+                               share_weight_levels=share_weight_levels,
+                               norm=norm)
+        kw = dict(act=act, norm=norm, use_bias=use_bias, generator=g)
+        for br in (1, 2) if share_weight_levels < 4 else (1,):
+            setattr(self, f"conv_in_{br}", ConvLayer(1, 8, 1, **kw))
+        for lv in range(4):
+            for br in (1, 2) if lv < 4 - share_weight_levels else (1,):
+                setattr(self, f"down{lv + 1}_{br}", TransitionBlock(
+                    c[lv - 1] if lv else 8, c[lv], 2 if lv else 1,
+                    down_mode if lv else "stride", **kw))
+                setattr(self, f"EB{lv + 1}_{br}",
+                        _encoder_block(enc[lv], c[lv], g))
+        for i, ch in enumerate(c):
+            if fusion_method == "concat":
+                setattr(self, f"fuse{i + 1}",
+                        ConvLayer(2 * ch, ch, 3, act=None, generator=g))
+            elif fusion_method == "rfn":
+                setattr(self, f"RFN{i + 1}", RFN(ch, g))
+        self.decode = _DECODERS[decoder](c, block=DCBlock, up_mode=up_mode,
+                                         generator=g)
+        self.conv_out = ConvLayer(c[0], 1, 1, **kw)
+
+    def _level(self, lv, br, x):
+        down = getattr(self, f"down{lv + 1}_{br}")
+        return getattr(self, f"EB{lv + 1}_{br}")(down(x))
+
+    def encoder(self, img1, img2):
+        """The four levels' features as pairs (branch 1, branch 2) of n
+        images each: views of one 2n batch at shared levels."""
+        n, split = img1.shape[0], 4 - self.share_weight_levels
+        if split:
+            t = (self.conv_in_1.enter(img1), self.conv_in_2.enter(img2))
+        else:
+            t = self.conv_in_1.enter(img1, img2)
+        feats = []
+        for lv in range(4):
+            if lv < split:
+                t = tuple(self._level(lv, br, x)
+                          for br, x in zip((1, 2), t))
+                feats.append(t)
+            else:
+                if isinstance(t, tuple):
+                    t = torch.cat(t)
+                t = self._level(lv, 1, t)
+                feats.append((t[:n], t[n:]))
+        return feats
+
+    def fusion(self, feats):
+        m = self.fusion_method
+        out = []
+        for i, (a, b) in enumerate(feats):
+            if m == "elem":
+                out.append(element_fusion(a, b, self.fusion_mode))
+            elif m == "attn":
+                out.append(attention_fusion(a, b, self.fusion_mode))
+            elif m == "concat":
+                out.append(getattr(self, f"fuse{i + 1}")(_legs(a, b)))
+            else:
+                out.append(getattr(self, f"RFN{i + 1}").pair(a, b))
+        return out
+
+    def forward(self, img1, img2):
+        return self.conv_out(self.decode(self.fusion(
+            self.encoder(img1, img2))))
+
+
 MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
              "difnet": DIFNet, "ifcnn": IFCNN, "mafusion": MAFusion,
-             "nestfuse": NestFuse, "pfnetv1": PFNetv1, "pfnetv2": PFNetv2,
-             "pmgi": PMGI, "res2fusion": Res2Fusion, "rfnnest": RFNNest,
-             "sedrfuse": SEDRFuse, "unfusion": UNFusion, "vifnet": VIFNet}
-# the zoo models the port does not serve yet (ROADMAP.md queue 1 item 4)
-NOT_PORTED = ("myfusion",)
+             "myfusion": MyFusion, "nestfuse": NestFuse, "pfnetv1": PFNetv1,
+             "pfnetv2": PFNetv2, "pmgi": PMGI, "res2fusion": Res2Fusion,
+             "rfnnest": RFNNest, "sedrfuse": SEDRFuse, "unfusion": UNFusion,
+             "vifnet": VIFNet}
 
 
 def create_model(name, **kwargs):
-    """Instantiate a ported zoo model by (case-insensitive) name."""
+    """Instantiate a ported zoo model by (case-insensitive) name. MyFusion's
+    configurations still to port raise NotImplementedError naming
+    ROADMAP.md."""
     key = name.lower()
     if key not in MODEL_ZOO:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ported: {sorted(MODEL_ZOO)}; "
-            f"still to port: {', '.join(NOT_PORTED)}); the queue of models "
-            f"to port is in ROADMAP.md")
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{sorted(MODEL_ZOO)}")
     return name_layers(MODEL_ZOO[key](**kwargs))

@@ -5,8 +5,10 @@ VIFNet, DBNet, PFNetv1 and PFNetv2; `Res2ConvBlock`, for Res2Fusion;
 `pad_to`, for UNFusion (and DBNet's x8 upsample); `nest_block`,
 `wide_block`, `RFN`, `downsample` and `FSDecoder` (and `NestDecoder` over
 `ConvBlock`), for NestFuse, RFNNest and MAFusion; `ResBlock`, for DIFNet
-and SEDRFuse; the other blocks come with the models that use them
-(ROADMAP.md queue 1 item 4)."""
+and SEDRFuse; `TransitionBlock`, `SepConvBlock`, `DCBlock`, `Decoder` and
+`LSDecoder` (and `NestDecoder` and `FSDecoder` over `DCBlock`), for
+MyFusion; MyFusion's MetaFormer, MixConv and transformer encoder blocks
+and ChannelLayerNorm are still to port (ROADMAP.md queue 1 item 4b)."""
 
 import torch
 import torch.nn.functional as F
@@ -17,8 +19,9 @@ from .cuda.conv_multi import concat_legs
 from .layers import ConvLayer, interpolate
 from .quant import record
 
-__all__ = ["ConvBlock", "DCB", "DenseBlock", "ECB", "FSDecoder",
-           "NestDecoder", "NestEncoder", "RFN", "Res2ConvBlock", "ResBlock",
+__all__ = ["ConvBlock", "DCB", "DCBlock", "Decoder", "DenseBlock", "ECB",
+           "FSDecoder", "LSDecoder", "NestDecoder", "NestEncoder", "RFN",
+           "Res2ConvBlock", "ResBlock", "SepConvBlock", "TransitionBlock",
            "downsample", "nest_block", "pad_to", "upsample", "wide_block"]
 
 
@@ -369,7 +372,169 @@ class RFN(nn.Module):
                                      ConvLayer(c, c, 3, generator=g)])
 
     def forward(self, f, n):
-        f_res = self.res([(f, 0), (f, n)])
+        return self.pair(f[:n], f[n:])
+
+    def pair(self, f1, f2):
+        """The fusion of two feature batches of n images each, read in
+        place (views of one 2n batch, or two tensors: MyFusion's levels
+        whose weights the branches do not share)."""
+        f_res = self.res(_legs(f1, f2))
         fuse1, fuse2, fuse3 = self.layers
-        y = fuse1(_legs(self.conv1(f[:n]), self.conv2(f[n:])))
+        y = fuse1(_legs(self.conv1(f1), self.conv2(f2)))
         return fuse3(fuse2(y)) + f_res
+
+
+class TransitionBlock(nn.Module):
+    """MyFusion's down between scales (reference block.py:620-664; JAX
+    ops/blocks.py:531-585): with down_mode 'stride' a depthwise ConvLayer
+    of kernel size and stride `stride`, VALID (layers.0: at stride 2
+    F.conv2d(groups=C) on every route, as the JAX package runs it on XLA's
+    grouped conv; at stride 1 a k1 conv_dw), with 'maxpool' a `stride` x
+    `stride` max pool (layers.0, no parameters); then the
+    pw k1 conv to `out_ch` (layers.1, conv_chain). Both convs take the
+    block's activation, norm and bias. Odd sizes floor (45 -> 22), as VALID
+    does; the decoder's `pad_to` repairs them."""
+
+    def __init__(self, in_ch, out_ch, stride=2, down_mode="stride",
+                 act="relu6", norm=None, use_bias=False, generator=None):
+        super().__init__()
+        if down_mode not in ("stride", "maxpool"):
+            raise ValueError(f"down_mode {down_mode!r} not in stride/maxpool")
+        kw = dict(act=act, norm=norm, use_bias=use_bias, generator=generator)
+        if down_mode == "stride":
+            down = ConvLayer(in_ch, in_ch, stride, groups=in_ch,
+                             stride=stride, padding=0, **kw)
+        else:
+            down = nn.MaxPool2d(stride)
+        self.layers = nn.ModuleList([down, ConvLayer(in_ch, out_ch, 1,
+                                                     **kw)])
+
+    def forward(self, x):
+        down, pw = self.layers
+        if isinstance(down, ConvLayer):
+            return pw(down(x))
+        x = down(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        return pw(x)
+
+
+class SepConvBlock(nn.Module):
+    """The inverted bottleneck (reference block.py:154-227; JAX
+    ops/blocks.py:93-169), MyFusion's 'sep' encoder block, relu6, no bias:
+
+        out = dwconv(pwconv1(x))        k1 in -> scale * in (relu6), k3
+                                        depthwise (no activation)
+        out = out * pwconv(x)           with `attention` (k1, relu6)
+        out = relu6(pwconv2(out) + shortcut(x))
+
+    the shortcut an identity when in_ch == out_ch (MyFusion's), else k1.
+    pwconv1 runs conv_chain, dwconv conv_dw; pwconv2 with the identity
+    shortcut is one conv_multi whose identity leg carries the add and whose
+    epilogue the relu6 (`ConvLayer.plus_identity`); with a k1 shortcut,
+    pwconv2 and the shortcut run conv_chain, the add and relu6 torch ops.
+    The reference's `residual` switch is not ported (MyFusion keeps it
+    on). State-dict names are the reference's."""
+
+    def __init__(self, in_ch, out_ch, scale=4, ksize=3, attention=False,
+                 generator=None):
+        super().__init__()
+        g, hid = generator, in_ch * scale
+        self.pwconv1 = ConvLayer(in_ch, hid, 1, act="relu6", use_bias=False,
+                                 generator=g)
+        self.dwconv = ConvLayer(hid, hid, ksize, act=None, groups=hid,
+                                use_bias=False, generator=g)
+        self.pwconv2 = ConvLayer(hid, out_ch, 1, act=None, use_bias=False,
+                                 generator=g)
+        self.shortcut = (ConvLayer(in_ch, out_ch, 1, act=None, use_bias=False,
+                                   generator=g) if in_ch != out_ch else None)
+        self.pwconv = (ConvLayer(in_ch, hid, 1, act="relu6", use_bias=False,
+                                 generator=g) if attention else None)
+
+    def forward(self, x):
+        out = self.dwconv(self.pwconv1(x))
+        if self.pwconv is not None:
+            out = out * self.pwconv(x)
+        if self.shortcut is None:
+            return self.pwconv2.plus_identity(out, x, "relu6")
+        return torch.clamp(self.pwconv2(out) + self.shortcut(x), 0.0, 6.0)
+
+
+class DCBlock(nn.Module):
+    """MyFusion's decoder block (reference block.py:667-705; JAX
+    ops/blocks.py:588-637), hid = in_ch // 2, relu6, no bias:
+
+        y = dw(pw1(x))                  k1 over the concat's legs (never
+                                        built), k3 depthwise, relu6 both
+        out = relu6(pw2(y) (+ shortcut(x)))
+
+    pw1 runs conv_multi over legs (conv_chain on one tensor), or conv_wide
+    where the hidden width is not a multiple of CO_TILE (24 at DB1_1, 40 at
+    DB1_3, 120 in the 'fs' decoder), decided here as `nest_block` decides;
+    dw runs conv_dw. Without `residual`, the final relu6 is pw2's epilogue
+    (the layer keeps the reference's act None for its init); with it, pw2
+    with an identity shortcut (in_ch == out_ch) is one conv_multi
+    (`plus_identity`), a k1 shortcut runs apart and the add and relu6 are
+    torch ops. `block(in_ch, out_ch, generator)` as the decoders build
+    their blocks. State-dict names are the reference's (`layers.{0,1,2}`,
+    `shortcut`)."""
+
+    def __init__(self, in_ch, out_ch, generator=None, residual=False):
+        super().__init__()
+        g, hid = generator, in_ch // 2
+        pw2 = ConvLayer(hid, out_ch, 1, act=None, use_bias=False,
+                        wide=out_ch % CO_TILE != 0, generator=g)
+        if not residual:
+            pw2.act = "relu6"
+        self.layers = nn.ModuleList([
+            ConvLayer(in_ch, hid, 1, act="relu6", use_bias=False,
+                      wide=hid % CO_TILE != 0, generator=g),
+            ConvLayer(hid, hid, 3, act="relu6", groups=hid, use_bias=False,
+                      generator=g),
+            pw2])
+        self.residual = residual
+        self.shortcut = (ConvLayer(in_ch, out_ch, 1, act=None, use_bias=False,
+                                   generator=g)
+                         if residual and in_ch != out_ch else None)
+
+    def forward(self, x):
+        pw1, dw, pw2 = self.layers
+        y = dw(pw1(x))
+        if not self.residual:
+            return pw2(y)
+        if self.shortcut is None:
+            res = concat_legs(x) if isinstance(x, list) else x
+            return pw2.plus_identity(y, res, "relu6")
+        return torch.clamp(pw2(y) + self.shortcut(x), 0.0, 6.0)
+
+
+class Decoder(nn.Module):
+    """MyFusion's plain up path (reference block.py:800-814; JAX
+    ops/blocks.py:844-858): DB3, DB2 and DB1 on the x2 upsample of the
+    coarser output, repaired to the finer scale's size. As the reference,
+    it reads only the coarsest feature and its own outputs."""
+
+    long_skip = False
+
+    def __init__(self, num_ch, block=DCBlock, up_mode="bilinear",
+                 generator=None):
+        super().__init__()
+        g, c, s = generator, num_ch, int(self.long_skip)
+        self.up_mode = up_mode
+        self.DB3 = block(c[3] + s * c[2], c[2], g)
+        self.DB2 = block(c[2] + s * c[1], c[1], g)
+        self.DB1 = block(c[1] + s * c[0], c[0], g)
+
+    def forward(self, feats):
+        y = feats[3]
+        for blk, f in ((self.DB3, feats[2]), (self.DB2, feats[1]),
+                       (self.DB1, feats[0])):
+            up = upsample(y, 2, self.up_mode, f.shape[1:3])
+            y = blk(_legs(f, up) if self.long_skip else up)
+        return y
+
+
+class LSDecoder(Decoder):
+    """The U-Net long-skip decoder (reference block.py:817-833; JAX
+    ops/blocks.py:861-880): each block over the legs [skip, x2 upsample of
+    the coarser output] (never concatenated)."""
+
+    long_skip = True

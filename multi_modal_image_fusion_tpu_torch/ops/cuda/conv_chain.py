@@ -47,10 +47,11 @@ what the ported models launch: `conv_chain` k1, k3 (DenseFuse, VIFNet,
 SEDRFuse's 256-channel ResBlock), k5 and k7 (DeepFuse), `conv_gray_enter`
 k1 (NestFuse, RFNNest, MAFusion), k3,
 k5 and k7 (IFCNN's enc0) with one input channel and k5 with two (PMGI),
-`conv_gray_exit` k1 (UNFusion, NestFuse, RFNNest, MAFusion, PMGI), k3 and
-k5 (any Cin on one tensor; legs of a multiple of 8 channels each), output
-channels a multiple of 16 (but the exit's 1), input and output in one
-dtype. The wrappers raise on anything else.
+`conv_gray_exit` k1 (UNFusion, NestFuse, RFNNest, MAFusion, PMGI,
+MyFusion), k3 and k5 (any Cin on one tensor; legs of a multiple of 8
+channels each), output channels a multiple of 16 (but the exit's 1, and
+the k1 one-leg enter's multiples of 8: MyFusion's conv_in, 1 -> 8), input
+and output in one dtype. The wrappers raise on anything else.
 """
 
 import ctypes
@@ -466,6 +467,7 @@ def conv_chain(x, weight, bias=None, act=None, fuse_n=0):
 
 ENTER_KSIZES = (1, 3, 5, 7)   # one gray input channel
 ENTER_LEGS_KSIZES = (5,)      # two gray legs (PMGI)
+ENTER_CO_MIN = 8              # the k1 one-leg pass of 8 channels (MyFusion)
 
 
 def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
@@ -495,9 +497,10 @@ def conv_gray_enter(img1, img2, weight, bias=None, act="relu"):
         raise ValueError("conv_gray_enter: img1 and img2 shapes differ")
     if img2 is not None and img2.dtype != img1.dtype:
         raise TypeError("conv_gray_enter: img1 and img2 dtypes differ")
-    if cout % CO_TILE:
+    if cout % ENTER_CO_MIN or (cout % CO_TILE and (k, legs) != (1, 1)):
         raise ValueError(f"conv_gray_enter: Cout must be a multiple of "
-                         f"{CO_TILE}, got {cout}")
+                         f"{CO_TILE}, or of {ENTER_CO_MIN} at k1 on one gray "
+                         f"leg, got {cout} (k{k}, {legs} leg(s))")
     b_out = b if legs == 2 else b * len(imgs)
     wk, bk = gray_weights("enter", weight, bias, img1.dtype)
     y = torch.empty((b_out, h, w, cout), dtype=img1.dtype,

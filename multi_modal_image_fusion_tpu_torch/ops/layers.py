@@ -4,6 +4,7 @@ interpolate, and the fast-training scope and routes, :34-56 and :695-755).
 
 The port carries the part the ported models use: reflect-SAME k x k convs,
 dense or depthwise (groups == in_ch == out_ch), stride 1 or (dense) 2, the
+VALID depthwise conv with ksize == stride (MyFusion's TransitionBlock), the
 k3 stride-2 transpose conv (zero padding 1, output padding 1: exactly 2x,
 SEDRFuse's decoder), with or without bias, an optional batch or group norm
 after the conv, and one of the kernel-fusable activations (relu, relu6,
@@ -39,7 +40,9 @@ building the concat.
 Routes of a conv:
 
 - a stride-2 layer: reflect pad (NHWC), then F.conv2d(stride=2) on every
-  route, as the JAX package runs it on XLA's conv (ops/layers.py:747-755); a
+  route, as the JAX package runs it on XLA's conv (ops/layers.py:747-755);
+  the VALID depthwise k2 stride-2 layer unpadded, F.conv2d(groups=C), as
+  the JAX package runs it on XLA's grouped conv (ops/blocks.py:575-583); a
   transpose layer F.conv_transpose2d on every route (the JAX package's
   lhs-dilated XLA conv, ops/layers.py:769-783); both in batch chunks;
 - serving (no `fast_training` scope and no gradient needed): the forward-only
@@ -256,31 +259,42 @@ class ConvLayer(nn.Module):
     NHWC. groups is 1 or, for a depthwise layer, in_ch == out_ch; stride 1,
     or 2 for a dense layer; `transpose` the k3 stride-2 transpose conv;
     `wide` sends the serving route to conv_wide; `norm` None, "batch" or
-    "group" (module docstring)."""
+    "group" (module docstring). `padding` None is reflect-SAME; 0 is VALID,
+    ported for TransitionBlock's strided depthwise down only (ksize ==
+    stride, groups == in_ch: a k2 stride-2 window per output pixel, odd
+    sizes floored; at k1 stride 1 it is the SAME conv)."""
 
     def __init__(self, in_ch, out_ch, ksize=3, act="relu", groups=1,
                  use_bias=True, generator=None, stride=1, wide=False,
-                 norm=None, transpose=False):
+                 norm=None, transpose=False, padding=None):
         super().__init__()
         if act not in ACT_CODES:
             raise ValueError(f"activation {act!r} not ported (one of "
                              f"{sorted(a for a in ACT_CODES if a)} or None)")
         if norm not in NORMS:
             raise ValueError(f"norm {norm!r} not ported (one of {NORMS})")
-        if ksize % 2 == 0:
+        dw = groups != 1 and groups == in_ch == out_ch
+        if padding not in (None, 0) or (padding == 0 and not (
+                dw and ksize == stride and not wide)):
+            raise ValueError(f"padding={padding}: only reflect-SAME (None), "
+                             f"or 0 for a depthwise layer with ksize == "
+                             f"stride, is ported")
+        if ksize % 2 == 0 and padding is None:
             raise ValueError("reflect-SAME needs an odd kernel size")
-        if groups != 1 and not groups == in_ch == out_ch:
+        if groups != 1 and not dw:
             raise ValueError(f"groups={groups}: only dense (1) or depthwise "
                              f"(groups == in_ch == out_ch) convs are ported")
-        if stride not in (1, 2) or (stride == 2 and (groups != 1 or wide)):
+        if stride not in (1, 2) or (stride == 2 and (
+                wide or (groups != 1 and padding is None))):
             raise ValueError(f"stride={stride}: only stride 1, or 2 for a "
-                             f"dense layer off the wide route, is ported")
+                             f"dense layer off the wide route or a VALID "
+                             f"depthwise one, is ported")
         if transpose and (stride, ksize) != (2, 3):
             raise ValueError("transpose: only the k3 stride-2 transpose conv "
                              "is ported")
         self.in_ch, self.out_ch, self.ksize, self.act = in_ch, out_ch, ksize, act
         self.groups, self.stride, self.wide = groups, stride, wide
-        self.norm, self.transpose = norm, transpose
+        self.norm, self.transpose, self.padding = norm, transpose, padding
         self.qpath = None     # flax path (ops/quant.name_layers)
         mods = [_Conv(in_ch, out_ch, ksize, groups, use_bias, transpose)]
         if norm == "batch":
@@ -432,7 +446,7 @@ class ConvLayer(nn.Module):
         when fuse_n > 0), for as many images as every leg can feed."""
         if isinstance(x, list):
             return self._forward_legs(x, fuse_n)
-        if self.groups != 1:
+        if self.groups != 1 and self.stride == 1:
             return self.depthwise(x)
         qc = self._int8_in_place()
         if qc is not None:
@@ -460,24 +474,26 @@ class ConvLayer(nn.Module):
             y = conv_chain(x, w, b, act, fuse_n)
         return self._normed(y)
 
-    def plus_identity(self, x, res):
-        """conv(x) + res, res of out_ch channels (ResBlock's second conv
-        and its residual add, no activation between): on the serving route
-        one conv_multi over the legs [(x, 0), (res, 0)] whose weight is the
-        layer's (folded) weight beside a centre-tap identity, so the add
-        rides the conv (the JAX package's `_hiw_resblock`, models/zoo.py:
-        115-124); on the other routes, and with a group norm (which sits
-        between the conv and the add), the conv, then the add."""
+    def plus_identity(self, x, res, act=None):
+        """act(conv(x) + res), res of out_ch channels (ResBlock's second
+        conv and its residual add, no activation between; SepConvBlock's
+        pwconv2, its identity shortcut and the relu6 after the add): on the
+        serving route one conv_multi over the legs [(x, 0), (res, 0)] whose
+        weight is the layer's (folded) weight beside a centre-tap identity,
+        so the add rides the conv and `act` its epilogue (the JAX package's
+        `_hiw_resblock`, models/zoo.py:115-124); on the other routes, and
+        with a group norm (which sits between the conv and the add), the
+        conv, then the add and `act`."""
         if self.act is not None or self.stride != 1 or self.groups != 1:
             raise ValueError("plus_identity: a stride-1 dense conv without "
                              "activation")
         if (self.wide or self.norm == "group"
                 or self._training_route(x, res) or self._whole_input()):
-            return self(x) + res
+            return apply_act(self(x) + res, act)
         w, b = self.folded()
         eye = identity_weights(self.ksize, self.out_ch).to(w)
         return conv_multi([(x, 0), (res, 0)], torch.cat([w, eye], 1), b,
-                          None)
+                          act)
 
     def packed(self, x, fuse_n=0):
         """The packed route (JAX ops/layers.py:409-437, `chain_s2d=2`): x
@@ -586,12 +602,14 @@ class ConvLayer(nn.Module):
 
     def _strided(self, x):
         """The stride-2 conv: reflect pad k // 2 (`reflect_pad_nhwc`),
-        F.conv2d in x's dtype on the channels-last view; or
+        F.conv2d in x's dtype on the channels-last view; the VALID
+        depthwise one (padding 0: TransitionBlock's down, the JAX package's
+        XLA grouped conv) F.conv2d(groups=C) on the view, unpadded; or
         the transpose conv: F.conv_transpose2d (zero padding 1, output
         padding 1); then bias, the group norm if any and the activation,
         in batch chunks whose padded input and output stay under 2^31
         elements (`batch_step`; the transpose's output is 4x its input)."""
-        p = self.ksize // 2
+        p = self.ksize // 2 if self.padding is None else self.padding
         b, h, w, c = x.shape
         up = 2 if self.transpose else 1
         step = batch_step(h * up, w * up, max(c, self.out_ch), self.ksize)
@@ -604,8 +622,9 @@ class ConvLayer(nn.Module):
                                        wt, bias, stride=2, padding=p,
                                        output_padding=1)
             else:
-                y = F.conv2d(reflect_pad_nhwc(x[i:i + step], p).permute(
-                    0, 3, 1, 2), wt, bias, stride=self.stride)
+                xi = reflect_pad_nhwc(x[i:i + step], p) if p else x[i:i + step]
+                y = F.conv2d(xi.permute(0, 3, 1, 2), wt, bias,
+                             stride=self.stride, groups=self.groups)
             outs.append(self._normed(apply_act(y, kact).permute(0, 2, 3, 1)))
         return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
 
@@ -630,7 +649,8 @@ class ConvLayer(nn.Module):
     def extra_repr(self):
         return (f"{self.in_ch}, {self.out_ch}, ksize={self.ksize}, "
                 f"act={self.act!r}, groups={self.groups}, "
-                f"stride={self.stride}, transpose={self.transpose}, "
+                f"stride={self.stride}, padding={self.padding}, "
+                f"transpose={self.transpose}, "
                 f"wide={self.wide}, bias={self.bias is not None}, "
                 f"norm={self.norm!r}")
 

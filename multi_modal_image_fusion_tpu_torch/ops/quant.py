@@ -172,7 +172,7 @@ def name_layers(model):
     from ..utils.jax_convert import flax_paths
     from .layers import ConvLayer
     names = {cls: name for name, cls in MODEL_ZOO.items()}
-    paths = flax_paths(names[type(model)])
+    paths = flax_paths(names[type(model)], **getattr(model, "layout_cfg", {}))
     for prefix, m in model.named_modules():
         if isinstance(m, ConvLayer):
             if prefix not in paths:

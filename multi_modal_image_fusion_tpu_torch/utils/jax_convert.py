@@ -4,12 +4,15 @@ the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
 :88-89, `_conv_block` :92-95, `_rfn` :98-106, `_res2_block` :109-119,
 `_nest_decoder` :223-225, the DeepFuse, DenseFuse, VIFNet, DBNet, IFCNN,
 DIFNet, PFNetv1, PFNetv2, PMGI, Res2Fusion, NestFuse, RFNNest, MAFusion,
-UNFusion and SEDRFuse mappings :365-393 and :395-478).
+UNFusion and SEDRFuse mappings :365-393 and :395-478, and MyFusion's
+:280-342 `convert_myfusion`, a function of its configuration).
 
 Input is the JAX variables as a nested dict of numpy arrays, to any depth,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}, "batch_stats":
 {"enc1": {"norm": {"mean": ..., "var": ...}}, ...}}` (e.g. from
-`flax.serialization.msgpack_restore` of a JAX checkpoint). Output is a
+`flax.serialization.msgpack_restore` of a JAX checkpoint), and for
+MyFusion its configuration (`model.layout_cfg`: encoder, decoder,
+fusion_method, share_weight_levels, norm). Output is a
 `{name: torch.Tensor}` state dict with the reference names and OIHW conv
 weights (IOHW for a transpose conv: SEDRFuse's dec0 and dec1, the inverse
 of `_deconv_w` :31); a norm's scale and bias become `layers.1.weight` and
@@ -105,6 +108,45 @@ _DENSE_ENCODER = {"conv_in": "encode.0", **_dense_block("dense", "encode.1")}
 _DOWNS = {f"down{i}" for i in (1, 2, 3)}
 _OPTIONAL = {"unfusion": _DOWNS | {f"encode/{d}" for d in _DOWNS},
              "nestfuse": _DOWNS, "rfnnest": _DOWNS, "mafusion": _DOWNS}
+
+
+def _myfusion(encoder="sep", decoder="nest", fusion_method="attn",
+              share_weight_levels=4, norm=None):
+    """MyFusion's layout for a configuration (the inverse of JAX
+    utils/torch_convert.py:280 convert_myfusion): conv_in_1 (and conv_in_2
+    below share_weight_levels 4), each level's TransitionBlock (dw, pw ->
+    layers.0, layers.1) and encoder block per branch that has its own, the
+    fusion's convs (fuse1-4, or RFN1-4), the decoder's DCBlocks (pw1, dw,
+    pw2 -> layers.0-2), conv_out. Optional: the maxpool mode's missing dw
+    at levels 2-4, a Res2 block's absent shortcut. Returns (layout,
+    optional paths, group-normed)."""
+    enc = [encoder] * 4 if isinstance(encoder, str) else list(encoder)
+    split = 4 - share_weight_levels
+    m = {"conv_in_1": "conv_in_1", "conv_out": "conv_out"}
+    if split:
+        m["conv_in_2"] = "conv_in_2"
+    optional = set()
+    for lv in range(1, 5):
+        for br in (1, 2) if lv <= split else (1,):
+            d, eb = f"down{lv}_{br}", f"EB{lv}_{br}"
+            m |= {f"{d}/dw": f"{d}.layers.0", f"{d}/pw": f"{d}.layers.1"}
+            if lv > 1:
+                optional.add(f"{d}/dw")
+            if enc[lv - 1] == "res2":
+                m |= _res2_block(eb, 4)
+                optional.add(f"{eb}/shortcut")
+            else:
+                m |= {f"{eb}/{c}": f"{eb}.{c}"
+                      for c in ("pwconv1", "dwconv", "pwconv2")}
+    for i in range(1, 5):
+        if fusion_method == "concat":
+            m[f"fuse{i}"] = f"fuse{i}"
+        elif fusion_method == "rfn":
+            m |= _rfn(f"RFN{i}")
+    for n in _NEST_DECODER if decoder == "nest" else ("DB1", "DB2", "DB3"):
+        m |= {f"decode/{n}/{conv}": f"decode.{n}.layers.{i}"
+              for i, conv in enumerate(("pw1", "dw", "pw2"))}
+    return m, optional, norm == "group"
 _LAYOUTS = {
     "deepfuse": {"enc0": "encode.0", "enc1": "encode.1", "dec0": "decode.0",
                  "dec1": "decode.1", "dec2": "decode.2"},
@@ -150,14 +192,27 @@ _GROUP_NORMED = {"sedrfuse"}
 _TRANSPOSED = {"sedrfuse": {"dec0", "dec1"}}
 
 
-def flax_paths(model_name):
+def _layout(model_name, cfg):
+    """(flax path -> state-dict prefix, optional flax paths, whether the
+    norms are group norms) of a model; `cfg` is MyFusion's configuration
+    (`MyFusion.layout_cfg`), and no other model takes one."""
+    name = model_name.lower()
+    if name == "myfusion":
+        return _myfusion(**cfg)
+    if name not in _LAYOUTS:
+        raise NotImplementedError(f"no layout for {model_name!r} yet")
+    if cfg:
+        raise ValueError(f"a model configuration applies to 'myfusion' "
+                         f"only, not {model_name!r}")
+    return _LAYOUTS[name], _OPTIONAL.get(name, set()), name in _GROUP_NORMED
+
+
+def flax_paths(model_name, **cfg):
     """{port module name: '/'-joined flax path} of a model's conv layers,
     the inverse of its layout: the keys int8 calibration records under
     (ops/quant.py), as the JAX package's `calibrate` does."""
-    name = model_name.lower()
-    if name not in _LAYOUTS:
-        raise NotImplementedError(f"no layout for {model_name!r} yet")
-    return {prefix: path for path, prefix in _LAYOUTS[name].items()}
+    return {prefix: path
+            for path, prefix in _layout(model_name, cfg)[0].items()}
 
 
 def _oihw(kernel_hwio):
@@ -168,20 +223,20 @@ def _iohw(kernel_hwio):
     return np.ascontiguousarray(np.transpose(kernel_hwio, (2, 3, 0, 1)))
 
 
-def jax_to_state_dict(variables, model_name="deepfuse"):
-    """JAX variables (nested numpy dict) -> port state dict (torch)."""
+def jax_to_state_dict(variables, model_name="deepfuse", **cfg):
+    """JAX variables (nested numpy dict) -> port state dict (torch); `cfg`
+    MyFusion's configuration (`MyFusion.layout_cfg`)."""
     name = model_name.lower()
-    if name not in _LAYOUTS:
-        raise NotImplementedError(f"no weight carry for {model_name!r} yet")
+    layout, optional, group_normed = _layout(name, cfg)
     params = _copy_tree(variables["params"])
     stats = _copy_tree(variables.get("batch_stats", {}))
     sd = {}
-    for flax_path, prefix in _LAYOUTS[name].items():
+    for flax_path, prefix in layout.items():
         *outer, flax_name = flax_path.split("/")
         parent = params
         for key in outer:
             parent = parent[key]
-        if flax_name not in parent and flax_path in _OPTIONAL.get(name, ()):
+        if flax_name not in parent and flax_path in optional:
             continue
         leaf = parent.pop(flax_name)
         to_torch = (_iohw if flax_path in _TRANSPOSED.get(name, ())
@@ -191,7 +246,7 @@ def jax_to_state_dict(variables, model_name="deepfuse"):
         if "bias" in leaf:
             sd[f"{prefix}.layers.0.bias"] = torch.from_numpy(
                 np.array(leaf.pop("bias"), np.float32))
-        if "norm" in leaf and name in _GROUP_NORMED:
+        if "norm" in leaf and group_normed:
             sd.update(_group_norm(leaf.pop("norm"), flax_path,
                                   f"{prefix}.layers.1"))
         elif "norm" in leaf:

@@ -132,3 +132,23 @@ def test_cli_default_roots_stay_in_checkout(setup, tmp_path, monkeypatch):
         assert (tmp_path / "checkpoints" / "run" / "tinyset"
                 / f"{i:0>2}.bmp").is_file()
     assert "fps" in (tmp_path / "checkpoints" / "run" / "train.log").read_text()
+
+
+def test_cli_negative_pad_bucket_is_exact(setup, tmp_path):
+    """A negative --pad_bucket is the JAX CLI's "auto": exact shapes off a
+    TPU (JAX cli/test.py:213-216). At -128 two 48x64 pairs fuse as at 0;
+    taken as a modulus, -128 padded them by -48 rows and -64 columns."""
+    data = tmp_path / "datasets" / "pad48"
+    rng = np.random.RandomState(5)
+    for mod in ("vis", "ir"):
+        os.makedirs(data / "test" / mod)
+        for i in (1, 2):
+            imwrite(str(data / "test" / mod / f"{i}.png"),
+                    (rng.rand(48, 64) * 255).astype(np.uint8))
+    shutil.copytree(setup / "port" / "run", tmp_path / "ckpt" / "run")
+    args = ["--data", "pad48", "--data_root", str(tmp_path / "datasets"),
+            "--ckpt_root", str(tmp_path / "ckpt"), "--ckpt", "run",
+            "--device", "cpu", "--pad_bucket"]
+    ssim0, _ = test_cli.main(args + ["0"])
+    ssim_auto, _ = test_cli.main(args + ["-128"])
+    assert np.isfinite(ssim0) and ssim_auto == ssim0

@@ -157,6 +157,6 @@ def test_weight_carry_rejects_leftovers():
 
 def test_create_model_unported_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("myfusion")
+        create_model("myfusion", encoder="transformer")
     with pytest.raises(ValueError):
         create_model("deepfuse", fusion_mode="l1")

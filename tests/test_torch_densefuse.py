@@ -248,7 +248,7 @@ def test_bench_model_flag():
     """The bench takes --model from the zoo and measures only the card."""
     from multi_modal_image_fusion_tpu_torch import bench
     with pytest.raises(SystemExit):
-        bench.main(["--model", "myfusion"])
+        bench.main(["--model", "fusiongan"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.main(["--model", "vifnet"])
