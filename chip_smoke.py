@@ -33,9 +33,9 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    instance, TF32 ones only in f32 (a multiple of 3: the 3xTF32 split) and
    BF16 ones only in bf16, failing on fewer than one split product a tap
    and n tile or on a spill. And ptxas's registers and spills of every
-   conv_dw instance (csrc/conv_dw.cu: k1, and the k3 tile kernel's
-   channel slices with and without the add, bf16 and f32), failing on a
-   spill.
+   conv_dw instance (csrc/conv_dw.cu: k1, the k3 tile kernel's channel
+   slices with and without the add, the k5 and k7 ones with their taps in
+   shared memory, bf16 and f32), failing on a spill or a missing instance.
 3. Hold each kernel (conv_gray_enter, conv_chain, conv_gray_exit; the
    convs in DeepFuse's k5/k7 instances, DenseFuse's and VIFNet's k3
    ones, DBNet's 32-channel enter, UNFusion's k1 exit and its nine encoder
@@ -64,7 +64,9 @@ Phases, each fatal (any failure raises and the script exits non-zero):
    the reflect-padded input in the same dtype (the pad timed apart), each
    with CUDA events over cold-L2 repetitions; compute each kernel's bound
    from this run's shapes.
-4. Main path, with every launch count set to 0 just before it: the port's
+4. Main path, with every launch count set to 0 just before it (and the
+   smoke's own heap collected and frozen first, so no garbage collection
+   over it lands in a timed forward or CLI pair): the port's
    bench (DeepFuse, 1224x1024, bf16, batch 16, 1 warmup + 10 timed
    forwards), then the port's test CLI on 51 synthetic 1224x1024 BMP pairs
    with a seeded checkpoint (the first pair is the CLI's warmup; the other
@@ -319,6 +321,26 @@ decoder, RFN, max-pool downs, no level shared; 3 pairs: 2 enters, 38
 conv_chain, 16 conv_multi, 37 conv_dw, 1 exit a pair), weights at a
 `live_seed` of each.
 
+MyFusion's MetaFormer, MixConv and transformer encoders: phase 2 counts
+conv_dw's k5 and k7 instances (no spill); phase 3 holds the 8-channel k1
+enter without an activation (conv_in under act hswish, silu or gelu, or
+norm 'layer'), conv_dw at MixConvBlock's four windows (k1, k3, k5, k7, each
+C of its 4C channels read in place) at level 1 (16 of 64 channels, 32
+images of 1224x1024) and level 4 (128 of 512 at 153x128), bf16 and f32,
+each with a control that must fail (a zero halo; k1 the channels
+reversed), timed beside its bound and F.conv2d(groups=C); and the
+Attention's SDPA route (`check_sdpa`: flash in bf16, memory-efficient in
+f32) against the plain einsum-softmax-einsum at the level-3 shape (306x256,
+64 channels, 4864 keys), a control with k's heads rolled, its bound from
+its bytes, products and exponentials, and a float64 input refused rather
+than sent to the math backend. Later paths, counts from 0: the benches of
+transformer_fs_elem and mixformer_ls_concat (16 pairs; exact
+FORWARD_LAUNCHES; pairs/s, ms a forward, peak memory, a profiled forward
+split into conv kernels, SDPA, cuDNN's pools and downs and the other torch
+ops), their contracts (f32 plain path: the kernels' plain versions, the
+attention on SDPA), and the test CLI of mixformer_ls_concat (3 pairs),
+weights at a `live_seed` of each.
+
 Progress lines `[N s] what (M GiB held)` stamp the phases with the device
 memory live tensors hold. Prints the `kernels` JSON line, the card line,
 and last
@@ -327,6 +349,7 @@ and last
 
 import collections
 import contextlib
+import gc
 import io
 import json
 import os
@@ -639,7 +662,9 @@ def dw_ptxas_report(build):
         dw[name] = v
         if v["spill_stores"] or v["spill_loads"]:
             raise AssertionError(f"conv_dw {name} spills: {v}")
-    if len(dw) != 2 * (1 + 3 * 2):
+    # per dtype: k1; k3 at NG 6, 2, 1 with and without the add; k5 and k7
+    # at NG 2, 1 without it (taps in shared memory)
+    if len(dw) != 2 * (1 + 3 * 2 + 2 * 2):
         raise AssertionError(f"conv_dw instances: {sorted(dw)}")
     print(f"ptxas -v, conv_dw.cu: {json.dumps(dw)}")
     return {"instances": len(dw), "spills": 0,
@@ -876,6 +901,11 @@ def check_kernels(torch, F, dev, timer):
               # conv_out (16 -> 1), level 1's pw, SepConvBlock pwconv1 and
               # DB1_1's pw2 (24 -> 16), all k1 relu6
               ("myfusion.conv_in", "conv_gray_enter", 1, 8, 1, "relu6",
+               False, 0, 1),
+              # the same pass without an activation: conv_in with act
+              # hswish, silu or gelu (a torch op after the kernel) or with
+              # norm 'layer'
+              ("myfusion.conv_in.none", "conv_gray_enter", 1, 8, 1, None,
                False, 0, 1),
               ("myfusion.conv_out", "conv_gray_exit", 16, 1, 1, "relu6",
                False, 0, 1),
@@ -2566,14 +2596,21 @@ def check_conv_dw(torch, F, dev, timer):
     return r
 
 
-# MyFusion's conv_dw shapes in a default bf16 bench forward: (key, channels,
-# k, act, scale, images a pair): level 1's k1 down, the SepConvBlocks' dw
-# at levels 1 and 4, the DCBlocks' hidden widths 24 and 40 (DB1_1, DB1_3)
-MYF_DW = [("myfusion.down1_1.dw", 8, 1, "relu6", 0, 2),
-          ("myfusion.EB1_1.dwconv", 64, 3, None, 0, 2),
-          ("myfusion.EB4_1.dwconv", 512, 3, None, 3, 2),
-          ("myfusion.DB1_1.dw", 24, 3, "relu6", 0, 1),
-          ("myfusion.DB1_3.dw", 40, 3, "relu6", 0, 1)]
+# MyFusion's conv_dw shapes in a default bf16 bench forward: (key, channels
+# of the input tensor, channels convolved, window base, k, act, scale,
+# images a pair): level 1's k1 down, the SepConvBlocks' dw at levels 1 and
+# 4, the DCBlocks' hidden widths 24 and 40 (DB1_1, DB1_3); then
+# MixConvBlock's four windows (k1, k3, k5, k7, each C channels of its 4C
+# expansion, read in place) at level 1 (16 of 64 channels) and level 4
+# (128 of 512), 32 images: the MixFormer's shapes where a level is shared
+MYF_DW = [("myfusion.down1_1.dw", 8, 8, 0, 1, "relu6", 0, 2),
+          ("myfusion.EB1_1.dwconv", 64, 64, 0, 3, None, 0, 2),
+          ("myfusion.EB4_1.dwconv", 512, 512, 0, 3, None, 3, 2),
+          ("myfusion.DB1_1.dw", 24, 24, 0, 3, "relu6", 0, 1),
+          ("myfusion.DB1_3.dw", 40, 40, 0, 3, "relu6", 0, 1)]
+MYF_DW += [(f"mixformer.EB{lv}.dwconvs.{i}", 4 * c, c, i * c, 2 * i + 1, None,
+            scale, 2) for lv, c, scale in ((1, 16, 0), (4, 128, 3))
+           for i in range(4)]
 # its strided depthwise downs (TransitionBlock, k2 stride 2 VALID, relu6):
 # (key, channels, scale of the input), 32 images
 MYF_DOWNS = [("down2_1.dw", 16, 0), ("down3_1.dw", 32, 1),
@@ -2581,14 +2618,14 @@ MYF_DOWNS = [("down2_1.dw", 16, 0), ("down3_1.dw", 32, 1),
 
 
 def check_myfusion(torch, F, dev, timer, rec):
-    """MyFusion's conv_dw shapes (MYF_DW) against the plain version, bf16
-    at the bench's 16 pairs and f32 at the test CLI's pair (TOL of
-    max(|y|, 1)), with a control that must miss by more than TOL at the
-    bench's shape (k3: a zero halo; k1: the taps' channels reversed), timed
-    in bf16 beside the plain version and one F.conv2d(groups=C) on the
-    reflect-padded input (the pad timed apart); the records join rec's
-    conv_dw layers. Then its three strided depthwise downs as the port
-    runs them (F.conv2d(groups=C, stride=2) on the channels-last view,
+    """MyFusion's conv_dw shapes (MYF_DW, MixConvBlock's k5 and k7 windows
+    among them) against the plain version, bf16 at the bench's 16 pairs
+    and f32 at the test CLI's pair (TOL of max(|y|, 1)), with a control
+    that must miss by more than TOL at the bench's shape (k3, k5, k7: a
+    zero halo; k1: the taps' channels reversed), timed in bf16 beside the
+    plain version and one F.conv2d(groups=C) on the reflect-padded window
+    (the pad timed apart); the records join rec's conv_dw layers. Then
+    its three strided depthwise downs as the port runs them (F.conv2d(groups=C, stride=2) on the channels-last view,
     bias-free, then relu6; no Pallas kernel in the JAX package, XLA's
     grouped conv), each against the same conv in f32 and timed beside its
     bound. Returns the downs' record."""
@@ -2599,30 +2636,31 @@ def check_myfusion(torch, F, dev, timer, rec):
     from multi_modal_image_fusion_tpu_torch.ops.layers import ConvLayer
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     r = rec["conv_dw"]
-    for key, c, k, act, scale, per_pair in MYF_DW:
+    for key, cx, c, lo, k, act, scale, per_pair in MYF_DW:
         h, w = _S[scale]
         for dt, n in (("bf16", BATCH), ("f32", 1)):
             dtype, b = dts[dt], n * per_pair
-            x = _rand(torch, (b, h, w, c), 180 + c, dev, dtype, lo=-0.5,
-                      scale=4.0)
+            x = _rand(torch, (b, h, w, cx), 180 + cx + lo, dev, dtype,
+                      lo=-0.5, scale=4.0)
             wt = _rand(torch, (c, 1, k, k), 181 + c, dev, torch.float32,
                        lo=-0.5, scale=2.0 / k).to(dtype)
             bias = _rand(torch, (c,), 182 + c, dev, torch.float32, lo=-0.5,
                          scale=0.2)
 
             def run(wt=wt):
-                return conv_dw(x, wt, bias, act)
+                return conv_dw(x, wt, bias, act, lo)
 
             def plain():
-                return conv_dw_plain(x, wt, bias, act)
+                return conv_dw_plain(x, wt, bias, act, lo)
             want = plain()
             err, rel = _err(torch, run(), want, dt)
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["max_rel_err"] = max(r["max_rel_err"], rel)
             if k > 1:
                 ctl = apply_act(F.conv2d(
-                    x.float().permute(0, 3, 1, 2), wt.float(), bias,
-                    padding=1, groups=c), act).permute(0, 2, 3, 1)
+                    x[..., lo:lo + c].float().permute(0, 3, 1, 2),
+                    wt.float(), bias, padding=k // 2, groups=c),
+                    act).permute(0, 2, 3, 1)
                 what = "zero halo"
             else:
                 ctl, what = run(wt.flip(0)), "channels reversed"
@@ -2634,7 +2672,13 @@ def check_myfusion(torch, F, dev, timer, rec):
             r["min_control_rel_err"] = min(r["min_control_rel_err"], miss)
             del want, ctl
             if dt == "bf16":
-                xn = x.permute(0, 3, 1, 2)
+                # a window of a wider tensor: the library convolves its
+                # contiguous copy (timed apart), as torch's reflect pad
+                # indexes the view's whole extent with 32 bits
+                xw = x[..., lo:lo + c]
+                window_ms = (timer(lambda: xw.contiguous()) if cx != c
+                             else 0.0)
+                xn = xw.contiguous().permute(0, 3, 1, 2)
                 parts, xp = _library_parts(F, xn, k, c)
                 p = k // 2
                 bb = bias.to(dtype)
@@ -2648,10 +2692,12 @@ def check_myfusion(torch, F, dev, timer, rec):
                         F.pad(xn[sl], (p, p, p, p), mode="reflect")
                         for sl in parts]),
                     "library_calls": len(parts),
+                    "library_window_ms": window_ms,
                     "host_us": _host_us(torch, run),
                     "bound_ms": bound, "bound_by": by,
-                    "shape": f"{b}x{h}x{w}x{c} k{k} {act} {dt}"}
-                del xn, xp
+                    "shape": f"{b}x{h}x{w}x{cx}[{lo}:{lo + c}] k{k} {act} "
+                             f"{dt}"}
+                del xn, xp, xw
             del x
             torch.cuda.empty_cache()
         stamp(f"conv_dw {key} checked")
@@ -2687,6 +2733,83 @@ def check_myfusion(torch, F, dev, timer, rec):
         torch.cuda.empty_cache()
     print(f"myfusion strided downs (cuDNN): {json.dumps(downs)}")
     return downs
+
+
+# the transformer's attention at level 3 (306x256, 64 channels: 4 heads of
+# 16, keys pooled by sr 4 to 76x64): (images, dtype), one image each, as
+# the plain route's f32 score matrices take 6.1 GB an image and head
+SDPA_CASES = [(1, "bf16"), (1, "f32")]
+SDPA_TOL = {"bf16": 2e-2, "f32": 1e-4}
+# exponentials a second: 132 SMs x 16 special-function lanes a clock at the
+# SXM part's 1.98 GHz boost clock (an assumed peak, not a data-sheet rate)
+PEAK_EXP_S = 132 * 16 * 1.98e9
+
+
+def check_sdpa(torch, F, dev, timer):
+    """The Attention's library call (ops/blocks.attention: torch's
+    scaled_dot_product_attention under its flash and memory-efficient
+    backends, a library call in place of the JAX package's XLA einsums)
+    against its plain version (the einsum, softmax and einsum in f32) at
+    MyFusion's level-3 shape, bf16 (flash) and f32 (memory-efficient), on
+    centred values and queries scaled so that the attention is sharp (a
+    near-uniform one would pass a wrong kernel), within SDPA_TOL of the
+    plain output's largest magnitude; a control (k's channels rolled by
+    one head) must miss by 10x. Timed beside the plain version and its
+    bound: the largest of its bytes, its products at the dtype's peak and
+    its exponentials at PEAK_EXP_S. A float64 input, which neither backend
+    takes, must raise (no math-backend fallback)."""
+    from multi_modal_image_fusion_tpu_torch.ops.blocks import (
+        attention, attention_plain)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    h, w = _S[2]
+    c, heads, sr = 64, 4, 4
+    n, m = h * w, (h // sr) * (w // sr)
+    rec = {"max_rel_err": 0.0, "min_control_rel_err": float("inf"),
+           "tolerance_rel": SDPA_TOL, "layers": {}}
+    for b, dt in SDPA_CASES:
+        dtype = dts[dt]
+        q = _rand(torch, (b, n, c), 190, dev, dtype, lo=-0.5, scale=16.0)
+        k = _rand(torch, (b, m, c), 191, dev, dtype, lo=-0.5, scale=2.0)
+        v = _rand(torch, (b, m, c), 192, dev, dtype, lo=-0.5, scale=2.0)
+        with torch.no_grad():
+            got = attention(q, k, v, heads)
+            want = attention_plain(q, k, v, heads)
+            scale = float(want.float().abs().max())
+            rel = float((got.float() - want.float()).abs().max()) / scale
+            ctl = attention(q, k.roll(16, dims=-1), v, heads)
+            miss = float((ctl.float() - want.float()).abs().max()) / scale
+        del got, ctl
+        if rel > SDPA_TOL[dt] or miss <= 10 * SDPA_TOL[dt]:
+            raise AssertionError(f"sdpa {dt}: {rel:.3g} of max|y| (control "
+                                 f"{miss:.3g}), tolerance {SDPA_TOL[dt]}")
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        rec["min_control_rel_err"] = min(rec["min_control_rel_err"], miss)
+        esize = 2 if dt == "bf16" else 4
+        exps = b * heads * n * m
+        times = {"bytes": (2 * b * n * c + 2 * b * m * c) * esize
+                 / PEAK_BYTES_S * 1e3,
+                 "operations": 4.0 * exps * (c // heads) / PEAK_FLOPS[dt]
+                 * 1e3,
+                 "exponentials": exps / PEAK_EXP_S * 1e3}
+        by = max(times, key=times.get)
+        rec["layers"][f"level3 {dt}"] = {
+            "ms": timer(lambda: attention(q, k, v, heads)),
+            "plain_ms": timer(lambda: attention_plain(q, k, v, heads),
+                              reps=1),
+            "bound_ms": times[by], "bound_by": by,
+            "exponentials": exps, "rel_err": rel, "control_rel_err": miss,
+            "shape": f"q {b}x{n}x{c}, k/v {b}x{m}x{c}, {heads} heads {dt}"}
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    x = torch.rand((1, 64, 16), device=dev, dtype=torch.float64)
+    try:
+        attention(x, x, x, 1)
+    except RuntimeError:
+        rec["float64_refused"] = True
+    else:
+        raise AssertionError("sdpa: a float64 input ran (math backend)")
+    print(f"sdpa: {json.dumps(rec)}")
+    return rec
 
 
 WIDE_REPLACES = ("multi_modal_image_fusion_tpu/ops/pallas/conv_kernel.py:719 "
@@ -3018,6 +3141,22 @@ FORWARD_LAUNCHES = {
     "myfusion_res2_plain_rfn": {"conv_gray_enter": 2, "conv_chain": 38,
                                 "conv_dw": 37, "conv_multi": 16,
                                 "conv_gray_exit": 1},
+    # transformer encoder, fs decoder, elem sum: a level's TransitionBlock
+    # pw (level 1 also its k1 dw), the Attention's q, k, v, proj and the
+    # FFN's pw1 (conv_chain), its dw (conv_dw), its pw2 with the block's
+    # residual as an identity leg (conv_multi); the fs decoder's pw1 over
+    # four legs to 120 (conv_wide), dw, pw2; the pools on cuDNN, the
+    # attention on SDPA (tests/test_torch_myfusion_blocks.py LAUNCHES)
+    "myfusion_transformer_fs_elem": {"conv_gray_enter": 1, "conv_chain": 27,
+                                     "conv_dw": 8, "conv_multi": 4,
+                                     "conv_wide": 3, "conv_gray_exit": 1},
+    # mix_former encoder (levels 1-2 per branch), ls decoder, concat
+    # fusion: 6 level instances of pw, MixConvBlock (pwconv1, four windows
+    # k1-k7 on conv_dw, pwconv2 + identity) and the FFN; fuse1-4 over two
+    # legs; DB3, DB2 pw1 over legs, DB1's on conv_wide
+    "myfusion_mixformer_ls_concat": {"conv_gray_enter": 2, "conv_chain": 21,
+                                     "conv_dw": 35, "conv_multi": 18,
+                                     "conv_wide": 1, "conv_gray_exit": 1},
 }
 # MyFusion: its default benched, contract-held and CLI-tested; one more
 # configuration through the test CLI (the res2 encoder, the per-branch
@@ -3025,6 +3164,20 @@ FORWARD_LAUNCHES = {
 MYF_MODELS = ("myfusion",)
 MYF_RES2 = dict(encoder="res2", decoder="plain", fusion_method="rfn",
                 down_mode="maxpool", share_weight_levels=0)
+# MyFusion's MetaFormer configurations (the reference goldens' two), each
+# benched with its profile split into conv kernels, SDPA and torch ops,
+# contract-held; the first also through the test CLI. Their standalone
+# batch norms have no training route, so their f32 plain path is the
+# serving kernels' plain versions (`plain_kernels`), the attention SDPA.
+MYF_FORMERS = {
+    "myfusion_transformer_fs_elem": dict(
+        encoder="transformer", decoder="fs", fusion_method="elem",
+        fusion_mode="sum"),
+    "myfusion_mixformer_ls_concat": dict(
+        encoder="mix_former", decoder="ls", fusion_method="concat",
+        up_mode="nearest", share_weight_levels=2),
+}
+MYF_FORMER_CLI = "myfusion_mixformer_ls_concat"
 # benched, contract-held and CLI-tested like the nest models; IFCNN,
 # DIFNet and PMGI have batch norms
 FIVE_MODELS = ("pfnetv1", "pfnetv2", "ifcnn", "difnet", "pmgi")
@@ -3062,7 +3215,8 @@ def seeded_model(torch, name, seed, **cfg):
     return m
 
 
-def live_seed(torch, dev, name, min_live=0.99, **cfg):
+def live_seed(torch, dev, name, min_live=0.99, key=None, min_spread=0.0,
+              **cfg):
     """The first weight seed of `name` (seeded_model) whose fused image is
     live: above the image's minimum at `min_live` of the pixels of 2
     seeded 128x128 pairs (f32, the card's F.conv2d route; the serving route
@@ -3076,18 +3230,23 @@ def live_seed(torch, dev, name, min_live=0.99, **cfg):
     of the weights (RFNNest's seed 1, a quarter of its pixels clipped,
     moved the mean SSIM by 1.28e-3 on the kernels and on F.conv2d in bf16
     alike). An output without relu (IFCNN, DIFNet, PMGI, PFNet) is live
-    unless constant."""
+    unless constant. With `min_spread` (MyFusion's MYF_FORMERS: 1e-3) the
+    fused image's std must also pass that share of its largest magnitude:
+    a MixFormer draw fused every pixel to one value, which f32 rounding on
+    the card left a few ulps above the minimum at every pixel. The other
+    models take no spread rule."""
     g = torch.Generator(device=dev).manual_seed(7)
     x1, x2 = (torch.rand((2, 128, 128, 1), generator=g, device=dev)
               for _ in range(2))
     for seed in range(64):
         m = seeded_model(torch, name, seed, **cfg)
-        with torch.no_grad(), plain_route(name):
+        with torch.no_grad(), plain_route(key or name):
             y = m.to(dev).eval()(x1, x2)
         live = float((y > y.min()).float().mean())
-        if live >= min_live:
-            print(f"{name}: weight seed {seed}, {live:.3f} of the fused "
-                  f"pixels above the image's minimum")
+        spread = float(y.std()) / max(float(y.abs().max()), 1e-30)
+        if live >= min_live and spread > min_spread:
+            print(f"{key or name}: weight seed {seed}, {live:.3f} of the "
+                  f"fused pixels above the image's minimum")
             return seed
     raise AssertionError(f"{name}: no live weight seed below 64")
 
@@ -3095,10 +3254,11 @@ def live_seed(torch, dev, name, min_live=0.99, **cfg):
 def plain_route(name):
     """The f32 plain path's scope on the card: F.conv2d for every conv
     (fast_training(False)), or for a model with batch norms (whose
-    training route is not ported) the serving kernels' plain versions,
-    the layers' convs on F.conv2d in f32 (`plain_kernels`)."""
+    training route is not ported: NORM_MODELS, MyFusion's MYF_FORMERS) the
+    serving kernels' plain versions, the layers' convs on F.conv2d in f32
+    (`plain_kernels`)."""
     from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
-    if name in NORM_MODELS:
+    if name in NORM_MODELS or name in MYF_FORMERS:
         return plain_kernels()
     return fast_training(False)
 
@@ -3110,12 +3270,17 @@ def plain_kernels():
     first) on the card too: the plain path of a model with batch norms."""
     from multi_modal_image_fusion_tpu_torch.ops import layers
     from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_chain as cc
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_dw import \
+        conv_dw_plain
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_multi import \
         conv_multi_plain
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_wide import \
+        conv_wide_plain
     swap = {"conv_gray_enter": cc.conv_gray_enter_plain,
             "conv_gray_exit": cc.conv_gray_exit_plain,
             "conv_chain": cc.conv_chain_plain,
-            "conv_multi": conv_multi_plain}
+            "conv_multi": conv_multi_plain,
+            "conv_dw": conv_dw_plain, "conv_wide": conv_wide_plain}
     kept = {k: getattr(layers, k) for k in swap}
     try:
         for k, fn in swap.items():
@@ -3145,8 +3310,10 @@ def bench_path(build, bench, name, batch=BATCH, model=None, seed=0,
 
 
 # kernel-name prefixes of the port's kernels (csrc/), for the forward's split
-# (conv_wide launches conv_chain_tc_kernel, so its time is in "conv")
-KERNEL_GROUPS = {"nl": ("nl_",), "conv": ("conv_",)}
+# (conv_wide launches conv_chain_tc_kernel, so its time is in "conv"), and
+# of torch's SDPA kernels (flash; memory-efficient, cutlass's fmha)
+KERNEL_GROUPS = {"nl": ("nl_",), "conv": ("conv_",),
+                 "sdpa": ("flash_", "fmha_")}
 
 
 def profile_forward(torch, model, a, b):
@@ -3207,7 +3374,8 @@ def ssim_qabf(torch, x1, x2, y):
             calc_Qabf(x1, x2, y))
 
 
-def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
+def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0, key=None,
+             cfg=None):
     """The BASELINE contract on a bench's last timed batch: its bf16 kernel
     forward's mean SSIM and Qabf against the f32 forward of the same
     weights on the card's F.conv2d route (TF32 off; Res2Fusion's 'nl'
@@ -3219,9 +3387,11 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
     fused images must not be constant (std > 0); their largest |bf16 -
     f32| over max|f32| is printed beside the gaps, not gated. Weights from
     `seeded_model`; a model with batch norms takes the plain versions of
-    the serving kernels for both references (`plain_route`)."""
-    m32, m16 = (seeded_model(torch, name, seed).to(dev, dt).eval()
-                for dt in (torch.float32, torch.bfloat16))
+    the serving kernels for both references (`plain_route`). `key` names a
+    MyFusion configuration `cfg` (MYF_FORMERS)."""
+    route = key or name
+    m32, m16 = (seeded_model(torch, name, seed, **(cfg or {})).to(
+        dev, dt).eval() for dt in (torch.float32, torch.bfloat16))
     vals = {"kernel_bf16": [], "f32": [], "conv2d_bf16": []}
     # reported beside the gaps: the bf16 fused images' largest difference
     # to the f32 forward's over its largest magnitude (scale-free, where a
@@ -3231,7 +3401,7 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
         for lo in range(0, a16.shape[0], chunk):
             sl = slice(lo, lo + chunk)
             x1, x2 = a16[sl].float(), b16[sl].float()
-            with plain_route(name), plain_nl():
+            with plain_route(route), plain_nl():
                 y32 = m32(x1, x2)
                 yb = m16(a16[sl], b16[sl]).float()
             d_max = max(d_max, float((y16[sl].float() - y32).abs().max()))
@@ -3248,15 +3418,15 @@ def contract(torch, dev, name, a16, b16, y16, chunk=4, seed=0):
     std = float(y16.float().std())
     if not (all(np.isfinite(means["kernel_bf16"])) and max(gap) <= 1e-3
             and std > 0):
-        raise AssertionError(f"{name} bf16 contract: {means}, fused std "
-                             f"{std}")
+        raise AssertionError(f"{route} bf16 contract: {means}, "
+                             f"fused std {std}")
     rec = {"ssim": {k: v[0] for k, v in means.items()}, "fused_std": std,
            "fused_max_rel_err": d_max / y_max if y_max else float("inf"),
            "qabf": {k: v[1] for k, v in means.items()},
            "d_f32": {"ssim": gap[0], "qabf": gap[1]},
            "d_conv2d_bf16": {"ssim": d_bf16[0], "qabf": d_bf16[1]},
            "held_against": "f32", "pairs": int(a16.shape[0])}
-    print(f"bf16 contract {name}: {json.dumps(rec)}")
+    print(f"bf16 contract {route}: {json.dumps(rec)}")
     return rec
 
 
@@ -3284,7 +3454,11 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
     (TF32 off; a model with batch norms: the serving kernels' plain
     versions, `plain_route`) and the plain 'nl' attention; and each pair's
     fused image through the kernels against that path's, within the f32
-    tolerance. Weights from `seeded_model`."""
+    tolerance. Weights from `seeded_model`. Beside the CLI's mean (every
+    pair but the first) the record keeps each pair's time as the CLI
+    printed it, their median without the first, and the host's garbage
+    collections while the CLI ran (count and ms by generation, from
+    `gc.callbacks`): a slow pair shows beside its cause or without one."""
     import shutil
     from multi_modal_image_fusion_tpu_torch.data.dataset import \
         FusionDataset
@@ -3300,12 +3474,29 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
     model = seeded_model(torch, name, seed, **cfg)
     save_state_dict(os.path.join(root, "ckpt", f"{key}run", "epoch_best.pth"),
                     model.state_dict(), meta={"model": name, "model_cfg": cfg})
+    gcs, t0 = {}, [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+            return
+        n, ms = gcs.get(info["generation"], (0, 0.0))
+        gcs[info["generation"]] = (n + 1,
+                                   ms + (time.perf_counter() - t0[0]) * 1e3)
     build.LAUNCHES.clear()
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        ssim, avg = test_cli.main([
-            "--data", data, "--data_root", os.path.join(root, "data"),
-            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", f"{key}run"])
+    gc.callbacks.append(on_gc)
+    try:
+        with contextlib.redirect_stdout(out):
+            ssim, avg = test_cli.main([
+                "--data", data, "--data_root", os.path.join(root, "data"),
+                "--ckpt_root", os.path.join(root, "ckpt"),
+                "--ckpt", f"{key}run"])
+    finally:
+        gc.callbacks.remove(on_gc)
+    pair_ms = [float(v) for v in re.findall(r"^iter: \d+, .*time: "
+                                            r"([0-9.]+)ms$", out.getvalue(),
+                                            re.M)]
     counts = dict(build.LAUNCHES)
     want = {k: v * pairs for k, v in FORWARD_LAUNCHES[key].items()}
     want["ssim_maps"] = 2 * pairs
@@ -3319,7 +3510,7 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
             a, b = (torch.from_numpy(v)[None, ..., None].to(dev)
                     for v in ds[i])
             y_kernels = model(a, b)
-            with plain_route(name), plain_nl():
+            with plain_route(key), plain_nl():
                 y = model(a, b)
             y_err = max(y_err, float((y_kernels - y).abs().max()))
             y_max = max(y_max, float(y.abs().max()))
@@ -3332,7 +3523,10 @@ def model_cli_path(torch, build, test_cli, root, dev, key, name, cfg, pairs,
                              f"path {ref_ssim}; fused max |d| {y_err}")
     rec = {"pairs": pairs, "ssim": ssim, "ssim_f32_plain": ref_ssim,
            "fused_max_abs_err": y_err, "fused_max": y_max,
-           "mean_ms": avg * 1e3}
+           "mean_ms": avg * 1e3, "pair_ms": pair_ms,
+           "median_ms": float(np.median(pair_ms[1:])),
+           "gc": {f"gen{g}": {"count": n, "ms": ms}
+                  for g, (n, ms) in sorted(gcs.items())}}
     print(f"test CLI {key}: {json.dumps(rec)}")
     return rec, counts
 
@@ -4422,6 +4616,8 @@ def main():
     stamp("conv_dw checked")
     myf_downs = check_myfusion(torch, F, dev, timer, rec)
     stamp("myfusion conv_dw shapes and strided downs checked")
+    sdpa = check_sdpa(torch, F, dev, timer)
+    stamp("the attention's SDPA route checked")
     rec["conv_wide"] = check_conv_wide(torch, F, dev, timer)
     stamp("conv_wide checked")
     print(f"conv_wide layers: {json.dumps(rec['conv_wide']['layers'])}")
@@ -4432,12 +4628,23 @@ def main():
     for name in VARIANT_REPLACES:
         print(f"{name} layers: {json.dumps(rec[name]['layers'])}")
     print("kernel checks passed")
+    # the host clocks of the timed paths (the CLIs' pairs, the benches)
+    # leave out collections over the smoke's own heap, which a user's CLI
+    # process does not hold: one full collection, then every object alive
+    # is frozen (unfrozen, a generation-2 collection over that heap took
+    # 230.7 ms inside one MyFusion CLI pair on an H100 80GB HBM3); before
+    # the seed search, whose forwards keep the card busy up to phase 4
+    gc.collect()
+    gc.freeze()
     # the weight seed of each new model's bench, contract and test CLI
     seeds = {name: live_seed(torch, dev, name)
              for name in (*NEST_MODELS, *FIVE_MODELS, *GROUP_MODELS,
                           *MYF_MODELS)}
     seeds["myfusion_res2_plain_rfn"] = live_seed(torch, dev, "myfusion",
                                                  **MYF_RES2)
+    for key, cfg in MYF_FORMERS.items():
+        seeds[key] = live_seed(torch, dev, "myfusion", key=key,
+                               min_spread=1e-3, **cfg)
     torch.cuda.empty_cache()
 
     # phase 4: main path, counts from 0
@@ -4541,6 +4748,12 @@ def main():
             WIDE_PAIRS, seeds[key])
         main_counts.update(counts)
         stamp(f"{key} test CLI done")
+        key = MYF_FORMER_CLI
+        wide_cli[key], counts = model_cli_path(
+            torch, build, test_cli, root, dev, key, "myfusion",
+            MYF_FORMERS[key], WIDE_PAIRS, seeds[key])
+        main_counts.update(counts)
+        stamp(f"{key} test CLI done")
         # the test CLI --int8 on the same 51 pairs, counts from 0
         int8_cli, counts = int8_cli_path(torch, build, test_cli, root, dev,
                                          cli_ssim)
@@ -4620,6 +4833,36 @@ def main():
         del a16, b16, y16
         torch.cuda.empty_cache()
         stamp(f"{name} bench and contract done")
+
+    # MyFusion's MetaFormer configurations: bench (16 pairs), counts from
+    # 0, a profiled forward (conv kernels, SDPA, torch ops), the contract
+    for key, cfg in MYF_FORMERS.items():
+        torch.cuda.reset_peak_memory_stats()
+        seed = seeds[key]
+        benches[key], (a16, b16, y16), counts = bench_path(
+            build, bench, key, BATCH, model="myfusion", seed=seed,
+            net=seeded_model(torch, "myfusion", seed, **cfg))
+        benches[key].update({
+            "weight_seed": seed, "model_cfg": cfg,
+            "ms_per_forward": benches[key]["ms_per_pair"] * BATCH,
+            "launches_per_forward": FORWARD_LAUNCHES[key],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        print(f"bench {key}: peak device memory "
+              f"{benches[key]['peak_memory_gb']:.2f} GiB")
+        main_counts.update(counts)
+        torch.cuda.empty_cache()
+        model = seeded_model(torch, "myfusion", seed, **cfg).to(
+            dev, torch.bfloat16).eval()
+        benches[key]["profile"] = profile_forward(torch, model, a16, b16)
+        print(f"{key} forward profile: "
+              f"{json.dumps(benches[key]['profile'])}")
+        del model
+        torch.cuda.empty_cache()
+        contracts[key] = contract(torch, dev, "myfusion", a16, b16, y16,
+                                  seed=seed, key=key, cfg=cfg)
+        del a16, b16, y16
+        torch.cuda.empty_cache()
+        stamp(f"{key} bench and contract done")
 
     # int8 benches (rows 11 and 12), counts from 0 before each, and the
     # int8 quality gap (reported, not gated)
@@ -4757,9 +5000,9 @@ def main():
         r = rec[name]
         # conv_wide: the sums are one bf16 bench forward of each model (16
         # pairs; MAFusion 4); conv_dw: the 12 layers of one bf16 res2fusion
-        # bench forward (2 pairs) and MyFusion's five shapes (MYF_DW, 16
-        # pairs); their f32 launches at the test CLI's pair are under
-        # "layers"
+        # bench forward (2 pairs) and MyFusion's shapes (MYF_DW, 16 pairs:
+        # the default's five, MixConvBlock's four windows at levels 1 and
+        # 4); their f32 launches at the test CLI's pair are under "layers"
         ls = [v for key, v in r["layers"].items()
               if name not in ("conv_wide", "conv_dw")
               or key.endswith(" bf16")]
@@ -4915,6 +5158,7 @@ def main():
                       "pfnetv2_fuse_net": fuse_net,
                       "sedrfuse_library": sedr_library,
                       "myfusion_strided_downs": myf_downs,
+                      "sdpa": sdpa,
                       **{f"test_cli_{k}": v for k, v in wide_cli.items()},
                       "int8_benches": int8_benches,
                       "int8_quality": int8_gap,

@@ -13,7 +13,7 @@ call, and one `eval_metrics` chunk.
     python multi_modal_image_fusion_tpu_torch/ab_times.py --root <checkout>
         [--tag parent] [--benches deepfuse,deepfuse_pair,densefuse,...]
         [--int8] [--profile densefuse] [--valid] [--metrics]
-        [--dw [--against <checkout>]]
+        [--dw [--against <checkout>]] [--myfusion]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
@@ -55,7 +55,14 @@ a contiguous copy of the window (what reading the window in place costs),
 as a wrapper call and as the wrapper's host time a call; with `--against
 <checkout>` also the largest difference between this checkout's outputs
 and that checkout's (its library built and loaded beside this one) on the
-same inputs; the bench default is res2fusion.
+same inputs; the bench default is res2fusion. With `--myfusion`, instead
+of the conv layers, MyFusion's default configuration in f32 at the test
+CLI's one pair of 1224x1024 (weights from torch.manual_seed(0), TF32 off):
+the host-clock time of each of the process's first MYF_FIRST forwards
+(synchronised, as the test CLI times a pair) and the median of
+MYF_STEADY more; run it in a fresh process per turn, after one process
+of each checkout has built its kernels, so the first forward is the one
+a user's test CLI pays; no bench by default.
 Random centred inputs from a
 seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
 between runs) after a warmup. Benches: `bench.run` (10 timed forwards
@@ -76,6 +83,7 @@ import time
 
 H, W, PAIRS = 1224, 1024, 16
 REPS = 5
+MYF_FIRST, MYF_STEADY = 3, 30
 
 
 def card():
@@ -569,6 +577,30 @@ def int8_profile(torch, name):
             "ops_ms": dict(rows[:15])}
 
 
+def myfusion_forwards(torch, dev):
+    """MyFusion's default f32 forward at one pair of 1224x1024: {"first_ms":
+    the process's first MYF_FIRST forwards, "steady_median_ms",
+    "steady_min_ms", "steady_max_ms": of MYF_STEADY more}, host clock
+    around a synchronised forward, as cli/test.py times a pair."""
+    from multi_modal_image_fusion_tpu_torch.models.zoo import create_model
+    torch.manual_seed(0)
+    model = create_model("myfusion").to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x1, x2 = (torch.rand((1, H, W, 1), generator=gen, device=dev)
+              for _ in range(2))
+
+    def once():
+        start = time.perf_counter()
+        with torch.no_grad():
+            model(x1, x2)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - start) * 1e3
+    first = [once() for _ in range(MYF_FIRST)]
+    steady = sorted(once() for _ in range(MYF_STEADY))
+    return {"first_ms": first, "steady_median_ms": steady[MYF_STEADY // 2],
+            "steady_min_ms": steady[0], "steady_max_ms": steady[-1]}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", required=True,
@@ -592,12 +624,16 @@ def main(argv=None):
                    help="row 1's depthwise instance (the 12 conv_dw "
                         "launches of a Res2Fusion forward) instead of the "
                         "conv layers")
+    p.add_argument("--myfusion", action="store_true",
+                   help="MyFusion's default f32 forward at the test CLI's "
+                        "pair: a fresh process's first forwards and its "
+                        "steady ones, instead of the conv layers")
     p.add_argument("--against", default=None,
                    help="with --dw, a checkout whose conv_dw outputs are "
                         "compared with this one's")
     args = p.parse_args(argv)
     if args.benches is None:
-        args.benches = ("" if args.metrics
+        args.benches = ("" if args.metrics or args.myfusion
                         else "res2fusion" if args.dw
                         else "deepfuse,densefuse,unfusion" if args.int8
                         else "deepfuse,densefuse,vifnet,res2fusion")
@@ -636,6 +672,7 @@ def main(argv=None):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     layers = {}
+    myfusion = myfusion_forwards(torch, dev) if args.myfusion else None
     with torch.no_grad():
         for case in int8_layer_cases() if args.int8 else []:
             fn = int8_layer(torch, case, gen, dev)
@@ -644,7 +681,7 @@ def main(argv=None):
             layers[case[0]] = timed(fn)
             del fn
             torch.cuda.empty_cache()
-        convs = not (args.int8 or args.metrics or args.dw)
+        convs = not (args.int8 or args.metrics or args.dw or args.myfusion)
         for case in gray_cases() + pair_cases() if convs else []:
             fn = (gray_layer if case in gray_cases() else pair_layer)(
                 torch, case, gen, dev)
@@ -699,6 +736,8 @@ def main(argv=None):
            "benches_pairs_per_sec": benches}
     if valid is not None:
         out["valid"] = valid
+    if myfusion is not None:
+        out["myfusion_f32"] = myfusion
     if args.profile:
         out["profile"] = {args.profile: int8_profile(torch, args.profile)}
     print(json.dumps(out))

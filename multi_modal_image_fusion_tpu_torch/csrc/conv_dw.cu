@@ -55,9 +55,17 @@
 // activation, write; a thread owns 8 channels of a pixel, one launch covers
 // the tensor with no loop. f32 runs the same bodies with 4 channels a
 // chunk.
+// k5 and k7 (MixConvBlock's dwconv2 and dwconv3) run the same tile body
+// with the taps in shared memory instead of registers: K x K x 8 f32 taps
+// are 200 and 392 registers a thread, past the 170 that 12 warps an SM
+// leave (ptxas spilled). A thread reads a tap's 8 channels as two 16-byte
+// vectors; the lanes of a warp that share a channel group read one
+// address, which shared memory broadcasts, so a tap costs one wavefront
+// per 8 FMAs of each lane.
+//
 // Instances: k1, and k3 in bf16 and f32 with NG 6, 2 and 1, with and
-// without the add; k5 and k7 are one dispatch line each (dispatch_tile);
-// the wrapper raises on anything else.
+// without the add; k5 and k7 in bf16 and f32 with NG 2 and 1, without the
+// add (dispatch_tile); the wrapper raises on anything else.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -76,6 +84,9 @@ constexpr int DW_K1_THREADS = 256;
 // different bank groups (2 NG + 2 for NG 2 and 6, 3 for NG 1).
 constexpr int dw_fpitch(int ng) { return ng == 1 ? 3 : 2 * ng + 2; }
 
+// Taps in shared memory from this kernel size on (see the header).
+constexpr int DW_SMEM_TAPS_K = 5;
+
 template <typename T, int K, int NG>
 struct DwGeom {
   static constexpr int THREADS = NG * DW_TX;
@@ -86,8 +97,10 @@ struct DwGeom {
   static constexpr int COPIES = (RAW + THREADS - 1) / THREADS;   // a thread's a row
   static constexpr int FP = dw_fpitch(NG);        // chunks a pixel of the f32 row
   static constexpr int FROW = NPOS * FP;          // chunks an f32 row
+  static constexpr bool SMEM_TAPS = K >= DW_SMEM_TAPS_K;
+  static constexpr int TAPS = SMEM_TAPS ? K * K * NG * 2 : 0;   // chunks of taps
   static constexpr size_t bytes(bool add) {
-    return ((size_t)(add ? 2 : 1) * DW_NR * RAW + 2 * FROW) * 16;
+    return ((size_t)(add ? 2 : 1) * DW_NR * RAW + 2 * FROW + TAPS) * 16;
   }
 };
 
@@ -138,6 +151,8 @@ __global__ void __launch_bounds__(NG * DW_TX, 12 / NG) conv_dw_tile_kernel(DwArg
   extern __shared__ __align__(16) uint4 dw_smem[];
   uint4* const raw = dw_smem;                                          // [DW_NR][1 + ADD][RAW]
   float4* const frow = reinterpret_cast<float4*>(dw_smem + (ADD ? 2 : 1) * DW_NR * G::RAW);
+  // [K*K][NG][2] f32 chunks of the slice's taps (SMEM_TAPS only)
+  float4* const staps = frow + 2 * G::FROW;
   const T* __restrict__ x = static_cast<const T*>(p.x);
   const T* __restrict__ ad = static_cast<const T*>(p.add);
   T* __restrict__ y = static_cast<T*>(p.y);
@@ -145,9 +160,17 @@ __global__ void __launch_bounds__(NG * DW_TX, 12 / NG) conv_dw_tile_kernel(DwArg
   const int c0 = (blockIdx.x % p.slices) * NG * 8;   // the slice's first channel
   const int ch = c0 + g * 8;                          // this thread's first channel
 
-  float tw[K * K][8], bs[8];
+  float tw[G::SMEM_TAPS ? 1 : K * K][8], bs[8];
+  if constexpr (G::SMEM_TAPS) {
+    for (int e = threadIdx.x; e < G::TAPS; e += G::THREADS) {
+      const int t = e / (2 * NG), q = e - t * 2 * NG;   // q = 2 group + half
+      staps[e] = *reinterpret_cast<const float4*>(p.w + t * p.C + c0 + q * 4);
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
-  for (int t = 0; t < K * K; ++t) load8(p.w + t * p.C + ch, tw[t]);
+    for (int t = 0; t < K * K; ++t) load8(p.w + t * p.C + ch, tw[t]);
+  }
   if (p.bias != nullptr) {
     load8(p.bias + ch, bs);
   } else {
@@ -233,8 +256,18 @@ __global__ void __launch_bounds__(NG * DW_TX, 12 / NG) conv_dw_tile_kernel(DwArg
 #pragma unroll
             for (int dy = 0; dy < K; ++dy) {   // output row i - dy
               const int s = (u - dy + K) % K;
+              const int t = dy * K + dx;
+              float wv[8];
+              if constexpr (G::SMEM_TAPS) {
+                const float4 w0 = staps[(t * NG + g) * 2], w1 = staps[(t * NG + g) * 2 + 1];
+                wv[0] = w0.x; wv[1] = w0.y; wv[2] = w0.z; wv[3] = w0.w;
+                wv[4] = w1.x; wv[5] = w1.y; wv[6] = w1.z; wv[7] = w1.w;
+              } else {
 #pragma unroll
-              for (int c = 0; c < 8; ++c) acc[s][c] = fmaf(tw[dy * K + dx][c], v[c], acc[s][c]);
+                for (int c = 0; c < 8; ++c) wv[c] = tw[t][c];
+              }
+#pragma unroll
+              for (int c = 0; c < 8; ++c) acc[s][c] = fmaf(wv[c], v[c], acc[s][c]);
             }
           }
           const int o = i - (K - 1);   // output row complete after row i
@@ -370,12 +403,22 @@ int dispatch_ng(const DwArgs& p, cudaStream_t s) {
   return launch_add<T, K, 1>(p, s);
 }
 
-// The built windows; k5 and k7 are one line each here (and in the wrapper's
-// check) when a model needs them.
+// k5 and k7: taps in shared memory, slices of 16 or 8 channels, no add
+// (MixConvBlock's windows are 16-128 channels, never summed).
+template <typename T, int K>
+int dispatch_ng_wide_k(const DwArgs& p, cudaStream_t s) {
+  if (p.add != nullptr) return (int)cudaErrorInvalidValue;
+  if ((p.C / 8) % 2 == 0) return launch_tile<T, K, 2, false>(p, s);
+  return launch_tile<T, K, 1, false>(p, s);
+}
+
+// The built windows.
 template <typename T>
 int dispatch_tile(int k, const DwArgs& p, cudaStream_t s) {
   if (k == 1) return launch_k1<T>(p, s);
   if (k == 3) return dispatch_ng<T, 3>(p, s);
+  if (k == 5) return dispatch_ng_wide_k<T, 5>(p, s);
+  if (k == 7) return dispatch_ng_wide_k<T, 7>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 

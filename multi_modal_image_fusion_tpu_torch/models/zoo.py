@@ -1,9 +1,9 @@
 """Fusion model zoo of the port (counterpart of multi_modal_image_fusion_tpu
 models/zoo.py). Ported: DeepFuse (the reference CLIs' default model),
 DenseFuse, VIFNet, DBNet, UNFusion, Res2Fusion, NestFuse, RFNNest,
-MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet, PMGI, SEDRFuse and MyFusion with
-its 'sep' and 'res2' encoders (its other encoders, and its 'layer' norm,
-are queued in ROADMAP.md queue 1 item 4b).
+MAFusion, PFNetv1, PFNetv2, IFCNN, DIFNet, PMGI, SEDRFuse and MyFusion
+with its whole design space (every encoder, decoder, fusion, norm and
+activation of the JAX package's MyFusion).
 
 Models take NHWC single-channel images:
 
@@ -16,16 +16,18 @@ import contextlib
 import torch
 from torch import nn
 
-from ..ops.blocks import (RFN, DCBlock, Decoder, DenseBlock, FSDecoder,
-                          LSDecoder, NestDecoder, NestEncoder, Res2ConvBlock,
-                          ResBlock, SepConvBlock, TransitionBlock, down,
-                          nest_block, upsample, wide_block)
+from ..ops.blocks import (RFN, ConvFormerBlock, DCBlock, Decoder,
+                          DenseBlock, FSDecoder, LSDecoder, MixConvBlock,
+                          MixFormerBlock, NestDecoder, NestEncoder,
+                          Res2ConvBlock, Res2FormerBlock, ResBlock,
+                          SepConvBlock, TransformerBlock, TransitionBlock,
+                          down, nest_block, upsample, wide_block)
 from ..ops.cuda.conv_pair import conv_pair_enter, conv_pair_exit
 from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
 from ..ops.fusion import (attention_fusion, element_fusion, spatial_pooling,
                           weighted_fusion)
 from ..ops import layers
-from ..ops.layers import (ACT_CODES, NORMS, ConvLayer, fast_training,
+from ..ops.layers import (ACTS, NORMS, ConvLayer, fast_training,
                           in_training_scope, int8_ctx)
 from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
                          hiw_int8_enabled, hiw_res_enabled, name_layers,
@@ -972,11 +974,11 @@ class SEDRFuse(nn.Module):
         return dec2(t)
 
 
-# MyFusion's design space still to port (ROADMAP.md queue 1 item 4b)
-_QUEUE_4B = "ROADMAP.md queue 1 item 4b"
-_UNPORTED_ENCODERS = ("mix", "conv_former", "mix_former", "res2_former",
-                      "transformer")
-_UNPORTED_ACTS = ("hswish", "silu", "gelu")
+# MyFusion's encoder blocks (JAX models/zoo.py:1558-1566 _ENCODERS), each
+# built as block(ch, ch, generator) or block(ch, generator)
+_ENCODERS = {"sep": SepConvBlock, "mix": MixConvBlock, "res2": Res2ConvBlock,
+             "conv_former": ConvFormerBlock, "mix_former": MixFormerBlock,
+             "res2_former": Res2FormerBlock, "transformer": TransformerBlock}
 _FUSION_MODES = {"elem": ("sum", "mean", "max"),
                  "attn": ("sa", "ca", "sca", "wavg"),
                  "concat": None, "rfn": None}
@@ -985,9 +987,9 @@ _DECODERS = {"plain": Decoder, "ls": LSDecoder, "nest": NestDecoder,
 
 
 def _encoder_block(kind, ch, generator):
-    if kind == "sep":
-        return SepConvBlock(ch, ch, generator=generator)
-    return Res2ConvBlock(ch, ch, generator=generator)
+    if kind in ("sep", "res2"):
+        return _ENCODERS[kind](ch, ch, generator=generator)
+    return _ENCODERS[kind](ch, generator=generator)
 
 
 class MyFusion(nn.Module):
@@ -997,9 +999,10 @@ class MyFusion(nn.Module):
     two branches' features fused per scale, a decoder of DCBlocks, conv_out
     (k1, num_ch[0] -> 1).
 
-    - `encoder`: 'sep' (SepConvBlock) or 'res2' (Res2ConvBlock), or a list
-      of four, one a level. The MetaFormer, MixConv and transformer
-      encoders raise NotImplementedError (ROADMAP.md queue 1 item 4b).
+    - `encoder`: 'sep' (SepConvBlock), 'mix' (MixConvBlock), 'res2'
+      (Res2ConvBlock), 'conv_former', 'mix_former', 'res2_former' or
+      'transformer' (the MetaFormer blocks: batch norms, relu6, and the
+      Sep, Mix, Res2 or Attention mixer), or a list of four, one a level.
     - `share_weight_levels` (4, 3, 2, 1 or 0): the levels from 4 -
       share_weight_levels on share the first branch's modules and run both
       images as one 2n batch; the levels below it run each image through
@@ -1015,22 +1018,26 @@ class MyFusion(nn.Module):
       grouped conv as the JAX package runs XLA's) or 'maxpool'; level 1's
       TransitionBlock is always a k1 stride-1 depthwise conv.
     - `up_mode` 'bilinear' (align_corners=True) or 'nearest'.
-    - `act` (relu6 by default), `norm` (None, 'batch' folded into the
-      serving convs, 'group') and `use_bias` apply to conv_in, the
-      TransitionBlocks and conv_out; the encoder and decoder blocks keep
-      their own (relu6, no norm, no bias), as in the reference. 'layer'
-      (ChannelLayerNorm) and the activations hswish, silu and gelu raise
-      NotImplementedError (queue 1 item 4b).
+    - `act` (relu6 by default; relu, lrelu, tanh and None fused in the
+      kernels, hswish, silu and gelu torch ops after them), `norm` (None,
+      'batch' folded into the serving convs, 'group', 'layer') and
+      `use_bias` apply to conv_in, the TransitionBlocks and conv_out; the
+      encoder and decoder blocks keep their own (relu6, no bias; the
+      Formers' standalone batch norms), as in the reference. With 'layer',
+      conv_out's one-channel layer norm makes the fused image 0, in the
+      reference and the JAX package alike.
 
     Serving routes: conv_in on conv_gray_enter (one launch over the pair
     when conv_in is shared, else one a branch; its 8-channel k1 pass),
     conv_out on conv_gray_exit; every other conv as its block routes it
-    (conv_chain, conv_multi, conv_wide, conv_dw). MyFusion is in the JAX
-    package's HIW_MULTI_BLOCKLIST, so its TPU default is its eager route;
-    every conv of the port's serving path takes a hand-written kernel all
-    the same (the JAX H-major route `_hiw_forward`, zoo.py:1761-1822, is
-    the same function). There is no autoencoder mode (the model needs two
-    images)."""
+    (conv_chain, conv_multi, conv_wide, conv_dw: MixConvBlock's k1-k7
+    windows); the Attention's pools on cuDNN's grouped conv, its attention
+    on torch's scaled_dot_product_attention (flash or memory-efficient).
+    MyFusion is in the JAX package's HIW_MULTI_BLOCKLIST, so its TPU
+    default is its eager route; every conv of the port's serving path
+    takes a hand-written kernel all the same (the JAX H-major route
+    `_hiw_forward`, zoo.py:1761-1822, is the same function). There is no
+    autoencoder mode (the model needs two images)."""
 
     def __init__(self, encoder="sep", decoder="nest", use_bias=False,
                  norm=None, act="relu6", fusion_method="attn",
@@ -1042,22 +1049,12 @@ class MyFusion(nn.Module):
         if len(enc) != 4:
             raise ValueError(f"encoder: one kind or four, got {encoder!r}")
         for kind in enc:
-            if kind in _UNPORTED_ENCODERS:
-                raise NotImplementedError(
-                    f"MyFusion encoder {kind!r} is not ported yet "
-                    f"({_QUEUE_4B}); ported: 'sep', 'res2'")
-            if kind not in ("sep", "res2"):
-                raise ValueError(f"unknown MyFusion encoder {kind!r}")
-        if norm == "layer":
-            raise NotImplementedError(f"MyFusion norm 'layer' "
-                                      f"(ChannelLayerNorm) is not ported yet "
-                                      f"({_QUEUE_4B})")
+            if kind not in _ENCODERS:
+                raise ValueError(f"unknown MyFusion encoder {kind!r}; one "
+                                 f"of {sorted(_ENCODERS)}")
         if norm not in NORMS:
-            raise ValueError(f"norm {norm!r} not in {NORMS} or 'layer'")
-        if act in _UNPORTED_ACTS:
-            raise NotImplementedError(f"MyFusion act {act!r} is not ported "
-                                      f"yet ({_QUEUE_4B})")
-        if act not in ACT_CODES:
+            raise ValueError(f"norm {norm!r} not in {NORMS}")
+        if act not in ACTS:
             raise ValueError(f"unknown activation {act!r}")
         if fusion_method not in _FUSION_MODES:
             raise ValueError("only supported ['elem', 'attn', 'concat', "
@@ -1154,9 +1151,7 @@ MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
 
 
 def create_model(name, **kwargs):
-    """Instantiate a ported zoo model by (case-insensitive) name. MyFusion's
-    configurations still to port raise NotImplementedError naming
-    ROADMAP.md."""
+    """Instantiate a ported zoo model by (case-insensitive) name."""
     key = name.lower()
     if key not in MODEL_ZOO:
         raise ValueError(f"unknown model {name!r}; available: "

@@ -6,9 +6,10 @@ VIFNet, DBNet, PFNetv1 and PFNetv2; `Res2ConvBlock`, for Res2Fusion;
 `wide_block`, `RFN`, `downsample` and `FSDecoder` (and `NestDecoder` over
 `ConvBlock`), for NestFuse, RFNNest and MAFusion; `ResBlock`, for DIFNet
 and SEDRFuse; `TransitionBlock`, `SepConvBlock`, `DCBlock`, `Decoder` and
-`LSDecoder` (and `NestDecoder` and `FSDecoder` over `DCBlock`), for
-MyFusion; MyFusion's MetaFormer, MixConv and transformer encoder blocks
-and ChannelLayerNorm are still to port (ROADMAP.md queue 1 item 4b)."""
+`LSDecoder` (and `NestDecoder` and `FSDecoder` over `DCBlock`), and the
+encoder blocks `MixConvBlock`, `Attention` (with `attention`), `FFN`,
+`Scale`, `MetaFormerBlock`, `ConvFormerBlock`, `MixFormerBlock`,
+`Res2FormerBlock` and `TransformerBlock`, for MyFusion."""
 
 import torch
 import torch.nn.functional as F
@@ -16,13 +17,18 @@ from torch import nn
 
 from .cuda.conv_chain import CO_TILE
 from .cuda.conv_multi import concat_legs
-from .layers import ConvLayer, interpolate
+from .layers import (ACT_CODES, ACTS, BatchNormNHWC, ChannelLayerNorm,
+                     ConvLayer, activation, interpolate)
 from .quant import record
 
-__all__ = ["ConvBlock", "DCB", "DCBlock", "Decoder", "DenseBlock", "ECB",
-           "FSDecoder", "LSDecoder", "NestDecoder", "NestEncoder", "RFN",
-           "Res2ConvBlock", "ResBlock", "SepConvBlock", "TransitionBlock",
-           "downsample", "nest_block", "pad_to", "upsample", "wide_block"]
+__all__ = ["Attention", "ConvBlock", "ConvFormerBlock", "DCB", "DCBlock",
+           "Decoder", "DenseBlock", "ECB", "FFN", "FSDecoder", "LSDecoder",
+           "MetaFormerBlock", "MixConvBlock", "MixFormerBlock",
+           "NestDecoder", "NestEncoder", "RFN", "Res2ConvBlock",
+           "Res2FormerBlock", "ResBlock", "Scale", "SepConvBlock",
+           "TransformerBlock", "TransitionBlock", "attention",
+           "attention_plain", "downsample", "nest_block", "pad_to",
+           "upsample", "wide_block"]
 
 
 class DenseBlock(nn.Module):
@@ -538,3 +544,265 @@ class LSDecoder(Decoder):
     the coarser output] (never concatenated)."""
 
     long_skip = True
+
+
+class MixConvBlock(nn.Module):
+    """MixConv (reference block.py:229-283; JAX ops/blocks.py:172-223),
+    MyFusion's 'mix' encoder block and the MixFormer's mixer, `ch` channels
+    in and out, relu6, no bias:
+
+        hexp = pwconv1(x)               k1, ch -> 4 ch (relu6)
+        y_i  = dwconvs[i](hexp_i)       depthwise, kernel 2 i + 1 (k1, k3,
+                                        k5, k7), no activation
+        out  = relu6(pwconv2([y_0, ..., y_3]) + x)
+
+    hexp_i is window i's ch channels of hexp, read in place by its conv_dw
+    launch (ConvLayer.depthwise); pwconv2 reads the windows' outputs as
+    legs, with x as one more identity leg of the same conv_multi whose
+    epilogue is the relu6 (`ConvLayer.plus_identity`). The `dwconv`
+    parameters (k3 over the whole expansion) exist for the reference state
+    dict and never run (the reference block builds and ignores them).
+    State-dict names are the reference's (`dwconvs.{i}`)."""
+
+    def __init__(self, ch, generator=None):
+        super().__init__()
+        g, hid = generator, 4 * ch
+        self.ch = ch
+        self.pwconv1 = ConvLayer(ch, hid, 1, act="relu6", use_bias=False,
+                                 generator=g)
+        self.dwconv = ConvLayer(hid, hid, 3, act=None, groups=hid,
+                                use_bias=False, generator=g)
+        self.pwconv2 = ConvLayer(hid, ch, 1, act=None, use_bias=False,
+                                 generator=g)
+        self.dwconvs = nn.ModuleList([
+            ConvLayer(ch, ch, 2 * i + 1, act=None, groups=ch,
+                      use_bias=False, generator=g) for i in range(4)])
+
+    def forward(self, x):
+        hexp = self.pwconv1(x)
+        record(self.dwconv.qpath, hexp)   # the reference computes it
+        legs = [(conv.depthwise(hexp, lo=i * self.ch), 0)
+                for i, conv in enumerate(self.dwconvs)]
+        return self.pwconv2.plus_identity(legs, x, "relu6")
+
+
+def attention_plain(q, k, v, num_heads):
+    """Plain version of `attention`: the JAX package's einsum, softmax and
+    einsum (ops/blocks.py:402-407) in f32 (float64 for float64 inputs),
+    cast back to q's dtype."""
+    b, n, c = q.shape
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qh, kh, vh = (t.to(ct).reshape(b, -1, num_heads, c // num_heads)
+                  for t in (q, k, v))
+    scale = (c // num_heads) ** -0.5
+    att = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale, -1)
+    return torch.einsum("bhnm,bmhd->bnhd", att, vh).reshape(
+        b, n, c).to(q.dtype)
+
+
+def attention(q, k, v, num_heads):
+    """Multi-head softmax(q k^T / sqrt(d)) v over tokens: q (B, N, C), k
+    and v (B, M, C), the channel vector c = head * d + i (the JAX
+    package's reshape, ops/blocks.py:397-400) -> (B, N, C). On CUDA
+    tensors torch's scaled_dot_product_attention restricted to its flash
+    and memory-efficient backends (a library call, not a kernel of the
+    port; the JAX package runs XLA's einsums, no Pallas kernel): at
+    MyFusion's level 1 a head's score matrix of one image holds 6.1e9
+    entries, which the math backend would build, so a shape neither
+    backend takes raises. CPU tensors take `attention_plain`."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, num_heads)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, n, c = q.shape
+    qh, kh, vh = (t.reshape(b, -1, num_heads, c // num_heads).transpose(1, 2)
+                  for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+    return out.transpose(1, 2).reshape(b, n, c)
+
+
+class Attention(nn.Module):
+    """PVT spatial-reduction multi-head self-attention (reference
+    block.py:355-434; JAX ops/blocks.py:345-411), the Transformer's mixer:
+    q = q(x); keys and values from the map pooled by sr (`pool`, a VALID
+    depthwise conv of kernel and stride sr, F.conv2d(groups=C) as the JAX
+    package runs XLA's grouped conv; or 'avgpool', a VALID sr x sr mean),
+    k = k(pool(x)), v = v(pool(x)); `attention` over the H W tokens of q
+    and the pooled tokens; proj. q, k, v and proj are k1 convs (conv_chain)
+    without activation or norm, as the MetaFormer builds them. ch // 16
+    heads of 16 channels; sr = 16 // (ch // 16): 16, 8, 4, 2 at
+    MyFusion's 16-128 channels, so every level has the same number of
+    keys. At sr 1 the pool's parameters exist (the reference builds the
+    layer in 'stride' mode) and do not run. `ch` channels in and out (the
+    MetaFormer's). State-dict names are the reference's."""
+
+    def __init__(self, ch, qkv_bias=False, proj_bias=False,
+                 down_mode="stride", generator=None):
+        super().__init__()
+        if down_mode not in ("stride", "avgpool"):
+            raise ValueError(f"down_mode {down_mode!r} not in stride/avgpool")
+        g = generator
+        self.num_heads = ch // 16
+        self.sr = 16 // self.num_heads
+        kw = dict(act=None, generator=g)
+        self.q = ConvLayer(ch, ch, 1, use_bias=qkv_bias, **kw)
+        self.k = ConvLayer(ch, ch, 1, use_bias=qkv_bias, **kw)
+        self.v = ConvLayer(ch, ch, 1, use_bias=qkv_bias, **kw)
+        self.proj = ConvLayer(ch, ch, 1, use_bias=proj_bias, **kw)
+        self.pool = (ConvLayer(ch, ch, self.sr, groups=ch,
+                               stride=self.sr, padding=0, use_bias=False,
+                               **kw) if down_mode == "stride" else None)
+
+    def forward(self, x):
+        b, h, w, _ = x.shape
+        q = self.q(x)
+        if self.sr == 1:
+            xp = x
+        elif self.pool is not None:
+            xp = self.pool(x)
+        else:
+            xp = F.avg_pool2d(x.permute(0, 3, 1, 2), self.sr).permute(
+                0, 2, 3, 1).contiguous()
+        k, v = self.k(xp), self.v(xp)
+        c = q.shape[-1]
+        out = attention(q.reshape(b, h * w, c), k.reshape(b, -1, c),
+                        v.reshape(b, -1, c), self.num_heads)
+        return self.proj(out.reshape(b, h, w, c))
+
+
+class FFN(nn.Module):
+    """The conv FFN (reference block.py:437-457; JAX ops/blocks.py:414-
+    433), no bias: pw1 (k1, ch -> 4 ch, relu6; conv_chain), dw (k3
+    depthwise **with** relu6, unlike SepConvBlock's; conv_dw), pw2 (k1
+    back to ch, no activation). forward(x, res, act) returns act(pw2(...)
+    + res) with res an identity leg of pw2's conv_multi
+    (`ConvLayer.plus_identity`): the MetaFormer's second residual without
+    its scales. State-dict names are the reference's (`layers.{0,1,2}`)."""
+
+    def __init__(self, ch, generator=None):
+        super().__init__()
+        hid = 4 * ch
+        kw = dict(use_bias=False, generator=generator)
+        self.layers = nn.ModuleList([
+            ConvLayer(ch, hid, 1, act="relu6", **kw),
+            ConvLayer(hid, hid, 3, act="relu6", groups=hid, **kw),
+            ConvLayer(hid, ch, 1, act=None, **kw)])
+
+    def forward(self, x, res=None, act=None):
+        pw1, dw, pw2 = self.layers
+        y = dw(pw1(x))
+        return pw2(y) if res is None else pw2.plus_identity(y, res, act)
+
+
+class Scale(nn.Module):
+    """A learnable per-channel scale (reference block.py:460-469; JAX
+    ops/blocks.py:436-448), `scale` (C,) f32 over the last (channel) dim;
+    the product in f32."""
+
+    def __init__(self, ch, init_value=1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((ch,), float(init_value)))
+
+    def forward(self, x):
+        return x * self.scale
+
+
+def _standalone_norm(kind, ch):
+    if kind is None:
+        return None
+    if kind == "batch":
+        return BatchNormNHWC(ch)
+    if kind == "layer":
+        return ChannelLayerNorm(ch)
+    raise ValueError(f"MetaFormer norm {kind!r} not in None/batch/layer")
+
+
+class MetaFormerBlock(nn.Module):
+    """The MetaFormer skeleton (reference block.py:503-540; JAX
+    ops/blocks.py:451-507), `ch` channels in and out:
+
+        h   = mixer(norm1(x))
+        out = act(layer_scale1(h) + res_scale1(x))
+        h2  = ffn(norm2(out))
+        out = act(layer_scale2(h2) + res_scale2(out))
+
+    `mixer` 'sep' (SepConvBlock), 'mix' (MixConvBlock), 'res2'
+    (Res2ConvBlock), 'attn' (Attention) or None (the identity); `norm`
+    'layer' (ChannelLayerNorm), 'batch' (BatchNormNHWC, eval mode) or None;
+    a scale is used only when its value is truthy (JAX :487-490). The
+    first add is a torch op (the mixer ends in its own activation); without
+    scales, and with an activation a kernel fuses, the second rides the
+    FFN's pw2 as an identity leg. The Former blocks fix the mixer, the
+    batch norm and relu6 (reference :543-617). State-dict names are the
+    reference's (`norm1`, `token_mixer`, `layer_scale1.scale`, `ffn`)."""
+
+    def __init__(self, ch, mixer=None, norm="layer", act=None,
+                 layer_scale=None, res_scale=None, generator=None):
+        super().__init__()
+        if act not in ACTS:
+            raise ValueError(f"MetaFormer act {act!r} not in {ACTS}")
+        g = generator
+        mixers = {None: lambda: None,
+                  "sep": lambda: SepConvBlock(ch, ch, generator=g),
+                  "mix": lambda: MixConvBlock(ch, generator=g),
+                  "res2": lambda: Res2ConvBlock(ch, ch, generator=g),
+                  "attn": lambda: Attention(ch, generator=g)}
+        if mixer not in mixers:
+            raise ValueError(f"unknown mixer {mixer!r}")
+        self.act = act
+        self.norm1 = _standalone_norm(norm, ch)
+        self.token_mixer = mixers[mixer]()
+        self.layer_scale1 = Scale(ch, layer_scale) if layer_scale else None
+        self.res_scale1 = Scale(ch, res_scale) if res_scale else None
+        self.norm2 = _standalone_norm(norm, ch)
+        self.ffn = FFN(ch, generator=g)
+        self.layer_scale2 = Scale(ch, layer_scale) if layer_scale else None
+        self.res_scale2 = Scale(ch, res_scale) if res_scale else None
+
+    def _add(self, h, x, ls, rs):
+        """act(ls(h) + rs(x)); with a scale in f32, then the cast."""
+        if ls is None and rs is None:
+            return activation(h + x, self.act)
+        y = ((h if ls is None else ls(h)) + (x if rs is None else rs(x)))
+        return activation(y, self.act).to(x.dtype)
+
+    def forward(self, x):
+        h = x if self.norm1 is None else self.norm1(x)
+        if self.token_mixer is not None:
+            h = self.token_mixer(h)
+        out = self._add(h, x, self.layer_scale1, self.res_scale1)
+        h2 = out if self.norm2 is None else self.norm2(out)
+        if (self.layer_scale2 is None and self.res_scale2 is None
+                and self.act in ACT_CODES):
+            return self.ffn(h2, out, self.act)
+        return self._add(self.ffn(h2), out, self.layer_scale2,
+                         self.res_scale2)
+
+
+class ConvFormerBlock(MetaFormerBlock):
+    """MetaFormer with the SepConvBlock mixer, batch norms, relu6."""
+
+    def __init__(self, ch, generator=None):
+        super().__init__(ch, "sep", "batch", "relu6", generator=generator)
+
+
+class MixFormerBlock(MetaFormerBlock):
+    """MetaFormer with the MixConvBlock mixer, batch norms, relu6."""
+
+    def __init__(self, ch, generator=None):
+        super().__init__(ch, "mix", "batch", "relu6", generator=generator)
+
+
+class Res2FormerBlock(MetaFormerBlock):
+    """MetaFormer with the Res2ConvBlock mixer, batch norms, relu6."""
+
+    def __init__(self, ch, generator=None):
+        super().__init__(ch, "res2", "batch", "relu6", generator=generator)
+
+
+class TransformerBlock(MetaFormerBlock):
+    """MetaFormer with the Attention mixer, batch norms, relu6."""
+
+    def __init__(self, ch, generator=None):
+        super().__init__(ch, "attn", "batch", "relu6", generator=generator)

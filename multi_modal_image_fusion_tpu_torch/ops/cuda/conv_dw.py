@@ -19,8 +19,9 @@ window (plus `add`), reflect-padded in batch chunks under torch's 32-bit
 index limit. CPU tensors take it; a CUDA tensor launches the kernel or
 raises. The kernel is forward-only (it raises when an input needs a
 gradient; ConvLayer's training route runs F.conv2d(groups=C)). Built for
-k1 and k3, C a multiple of 8 up to 512, and a window whose base and pixel
-stride are multiples of 8 channels.
+k1 and k3, and for k5 and k7 without `add` (MixConvBlock's dwconv2 and
+dwconv3, taps in shared memory), C a multiple of 8 up to 512, and a window
+whose base and pixel stride are multiples of 8 channels.
 
 A call's host work is kept small (a Res2Fusion forward makes 12): the
 taps are packed once a layer (`pack_taps`), the C entry is typed once, the
@@ -41,6 +42,8 @@ from .window import window_entry, window_launch
 __all__ = ["conv_dw", "conv_dw_plain", "pack_taps"]
 
 MAX_C = 512
+KSIZES = (1, 3, 5, 7)
+ADD_KSIZES = (1, 3)     # the Res2 hierarchy's; k5 and k7 run without it
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 ARGTYPES = (_I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
@@ -98,10 +101,13 @@ def _check(x, weight, bias, lo, add):
                          f"NHWC tensor, got {tuple(x.shape)}")
     b, h, w, pitch = x.shape
     c = weight.shape[0]
-    if weight.shape[1:] not in ((1, 1, 1), (1, 3, 3)):
-        raise ValueError(f"{name}: weight must be (C, 1, K, K) with K 1 or 3, "
-                         f"got {tuple(weight.shape)}")
+    if weight.shape[1:] not in {(1, k, k) for k in KSIZES}:
+        raise ValueError(f"{name}: weight must be (C, 1, K, K) with K in "
+                         f"{KSIZES}, got {tuple(weight.shape)}")
     k = weight.shape[-1]
+    if add is not None and k not in ADD_KSIZES:
+        raise ValueError(f"{name}: `add` is built for K in {ADD_KSIZES}, "
+                         f"got K {k}")
     if c % 8 or not 8 <= c <= MAX_C or pitch % 8 or lo % 8:
         raise ValueError(f"{name}: C ({c}), the channels of x ({pitch}) and "
                          f"lo ({lo}) must be multiples of 8, C at most "

@@ -4,16 +4,20 @@ interpolate, and the fast-training scope and routes, :34-56 and :695-755).
 
 The port carries the part the ported models use: reflect-SAME k x k convs,
 dense or depthwise (groups == in_ch == out_ch), stride 1 or (dense) 2, the
-VALID depthwise conv with ksize == stride (MyFusion's TransitionBlock), the
+VALID depthwise conv with ksize == stride in (1, 2, 4, 8, 16) (MyFusion's
+TransitionBlock, the Attention's spatial-reduction pool), the
 k3 stride-2 transpose conv (zero padding 1, output padding 1: exactly 2x,
-SEDRFuse's decoder), with or without bias, an optional batch or group norm
-after the conv, and one of the kernel-fusable activations (relu, relu6,
-lrelu 0.2, tanh, none). Tensors are NHWC at the boundary. Parameters are
-named as in the reference state dict (`layers.0.weight` OIHW, IOHW for a
-transpose conv, `layers.0.bias`; no bias key when use_bias=False; the
-norm's `layers.1.weight`, `bias` and, for a batch norm, `running_mean`,
-`running_var` and `num_batches_tracked`), so reference `.pth` files load
-directly.
+SEDRFuse's decoder), with or without bias, an optional batch, group or
+channel layer norm after the conv, and an activation: relu, relu6, lrelu
+0.2 and tanh, which the kernels fuse, or hswish, silu and gelu (tanh
+approximation), which run after the kernel as torch ops in f32 before the
+cast, as the JAX package applies any activation outside `_FUSABLE_ACTS`
+after its conv (ops/layers.py:193). Tensors are NHWC at the boundary.
+Parameters are named as in the reference state dict (`layers.0.weight`
+OIHW, IOHW for a transpose conv, `layers.0.bias`; no bias key when
+use_bias=False; the norm's `layers.1.weight`, `bias` and, for a batch
+norm, `running_mean`, `running_var` and `num_batches_tracked`), so
+reference `.pth` files load directly.
 
 A batch norm (`norm="batch"`, the JAX package's `make_norm('batch')`,
 ops/layers.py:284: eps 1e-5, flax momentum 0.9 = torch momentum 0.1) is
@@ -32,6 +36,11 @@ package runs the norm on XLA after its conv. It has no running statistics,
 so its training route computes the serving route's function. Its int8
 route is not ported and raises NotImplementedError.
 
+A channel layer norm (`norm="layer"`, the JAX package's `make_norm('layer')`,
+`ChannelLayerNorm`, ops/layers.py:260: over the channels of each pixel, eps
+1e-6, a scale and no bias; `layers.1.weight` of shape (C, 1, 1) as the
+reference's) runs after the conv as the group norm does.
+
 A layer takes one tensor, or a list of legs `[(tensor, b_off), ...]` whose
 channels concatenate to its input (the JAX package's multi-leg convs,
 models/zoo.py:103 `_hiw_mconv`): dense growth and concat fusion without
@@ -41,8 +50,10 @@ Routes of a conv:
 
 - a stride-2 layer: reflect pad (NHWC), then F.conv2d(stride=2) on every
   route, as the JAX package runs it on XLA's conv (ops/layers.py:747-755);
-  the VALID depthwise k2 stride-2 layer unpadded, F.conv2d(groups=C), as
-  the JAX package runs it on XLA's grouped conv (ops/blocks.py:575-583); a
+  the VALID depthwise layer of stride 2, 4, 8 or 16 unpadded,
+  F.conv2d(groups=C, stride=k), as the JAX package runs it on XLA's grouped
+  conv (TransitionBlock's down, ops/blocks.py:575-583; the Attention's
+  pool, :376-384); a
   transpose layer F.conv_transpose2d on every route (the JAX package's
   lhs-dilated XLA conv, ops/layers.py:769-783); both in batch chunks;
 - serving (no `fast_training` scope and no gradient needed): the forward-only
@@ -112,13 +123,26 @@ from .quant import (calibrating, choose_fold, fold_weights, hiw_fold_scale,
                     quant_ctx, quant_skipped, quantize_weights, record)
 from .s2d import s2d_pack_bias, s2d_pack_weights
 
-__all__ = ["ACT_CODES", "BN_EPS", "ConvLayer", "NORMS", "apply_act",
-           "fast_training", "group_norm", "in_training_scope", "init_conv_",
-           "int8_ctx", "interpolate"]
+__all__ = ["ACTS", "ACT_CODES", "BN_EPS", "BatchNormNHWC",
+           "ChannelLayerNorm", "ConvLayer", "NORMS", "activation",
+           "apply_act", "fast_training", "group_norm", "in_training_scope",
+           "init_conv_", "int8_ctx", "interpolate"]
 
 INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
-NORMS = (None, "batch", "group")    # the norms ConvLayer ports
+NORMS = (None, "batch", "group", "layer")    # the norms ConvLayer ports
 BN_EPS = 1e-5
+LN_EPS = 1e-6
+# the activations no kernel fuses: torch ops after the kernel (JAX
+# ops/layers.py:187-204; its gelu is the tanh approximation)
+_TORCH_ACTS = {
+    "hswish": lambda y: y * torch.clamp(y + 3.0, 0.0, 6.0) / 6.0,
+    "silu": F.silu,
+    "gelu": lambda y: F.gelu(y, approximate="tanh"),
+}
+ACTS = (*ACT_CODES, *_TORCH_ACTS)
+# the VALID depthwise conv's kernel sizes (= its stride): TransitionBlock's
+# 1 and 2, the Attention pool's 16 // (C // 16) at MyFusion's widths
+VALID_DW_KSIZES = (1, 2, 4, 8, 16)
 GN_CHUNK_ELEMS = 2 ** 28    # elements a batch chunk of group_norm (1 GB f32)
 _NORM_QUEUE = "ROADMAP.md queue 1 item 5"
 
@@ -170,6 +194,16 @@ def concat_sum(legs, fuse_n, n_out):
     return out
 
 
+def activation(y, act):
+    """Any of ACTS on y, computed in f32 (float64 for a float64 y) and cast
+    back to y's dtype."""
+    if act is None:
+        return y
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
+    yf = _TORCH_ACTS[act](yf) if act in _TORCH_ACTS else apply_act(yf, act)
+    return yf.to(y.dtype)
+
+
 def group_norm(x, weight, bias, act=None, eps=BN_EPS):
     """GroupNorm(C, C) then `act` on an NHWC tensor (the JAX package's
     `make_norm('group')`, flax GroupNorm with one channel a group): in f32
@@ -190,13 +224,58 @@ def group_norm(x, weight, bias, act=None, eps=BN_EPS):
         xf = x[i:i + step].to(ct)
         var, mean = torch.var_mean(xf, dim=(1, 2), correction=0,
                                    keepdim=True)
-        y = apply_act(torch.addcmul(bf, xf - mean,
-                                    wf * torch.rsqrt(var + eps)),
-                      act).to(x.dtype)
+        y = activation(torch.addcmul(bf, xf - mean,
+                                     wf * torch.rsqrt(var + eps)),
+                       act).to(x.dtype)
         if out is None:
             return y
         out[i:i + step] = y
     return out
+
+
+class ChannelLayerNorm(nn.Module):
+    """Layer norm over the channels of each pixel of an NHWC tensor (JAX
+    ops/layers.py:260-283, reference core/block.py:472-500): eps 1e-6, a
+    scale and no bias. The parameter is the reference's `weight` (C, 1, 1);
+    the norm runs as F.layer_norm over the last dim in f32 (float64 for a
+    float64 x), then `act`, then the cast back."""
+
+    def __init__(self, ch, eps=LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(ch, 1, 1))
+
+    def forward(self, x, act=None):
+        ct = torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.to(ct), x.shape[-1:], self.weight.reshape(-1).to(
+            ct), None, self.eps)
+        return activation(y, act).to(x.dtype)
+
+
+class BatchNormNHWC(nn.BatchNorm2d):
+    """A standalone eval-mode batch norm on an NHWC tensor (the MetaFormer
+    blocks' norm1 and norm2; JAX `make_norm('batch')`/`apply_norm`,
+    ops/layers.py:284-320): x * g + (bias - mean * g) with g = weight /
+    sqrt(var + 1e-5), computed in f32 and written once in x's dtype. It is
+    not folded into the next conv: the MetaFormer's mixer reads its output
+    as its residual too. Its training route (batch statistics) is not
+    ported and raises, as ConvLayer's batch norm does."""
+
+    def __init__(self, ch):
+        super().__init__(ch, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x):
+        if in_training_scope() or (torch.is_grad_enabled() and (
+                x.requires_grad or self.weight.requires_grad)):
+            raise NotImplementedError(
+                f"the training route of a standalone batch norm is not "
+                f"ported ({_NORM_QUEUE}); it serves in eval mode under "
+                f"torch.no_grad()")
+        ct = torch.promote_types(x.dtype, torch.float32)
+        g = self.weight.to(ct) * torch.rsqrt(self.running_var.to(ct)
+                                             + self.eps)
+        shift = self.bias.to(ct) - self.running_mean.to(ct) * g
+        return torch.addcmul(shift, x, g, out=torch.empty_like(x))
 
 
 def reflect_pad_nhwc(x, p):
@@ -214,14 +293,14 @@ def reflect_pad_nhwc(x, p):
     return xp
 
 
-_KAIMING_FAMILY = ("relu", "relu6")
+_KAIMING_FAMILY = ("relu", "relu6", "hswish", "silu", "gelu")
 
 
 def init_conv_(weight, bias, act, generator=None):
     """Activation-keyed init (reference core/block.py:101-111): Kaiming
-    normal for relu/relu6 (gain^2 2) and lrelu 0.2 (gain^2 2/1.04), Xavier
-    normal with gain 5/3 for tanh, torch's Conv2d default U(+-1/sqrt(fan_in))
-    otherwise; bias zeros."""
+    normal for relu/relu6/hswish/silu/gelu (gain^2 2) and lrelu 0.2 (gain^2
+    2/1.04), Xavier normal with gain 5/3 for tanh, torch's Conv2d default
+    U(+-1/sqrt(fan_in)) otherwise; bias zeros."""
     out_ch, in_ch, kh, kw = weight.shape
     fan_in, fan_out = in_ch * kh * kw, out_ch * kh * kw
     with torch.no_grad():
@@ -255,39 +334,40 @@ class _Conv(nn.Module):
 
 
 class ConvLayer(nn.Module):
-    """Reflect-SAME conv (+ bias) (+ batch or group norm) + activation,
-    NHWC. groups is 1 or, for a depthwise layer, in_ch == out_ch; stride 1,
-    or 2 for a dense layer; `transpose` the k3 stride-2 transpose conv;
-    `wide` sends the serving route to conv_wide; `norm` None, "batch" or
-    "group" (module docstring). `padding` None is reflect-SAME; 0 is VALID,
-    ported for TransitionBlock's strided depthwise down only (ksize ==
-    stride, groups == in_ch: a k2 stride-2 window per output pixel, odd
-    sizes floored; at k1 stride 1 it is the SAME conv)."""
+    """Reflect-SAME conv (+ bias) (+ batch, group or layer norm) +
+    activation, NHWC. groups is 1 or, for a depthwise layer, in_ch ==
+    out_ch; stride 1, or 2 for a dense layer; `transpose` the k3 stride-2
+    transpose conv; `wide` sends the serving route to conv_wide; `norm`
+    None, "batch", "group" or "layer" (module docstring). `padding` None is
+    reflect-SAME; 0 is VALID, ported for the strided depthwise conv only
+    (ksize == stride in VALID_DW_KSIZES, groups == in_ch: TransitionBlock's
+    k2 stride-2 down, the Attention pool's k4, k8 and k16; one window per
+    output pixel, odd sizes floored; at k1 stride 1 it is the SAME conv)."""
 
     def __init__(self, in_ch, out_ch, ksize=3, act="relu", groups=1,
                  use_bias=True, generator=None, stride=1, wide=False,
                  norm=None, transpose=False, padding=None):
         super().__init__()
-        if act not in ACT_CODES:
+        if act not in ACTS:
             raise ValueError(f"activation {act!r} not ported (one of "
-                             f"{sorted(a for a in ACT_CODES if a)} or None)")
+                             f"{sorted(a for a in ACTS if a)} or None)")
         if norm not in NORMS:
             raise ValueError(f"norm {norm!r} not ported (one of {NORMS})")
         dw = groups != 1 and groups == in_ch == out_ch
         if padding not in (None, 0) or (padding == 0 and not (
-                dw and ksize == stride and not wide)):
+                dw and ksize == stride in VALID_DW_KSIZES and not wide)):
             raise ValueError(f"padding={padding}: only reflect-SAME (None), "
                              f"or 0 for a depthwise layer with ksize == "
-                             f"stride, is ported")
+                             f"stride in {VALID_DW_KSIZES}, is ported")
         if ksize % 2 == 0 and padding is None:
             raise ValueError("reflect-SAME needs an odd kernel size")
         if groups != 1 and not dw:
             raise ValueError(f"groups={groups}: only dense (1) or depthwise "
                              f"(groups == in_ch == out_ch) convs are ported")
-        if stride not in (1, 2) or (stride == 2 and (
-                wide or (groups != 1 and padding is None))):
-            raise ValueError(f"stride={stride}: only stride 1, or 2 for a "
-                             f"dense layer off the wide route or a VALID "
+        if stride not in (1, 2) and padding is None or stride == 2 and (
+                wide or (groups != 1 and padding is None)):
+            raise ValueError(f"stride={stride}: only stride 1, 2 for a "
+                             f"dense layer off the wide route, or a VALID "
                              f"depthwise one, is ported")
         if transpose and (stride, ksize) != (2, 3):
             raise ValueError("transpose: only the k3 stride-2 transpose conv "
@@ -301,6 +381,8 @@ class ConvLayer(nn.Module):
             mods.append(nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.1))
         elif norm == "group":
             mods.append(nn.GroupNorm(out_ch, out_ch, eps=BN_EPS))
+        elif norm == "layer":
+            mods.append(ChannelLayerNorm(out_ch))
         self.layers = nn.ModuleList(mods)
         init_conv_(self.layers[0].weight, self.layers[0].bias, act, generator)
 
@@ -314,9 +396,10 @@ class ConvLayer(nn.Module):
 
     def folded(self, dtype=None):
         """(weight, bias) of every serving route, in `dtype` (default the
-        weight's): the conv's own (also with a group norm, which runs after
-        the conv: `_normed`) or, with a batch norm, its eval-mode fold
-        (JAX ops/layers.py:417-423): w * g and (b - mean) * g + beta with
+        weight's): the conv's own (also with a group or layer norm, which
+        runs after the conv: `_normed`) or, with a batch norm, its
+        eval-mode fold (JAX ops/layers.py:417-423): w * g and (b - mean) *
+        g + beta with
         g = scale / sqrt(var + 1e-5), computed in f32, then cast."""
         dtype = dtype or self.weight.dtype
         w, b = self.weight, self.bias
@@ -338,16 +421,22 @@ class ConvLayer(nn.Module):
 
     def _kernel_act(self):
         """The activation a kernel fuses: the layer's, or None where a group
-        norm sits between the conv and the activation (`_normed`)."""
-        return None if self.norm == "group" else self.act
+        or layer norm sits between the conv and the activation, or where
+        no kernel fuses it (hswish, silu, gelu: `_normed`)."""
+        if self.norm in ("group", "layer") or self.act not in ACT_CODES:
+            return None
+        return self.act
 
     def _normed(self, y):
         """A conv's output with its bias and `_kernel_act` -> the layer's:
-        with a group norm, the norm and the activation after it."""
-        if self.norm != "group":
-            return y
-        gn = self.layers[1]
-        return group_norm(y, gn.weight, gn.bias, self.act, gn.eps)
+        with a group or layer norm, the norm and the activation after it;
+        an activation no kernel fuses, in f32, then the cast."""
+        if self.norm == "group":
+            gn = self.layers[1]
+            return group_norm(y, gn.weight, gn.bias, self.act, gn.eps)
+        if self.norm == "layer":
+            return self.layers[1](y, self.act)
+        return y if self.act in ACT_CODES else activation(y, self.act)
 
     def _needs_grad(self, *xs):
         return torch.is_grad_enabled() and any(
@@ -477,22 +566,28 @@ class ConvLayer(nn.Module):
     def plus_identity(self, x, res, act=None):
         """act(conv(x) + res), res of out_ch channels (ResBlock's second
         conv and its residual add, no activation between; SepConvBlock's
-        pwconv2, its identity shortcut and the relu6 after the add): on the
-        serving route one conv_multi over the legs [(x, 0), (res, 0)] whose
-        weight is the layer's (folded) weight beside a centre-tap identity,
-        so the add rides the conv and `act` its epilogue (the JAX package's
-        `_hiw_resblock`, models/zoo.py:115-124); on the other routes, and
-        with a group norm (which sits between the conv and the add), the
-        conv, then the add and `act`."""
+        and MixConvBlock's pwconv2, their identity shortcut and the relu6
+        after the add; the MetaFormer FFN's pw2 and its residual): on the
+        serving route one conv_multi over the legs [*x, (res, 0)] (x one
+        tensor or a list of legs) whose weight is the layer's (folded)
+        weight beside a centre-tap identity, so the add rides the conv and
+        `act` (a kernel-fused one) its epilogue (the JAX package's
+        `_hiw_resblock`, models/zoo.py:115-124); on the other routes, with
+        a group or layer norm (which sits between the conv and the add) and
+        with an activation no kernel fuses, the conv, then the add and
+        `act`."""
         if self.act is not None or self.stride != 1 or self.groups != 1:
             raise ValueError("plus_identity: a stride-1 dense conv without "
                              "activation")
-        if (self.wide or self.norm == "group"
-                or self._training_route(x, res) or self._whole_input()):
-            return apply_act(self(x) + res, act)
+        legs = x if isinstance(x, list) else [(x, 0)]
+        if (self.wide or self.norm in ("group", "layer")
+                or act not in ACT_CODES
+                or self._training_route(res, *[t for t, _ in legs])
+                or self._whole_input()):
+            return activation(self(x) + res, act)
         w, b = self.folded()
         eye = identity_weights(self.ksize, self.out_ch).to(w)
-        return conv_multi([(x, 0), (res, 0)], torch.cat([w, eye], 1), b,
+        return conv_multi([*legs, (res, 0)], torch.cat([w, eye], 1), b,
                           act)
 
     def packed(self, x, fuse_n=0):
@@ -556,8 +651,9 @@ class ConvLayer(nn.Module):
         else:
             f, qw, sw, wts = qc.cached((id(self), "conv_int8"),
                                        lambda: prepare(amax))
-        return conv_int8(x, qw, sw, f, self.bias, self.act, fuse_n,
-                         weights=wts)
+        return self._normed(conv_int8(x, qw, sw, f, self.bias,
+                                      self._kernel_act(), fuse_n,
+                                      weights=wts))
 
     def chain_int8(self, x, amax, fuse_n=0, out_to=None, out_amax=None):
         """DeepFuse's int8 chain leg (JAX ops/pallas/hiw_int8.py:260-365):
@@ -603,8 +699,9 @@ class ConvLayer(nn.Module):
     def _strided(self, x):
         """The stride-2 conv: reflect pad k // 2 (`reflect_pad_nhwc`),
         F.conv2d in x's dtype on the channels-last view; the VALID
-        depthwise one (padding 0: TransitionBlock's down, the JAX package's
-        XLA grouped conv) F.conv2d(groups=C) on the view, unpadded; or
+        depthwise one (padding 0, stride 2 to 16: TransitionBlock's down,
+        the Attention's pool; the JAX package's XLA grouped conv)
+        F.conv2d(groups=C) on the view, unpadded; or
         the transpose conv: F.conv_transpose2d (zero padding 1, output
         padding 1); then bias, the group norm if any and the activation,
         in batch chunks whose padded input and output stay under 2^31

@@ -4,8 +4,9 @@ the inverse of multi_modal_image_fusion_tpu utils/torch_convert.py
 :88-89, `_conv_block` :92-95, `_rfn` :98-106, `_res2_block` :109-119,
 `_nest_decoder` :223-225, the DeepFuse, DenseFuse, VIFNet, DBNet, IFCNN,
 DIFNet, PFNetv1, PFNetv2, PMGI, Res2Fusion, NestFuse, RFNNest, MAFusion,
-UNFusion and SEDRFuse mappings :365-393 and :395-478, and MyFusion's
-:280-342 `convert_myfusion`, a function of its configuration).
+UNFusion and SEDRFuse mappings :365-393 and :395-478, MyFusion's
+:280-342 `convert_myfusion`, a function of its configuration, and the
+blocks of `convert_block` :200-241, `jax_block_to_state_dict`).
 
 Input is the JAX variables as a nested dict of numpy arrays, to any depth,
 `{"params": {"enc0": {"kernel": HWIO, "bias": ...}, ...}, "batch_stats":
@@ -18,8 +19,12 @@ weights (IOHW for a transpose conv: SEDRFuse's dec0 and dec1, the inverse
 of `_deconv_w` :31); a norm's scale and bias become `layers.1.weight` and
 `bias`, a batch norm's statistics `running_mean` and `running_var`, and
 its `num_batches_tracked` is 0 (SEDRFuse's group norms have no
-statistics). Conversion fails loudly if a JAX leaf, of the params or of
-the batch statistics, is left unused.
+statistics); a ConvLayer's channel layer norm's scale becomes
+`layers.1.weight` of shape (C, 1, 1). The MetaFormer blocks' standalone
+norms (`norm1`, `norm2`: a batch norm's scale, bias and statistics, a
+layer norm's scale as (C, 1, 1)) and scales (`layer_scale1.scale`, ...)
+carry under their own names. Conversion fails loudly if a JAX leaf, of
+the params or of the batch statistics, is left unused.
 
 `jax_train_state_to_torch` carries a whole JAX TrainState (train/trainer.py:
 29: step, params, batch_stats, and the optax chain's state with Adam's
@@ -30,7 +35,8 @@ optimizer state (`Trainer.load_state_dict`).
 import numpy as np
 import torch
 
-__all__ = ["flax_paths", "jax_to_state_dict", "jax_train_state_to_torch"]
+__all__ = ["flax_paths", "jax_block_to_state_dict", "jax_to_state_dict",
+           "jax_train_state_to_torch"]
 
 
 def _res2_block(name, scale):
@@ -110,16 +116,63 @@ _OPTIONAL = {"unfusion": _DOWNS | {f"encode/{d}" for d in _DOWNS},
              "nestfuse": _DOWNS, "rfnnest": _DOWNS, "mafusion": _DOWNS}
 
 
+def _j(a, b, sep):
+    """Join a parent path (empty for a block alone) and a child name."""
+    return f"{a}{sep}{b}" if a else b
+
+
+def _block(kind, flax, port):
+    """The layout of one encoder block under flax path `flax` and port
+    prefix `port` (both empty for a block alone): (layout, optional
+    paths). A layout value is a ConvLayer's prefix, or (kind, prefix) for
+    a standalone leaf set: a MetaFormer's norms ('batch', 'layer') and
+    scales ('scale'). A Sep, Mix or Res2 block is MyFusion's: in_ch ==
+    out_ch (no k1 shortcut), no attention gate. Optional: the avgpool
+    Attention's pool, and a MetaFormer's scales (present only when
+    set)."""
+    def f(name):
+        return _j(flax, name, "/")
+
+    def t(name):
+        return _j(port, name, ".")
+    if kind in ("sep", "mix", "res2"):
+        m = {f(c): t(c) for c in ("pwconv1", "dwconv", "pwconv2")}
+        if kind != "sep":
+            m |= {f(f"dwconv{i}"): t(f"dwconvs.{i}") for i in range(4)}
+        return m, set()
+    if kind == "attention":
+        m = {f(c): t(c) for c in ("q", "k", "v", "proj", "pool")}
+        return m, {f("pool")}
+    if kind == "ffn":
+        return {f(c): t(f"layers.{i}")
+                for i, c in enumerate(("pw1", "dw", "pw2"))}, set()
+    mixer = {"conv_former": "sep", "mix_former": "mix",
+             "res2_former": "res2", "transformer": "attention",
+             "metaformer": None}[kind]
+    norm = "layer" if kind == "metaformer" else "batch"
+    m, optional = _block("ffn", f("ffn"), t("ffn"))
+    if mixer is not None:
+        mm, mo = _block(mixer, f("token_mixer"), t("token_mixer"))
+        m |= mm
+        optional |= mo
+    for n in ("norm1", "norm2"):
+        m[f(n)] = (norm, t(n))
+    for n in ("layer_scale1", "res_scale1", "layer_scale2", "res_scale2"):
+        m[f(n)] = ("scale", t(n))
+        optional.add(f(n))
+    return m, optional
+
+
 def _myfusion(encoder="sep", decoder="nest", fusion_method="attn",
               share_weight_levels=4, norm=None):
     """MyFusion's layout for a configuration (the inverse of JAX
     utils/torch_convert.py:280 convert_myfusion): conv_in_1 (and conv_in_2
     below share_weight_levels 4), each level's TransitionBlock (dw, pw ->
-    layers.0, layers.1) and encoder block per branch that has its own, the
-    fusion's convs (fuse1-4, or RFN1-4), the decoder's DCBlocks (pw1, dw,
-    pw2 -> layers.0-2), conv_out. Optional: the maxpool mode's missing dw
-    at levels 2-4, a Res2 block's absent shortcut. Returns (layout,
-    optional paths, group-normed)."""
+    layers.0, layers.1) and encoder block (`_block`) per branch that has
+    its own, the fusion's convs (fuse1-4, or RFN1-4), the decoder's
+    DCBlocks (pw1, dw, pw2 -> layers.0-2), conv_out. Optional: the maxpool
+    mode's missing dw at levels 2-4, and each block's. Returns (layout,
+    optional paths, the ConvLayers' norm kind)."""
     enc = [encoder] * 4 if isinstance(encoder, str) else list(encoder)
     split = 4 - share_weight_levels
     m = {"conv_in_1": "conv_in_1", "conv_out": "conv_out"}
@@ -132,12 +185,9 @@ def _myfusion(encoder="sep", decoder="nest", fusion_method="attn",
             m |= {f"{d}/dw": f"{d}.layers.0", f"{d}/pw": f"{d}.layers.1"}
             if lv > 1:
                 optional.add(f"{d}/dw")
-            if enc[lv - 1] == "res2":
-                m |= _res2_block(eb, 4)
-                optional.add(f"{eb}/shortcut")
-            else:
-                m |= {f"{eb}/{c}": f"{eb}.{c}"
-                      for c in ("pwconv1", "dwconv", "pwconv2")}
+            bm, bo = _block(enc[lv - 1], eb, eb)
+            m |= bm
+            optional |= bo
     for i in range(1, 5):
         if fusion_method == "concat":
             m[f"fuse{i}"] = f"fuse{i}"
@@ -146,7 +196,9 @@ def _myfusion(encoder="sep", decoder="nest", fusion_method="attn",
     for n in _NEST_DECODER if decoder == "nest" else ("DB1", "DB2", "DB3"):
         m |= {f"decode/{n}/{conv}": f"decode.{n}.layers.{i}"
               for i, conv in enumerate(("pw1", "dw", "pw2"))}
-    return m, optional, norm == "group"
+    return m, optional, norm
+
+
 _LAYOUTS = {
     "deepfuse": {"enc0": "encode.0", "enc1": "encode.1", "dec0": "decode.0",
                  "dec1": "decode.1", "dec2": "decode.2"},
@@ -186,15 +238,16 @@ _LAYOUTS = {
 }
 
 
-# the models whose norms are group norms (params only), and their transpose
-# convs (flax HWIO (3, 3, I, O) -> torch IOHW)
+# the models whose ConvLayers' norms are group norms (params only), and
+# their transpose convs (flax HWIO (3, 3, I, O) -> torch IOHW)
 _GROUP_NORMED = {"sedrfuse"}
 _TRANSPOSED = {"sedrfuse": {"dec0", "dec1"}}
 
 
 def _layout(model_name, cfg):
-    """(flax path -> state-dict prefix, optional flax paths, whether the
-    norms are group norms) of a model; `cfg` is MyFusion's configuration
+    """(flax path -> state-dict prefix, optional flax paths, the kind of
+    the ConvLayers' norms: 'group' or 'layer' (params only), else batch
+    norms) of a model; `cfg` is MyFusion's configuration
     (`MyFusion.layout_cfg`), and no other model takes one."""
     name = model_name.lower()
     if name == "myfusion":
@@ -204,7 +257,8 @@ def _layout(model_name, cfg):
     if cfg:
         raise ValueError(f"a model configuration applies to 'myfusion' "
                          f"only, not {model_name!r}")
-    return _LAYOUTS[name], _OPTIONAL.get(name, set()), name in _GROUP_NORMED
+    return (_LAYOUTS[name], _OPTIONAL.get(name, set()),
+            "group" if name in _GROUP_NORMED else None)
 
 
 def flax_paths(model_name, **cfg):
@@ -212,7 +266,8 @@ def flax_paths(model_name, **cfg):
     the inverse of its layout: the keys int8 calibration records under
     (ops/quant.py), as the JAX package's `calibrate` does."""
     return {prefix: path
-            for path, prefix in _layout(model_name, cfg)[0].items()}
+            for path, prefix in _layout(model_name, cfg)[0].items()
+            if isinstance(prefix, str)}
 
 
 def _oihw(kernel_hwio):
@@ -227,7 +282,23 @@ def jax_to_state_dict(variables, model_name="deepfuse", **cfg):
     """JAX variables (nested numpy dict) -> port state dict (torch); `cfg`
     MyFusion's configuration (`MyFusion.layout_cfg`)."""
     name = model_name.lower()
-    layout, optional, group_normed = _layout(name, cfg)
+    layout, optional, norm_kind = _layout(name, cfg)
+    return _convert(variables, layout, optional, norm_kind,
+                    _TRANSPOSED.get(name, ()))
+
+
+def jax_block_to_state_dict(variables, kind):
+    """The JAX variables of one encoder block alone -> the port block's
+    state dict: kind 'sep', 'mix', 'res2' (SepConvBlock, MixConvBlock,
+    Res2ConvBlock, in_ch == out_ch and no attention gate),
+    'attention', 'ffn', 'metaformer' (MetaFormerBlock with its default
+    layer norms) or a Former ('conv_former', 'mix_former', 'res2_former',
+    'transformer')."""
+    layout, optional = _block(kind, "", "")
+    return _convert(variables, layout, optional, None, ())
+
+
+def _convert(variables, layout, optional, norm_kind, transposed):
     params = _copy_tree(variables["params"])
     stats = _copy_tree(variables.get("batch_stats", {}))
     sd = {}
@@ -235,19 +306,24 @@ def jax_to_state_dict(variables, model_name="deepfuse", **cfg):
         *outer, flax_name = flax_path.split("/")
         parent = params
         for key in outer:
-            parent = parent[key]
+            parent = parent.get(key, {})
         if flax_name not in parent and flax_path in optional:
             continue
         leaf = parent.pop(flax_name)
-        to_torch = (_iohw if flax_path in _TRANSPOSED.get(name, ())
-                    else _oihw)
+        if isinstance(prefix, tuple):
+            sd.update(_standalone(leaf, stats, flax_path, *prefix))
+            continue
+        to_torch = _iohw if flax_path in transposed else _oihw
         sd[f"{prefix}.layers.0.weight"] = torch.from_numpy(
             to_torch(np.asarray(leaf.pop("kernel"), np.float32)))
         if "bias" in leaf:
             sd[f"{prefix}.layers.0.bias"] = torch.from_numpy(
                 np.array(leaf.pop("bias"), np.float32))
-        if "norm" in leaf and group_normed:
+        if "norm" in leaf and norm_kind == "group":
             sd.update(_group_norm(leaf.pop("norm"), flax_path,
+                                  f"{prefix}.layers.1"))
+        elif "norm" in leaf and norm_kind == "layer":
+            sd.update(_layer_norm(leaf.pop("norm"), flax_path,
                                   f"{prefix}.layers.1"))
         elif "norm" in leaf:
             sd.update(_batch_norm(leaf.pop("norm"), stats, flax_path,
@@ -264,14 +340,31 @@ def jax_to_state_dict(variables, model_name="deepfuse", **cfg):
     return sd
 
 
-def _batch_norm(norm, stats, flax_path, prefix):
-    """A batch norm's params (scale, bias) and its statistics under the
-    same flax path in `stats` (mean, var; popped) -> the BatchNorm2d state
-    dict entries under `prefix`."""
+def _standalone(leaf, stats, flax_path, kind, prefix):
+    """A MetaFormer's standalone leaf set: a batch norm (its statistics
+    directly under its flax path in `stats`), a layer norm or a scale."""
+    if kind == "batch":
+        return _batch_norm(leaf, stats, flax_path, prefix, stats_name=None)
+    if kind == "layer":
+        return _layer_norm(leaf, flax_path, prefix)
+    out = {f"{prefix}.scale": torch.from_numpy(np.array(leaf.pop("scale"),
+                                                        np.float32))}
+    if leaf:
+        raise ValueError(f"unconverted leaves under {flax_path}: "
+                         f"{sorted(leaf)}")
+    return out
+
+
+def _batch_norm(norm, stats, flax_path, prefix, stats_name="norm"):
+    """A batch norm's params (scale, bias) and its statistics in `stats`
+    (mean, var; popped) under the same flax path, then `stats_name` (a
+    ConvLayer's 'norm'; None for a standalone norm, whose statistics sit at
+    its own path) -> the BatchNorm2d state dict entries under `prefix`."""
+    *outer, last = flax_path.split("/")
     parent = stats
-    for key in flax_path.split("/"):
+    for key in outer if stats_name is None else [*outer, last]:
         parent = parent.get(key, {})
-    st = parent.pop("norm", None) if parent else None
+    st = parent.pop(stats_name or last, None) if parent else None
     if st is None:
         raise ValueError(f"no batch_stats for the norm of {flax_path}")
     out = {f"{prefix}.{dst}": torch.from_numpy(np.array(tree.pop(src),
@@ -285,6 +378,16 @@ def _batch_norm(norm, stats, flax_path, prefix):
                          f"{sorted(norm) + sorted(st)}")
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def _layer_norm(norm, flax_path, prefix):
+    """A channel layer norm's scale -> its `weight` (C, 1, 1) under
+    `prefix` (the reference's shape)."""
+    w = np.array(norm.pop("scale"), np.float32)
+    if norm:
+        raise ValueError(f"unconverted norm leaves under {flax_path}: "
+                         f"{sorted(norm)}")
+    return {f"{prefix}.weight": torch.from_numpy(w.reshape(-1, 1, 1))}
 
 
 def _group_norm(norm, flax_path, prefix):

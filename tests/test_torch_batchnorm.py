@@ -204,7 +204,7 @@ def test_int8_route_raises():
             model(_x((1, 16, 16, 1), 17) + 0.5)
 
 
-@pytest.mark.parametrize("norm", ["none", "layer", "instance"])
+@pytest.mark.parametrize("norm", ["none", "spectral", "instance"])
 def test_other_norms_raise(norm):
     with pytest.raises(ValueError, match="batch"):
         ConvLayer(8, 16, norm=norm)

@@ -156,7 +156,14 @@ def test_weight_carry_rejects_leftovers():
 
 
 def test_create_model_unported_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("myfusion", encoder="transformer")
+    """What the port has not ported raises, naming ROADMAP.md: every
+    MyFusion configuration builds, and the training route of a
+    MetaFormer's standalone batch norm (queue 1 item 5) raises."""
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    model = create_model("myfusion", encoder="transformer")
+    x = torch.rand(1, 32, 32, 1)
+    with torch.no_grad(), fast_training(False), pytest.raises(
+            NotImplementedError, match="ROADMAP.md"):
+        model(x, x)
     with pytest.raises(ValueError):
         create_model("deepfuse", fusion_mode="l1")

@@ -137,7 +137,7 @@ def test_conv_layer_vs_jax(act, k, c_in, c_out):
 
 def test_conv_layer_rejects_unported():
     with pytest.raises(ValueError):
-        ConvLayer(4, 8, act="gelu")
+        ConvLayer(4, 8, act="elu")
     with pytest.raises(ValueError):
         ConvLayer(4, 8, ksize=4)
 

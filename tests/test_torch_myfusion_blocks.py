@@ -13,9 +13,11 @@ the JAX package (harness: tests/test_torch_myfusion.py):
 - the serving routes at the default widths, counted on the CPU as the
   card's launches (chip_smoke.py FORWARD_LAUNCHES), and the layers that
   take conv_wide;
-- the configurations still to port raise NotImplementedError naming
-  ROADMAP.md queue 1 item 4b; ConvLayer refuses a VALID or even-kernel
-  layer outside TransitionBlock's case.
+- the MetaFormer, MixConv and transformer encoders, norm 'layer' and the
+  unfused activations build, run a CPU forward and have the JAX model's
+  parameter count; ConvLayer refuses a VALID or even-kernel layer outside
+  the strided depthwise case (ksize == stride in 1, 2, 4, 8, 16) and
+  admits that case.
 """
 
 import collections
@@ -28,6 +30,7 @@ import pytest
 import torch
 
 import test_torch_myfusion as mf
+from multi_modal_image_fusion_tpu.models import create_model as jcreate
 from multi_modal_image_fusion_tpu.ops import blocks as jblocks
 from multi_modal_image_fusion_tpu.utils.torch_convert import \
     convert_state_dict
@@ -54,7 +57,35 @@ LAUNCHES = {
     # the plain decoder's 3 DCBlocks on one tensor each
     "res2_plain_rfn": {"conv_gray_enter": 2, "conv_chain": 38,
                        "conv_dw": 37, "conv_multi": 16, "conv_gray_exit": 1},
+    # conv_in over both images; a level: the TransitionBlock's pw (and
+    # level 1's k1 dw), the Attention's q, k, v and proj, the FFN's pw1
+    # (conv_chain), dw (conv_dw) and pw2 with the block's residual as an
+    # identity leg (conv_multi); the fs decoder's DB3-DB1: pw1 over four
+    # legs to a hidden 120 (conv_wide), dw, pw2; the pools on cuDNN, the
+    # attention on SDPA
+    "transformer_fs_elem": {"conv_gray_enter": 1, "conv_chain": 27,
+                            "conv_dw": 8, "conv_multi": 4, "conv_wide": 3,
+                            "conv_gray_exit": 1},
+    # levels 1-2 per branch, 3-4 shared: 6 level instances, each the
+    # TransitionBlock's pw, MixConvBlock's pwconv1 (conv_chain), its k1, k3,
+    # k5, k7 windows (conv_dw), pwconv2 over them with the identity leg
+    # (conv_multi), the FFN's pw1, dw and pw2 + the residual; level 1's k1
+    # dw twice; fuse1-4 over the two features (conv_multi); the ls
+    # decoder's DB3, DB2 (pw1 over legs, conv_multi) and DB1 (hidden 24,
+    # conv_wide), each dw and pw2
+    "mixformer_ls_concat": {"conv_gray_enter": 2, "conv_chain": 21,
+                            "conv_dw": 35, "conv_multi": 18, "conv_wide": 1,
+                            "conv_gray_exit": 1},
 }
+CONFIGS = {**mf.CASES, "transformer_fs_elem": dict(
+    encoder="transformer", decoder="fs", fusion_method="elem",
+    fusion_mode="sum"), "mixformer_ls_concat": dict(
+    encoder="mix_former", decoder="ls", fusion_method="concat",
+    up_mode="nearest", share_weight_levels=2)}
+WIDE = {"default": ["decode.DB1_1.layers.0", "decode.DB1_3.layers.0"],
+        "res2_plain_rfn": [],
+        "transformer_fs_elem": [f"decode.DB{i}.layers.0" for i in (1, 2, 3)],
+        "mixformer_ls_concat": ["decode.DB1.layers.0"]}
 
 
 def _seeded_block(jblock, *inputs, seed=3):
@@ -196,13 +227,12 @@ def test_serving_routes(monkeypatch, case):
     forward launches on the card); conv_wide for the DCBlocks' pw1 of a
     hidden width 8 mod 16; the stride-2 downs VALID depthwise layers
     (F.conv2d on every route), the level-1 down a k1 conv_dw."""
-    model = create_model(NAME, **mf.CASES[case]).eval()
+    model = create_model(NAME, **CONFIGS[case]).eval()
     x1, x2 = torch.rand(1, 33, 41, 1), torch.rand(1, 33, 41, 1)
     assert kernel_calls(monkeypatch, model, x1, x2) == LAUNCHES[case]
     wide = sorted(n for n, m in model.named_modules()
                   if getattr(m, "wide", False))
-    assert wide == ([] if case != "default" else
-                    ["decode.DB1_1.layers.0", "decode.DB1_3.layers.0"])
+    assert wide == WIDE[case]
     if case == "default":
         strided = sorted(n for n, m in model.named_modules()
                          if isinstance(m, ConvLayer) and m.stride == 2)
@@ -220,8 +250,22 @@ def test_serving_routes(monkeypatch, case):
                          ids=["transformer", "mix_former", "layer", "gelu",
                               "hswish"])
 def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
-        create_model(NAME, **kw)
+    """The configurations that once raised NotImplementedError build, run
+    a CPU forward (finite, of the input's shape; with norm 'layer' the
+    fused image is 0, as in the JAX package) and have the JAX model's
+    parameter count."""
+    model = create_model(NAME, **kw).eval()
+    x1, x2 = torch.rand(1, 32, 40, 1), torch.rand(1, 32, 40, 1)
+    with torch.no_grad():
+        y = model(x1, x2)
+    assert y.shape == x1.shape and torch.isfinite(y).all()
+    jm = jcreate(NAME, **kw)
+    x = jax.ShapeDtypeStruct((1, 32, 32, 1), jnp.float32)
+    shapes = jax.eval_shape(functools.partial(jm.init, train=False),
+                            jax.random.PRNGKey(0), x, x)
+    want = sum(int(np.prod(a.shape))
+               for a in jax.tree.leaves(shapes["params"]))
+    assert sum(p.numel() for p in model.parameters()) == want
 
 
 @pytest.mark.parametrize("kw", [dict(ksize=2),
@@ -232,7 +276,25 @@ def test_unported_configs_raise(kw):
                          ids=["even-same", "valid-dense", "dw-stride-same",
                               "valid-stride3"])
 def test_conv_layer_refuses(kw):
-    """Only TransitionBlock's VALID depthwise layer (ksize == stride, 1 or
-    2) takes padding 0 or an even kernel."""
+    """Only the VALID depthwise layer (ksize == stride in 1, 2, 4, 8, 16:
+    TransitionBlock's down, the Attention's pool) takes padding 0 or an
+    even kernel; a VALID k3 stride-3 layer is still refused."""
     with pytest.raises(ValueError):
         ConvLayer(16, 16, **kw)
+
+
+@pytest.mark.parametrize("k", [4, 8, 16])
+def test_conv_layer_valid_pools(k):
+    """The Attention's pool, a VALID depthwise conv of kernel and stride k,
+    is admitted: one window per output pixel, odd sizes floored, against
+    F.conv2d(groups=C, stride=k)."""
+    layer = ConvLayer(16, 16, k, act=None, groups=16, stride=k, padding=0,
+                      use_bias=False).eval()
+    x = torch.rand(2, 3 * k + 1, 2 * k + 3, 16)
+    with torch.no_grad():
+        y = layer(x)
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), layer.weight,
+                                      stride=k, groups=16)
+    assert y.shape == (2, 3, 2, 16)
+    torch.testing.assert_close(y, want.permute(0, 2, 3, 1), atol=1e-6,
+                               rtol=0)

@@ -15,12 +15,19 @@ GPU machine with (the JAX-importing conftest is skipped):
   channels reversed, the relu6 left out;
 - conv_dw at MyFusion's widths: 8 (k1, relu6: level 1's down), 24, 40 and
   120 (k3, relu6: the DCBlocks' hidden widths), 64 and 512 (k3, none: the
-  SepConvBlocks'), controls: a zero halo (k3), the channels reversed (k1);
+  SepConvBlocks'), 16 and 128 at k5 and k7 (MixConvBlock's windows),
+  controls: a zero halo (k3, k5, k7), the channels reversed (k1);
 - conv_wide's k1 over two legs 16 + 32 -> 24 (DB1_1's pw1), control: the
   two legs' weights swapped in their place;
 - the default MyFusion forward and res2_plain_rfn's (f32, 2 pairs at
   64x80 and at an odd 45x57) through the kernels against the plain path
-  (F.conv2d for every conv, TF32 off), every kernel of the route launched.
+  (F.conv2d for every conv, TF32 off), every kernel of the route launched;
+- the transformer_fs_elem and mixformer_ls_concat forwards (f32, the same
+  shapes) on the card against the same model on CPU tensors (every plain
+  version, the plain attention), every kernel of the route launched;
+- the attention's SDPA route refuses a float64 input, which neither the
+  flash nor the memory-efficient backend takes, instead of running the
+  math backend.
 
 Tolerances as tests/test_torch_gray_card.py: relative to the plain
 output's largest magnitude, f32 1e-4 of max(|y|, 1), bf16 1e-3 beyond one
@@ -48,6 +55,13 @@ from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
 
 RES2_PLAIN_RFN = dict(encoder="res2", decoder="plain", fusion_method="rfn",
                       down_mode="maxpool", share_weight_levels=0)
+FORMERS = {"transformer_fs_elem": dict(encoder="transformer", decoder="fs",
+                                       fusion_method="elem",
+                                       fusion_mode="sum"),
+           "mixformer_ls_concat": dict(encoder="mix_former", decoder="ls",
+                                       fusion_method="concat",
+                                       up_mode="nearest",
+                                       share_weight_levels=2)}
 
 
 @pytest.fixture
@@ -117,9 +131,11 @@ def test_conv_gray_exit_k1_relu6(cuda, dt, shape):
 
 
 # (channels, k, act): level 1's down, the DCBlocks' hidden widths (nest and
-# fs decoders), the SepConvBlocks' expansions
+# fs decoders), the SepConvBlocks' expansions, MixConvBlock's k5 and k7
+# windows at levels 1 and 4 (taps in shared memory)
 DW_CASES = [(8, 1, "relu6"), (24, 3, "relu6"), (40, 3, "relu6"),
-            (120, 3, "relu6"), (64, 3, None), (512, 3, None)]
+            (120, 3, "relu6"), (64, 3, None), (512, 3, None),
+            (16, 5, None), (16, 7, None), (128, 5, None), (128, 7, None)]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -149,8 +165,8 @@ def _zero_halo_dw(x, wt, bias, act):
     from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import \
         apply_act
     y = torch.nn.functional.conv2d(
-        x.float().permute(0, 3, 1, 2), wt.float(), bias, padding=1,
-        groups=wt.shape[0])
+        x.float().permute(0, 3, 1, 2), wt.float(), bias,
+        padding=wt.shape[-1] // 2, groups=wt.shape[0])
     return apply_act(y, act).permute(0, 2, 3, 1).to(x.dtype)
 
 
@@ -194,3 +210,34 @@ def test_myfusion_forward(cuda, cfg, hw):
     assert set(counts) == kernels and all(counts.values())
     assert float(want.std()) > 0
     assert _rel(got, want, torch.float32) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("hw", [(64, 80), (45, 57)], ids=["64x80", "45x57"])
+@pytest.mark.parametrize("case", sorted(FORMERS))
+def test_myfusion_former_forward(cuda, case, hw):
+    """The f32 forward through the kernels (and SDPA) against the same
+    weights on CPU tensors: every plain version and the plain attention
+    (the Formers' batch norms have no F.conv2d training route)."""
+    model = create_model("myfusion", generator=torch.Generator().manual_seed(
+        0), **FORMERS[case]).eval()
+    g = torch.Generator().manual_seed(1)
+    x1, x2 = (torch.rand((2, *hw, 1), generator=g) for _ in range(2))
+    with torch.no_grad():
+        want = model(x1, x2)
+        model = model.to(cuda)
+        build.LAUNCHES.clear()
+        got = model(x1.to(cuda), x2.to(cuda)).cpu()
+        counts = collections.Counter(build.LAUNCHES)
+    kernels = {"conv_gray_enter", "conv_chain", "conv_multi", "conv_dw",
+               "conv_wide", "conv_gray_exit"}
+    assert set(counts) == kernels and all(counts.values())
+    assert float(want.std()) > 0
+    assert _rel(got, want, torch.float32) <= TOL[torch.float32]
+
+
+def test_sdpa_refuses_math_backend(cuda):
+    """No math-backend fallback: a float64 attention raises."""
+    from multi_modal_image_fusion_tpu_torch.ops.blocks import attention
+    x = torch.rand((1, 64, 16), device=cuda, dtype=torch.float64)
+    with pytest.raises(RuntimeError):
+        attention(x, x, x, 1)
