@@ -14,6 +14,7 @@ call, and one `eval_metrics` chunk.
         [--tag parent] [--benches deepfuse,deepfuse_pair,densefuse,...]
         [--int8] [--profile densefuse] [--valid] [--metrics]
         [--dw [--against <checkout>]] [--myfusion]
+        [--dw_split deepfuse,densefuse,... [--dw_split_bs 4]]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
@@ -62,7 +63,12 @@ the host-clock time of each of the process's first MYF_FIRST forwards
 (synchronised, as the test CLI times a pair) and the median of
 MYF_STEADY more; run it in a fresh process per turn, after one process
 of each checkout has built its kernels, so the first forward is the one
-a user's test CLI pays; no bench by default.
+a user's test CLI pays; no bench by default. With `--dw_split`, instead of
+the conv layers, the f32 train step's dw and dx losses against float64,
+split between the 3xTF32 products and the kernels' sums (`dw_split`); no
+bench by default. A bench named `myfusion_<configuration>` is MyFusion in
+chip_smoke.py's MYF_FORMERS configuration of that name, weights from
+torch.manual_seed(0), at the bench's 16 pairs.
 Random centred inputs from a
 seed; each time the mean of 5 cold-L2 runs (CUDA events, a 256 MB write
 between runs) after a warmup. Benches: `bench.run` (10 timed forwards
@@ -506,6 +512,173 @@ def dw_times(torch, timed, gen, dev, other):
     return out
 
 
+def _tf32_rna(torch, x):
+    """cvt.rna.tf32 of an f32 tensor: the nearest TF32 value (10-bit
+    mantissa), ties away from zero, as an f32 tensor."""
+    bits = x.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def _step_split(torch, chip_smoke, model, x1, x2):
+    """The step's worst gradient error over the largest float64 gradient
+    (chip_smoke.py's `_step_grads`, each route on a copy of `model`): the
+    f32 F.conv2d route, the kernels route, and the kernels route with its
+    forward, dx or dw (or all three) computed in float64 and rounded to
+    f32: which of the three carries the kernels' loss."""
+    import copy
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_valid as cv
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_vjp
+    g64 = chip_smoke._step_grads(torch, copy.deepcopy(model).double(),
+                                 x1.double(), x2.double(), False, True)[1]
+    largest = max(float(g.abs().max()) for g in g64)
+
+    def worst(fast, **subs):
+        kept = {n: getattr(conv_vjp, n) for n in subs}
+        for n, f in subs.items():
+            setattr(conv_vjp, n, f)
+        try:
+            g = chip_smoke._step_grads(torch, copy.deepcopy(model), x1, x2,
+                                       fast, not fast)[1]
+        finally:
+            for n, f in kept.items():
+                setattr(conv_vjp, n, f)
+        return max(float((a - c).abs().max()) for a, c in zip(g, g64)) \
+            / largest
+
+    def fw(xp, wt, **_):
+        return cv.conv_valid_plain(xp.double(), wt.double()).to(xp.dtype)
+
+    def dx(dy, wt):
+        return cv.conv_valid_dx_plain(dy.double(), wt.double()).to(dy.dtype)
+
+    def dw(xp, dy):
+        return cv.conv_valid_dw_plain(xp.double(), dy.double()).float()
+    return {"largest": largest, "conv2d_f32": worst(False),
+            "kernels": worst(True), "float64_forward": worst(
+                True, conv_valid=fw), "float64_dx": worst(
+                True, conv_valid_dx=dx), "float64_dw": worst(
+                True, conv_valid_dw=dw), "float64_all": worst(
+                True, conv_valid=fw, conv_valid_dx=dx, conv_valid_dw=dw)}
+
+
+def dw_split(torch, dev, models, bs):
+    """`--dw_split`: where the f32 gradients of a train step lose against
+    float64, by conv_valid launch. One kernels-route step (train mode,
+    `fast_training(True)`) of each model (the `--root` checkout's
+    chip_smoke.py weights at the first seed from 5 whose fused image's std
+    passes 1e-3, with its MetaFormer scales where it has them; `bs` uniform
+    pairs of 64x64 from numpy seed 0) records every conv_valid forward,
+    conv_valid_dw and conv_valid_dx input. On those same inputs, each dw's
+    largest error over the largest float64 dw (conv_valid_dw_plain in
+    float64) of: the kernel, cuDNN's f32 conv2d_weight, the plain per-tap
+    matmuls in f32 and the 3xTF32 products summed exactly (hi = rna(x), lo
+    = rna(x - hi), lo*hi + hi*lo + hi*hi in float64: the split's own loss,
+    no reduction order); each dx's, the kernel's and cuDNN's
+    conv_transpose2d; each forward's, the kernel's and cuDNN's F.conv2d.
+    Where the checkout's chip_smoke.py has `_step_grads`, also
+    `_step_split`: the whole step's loss by route. TF32 off."""
+    import copy
+
+    import chip_smoke
+    import numpy as np
+    import torch.nn.functional as F
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_valid as cv
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_vjp
+    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
+    from multi_modal_image_fusion_tpu_torch.train.trainer import \
+        make_loss_bundle
+    r = np.random.RandomState(0)
+    x1, x2 = (torch.from_numpy(r.rand(bs, 64, 64, 1).astype(np.float32))
+              .to(dev) for _ in range(2))
+    checks = {k: (n, c) for k, n, c in getattr(chip_smoke, "TRAIN_CHECKS",
+                                               ())}
+    weights = getattr(chip_smoke, "train_weights", lambda t, m, k: m)
+    out = {}
+    for key in models:
+        name, cfg = checks.get(key, (key, {}))
+        for seed in range(5, 29):       # the first live draw from 5
+            model = weights(torch, chip_smoke.seeded_model(
+                torch, name, seed, **cfg), key).to(dev).train()
+            with torch.no_grad():
+                if float(model(x1, x2).std()) > 1e-3:
+                    break
+        fws, dws, dxs = [], [], []
+        real_fw = conv_vjp.conv_valid
+        real_dw, real_dx = conv_vjp.conv_valid_dw, conv_vjp.conv_valid_dx
+
+        def rec_fw(xp, wt, **kw):
+            fws.append((xp.detach().clone(), wt.detach().clone()))
+            return real_fw(xp, wt, **kw)
+
+        def rec_dw(xp, dy):
+            dws.append((xp.clone(), dy.clone()))
+            return real_dw(xp, dy)
+
+        def rec_dx(dy, wt):
+            dxs.append((dy.clone(), wt.clone()))
+            return real_dx(dy, wt)
+        conv_vjp.conv_valid = rec_fw
+        conv_vjp.conv_valid_dw, conv_vjp.conv_valid_dx = rec_dw, rec_dx
+        try:
+            with fast_training(True):
+                m = copy.deepcopy(model)
+                total, _ = make_loss_bundle()(x1, x2, m(x1, x2))
+                torch.autograd.grad(total, list(m.parameters()),
+                                    allow_unused=True)
+        finally:
+            conv_vjp.conv_valid = real_fw
+            conv_vjp.conv_valid_dw, conv_vjp.conv_valid_dx = real_dw, real_dx
+
+        def err(a, ref, scale):
+            return float((a.double() - ref).abs().max()) / scale
+        layers = []
+        for xp, dy in dws:
+            ref = cv.conv_valid_dw_plain(xp.double(), dy.double())
+            scale = float(ref.abs().max()) or 1.0
+            xh, dh = _tf32_rna(torch, xp), _tf32_rna(torch, dy)
+            xl, dl = _tf32_rna(torch, xp - xh), _tf32_rna(torch, dy - dh)
+            emu = sum(cv.conv_valid_dw_plain(a.double(), b.double())
+                      for a, b in ((xl, dh), (xh, dl), (xh, dh)))
+            k = xp.shape[1] - dy.shape[1] + 1
+            cudnn = torch.nn.grad.conv2d_weight(
+                xp.permute(0, 3, 1, 2), (dy.shape[-1], xp.shape[-1], k, k),
+                dy.permute(0, 3, 1, 2))
+            rec = {"shape": f"{tuple(xp.shape)}->{dy.shape[-1]} k{k}",
+                   "largest": scale,
+                   "kernel": err(cv.conv_valid_dw(xp, dy), ref, scale),
+                   "cudnn": err(cudnn, ref, scale),
+                   "per_tap_f32": err(cv.conv_valid_dw_plain(xp, dy), ref,
+                                      scale),
+                   "split_3xtf32_exact_sum": err(emu, ref, scale)}
+            layers.append(rec)
+        dx_layers = []
+        for dy, wt in dxs:
+            ref = cv.conv_valid_dx_plain(dy.double(), wt.double())
+            scale = float(ref.abs().max()) or 1.0
+            dx_layers.append({
+                "shape": f"{tuple(dy.shape)}->{wt.shape[1]} "
+                         f"k{wt.shape[-1]}", "largest": scale,
+                "kernel": err(cv.conv_valid_dx(dy, wt), ref, scale),
+                "cudnn": err(F.conv_transpose2d(dy.permute(0, 3, 1, 2), wt)
+                             .permute(0, 2, 3, 1), ref, scale)})
+        fw_layers = []
+        for xp, wt in fws:
+            ref = cv.conv_valid_plain(xp.double(), wt.double())
+            scale = float(ref.abs().max()) or 1.0
+            fw_layers.append({
+                "shape": f"{tuple(xp.shape)}->{wt.shape[0]} k{wt.shape[-1]}",
+                "largest": scale,
+                "kernel": err(real_fw(xp, wt), ref, scale),
+                "cudnn": err(cv.conv_valid_plain(xp, wt), ref, scale)})
+        out[key] = {"weight_seed": seed, "forward": fw_layers, "dw": layers,
+                    "dx": dx_layers}
+        if hasattr(chip_smoke, "_step_grads"):
+            out[key]["step"] = _step_split(torch, chip_smoke, model, x1, x2)
+        del model, fws, dws, dxs
+        torch.cuda.empty_cache()
+    return out
+
+
 def int8_layer_cases():
     """(name, kernel, c_in, c_out, k, fuse_n, input images, h, w, input,
     output): "int8" an int8-resident tensor, "float" bf16."""
@@ -628,12 +801,18 @@ def main(argv=None):
                    help="MyFusion's default f32 forward at the test CLI's "
                         "pair: a fresh process's first forwards and its "
                         "steady ones, instead of the conv layers")
+    p.add_argument("--dw_split", default="",
+                   help="models (chip_smoke.TRAIN_CHECKS keys) whose train "
+                        "step's conv_valid dw and dx losses against float64 "
+                        "are split, instead of the conv layers")
+    p.add_argument("--dw_split_bs", default=4, type=int,
+                   help="the --dw_split step's pairs")
     p.add_argument("--against", default=None,
                    help="with --dw, a checkout whose conv_dw outputs are "
                         "compared with this one's")
     args = p.parse_args(argv)
     if args.benches is None:
-        args.benches = ("" if args.metrics or args.myfusion
+        args.benches = ("" if args.metrics or args.myfusion or args.dw_split
                         else "res2fusion" if args.dw
                         else "deepfuse,densefuse,unfusion" if args.int8
                         else "deepfuse,densefuse,vifnet,res2fusion")
@@ -681,7 +860,8 @@ def main(argv=None):
             layers[case[0]] = timed(fn)
             del fn
             torch.cuda.empty_cache()
-        convs = not (args.int8 or args.metrics or args.dw or args.myfusion)
+        convs = not (args.int8 or args.metrics or args.dw or args.myfusion
+                     or args.dw_split)
         for case in gray_cases() + pair_cases() if convs else []:
             fn = (gray_layer if case in gray_cases() else pair_layer)(
                 torch, case, gen, dev)
@@ -717,15 +897,27 @@ def main(argv=None):
                      else against_library(args.against))
             layers.update(dw_times(torch, timed, gen, dev, other))
     valid = valid_rounds(torch, timed, gen, dev) if args.valid else None
+    split = None
+    if args.dw_split:
+        split = dw_split(torch, dev, args.dw_split.split(","),
+                         args.dw_split_bs)
     benches = {}
     for name in filter(None, args.benches.split(",")):
         batch = 2 if name == "res2fusion" else bench.BATCH
         pair = name == "deepfuse_pair"
         if pair:
             os.environ["MMIF_CHAIN_PAIR"] = "1"
+        net = None
+        if name.startswith("myfusion_"):    # chip_smoke.MYF_FORMERS's
+            import chip_smoke
+            from multi_modal_image_fusion_tpu_torch.models import \
+                create_model
+            net = create_model("myfusion",
+                               generator=torch.Generator().manual_seed(0),
+                               **chip_smoke.MYF_FORMERS[name])
         try:
             result, _ = bench.run(seed=0, model_name=name.split("_")[0],
-                                  batch=batch, int8=args.int8)
+                                  batch=batch, int8=args.int8, model=net)
         finally:
             if pair:
                 os.environ.pop("MMIF_CHAIN_PAIR")
@@ -738,6 +930,8 @@ def main(argv=None):
         out["valid"] = valid
     if myfusion is not None:
         out["myfusion_f32"] = myfusion
+    if split is not None:
+        out["dw_split"] = {"bs": args.dw_split_bs, "models": split}
     if args.profile:
         out["profile"] = {args.profile: int8_profile(torch, args.profile)}
     print(json.dumps(out))

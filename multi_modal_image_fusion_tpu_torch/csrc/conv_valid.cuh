@@ -32,8 +32,8 @@
 // terms first: three products for f32 accuracy, up to 495/3 TFLOP/s. bf16
 // (--amp bf16) runs mma.sync m16n8k16 with f32 accumulators. The tensor
 // cores' own accumulation does not round to nearest, so f32's three
-// products of a k-step, and dw's products of a stage, are summed in fresh
-// registers and added to the running sums in f32.
+// products of a k-step are summed in fresh registers and added to the
+// running sums in f32 (bf16's dw: the products of a stage).
 //
 // conv_valid: M = output pixels, N = output channels (BN 8, 16 or 32 a
 // block), K = input channels x taps. An image is cut into strips of `tw`
@@ -136,10 +136,14 @@ __device__ __forceinline__ void va_mma_3xtf32(float (&acc)[4], const uint32_t (&
 // to nearest, so a long run of mma.sync on one accumulator drifts by up to
 // an ulp of the running sum a step (summed into a tile's running sums, a
 // DeepFuse train step's gradients missed the card test's 1e-4 of the
-// largest against F.conv2d on an H100). conv_valid's three f32 products of
-// a k-step go into fresh registers added to the running sums in f32
-// (va_mma_3xtf32), dw's products of a stage (va_zero, va_add): the drift
-// stays that of the short partial sum.
+// largest against F.conv2d on an H100). The three f32 products of a k-step
+// go into fresh registers added to the running sums in f32 (va_mma_3xtf32),
+// in conv_valid and in dw alike; dw adds them to a stage's sum, and each
+// stage's to the block's (va_zero, va_add). Summed into a stage's sum by the
+// tensor cores (24 mma.sync of one accumulator, the small lo products among
+// the large), dw lost a median 1.97x more against float64 on the same train
+// steps (ab_times.py --dw_split on an H100; the 3xTF32 split itself loses
+// under 1e-7 of the largest dw).
 template <int NT>
 __device__ __forceinline__ void va_zero(float (&d)[NT][4]) {
 #pragma unroll
@@ -153,16 +157,6 @@ __device__ __forceinline__ void va_add(float (&acc)[NT][4], const float (&p)[NT]
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[nt][q] += p[nt][q];
-}
-
-// acc += lo*hi + hi*lo + hi*hi into the accumulator itself (dw: a stage's
-// partial sum)
-__device__ __forceinline__ void va_mma_3xtf32_acc(float (&acc)[4], const uint32_t (&ahi)[4],
-                                                  const uint32_t (&alo)[4], uint32_t b0hi,
-                                                  uint32_t b1hi, uint32_t b0lo, uint32_t b1lo) {
-  va_mma_tf32(acc, alo, b0hi, b1hi);
-  va_mma_tf32(acc, ahi, b0lo, b1lo);
-  va_mma_tf32(acc, ahi, b0hi, b1hi);
 }
 
 // f32: split the 16 bytes at `o` of `buf` into TF32 hi, in place, and lo at
@@ -774,7 +768,7 @@ __device__ __forceinline__ void dw_compute(float (&acc)[BN / 8][4], const unsign
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int j0 = (k0 + t) * G::CSD + nt * 8 + g, j1 = j0 + 4 * G::CSD;
-        va_mma_3xtf32_acc(acc[nt], ahi, alo, dh[j0], dh[j1], dl[j0], dl[j1]);
+        va_mma_3xtf32(acc[nt], ahi, alo, dh[j0], dh[j1], dl[j0], dl[j1]);
       }
       if (k0 < 16) hook(k0 / 8);  // the next stages' loads, in these products' shadow
     }

@@ -27,8 +27,8 @@ from ..ops.cuda.s2d_io import s2d_enter, s2d_exit
 from ..ops.fusion import (attention_fusion, element_fusion, spatial_pooling,
                           weighted_fusion)
 from ..ops import layers
-from ..ops.layers import (ACTS, NORMS, ConvLayer, fast_training,
-                          in_training_scope, int8_ctx)
+from ..ops.layers import (ACTS, NORMS, ConvLayer, batch_stats_route,
+                          fast_training, in_training_scope, int8_ctx)
 from ..ops.quant import (calibrating, chain_hop_ok, chain_leg_ok,
                          hiw_int8_enabled, hiw_res_enabled, name_layers,
                          quant_off, quant_skipped)
@@ -778,8 +778,11 @@ class IFCNN(nn.Module):
     zoo.py:1312-1330): the batch norms fold into their convs (ConvLayer.
     folded); enc0 (1 -> 64, k7, no activation) runs the k7 conv_gray_enter
     over both images in one launch, enc1 and dec0 conv_chain, dec1 (64 ->
-    1, k1) conv_gray_exit. `norm` None or "batch" (the JAX field).
-    Autoencoder mode (`model(img1)`) decodes one image batch."""
+    1, k1) conv_gray_exit. `norm` None or "batch" (the JAX field). When its
+    batch norms take batch statistics (`batch_stats_route`: train mode on
+    a training route) the encoder runs once per modality, as in the JAX
+    package, else once over the batch-concatenated pair. Autoencoder mode
+    (`model(img1)`) decodes one image batch."""
 
     def __init__(self, norm="batch", generator=None):
         super().__init__()
@@ -795,7 +798,10 @@ class IFCNN(nn.Module):
 
     def forward(self, img1, img2=None):
         enc0, enc1 = self.encode
-        t = enc1(enc0.enter(img1, img2))
+        if img2 is not None and batch_stats_route(self, img1, img2):
+            t = torch.cat([enc1(enc0.enter(img)) for img in (img1, img2)])
+        else:
+            t = enc1(enc0.enter(img1, img2))
         if img2 is not None:
             n = img1.shape[0]
             t = element_fusion(t[:n], t[n:], "max")
@@ -815,7 +821,9 @@ class DIFNet(nn.Module):
     conv_chain and its second with the residual as an identity leg on
     conv_multi; `fuse` reads the encoder batch's two halves as the legs
     [(t, 0), (t, n)] of one conv_multi, no concat built; dec3 runs
-    conv_gray_exit. Autoencoder mode (`model(img1)`) has no fusion."""
+    conv_gray_exit. When its batch norms take batch statistics
+    (`batch_stats_route`) the encoder runs once per modality, as in the
+    JAX package. Autoencoder mode (`model(img1)`) has no fusion."""
 
     def __init__(self, norm="batch", generator=None):
         super().__init__()
@@ -833,11 +841,18 @@ class DIFNet(nn.Module):
             ConvLayer(16, 1, act=None, generator=g),
         ])
 
-    def forward(self, img1, img2=None):
+    def encoder(self, img1, img2=None):
         enc0, *blocks = self.encode
         t = enc0.enter(img1, img2)
         for block in blocks:
             t = block(t)
+        return t
+
+    def forward(self, img1, img2=None):
+        if img2 is not None and batch_stats_route(self, img1, img2):
+            t = torch.cat([self.encoder(img1), self.encoder(img2)])
+        else:
+            t = self.encoder(img1, img2)
         if img2 is not None:
             t = self.fuse([(t, 0), (t, img1.shape[0])])
         for layer in self.decode:
@@ -858,8 +873,11 @@ class PMGI(nn.Module):
     conv_multi; `decode` is conv_gray_exit over the eight legs, tanh in its
     epilogue; then out / 2 + 0.5 in torch. Reference quirks kept:
     `f1_conv2` is transfer2[1] of f1, and transfer1[1] holds parameters but
-    never runs (model.py:591). `norm` and `act` are the JAX fields. The
-    model takes two images only, as in the JAX package."""
+    its output is never used (model.py:591); when the batch norms take
+    batch statistics it runs all the same, as the JAX package's eager
+    route runs it, so its running statistics move as there. `norm` and
+    `act` are the JAX fields. The model takes two images only, as in the
+    JAX package."""
 
     def __init__(self, norm="batch", act="lrelu", generator=None):
         super().__init__()
@@ -887,6 +905,11 @@ class PMGI(nn.Module):
         f1_1, f1_2 = gr[1](f0_1), it[1](f0_2)
         f1_conv1 = self.transfer1[0](_legs(f1_1, f1_2))
         f1_conv2 = self.transfer2[1](_legs(f1_1, f1_2))   # quirk
+        if batch_stats_route(self, img1, img2):
+            # the JAX package's eager route runs the dead transfer1[1] (to
+            # create its parameters), which moves its running statistics
+            # in training; its output is unused
+            self.transfer1[1](_legs(f1_1, f1_2))
         f2_1 = gr[2](_legs(f0_1, f1_1, f1_conv1))
         f2_2 = it[2](_legs(f0_2, f1_2, f1_conv2))
         f2_conv1 = self.transfer2[0](_legs(f2_1, f2_2))
@@ -1007,7 +1030,11 @@ class MyFusion(nn.Module):
       share_weight_levels on share the first branch's modules and run both
       images as one 2n batch; the levels below it run each image through
       its branch's own modules (conv_in_2, down{i}_2, EB{i}_2), then the
-      first shared level's input is the two branches' concat.
+      first shared level's input is the two branches' concat. When its
+      batch norms take batch statistics (`batch_stats_route`: train mode
+      on a training route) every level runs per branch, the shared ones on
+      the first branch's modules, as the JAX package's `encoder_fn` runs
+      them, so each modality's norms see their own statistics.
     - `fusion_method` 'elem' (`fusion_mode` sum, mean, max), 'attn' (sa,
       ca, sca, wavg: ops/fusion.attention_fusion), 'concat' (fuse1-4, k3
       2c -> c without activation, over the legs of the two features) or
@@ -1106,14 +1133,16 @@ class MyFusion(nn.Module):
         """The four levels' features as pairs (branch 1, branch 2) of n
         images each: views of one 2n batch at shared levels."""
         n, split = img1.shape[0], 4 - self.share_weight_levels
-        if split:
-            t = (self.conv_in_1.enter(img1), self.conv_in_2.enter(img2))
+        apart = batch_stats_route(self, img1, img2)
+        if split or apart:
+            conv_in_2 = self.conv_in_2 if split else self.conv_in_1
+            t = (self.conv_in_1.enter(img1), conv_in_2.enter(img2))
         else:
             t = self.conv_in_1.enter(img1, img2)
         feats = []
         for lv in range(4):
-            if lv < split:
-                t = tuple(self._level(lv, br, x)
+            if lv < split or apart:
+                t = tuple(self._level(lv, br if lv < split else 1, x)
                           for br, x in zip((1, 2), t))
                 feats.append(t)
             else:
@@ -1151,9 +1180,11 @@ MODEL_ZOO = {"dbnet": DBNet, "deepfuse": DeepFuse, "densefuse": DenseFuse,
 
 
 def create_model(name, **kwargs):
-    """Instantiate a ported zoo model by (case-insensitive) name."""
+    """Instantiate a ported zoo model by (case-insensitive) name, in eval
+    mode (the JAX package's `train=False` default): a caller that trains
+    sets train mode, as the Trainer does around its steps."""
     key = name.lower()
     if key not in MODEL_ZOO:
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{sorted(MODEL_ZOO)}")
-    return name_layers(MODEL_ZOO[key](**kwargs))
+    return name_layers(MODEL_ZOO[key](**kwargs)).eval()

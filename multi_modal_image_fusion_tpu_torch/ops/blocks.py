@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .cuda.conv_chain import CO_TILE
+from .cuda.conv_chain import CO_TILE, relu6
 from .cuda.conv_multi import concat_legs
 from .layers import (ACT_CODES, ACTS, BatchNormNHWC, ChannelLayerNorm,
                      ConvLayer, activation, interpolate)
@@ -130,7 +130,7 @@ class Res2ConvBlock(nn.Module):
             res = self.shortcut(x)
         else:
             res = concat_legs(x) if isinstance(x, list) else x
-        return torch.clamp(out + res, 0.0, 6.0)
+        return relu6(out + res)
 
 
 def pad_to(feat, hw):
@@ -461,7 +461,7 @@ class SepConvBlock(nn.Module):
             out = out * self.pwconv(x)
         if self.shortcut is None:
             return self.pwconv2.plus_identity(out, x, "relu6")
-        return torch.clamp(self.pwconv2(out) + self.shortcut(x), 0.0, 6.0)
+        return relu6(self.pwconv2(out) + self.shortcut(x))
 
 
 class DCBlock(nn.Module):
@@ -509,7 +509,7 @@ class DCBlock(nn.Module):
         if self.shortcut is None:
             res = concat_legs(x) if isinstance(x, list) else x
             return pw2.plus_identity(y, res, "relu6")
-        return torch.clamp(pw2(y) + self.shortcut(x), 0.0, 6.0)
+        return relu6(pw2(y) + self.shortcut(x))
 
 
 class Decoder(nn.Module):
@@ -609,13 +609,16 @@ def attention(q, k, v, num_heads):
     port; the JAX package runs XLA's einsums, no Pallas kernel): at
     MyFusion's level 1 a head's score matrix of one image holds 6.1e9
     entries, which the math backend would build, so a shape neither
-    backend takes raises. CPU tensors take `attention_plain`."""
+    backend takes (a float64 one among them) raises. Both backends have a
+    backward (the training routes). CPU tensors take `attention_plain`."""
     if not q.is_cuda:
         return attention_plain(q, k, v, num_heads)
     from torch.nn.attention import SDPBackend, sdpa_kernel
     b, n, c = q.shape
-    qh, kh, vh = (t.reshape(b, -1, num_heads, c // num_heads).transpose(1, 2)
-                  for t in (q, k, v))
+    # both backends read the head dim with stride 1: a training route's
+    # q, k and v are NHWC views of NCHW convs (serving's are contiguous)
+    qh, kh, vh = (t.contiguous().reshape(b, -1, num_heads, c // num_heads)
+                  .transpose(1, 2) for t in (q, k, v))
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                       SDPBackend.EFFICIENT_ATTENTION]):
         out = F.scaled_dot_product_attention(qh, kh, vh)

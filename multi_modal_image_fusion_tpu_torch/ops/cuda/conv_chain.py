@@ -83,16 +83,35 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 
 
+def _needs_grad(y):
+    return torch.is_grad_enabled() and y.requires_grad
+
+
+def relu6(y):
+    """clamp(y, 0, 6). With a gradient, as min(max(y, 0), 6): the JAX
+    package's relu6, whose gradient at a tie (y exactly 0 or 6) is 0.5,
+    where torch.clamp's is 1 (a no-bias layer over a dead input gives exact
+    zeros); without one, torch.clamp's one pass (the same values)."""
+    if not _needs_grad(y):
+        return torch.clamp(y, 0.0, 6.0)
+    return torch.minimum(torch.maximum(y, y.new_zeros(())),
+                         y.new_full((), 6.0))
+
+
 def apply_act(y, act):
-    """The fused epilogue activation (f32, before the output cast)."""
+    """The fused epilogue activation (f32, before the output cast). Its
+    gradient at the kinks is the JAX package's: relu 0 at 0, relu6 0.5 at
+    0 and 6, lrelu 1 at 0."""
     if act is None:
         return y
     if act == "relu":
         return torch.relu(y)
     if act == "relu6":
-        return torch.clamp(y, 0.0, 6.0)
+        return relu6(y)
     if act == "lrelu":
-        return F.leaky_relu(y, 0.2)
+        # JAX's gradient 1 at 0 (torch's leaky_relu: 0.2) where one is needed
+        return (torch.where(y >= 0, y, 0.2 * y) if _needs_grad(y)
+                else F.leaky_relu(y, 0.2))
     if act == "tanh":
         return torch.tanh(y)
     raise ValueError(f"unfusable activation {act!r}")

@@ -35,9 +35,12 @@ before the value product, as JAX does; `nl_apply_flash_plain` is pass 2
 with the TPU kernel's rounding instead (nl_kernel.py:116-120), the
 function the bf16 kernel computes. CPU tensors take the plain versions; a
 CUDA tensor launches the kernels or raises. The kernels are forward-only:
-on a CUDA tensor that needs a gradient they raise (the custom-VJP
-counterpart of `_nl_spatial_flash_diff` comes with Res2Fusion training).
-hi == lo gives NaN, as in JAX.
+on a CUDA tensor that needs a gradient they raise. Training goes through
+`nl_spatial_diff` (the autograd Function `NLSpatialFlash`, the
+counterpart of the JAX package's custom VJP `_nl_spatial_flash_diff`,
+ops/fusion.py:219-240): its forward is `nl_spatial_flash` (the kernels on
+a CUDA tensor, under no_grad), its backward recomputes `nl_spatial_plain`
+in f32 under autograd. hi == lo gives NaN, as in JAX.
 """
 
 import ctypes
@@ -48,9 +51,10 @@ from .build import check_launch, check_no_grad, kernel_function, ptr, \
     stream_handle
 from .conv_chain import DTYPE_CODES
 
-__all__ = ["nl_apply", "nl_apply_flash_plain", "nl_apply_plain",
-           "nl_minmax", "nl_minmax_plain", "nl_spatial_flash",
-           "nl_spatial_plain", "pack_keys", "unpack_keys"]
+__all__ = ["NLSpatialFlash", "nl_apply", "nl_apply_flash_plain",
+           "nl_apply_plain", "nl_minmax", "nl_minmax_plain",
+           "nl_spatial_diff", "nl_spatial_flash", "nl_spatial_plain",
+           "pack_keys", "unpack_keys"]
 
 BLOCK = 4096           # query rows a block of the plain versions
 NL_C = 112             # the channels the kernels are built for
@@ -210,3 +214,37 @@ def nl_spatial_flash(q, k):
     if q.device.type == "cpu":
         return nl_spatial_plain(q, k)
     return nl_apply(q, k, nl_minmax(q, k))
+
+
+class NLSpatialFlash(torch.autograd.Function):
+    """nl_spatial_flash with a gradient (JAX `_nl_spatial_flash_diff`,
+    ops/fusion.py:219-240): the forward is nl_spatial_flash under no_grad
+    (nl_minmax and nl_apply on a CUDA tensor, each counted; the plain
+    versions on a CPU tensor), with q and k saved; the backward recomputes
+    nl_spatial_plain on them in f32 (float64 for float64 ones) under
+    autograd and takes the gradients of q and k for the output's cotangent
+    in that dtype, cast to q's and k's dtypes (JAX `_nl_flash_bwd`, :233-237, through `_nl_spatial_blocked`:
+    the same function). A kernel that fails raises; nothing falls back."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        with torch.no_grad():
+            return nl_spatial_flash(q, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        ct = torch.promote_types(q.dtype, torch.float32)
+        with torch.enable_grad():
+            qf = q.detach().to(ct).requires_grad_()
+            kf = k.detach().to(ct).requires_grad_()
+            dq, dk = torch.autograd.grad(nl_spatial_plain(qf, kf), (qf, kf),
+                                         g.to(ct))
+        return dq.to(q.dtype), dk.to(k.dtype)
+
+
+def nl_spatial_diff(q, k):
+    """nl_spatial_flash through `NLSpatialFlash`: the 'nl' spatial pooling's
+    one route, serving (no gradient: the same launches) and training."""
+    return NLSpatialFlash.apply(q, k)

@@ -11,7 +11,9 @@ every pixel over the pooled map, then + t) runs its attention through
 ops/cuda/nl_attention.py: the hand-written kernels on CUDA tensors at every
 size (the JAX package's 2^18-pixel switch between its dense and streamed
 forms is a TPU memory choice; the function is the same), the plain two-pass
-version on CPU tensors. The channel 'nl' attention is a (C, C) Gram matrix:
+version on CPU tensors, through the autograd Function `nl_spatial_diff`
+(the kernels forward, the plain version's gradients backward, as the JAX
+package's custom VJP). The channel 'nl' attention is a (C, C) Gram matrix:
 two torch.matmul products with f32 accumulation, as the JAX package leaves
 them to XLA. Both normalise their energies by the min and max over the
 whole batch of one call.
@@ -20,7 +22,7 @@ whole batch of one call.
 import torch
 import torch.nn.functional as F
 
-from .cuda.nl_attention import nl_spatial_flash
+from .cuda.nl_attention import nl_spatial_diff
 
 __all__ = ["attention_fusion", "channel_fusion", "channel_pooling",
            "concat_fusion", "element_fusion", "spatial_fusion",
@@ -104,8 +106,8 @@ def spatial_pooling(t, mode="l1"):
         b, h, w, c = t.shape
         # VALID 8x8 average pool: the remainder rows and columns drop out
         pooled = F.avg_pool2d(t.permute(0, 3, 1, 2), 8).permute(0, 2, 3, 1)
-        attn = nl_spatial_flash(t.reshape(b, h * w, c),
-                                pooled.reshape(b, -1, c).contiguous())
+        attn = nl_spatial_diff(t.reshape(b, h * w, c),
+                               pooled.reshape(b, -1, c).contiguous())
         return attn.reshape(b, h, w, c) + t
     raise ValueError(
         "only supported ['sum', 'mean', 'l1', 'l2', 'linf', 'nl'] mode")

@@ -24,8 +24,13 @@ ops/layers.py:284: eps 1e-5, flax momentum 0.9 = torch momentum 0.1) is
 folded into the conv on every serving route, as the JAX chain routes fold
 it (`_BNParams`, ops/layers.py:320, :417-423): `folded()` is the one
 accessor of the weight and bias that every kernel and plain version
-convolves with. Its training route (batch statistics) and its int8 route
-are not ported (ROADMAP.md queue 1 item 5) and raise NotImplementedError.
+convolves with. On the training routes the conv and its bias run without
+activation, then `batch_norm`, then the activation (the JAX package's
+eager route, ops/layers.py:785-790): with the norm's module in train mode
+on the batch statistics, which also move its running statistics (the JAX
+`train=True`), in eval mode on the running statistics (`train=False`, the
+valid step). Its int8 route is not ported (ROADMAP.md queue 1 item 5b) and
+raises NotImplementedError.
 
 A group norm (`norm="group"`, the JAX package's `make_norm('group')`,
 ops/layers.py:299: torch GroupNorm(C, C), eps 1e-5, an instance norm with
@@ -83,7 +88,9 @@ Routes of a conv:
     depthwise and k1 layers inside it, as the JAX package routes them.
   On CPU tensors the kernels' plain versions run in their place. A list of
   legs is concatenated first (`concat_legs`), a depthwise window sliced,
-  then takes the same route;
+  then takes the same route. A norm, and an activation that no kernel
+  fuses, follow the conv over the whole batch (a batch norm's statistics
+  are the batch's);
 - int8 (inside ops/quant.quantized_inference, outside a `fast_training`
   scope): a stride-1 dense layer that the skip set does not name runs
   `conv_int8` (the JAX package's `ops/layers.py:624-691`): its effective
@@ -111,7 +118,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .cuda.conv_chain import (ACT_CODES, apply_act, batch_step, conv_chain,
-                              conv_gray_enter, conv_gray_exit)
+                              conv_gray_enter, conv_gray_exit, relu6)
 from .cuda.conv_dw import conv_dw
 from .cuda.conv_int8 import Int8Weights, conv_int8, conv_int8_chain
 from .cuda.conv_multi import (concat_legs, conv_multi, identity_weights,
@@ -125,8 +132,9 @@ from .s2d import s2d_pack_bias, s2d_pack_weights
 
 __all__ = ["ACTS", "ACT_CODES", "BN_EPS", "BatchNormNHWC",
            "ChannelLayerNorm", "ConvLayer", "NORMS", "activation",
-           "apply_act", "fast_training", "group_norm", "in_training_scope",
-           "init_conv_", "int8_ctx", "interpolate"]
+           "apply_act", "batch_norm", "batch_stats_route", "fast_training",
+           "group_norm", "in_training_scope", "init_conv_", "int8_ctx",
+           "interpolate"]
 
 INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
 NORMS = (None, "batch", "group", "layer")    # the norms ConvLayer ports
@@ -135,7 +143,7 @@ LN_EPS = 1e-6
 # the activations no kernel fuses: torch ops after the kernel (JAX
 # ops/layers.py:187-204; its gelu is the tanh approximation)
 _TORCH_ACTS = {
-    "hswish": lambda y: y * torch.clamp(y + 3.0, 0.0, 6.0) / 6.0,
+    "hswish": lambda y: y * relu6(y + 3.0) / 6.0,
     "silu": F.silu,
     "gelu": lambda y: F.gelu(y, approximate="tanh"),
 }
@@ -144,7 +152,7 @@ ACTS = (*ACT_CODES, *_TORCH_ACTS)
 # 1 and 2, the Attention pool's 16 // (C // 16) at MyFusion's widths
 VALID_DW_KSIZES = (1, 2, 4, 8, 16)
 GN_CHUNK_ELEMS = 2 ** 28    # elements a batch chunk of group_norm (1 GB f32)
-_NORM_QUEUE = "ROADMAP.md queue 1 item 5"
+_NORM_QUEUE = "ROADMAP.md queue 1 item 5b"
 
 # None: no trainer scope (serving); False / True: the trainer's steps, on
 # F.conv2d / on the conv_valid kernels
@@ -233,6 +241,48 @@ def group_norm(x, weight, bias, act=None, eps=BN_EPS):
     return out
 
 
+def batch_norm(x, bn, act=None, batch_stats=False):
+    """A batch norm `bn` (nn.BatchNorm2d) then `act` on an NHWC tensor, the
+    training routes' norm (the JAX package's `apply_norm`, flax BatchNorm,
+    ops/layers.py:284-312), in f32 (float64 for a float64 x) and cast back
+    to x's dtype. With `batch_stats` (the JAX `train=True`) the mean and
+    the biased variance of x over (N, H, W) normalize it, and in place the
+    running statistics become 0.9 r + 0.1 stat and num_batches_tracked
+    counts one: flax's update, with the biased variance, where
+    F.batch_norm(training=True) would store the unbiased one (n / (n - 1)
+    of it). Otherwise the running statistics normalize it and nothing
+    changes. The buffers keep their dtype (f32 under a bf16 forward)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct)
+    if batch_stats:
+        var, mean = torch.var_mean(xf, dim=(0, 1, 2), correction=0)
+        with torch.no_grad():
+            for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+                buf.mul_(1.0 - bn.momentum).add_(stat.to(buf.dtype),
+                                                 alpha=bn.momentum)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean.to(ct), bn.running_var.to(ct)
+    g = bn.weight.to(ct) * torch.rsqrt(var + bn.eps)
+    return activation(torch.addcmul(bn.bias.to(ct), xf - mean, g),
+                      act).to(x.dtype)
+
+
+def batch_stats_route(model, *xs):
+    """True when a batch norm of `model` takes batch statistics now: the
+    model is in train mode, holds one, and runs a training route (a
+    `fast_training` scope, or a gradient needed by its parameters or by
+    xs). A model then runs its encoder once per modality, as the JAX
+    package's two encoder passes in training do (models/zoo.py:52-73), so
+    each modality's norms see their own statistics."""
+    if not model.training or not any(isinstance(m, nn.BatchNorm2d)
+                                     for m in model.modules()):
+        return False
+    return in_training_scope() or torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (*xs, *model.parameters()))
+
+
 class ChannelLayerNorm(nn.Module):
     """Layer norm over the channels of each pixel of an NHWC tensor (JAX
     ops/layers.py:260-283, reference core/block.py:472-500): eps 1e-6, a
@@ -253,13 +303,15 @@ class ChannelLayerNorm(nn.Module):
 
 
 class BatchNormNHWC(nn.BatchNorm2d):
-    """A standalone eval-mode batch norm on an NHWC tensor (the MetaFormer
-    blocks' norm1 and norm2; JAX `make_norm('batch')`/`apply_norm`,
-    ops/layers.py:284-320): x * g + (bias - mean * g) with g = weight /
-    sqrt(var + 1e-5), computed in f32 and written once in x's dtype. It is
-    not folded into the next conv: the MetaFormer's mixer reads its output
-    as its residual too. Its training route (batch statistics) is not
-    ported and raises, as ConvLayer's batch norm does."""
+    """A standalone batch norm on an NHWC tensor (the MetaFormer blocks'
+    norm1 and norm2; JAX `make_norm('batch')`/`apply_norm`,
+    ops/layers.py:284-320). Serving (no `fast_training` scope and no
+    gradient), whatever the module's mode: the running statistics' affine
+    x * g + (bias - mean * g) with g = weight / sqrt(var + 1e-5), computed
+    in f32 and written once in x's dtype. It is not folded into the next
+    conv: the MetaFormer's mixer reads its output as its residual too. On
+    a training route, `batch_norm`: in train mode on the batch statistics,
+    which also move the running ones, in eval mode on the running ones."""
 
     def __init__(self, ch):
         super().__init__(ch, eps=BN_EPS, momentum=0.1)
@@ -267,10 +319,7 @@ class BatchNormNHWC(nn.BatchNorm2d):
     def forward(self, x):
         if in_training_scope() or (torch.is_grad_enabled() and (
                 x.requires_grad or self.weight.requires_grad)):
-            raise NotImplementedError(
-                f"the training route of a standalone batch norm is not "
-                f"ported ({_NORM_QUEUE}); it serves in eval mode under "
-                f"torch.no_grad()")
+            return batch_norm(x, self, batch_stats=self.training)
         ct = torch.promote_types(x.dtype, torch.float32)
         g = self.weight.to(ct) * torch.rsqrt(self.running_var.to(ct)
                                              + self.eps)
@@ -445,31 +494,48 @@ class ConvLayer(nn.Module):
                       *self.layers[1:].parameters()))
 
     def _train_conv(self, x):
-        """The training routes (module docstring) on an NHWC tensor, in
-        batch chunks of `batch_step` images: torch's reflect pad refuses a
-        padded tensor of 2^31 elements or more ("input tensor must fit
-        into 32-bit index math", e.g. DenseFuse's 64-channel concat of 32
-        full-resolution images). A group norm follows the conv and its bias
-        (per image, so the chunks are exact); a batch norm raises."""
-        if self.norm == "batch":
-            self._no_norm("training")
+        """The training routes (module docstring) on an NHWC tensor: the
+        conv in batch chunks of `batch_step` images (torch's reflect pad
+        refuses a padded tensor of 2^31 elements or more, "input tensor
+        must fit into 32-bit index math", e.g. DenseFuse's 64-channel
+        concat of 32 full-resolution images), then `_train_epilogue` over
+        the whole batch."""
         step = batch_step(*x.shape[1:3], max(x.shape[-1], self.out_ch),
                           self.ksize)
         if x.shape[0] > step:
-            return torch.cat([self._train_conv(x[i:i + step])
-                              for i in range(0, x.shape[0], step)])
+            y = torch.cat([self._train_chunk(x[i:i + step])
+                           for i in range(0, x.shape[0], step)])
+        else:
+            y = self._train_chunk(x)
+        return self._train_epilogue(y)
+
+    def _train_chunk(self, x):
+        """The conv of a training route with its bias and `_train_act`."""
         p = self.ksize // 2
         xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
-        kact = self._kernel_act()
+        kact = self._train_act()
         if not (_FAST_TRAINING.get() and self._valid_eligible()):
             y = F.conv2d(xp, self.weight, self.bias, groups=self.groups)
-            return self._normed(apply_act(y, kact).permute(0, 2, 3, 1))
+            return apply_act(y, kact).permute(0, 2, 3, 1)
         xp = xp.permute(0, 2, 3, 1).contiguous()
         if self._needs_grad(xp):
             y = conv_valid_fast(xp, self.weight)
-            return self._normed(apply_act(
-                y if self.bias is None else y + self.bias, kact))
-        return self._normed(conv_valid(xp, self.weight, self.bias, kact))
+            return apply_act(y if self.bias is None else y + self.bias, kact)
+        return conv_valid(xp, self.weight, self.bias, kact)
+
+    def _train_act(self):
+        """The activation a training route's conv fuses: none where a batch
+        norm follows it, else `_kernel_act`."""
+        return None if self.norm == "batch" else self._kernel_act()
+
+    def _train_epilogue(self, y):
+        """A training route's conv output -> the layer's: with a batch norm,
+        `batch_norm` (the batch statistics when the norm's module is in
+        train mode) and the activation; else `_normed`."""
+        if self.norm == "batch":
+            bn = self.layers[1]
+            return batch_norm(y, bn, self.act, bn.training)
+        return self._normed(y)
 
     def _valid_eligible(self):
         """The layers the JAX package's gate lets take the conv_valid kernel
@@ -705,13 +771,21 @@ class ConvLayer(nn.Module):
         the transpose conv: F.conv_transpose2d (zero padding 1, output
         padding 1); then bias, the group norm if any and the activation,
         in batch chunks whose padded input and output stay under 2^31
-        elements (`batch_step`; the transpose's output is 4x its input)."""
+        elements (`batch_step`; the transpose's output is 4x its input).
+        A batch norm folds on the serving route; on a training route the
+        conv and its bias run alone and `_train_epilogue` follows over the
+        whole batch."""
         p = self.ksize // 2 if self.padding is None else self.padding
         b, h, w, c = x.shape
         up = 2 if self.transpose else 1
         step = batch_step(h * up, w * up, max(c, self.out_ch), self.ksize)
-        wt, bias = self.folded(x.dtype)
-        kact = self._kernel_act()
+        train_bn = self.norm == "batch" and self._training_route(x)
+        if train_bn:
+            wt = self.weight.to(x.dtype)
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+        else:
+            wt, bias = self.folded(x.dtype)
+        kact = None if train_bn else self._kernel_act()
         outs = []
         for i in range(0, b, step):
             if self.transpose:
@@ -722,8 +796,10 @@ class ConvLayer(nn.Module):
                 xi = reflect_pad_nhwc(x[i:i + step], p) if p else x[i:i + step]
                 y = F.conv2d(xi.permute(0, 3, 1, 2), wt, bias,
                              stride=self.stride, groups=self.groups)
-            outs.append(self._normed(apply_act(y, kact).permute(0, 2, 3, 1)))
-        return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
+            y = apply_act(y, kact).permute(0, 2, 3, 1)
+            outs.append(y if train_bn else self._normed(y))
+        y = torch.cat(outs) if len(outs) > 1 else outs[0]
+        return (self._train_epilogue(y) if train_bn else y).contiguous()
 
     def _forward_legs(self, legs, fuse_n):
         n_out = legs_n_out(legs, fuse_n)

@@ -20,6 +20,8 @@ together). `state_dict()` / `load_state_dict()` carry the optimizer part
 for resume.
 """
 
+import contextlib
+
 import torch
 from torch.func import functional_call
 from torch.profiler import record_function
@@ -28,6 +30,20 @@ from ..ops.layers import fast_training
 from ..ops.losses import GradLoss, PixelLoss, SSIMLoss
 
 __all__ = ["Trainer", "clip_by_global_norm", "make_loss_bundle"]
+
+
+@contextlib.contextmanager
+def _mode(model, train):
+    """The model in train (`train`) or eval mode, its mode restored after:
+    the port's counterpart of the JAX package's `train` argument. A batch
+    norm takes the batch statistics, and moves its running ones, only in
+    train mode (ops/layers.batch_norm)."""
+    was = model.training
+    model.train(train)
+    try:
+        yield
+    finally:
+        model.train(was)
 
 
 def make_loss_bundle(ssim_mode="ssim", ssim_weight=1.0,
@@ -68,7 +84,11 @@ class Trainer:
     inside `fast_training`, so every conv goes through the conv_valid kernels
     on the card (ops/layers.py). `amp="bf16"`: f32 master parameters cast to
     bf16 at the model boundary, the output cast back to f32; the loss, the
-    gradients and the Adam moments stay f32, and the valid step is f32.
+    gradients, the Adam moments and the batch norms' statistics and
+    running buffers stay f32, and the valid step is f32. A train step runs
+    the model in train mode (batch norms on the batch statistics, which
+    move the running ones), a valid step in eval mode (the running
+    statistics, nothing moves); each restores the mode it found.
     """
 
     def __init__(self, model, lr_schedule, loss_bundle=None, clip_grad=5.0,
@@ -132,7 +152,7 @@ class Trainer:
         on the device."""
         img1, img2 = self._unpack(batch)
         tgt2 = img1 if img2 is None else img2
-        with fast_training(self.fast):
+        with fast_training(self.fast), _mode(self.model, True):
             with record_function("forward"):
                 imgf = self._apply(img1, img2, train=True)
             with record_function("loss"):
@@ -176,7 +196,8 @@ class Trainer:
         (N,) 0/1 tensor excluding samples from the loss average."""
         img1, img2 = self._unpack(batch)
         tgt2 = img1 if img2 is None else img2
-        with torch.no_grad(), fast_training(self.fast):
+        with torch.no_grad(), fast_training(self.fast), \
+                _mode(self.model, False):
             imgf = self._apply(img1, img2, train=False)
             _, parts = self.loss_bundle(img1, tgt2, imgf, mask=mask)
         return parts, imgf

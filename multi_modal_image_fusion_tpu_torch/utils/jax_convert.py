@@ -418,22 +418,23 @@ def _leaf_paths(tree, prefix=""):
     return out
 
 
-def jax_train_state_to_torch(state, model_name="deepfuse"):
+def jax_train_state_to_torch(state, model_name="deepfuse", **cfg):
     """A JAX TrainState as a nested dict of numpy arrays (e.g.
     `flax.serialization.msgpack_restore` of a JAX `epoch_last.ckpt`) ->
-    (port state dict, port optimizer state {"step", "mu", "nu"}).
+    (port state dict, port optimizer state {"step", "mu", "nu"}); `cfg`
+    MyFusion's configuration, as for `jax_to_state_dict`.
 
-    The optax chain's state is a dict of its transforms' states ("0", "1",
+    The batch statistics (a model with batch norms) become the norms'
+    `running_mean` and `running_var` through the serving carry's layouts;
+    `num_batches_tracked`, which the JAX package does not count, is 0. The
+    optax chain's state is a dict of its transforms' states ("0", "1",
     ...): one Adam state (count, mu, nu), optional schedule states (count)
     and empty clip states. Every count and the step must agree; any other
     leaf raises."""
     state = dict(state)
     step = int(np.asarray(state.pop("step")))
     params = state.pop("params")
-    if state.pop("batch_stats", None):
-        raise ValueError(f"{model_name}: a train state with batch "
-                         f"statistics (BatchNorm training) is not carried "
-                         f"yet (ROADMAP.md queue 1 item 5)")
+    stats = state.pop("batch_stats", None) or {}
     opt = state.pop("opt_state")
     if state:
         raise ValueError(f"unconverted TrainState fields: {sorted(state)}")
@@ -452,11 +453,17 @@ def jax_train_state_to_torch(state, model_name="deepfuse"):
     if adam is None:
         raise ValueError("no Adam state (mu, nu, count) in opt_state")
     counts.append(int(np.asarray(adam.pop("count"))))
-    mu = jax_to_state_dict({"params": adam.pop("mu")}, model_name)
-    nu = jax_to_state_dict({"params": adam.pop("nu")}, model_name)
+
+    def carry(tree):
+        return jax_to_state_dict({"params": tree, "batch_stats": stats},
+                                 model_name, **cfg)
+    sd = carry(params)
+    buffers = {k for k in sd if k.rsplit(".", 1)[-1] in (
+        "running_mean", "running_var", "num_batches_tracked")}
+    mu, nu = ({k: v for k, v in carry(adam.pop(key)).items()
+               if k not in buffers} for key in ("mu", "nu"))
     if adam:
         raise ValueError(f"unconverted Adam leaves: {sorted(adam)}")
     if any(c != step for c in counts):
         raise ValueError(f"optimizer counts {counts} differ from step {step}")
-    return (jax_to_state_dict({"params": params}, model_name),
-            {"step": step, "mu": mu, "nu": nu})
+    return sd, {"step": step, "mu": mu, "nu": nu}

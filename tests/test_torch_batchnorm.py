@@ -5,9 +5,11 @@ PFNetv2, IFCNN, DIFNet and PMGI add, on the CPU (plain versions):
   tensor, the gray enter and exit, legs, conv_wide, stride 2, depthwise)
   against conv -> F.batch_norm(training=False) -> activation on F.conv2d,
   with seeded non-trivial norms, and against the JAX layer's eager route;
-- the training and int8 routes of a normed layer raise NotImplementedError,
-  a norm not ported ValueError (the group norm is SEDRFuse's,
-  tests/test_torch_sedrfuse.py);
+- the training routes of a normed layer: the running statistics in eval
+  mode, the batch statistics and flax's running update in train mode
+  (against JAX: tests/test_torch_bn_train.py); its int8 route raises
+  NotImplementedError, a norm not ported ValueError (the group norm is
+  SEDRFuse's, tests/test_torch_sedrfuse.py);
 - ResBlock against the JAX block;
 - PFNetv2's block-diagonal fuse net against the channels-into-batch fold
   and the JAX fusion;
@@ -179,16 +181,52 @@ def test_layer_vs_jax_eager(act):
 
 
 def test_training_routes_raise():
+    """What the training routes of a normed layer do (they once raised):
+    in eval mode, inside either `fast_training` scope and with a gradient,
+    the conv, then the norm on the running statistics (the serving fold's
+    function), and nothing moves; in train mode, the batch statistics
+    (biased variance), the running statistics moved by flax's update and
+    num_batches_tracked counting each call; serving folds in either mode
+    and moves nothing."""
     layer = _normed(8, 16, seed=13)
-    x = _x((1, 9, 9, 8), 14)
+    x = _x((2, 9, 9, 8), 14)
+    with torch.no_grad():
+        want = layer(x)                 # serving folds
+    stats = [t.clone() for t in layer.layers[1].buffers()]
     for enable in (True, False):
         with layers.fast_training(enable), torch.no_grad():
-            with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-                layer(x)
-    with pytest.raises(NotImplementedError, match="training"):
-        layer(x)                        # a gradient is needed
+            np.testing.assert_allclose(layer(x).numpy(), want.numpy(),
+                                       atol=ATOL)
+    got = layer(x)                      # a gradient is needed
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=ATOL)
+    assert all(torch.equal(a, b)
+               for a, b in zip(layer.layers[1].buffers(), stats))
+    bn = layer.layers[1]
+    layer.train()
     with torch.no_grad():
-        layer(x)                        # serving folds
+        assert torch.equal(layer(x), want)   # serving folds in train mode
+    p = layer.ksize // 2
+    y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (p,) * 4, mode="reflect"),
+                 layer.weight, layer.bias)
+    var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+    norm = (y - mean[:, None, None]) * torch.rsqrt(var[:, None, None] + 1e-5)
+    want_train = torch.relu(norm * bn.weight[:, None, None]
+                            + bn.bias[:, None, None]).permute(0, 2, 3, 1)
+    r_mean, r_var = stats[0].clone(), stats[1].clone()
+    for calls, enable in enumerate((True, False, None), start=1):
+        scope = (layers.fast_training(enable) if enable is not None
+                 else torch.enable_grad())
+        with scope:
+            got = layer(x)
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   want_train.detach().numpy(), atol=ATOL)
+        r_mean = 0.9 * r_mean + 0.1 * mean.detach()
+        r_var = 0.9 * r_var + 0.1 * var.detach()
+        torch.testing.assert_close(bn.running_mean, r_mean, atol=1e-6,
+                                   rtol=1e-6)
+        torch.testing.assert_close(bn.running_var, r_var, atol=1e-6,
+                                   rtol=1e-6)
+        assert int(bn.num_batches_tracked) == calls
 
 
 def test_int8_route_raises():

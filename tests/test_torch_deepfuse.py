@@ -156,14 +156,19 @@ def test_weight_carry_rejects_leftovers():
 
 
 def test_create_model_unported_raises():
-    """What the port has not ported raises, naming ROADMAP.md: every
-    MyFusion configuration builds, and the training route of a
-    MetaFormer's standalone batch norm (queue 1 item 5) raises."""
+    """create_model returns a model in eval mode, whose training route (a
+    transformer MyFusion's standalone batch norms, which once raised) is
+    the serving function on the running statistics; what the port does
+    not have (a DeepFuse fusion mode) raises."""
     from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
     model = create_model("myfusion", encoder="transformer")
-    x = torch.rand(1, 32, 32, 1)
-    with torch.no_grad(), fast_training(False), pytest.raises(
-            NotImplementedError, match="ROADMAP.md"):
-        model(x, x)
+    assert not model.training
+    x1, x2 = (torch.rand(1, 32, 32, 1, generator=torch.Generator()
+                         .manual_seed(s)) for s in (1, 2))
+    with torch.no_grad():
+        want = model(x1, x2)
+        with fast_training(False):
+            torch.testing.assert_close(model(x1, x2), want, atol=1e-5,
+                                       rtol=0)
     with pytest.raises(ValueError):
         create_model("deepfuse", fusion_mode="l1")

@@ -226,13 +226,35 @@ def test_attention_plain_vs_sdpa(heads):
 
 
 def test_standalone_batch_norm_training_refused():
-    """A MetaFormer's batch norm serves in eval mode only: a trainer scope
-    or a gradient raises (ROADMAP queue 1 item 5)."""
+    """A MetaFormer's batch norm on its training route (it once raised):
+    in eval mode, inside a trainer scope or with a gradient, the running
+    statistics' affine (the serving function) and nothing moves; in train
+    mode, the batch statistics (biased variance) and flax's running
+    update; serving (no scope, no gradient) never takes batch statistics."""
     bn = layers.BatchNormNHWC(16)
-    x = torch.rand(1, 8, 8, 16)
+    g = torch.Generator().manual_seed(31)
     with torch.no_grad():
-        assert bn(x).shape == x.shape
-        with layers.fast_training(False), pytest.raises(NotImplementedError):
-            bn(x)
-    with pytest.raises(NotImplementedError):
-        bn(x)
+        bn.weight.copy_(0.5 + torch.rand(16, generator=g))
+        bn.bias.copy_(0.2 * torch.rand(16, generator=g) - 0.1)
+        bn.running_mean.copy_(0.2 * torch.rand(16, generator=g) - 0.1)
+        bn.running_var.copy_(0.5 + 1.5 * torch.rand(16, generator=g))
+    x = torch.rand(2, 8, 8, 16, generator=g)
+    with torch.no_grad():
+        want = bn(x)          # train mode (torch's default), serving
+    bn.eval()
+    before = [t.clone() for t in bn.buffers()]
+    with torch.no_grad(), layers.fast_training(False):
+        torch.testing.assert_close(bn(x), want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(bn(x).detach(), want, atol=1e-6, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(bn.buffers(), before))
+    bn.train()
+    var, mean = torch.var_mean(x, dim=(0, 1, 2), correction=0)
+    got = bn(x)
+    torch.testing.assert_close(
+        got.detach(), (x - mean) * torch.rsqrt(var + 1e-5) * bn.weight.detach()
+        + bn.bias.detach(), atol=1e-5, rtol=0)
+    torch.testing.assert_close(bn.running_var, 0.9 * before[1] + 0.1 * var,
+                               atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(bn.running_mean, 0.9 * before[0] + 0.1 * mean,
+                               atol=1e-6, rtol=1e-6)
+    assert int(bn.num_batches_tracked) == 1
