@@ -1857,11 +1857,14 @@ def train_weights(torch, model, key):
     return model
 
 
-def _step_grads(torch, model, a, b, fast, nl_plain):
+def _step_grads(torch, model, a, b, fast, nl_plain, branches=None):
     """The loss parts and gradients of one step of `model` (train mode) on
     (a, b): inside fast_training(fast), with the 'nl' attention's plain
     version when `nl_plain`, in float64 with the Attention's plain
-    einsums (SDPA refuses float64); and the launches it made."""
+    einsums (SDPA refuses float64); and the launches it made. `branches`
+    (a train/branches.py `Decisions`) is open around the forward and the
+    loss: it records the step's piecewise decisions, or replays
+    another step's."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda import build
     from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
     from multi_modal_image_fusion_tpu_torch.train.trainer import \
@@ -1872,8 +1875,9 @@ def _step_grads(torch, model, a, b, fast, nl_plain):
     f64 = plain_attention() if a.dtype == torch.float64 else \
         contextlib.nullcontext()
     with fast_training(fast), scope, f64:
-        y = model(a, b)
-        total, parts = make_loss_bundle()(a, b, y)
+        with branches or contextlib.nullcontext():
+            y = model(a, b)
+            total, parts = make_loss_bundle()(a, b, y)
         grads = torch.autograd.grad(total, list(model.parameters()),
                                     materialize_grads=True)
     torch.cuda.synchronize()
@@ -1938,8 +1942,15 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
     within 1e-4 of the largest gradient magnitude of the f32 route's; each
     gradient within 1e-4 of its own largest magnitude of the float64
     route's (DeepFuse, DenseFuse), or, for every other model, within 1e-4
-    of the largest float64 gradient (a norm's backward removes each
-    channel's mean gradient and a deep model's small leaves are sums of
+    of the largest float64 gradient, where the float64 step replays the
+    kernels route's piecewise decisions (train/branches.py: activation
+    kinks, max-pool choices, the losses' signs, SSIM's clamp; a handful of
+    relu flips among millions carried UNFusion's and MAFusion's whole
+    miss, PERF.md §6); the error against the plain float64 step is
+    reported beside it, and the kernels route's decisions flip against the
+    plain float64 step's at most FLIP_RATE of each kind's (train/
+    branches.py `excess`; reported, `flips_vs_f64`) (a norm's backward
+    removes each channel's mean gradient and a deep model's small leaves are sums of
     cancelling terms: every f32 route loses more than 1e-4 of some of their
     own largest magnitudes; F.conv2d's and the kernels' own errors are
     reported, `own_f64`). A model with batch norms: its new running
@@ -1957,6 +1968,8 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
     TRAIN_STEP_REPS steps after 3."""
     import copy
     from multi_modal_image_fusion_tpu_torch.ops.layers import ConvLayer
+    from multi_modal_image_fusion_tpu_torch.train.branches import (
+        FLIP_RATE, Decisions, excess, flips)
     from multi_modal_image_fusion_tpu_torch.train.schedules import \
         make_lr_schedule
     from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
@@ -1972,12 +1985,27 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
                 for m in model.modules())
     nl = name == "res2fusion"
     kernels_model = copy.deepcopy(model)
-    pf, gf, lf, _ = _step_grads(torch, kernels_model, x1, x2, True, False)
+    rec = Decisions()
+    pf, gf, lf, _ = _step_grads(torch, kernels_model, x1, x2, True, False,
+                                rec)
+    # the float64 step that takes the kernels route's branches
+    _, g64r, _, _ = _step_grads(torch, copy.deepcopy(model).double(),
+                                x1.double(), x2.double(), False, True,
+                                Decisions(replay=rec.log))
     f32_model = copy.deepcopy(model)
     pp, gp, lp, _ = _step_grads(torch, f32_model, x1, x2, False, True)
     f64_model = copy.deepcopy(model).double()
+    rec64 = Decisions()
     _, g64, l64, _ = _step_grads(torch, f64_model, x1.double(), x2.double(),
-                                 False, True)
+                                 False, True, rec64)
+    # the replay absorbs every flipped branch's term: bound the flips
+    flipped = flips(rec.log, rec64.log)
+    del rec, rec64
+    if excess(flipped):
+        raise AssertionError(f"train step ({key}): the kernels route flips "
+                             f"{excess(flipped)} ([calls, decided, differ]) "
+                             f"against float64, above {FLIP_RATE} of the "
+                             f"decisions")
     allowed = set(_VALID_SITES) if valid else set()
     if nl:
         allowed |= {"nl_minmax", "nl_apply"}
@@ -2005,11 +2033,13 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
                                  f"1e-5 x {scale} across the routes")
         stats_err = max(stats_err, err / scale)
     largest = max(float(b.abs().max()) for b in gp)
-    largest64 = max(float(c.abs().max()) for c in g64)
+    largest64 = max(float(c.abs().max()) for c in g64r)
+    plain64 = max(float(c.abs().max()) for c in g64)
     own_rule = key in ("deepfuse", "densefuse")
     worst, worst64, worst_own, f32_own, own_f64 = 0.0, 0.0, 0.0, 0.0, {}
-    exempt, dead = 0, 0
-    for (pname, _), a, b, c in zip(model.named_parameters(), gf, gp, g64):
+    worst_plain, exempt, dead = 0.0, 0, 0
+    for (pname, _), a, b, c, c0 in zip(model.named_parameters(), gf, gp,
+                                       g64r, g64):
         err = float((a - b).abs().max())
         if err > 1e-4 * largest:
             raise AssertionError(f"train step ({key}) grad {pname}: {err} "
@@ -2032,12 +2062,16 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
             exempt += 1
             continue
         err64 = float((a - c).abs().max())
-        f32_err64 = float((b - c).abs().max())
+        f32_err64 = float((b - c0).abs().max())
+        plain_err = float((a - c0).abs().max())
+        worst_plain = max(worst_plain, plain_err / plain64)
         bound = 1e-4 * (own if own_rule else largest64)
         if err64 > bound:
             raise AssertionError(f"train step ({key}) grad {pname}: {err64} "
-                                 f"above {bound} (F.conv2d float64; its own "
-                                 f"largest {own}; F.conv2d f32 {f32_err64})")
+                                 f"above {bound} (F.conv2d float64 with the "
+                                 f"kernels route's branches; its own largest "
+                                 f"{own}; against plain float64 {plain_err}; "
+                                 f"F.conv2d f32 {f32_err64})")
         worst = max(worst, err / largest)
         worst64 = max(worst64, err64 / largest64)
         worst_own = max(worst_own, err64 / own)
@@ -2070,6 +2104,8 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
             / largest64,
             "params": len(gf), "biases_under_norm": exempt,
             "unreached_params": dead, "max_grad_rel_err_f64": worst64,
+            "max_grad_rel_err_plain_f64": worst_plain,
+            "flips_vs_f64": flipped,
             "own_f64": own_f64, "running_stats_rel_err": stats_err,
             "launches": lf, "step_ms": step_ms,
             "bound": "own" if own_rule else "largest_f64"}
@@ -2258,9 +2294,119 @@ def bn_cli_path(torch, build, test_cli, root, dev):
            "batches_tracked": tracked,
            "pairs": len(ds), "ssim": ssim, "ssim_f32_plain": ref_ssim,
            "fused_max_abs_err": y_err, "fused_max": y_max,
-           "mean_ms": avg * 1e3}
+           "mean_ms": avg * 1e3,
+           "int8": bn_int8_cli(torch, build, test_cli, root, dev, ckpt_dir,
+                               model, ds)}
     print(f"ifcnn trained by the train CLI, served by the test CLI: "
           f"{json.dumps(rec)}")
+    return rec
+
+
+def bn_int8_cli(torch, build, test_cli, root, dev, ckpt_dir, model, ds):
+    """The test CLI --int8 on the trained IFCNN checkpoint (its batch norms
+    in conv_int8's epilogue), every count set to 0 just before it:
+    FORWARD_LAUNCHES["ifcnn"] for each of its min(4, N) calibration
+    pairs, INT8_FORWARD_LAUNCHES["ifcnn"] and 2 ssim_maps a pair; then,
+    on the CLI's calibration, the int8 kernels against the plain int8
+    path (`plain_int8`) on every pair, within max 2e-2 and mean 1e-4 of
+    max|y| (tests/test_int8.py:121-128)."""
+    from multi_modal_image_fusion_tpu_torch.ops.quant import calibrate
+    build.LAUNCHES.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ssim, avg = test_cli.main([
+            "--data", "synthtrain", "--data_root", root, "--ckpt_root",
+            os.path.dirname(ckpt_dir), "--ckpt", os.path.basename(ckpt_dir),
+            "--int8"])
+    counts = dict(build.LAUNCHES)
+    n_cal = min(4, len(ds))
+    want = collections.Counter({k: v * n_cal for k, v in
+                                FORWARD_LAUNCHES["ifcnn"].items()})
+    want.update({k: v * len(ds)
+                 for k, v in INT8_FORWARD_LAUNCHES["ifcnn"].items()})
+    want["ssim_maps"] = 2 * len(ds)
+    if counts != dict(want):
+        raise AssertionError(f"ifcnn test CLI --int8 launches {counts}, "
+                             f"want {dict(want)}")
+    pairs = [tuple(torch.from_numpy(v)[None, ..., None].to(dev)
+                   for v in ds[i]) for i in range(len(ds))]
+    worst_max, worst_mean = int8_vs_plain(
+        torch, model, pairs, calibrate(model, pairs[:n_cal]))
+    if not (np.isfinite(ssim) and worst_max <= 2e-2
+            and worst_mean <= 1e-4):
+        raise AssertionError(f"ifcnn test CLI --int8: SSIM {ssim}; kernel "
+                             f"vs plain int8 max {worst_max}, mean "
+                             f"{worst_mean} of max|y|")
+    return {"ssim": ssim, "mean_ms": avg * 1e3, "launches": counts,
+            "kernel_vs_plain_max_rel": worst_max,
+            "kernel_vs_plain_mean_rel": worst_mean}
+
+
+def jax_ckpt_cli_path(torch, build, test_cli, root, dev):
+    """The test CLI on the JAX package's IFCNN checkpoint committed in
+    tests/torch_fixtures/ifcnn_jax (flax msgpack of a TrainState, read by
+    train/checkpoint.py without flax, JAX or msgpack), every count set to
+    0 just before it: FORWARD_LAUNCHES["ifcnn"] and 2 ssim_maps a pair.
+    The restore takes every leaf (nothing missing, nothing unexpected);
+    each pair's fused image (before the BMP's rounding) within 1e-4 of
+    the largest magnitude of the f32 plain path's on the same weights
+    (`plain_route`). Records whether flax and msgpack are installed."""
+    import importlib.util
+    import shutil
+    from multi_modal_image_fusion_tpu_torch.data.dataset import \
+        FusionDataset
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.train.checkpoint import (
+        checkpoint_path, restore)
+    run_dir = os.path.join(root, "jax_ckpt", "run")
+    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "torch_fixtures", "ifcnn_jax"), run_dir)
+    fused = []
+    keep = test_cli.save_result
+
+    def save_result(img):
+        fused.append(img.copy())
+        return keep(img)
+    build.LAUNCHES.clear()
+    out = io.StringIO()
+    test_cli.save_result = save_result
+    try:
+        with contextlib.redirect_stdout(out):
+            ssim, avg = test_cli.main([
+                "--data", "synthtrain", "--data_root", root, "--ckpt_root",
+                os.path.dirname(run_dir), "--ckpt", "run"])
+    finally:
+        test_cli.save_result = keep
+    counts = dict(build.LAUNCHES)
+    ds = FusionDataset(os.path.join(root, "synthtrain"), "test", "test",
+                       "ir")
+    want = {k: v * len(ds) for k, v in FORWARD_LAUNCHES["ifcnn"].items()}
+    want["ssim_maps"] = 2 * len(ds)
+    if counts != want or len(fused) != len(ds):
+        raise AssertionError(f"JAX checkpoint test CLI launches {counts}, "
+                             f"want {want}; {len(fused)} images")
+    model = create_model("ifcnn")
+    left = restore(model, checkpoint_path(run_dir))
+    if left != ([], []):
+        raise AssertionError(f"JAX checkpoint restore left {left}")
+    model = model.to(dev).eval()
+    rel = 0.0
+    with torch.no_grad(), plain_route("ifcnn"):
+        for i in range(len(ds)):
+            a, b = (torch.from_numpy(v)[None, ..., None].to(dev)
+                    for v in ds[i])
+            y = model(a, b)[0].float().cpu().numpy()
+            rel = max(rel, float(np.abs(fused[i] - y).max()
+                                 / np.abs(y).max()))
+    if not (np.isfinite(ssim) and rel <= 1e-4):
+        raise AssertionError(f"JAX checkpoint test CLI: SSIM {ssim}, fused "
+                             f"images {rel} of the f32 plain path's max")
+    rec = {"pairs": len(ds), "ssim": ssim, "mean_ms": avg * 1e3,
+           "fused_max_rel_err": rel, "launches": counts,
+           "flax_installed": importlib.util.find_spec("flax") is not None,
+           "msgpack_installed":
+               importlib.util.find_spec("msgpack") is not None}
+    print(f"test CLI on the JAX IFCNN checkpoint: {json.dumps(rec)}")
     return rec
 
 
@@ -4156,7 +4302,15 @@ ROW11_CASES = [
     ("densefuse.dec2", [32], 16, 3, "relu", 1, False, H, W),
     ("densefuse.dec3", [16], 1, 3, None, 1, False, H, W),
     ("unfusion.DB3_1.conv1", [256, 1024], 640, 3, "relu", 1, False, 306,
-     256)]
+     256),
+    # the new widest shapes: SEDRFuse's ResBlock conv (its group norm and
+    # relu follow the kernel: act None) over the encoder's 32 images at
+    # 1/4 scale; MAFusion's DB1 conv1 over its four legs at full scale,
+    # one image (its bench forward takes four; the library's im2col of one
+    # image is 21.6 GB in bf16)
+    ("sedrfuse.res.conv1", [256], 256, 3, None, 2, False, 306, 256),
+    ("mafusion.DB1.conv1", [64, 128, 256, 512], 480, 3, "relu", 1, False, H,
+     W, 1)]
 
 
 def _int8_err(torch, got, want, kind):
@@ -4391,11 +4545,12 @@ def check_int8(torch, F, dev, timer):
     # row 11: the ConvLayer route's layers, their legs read in place
     for dt, pairs in (("bf16", BATCH), ("f32", 1)):
         dtype = dts[dt]
-        for name, cins, cout, k, act, per_pair, fuse, h, w_ in ROW11_CASES:
+        for name, cins, cout, k, act, per_pair, fuse, h, w_, *images in \
+                ROW11_CASES:
             if dt == "f32" and not name.startswith("deepfuse"):
                 continue
             cin = sum(cins)
-            b_in = pairs * per_pair
+            b_in = images[0] if images else pairs * per_pair
             fuse_n = b_in // 2 if fuse else 0
             b_out = fuse_n or b_in
             w, bias = layer(cin, cout, k, 300 + cin + k)
@@ -4450,18 +4605,57 @@ INT8_FORWARD_LAUNCHES = {
     # CB1_0-CB4_0, the 6 ECBs' and 6 DCBs' two convs, conv_out; the 6
     # stride-2 downs are F.conv2d
     "unfusion": {"conv_int8": 29},
+    # every conv the JAX package's int8 gate admits (ops/layers.py
+    # ConvLayer._int8_eligible; tests/test_torch_int8_plans.py): a batch
+    # norm in conv_int8's epilogue, a group norm after it; the stride-2
+    # and transpose convs (SEDRFuse) and the depthwise convs (MyFusion's
+    # conv_dw: TransitionBlock's k1 dw, DCBlock's, FFN's and MixConv's
+    # windows) stay float
+    "ifcnn": {"conv_int8": 4},
+    "difnet": {"conv_int8": 13},
+    "pmgi": {"conv_int8": 13},
+    "sedrfuse": {"conv_int8": 4},
+    "nestfuse": {"conv_int8": 22},
+    "rfnnest": {"conv_int8": 46},
+    "mafusion": {"conv_int8": 16},
+    "pfnetv1": {"conv_int8": 13},
+    # the fuse net's three convs on the channels-into-batch fold
+    "pfnetv2": {"conv_int8": 11},
+    "myfusion": {"conv_int8": 26, "conv_dw": 11},
+    "myfusion_sep_batch": {"conv_int8": 26, "conv_dw": 11},
+    "myfusion_mixformer_ls_concat": {"conv_int8": 43, "conv_dw": 35},
+    "myfusion_transformer_fs_elem": {"conv_int8": 36, "conv_dw": 8},
 }
+# the models and configurations whose --int8 bench, quality gap and
+# kernel-vs-plain check run after the float benches: (key, model,
+# configuration, pairs); MyFusion with batch norms is the sep frame
+MYF_SEP_BATCH = dict(encoder="sep", norm="batch")
+INT8_MODELS = (
+    *((n, n, {}, BATCH) for n in ("ifcnn", "difnet", "pmgi", "sedrfuse",
+                                  "nestfuse", "rfnnest")),
+    ("mafusion", "mafusion", {}, MAFUSION_BATCH),
+    *((n, n, {}, BATCH) for n in ("pfnetv1", "pfnetv2", "myfusion")),
+    ("myfusion_sep_batch", "myfusion", MYF_SEP_BATCH, BATCH),
+    ("myfusion_mixformer_ls_concat", "myfusion",
+     MYF_FORMERS["myfusion_mixformer_ls_concat"], BATCH),
+    ("myfusion_transformer_fs_elem", "myfusion",
+     MYF_FORMERS["myfusion_transformer_fs_elem"], BATCH))
 
 
-def int8_bench_path(torch, build, bench, name, key=None):
-    """The port's bench --int8 of `name` (16 pairs), every count set to 0
-    just before it. Its calibration forward is counted apart first (the
-    same call on the same crop), so the counts must be exactly that plus
-    INT8_FORWARD_LAUNCHES[key or name] x (warmup + timed)."""
+def int8_bench_path(torch, build, bench, name, key=None, net=None,
+                    batch=BATCH):
+    """The port's bench --int8 of `name` (`batch` pairs; `net` the built
+    model whose weights it times, else the bench's own init from seed 0),
+    every count set to 0 just before it. Its calibration forward is
+    counted apart first (the same call on the same crop), so the counts
+    must be exactly that plus INT8_FORWARD_LAUNCHES[key or name] x (warmup
+    + timed)."""
+    import copy
     from multi_modal_image_fusion_tpu_torch.models import create_model
     from multi_modal_image_fusion_tpu_torch.ops.quant import calibrate
-    model = create_model(name, generator=torch.Generator().manual_seed(
-        0)).to("cuda", torch.bfloat16).eval()
+    model = (copy.deepcopy(net) if net is not None else create_model(
+        name, generator=torch.Generator().manual_seed(0))).to(
+            "cuda", torch.bfloat16).eval()
     r = np.random.RandomState(0)
     a, b = (torch.from_numpy(r.rand(1, 256, 256, 1).astype(
         np.float32)).to("cuda", torch.bfloat16) for _ in range(2))
@@ -4472,7 +4666,8 @@ def int8_bench_path(torch, build, bench, name, key=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     build.LAUNCHES.clear()
-    result, last = bench.run(seed=0, model_name=name, int8=True)
+    result, last = bench.run(seed=0, model_name=name, int8=True, batch=batch,
+                             model=net)
     counts = dict(build.LAUNCHES)
     want = collections.Counter({k: v * (bench.ITERS + 1) for k, v in
                                 INT8_FORWARD_LAUNCHES[key or name].items()})
@@ -4486,18 +4681,24 @@ def int8_bench_path(torch, build, bench, name, key=None):
     return result, last, counts
 
 
-def int8_quality(torch, dev, name, a16, b16, y_int8, chunk=4):
+def int8_quality(torch, dev, name, a16, b16, y_int8, chunk=4, make=None,
+                 key=None):
     """The int8 gap to the BASELINE contract on the int8 bench's last batch,
     reported and not gated: mean SSIM and Qabf of the int8 forward against
-    the f32 forward (F.conv2d, TF32 off) and the bf16 kernel forward of the
-    same weights. DeepFuse also with MMIF_HIW_INT8_RES=0 (calibrated as the
-    bench calibrates, on the first pair's 256x256 crop of this batch)."""
+    the f32 forward (the f32 plain path, `plain_route`: F.conv2d with TF32
+    off, or the serving kernels' plain versions for a model with batch
+    norms) and the bf16 kernel forward of the same weights (`make()`, a
+    fresh copy of the bench's model; default the seed-0 init). DeepFuse
+    also with MMIF_HIW_INT8_RES=0 (calibrated as the bench calibrates, on
+    the first pair's 256x256 crop of this batch)."""
     from multi_modal_image_fusion_tpu_torch.models import create_model
-    from multi_modal_image_fusion_tpu_torch.ops.layers import fast_training
     from multi_modal_image_fusion_tpu_torch.ops.quant import (
         calibrate, quantized_inference)
-    m32, m16 = (create_model(name, generator=torch.Generator().manual_seed(
-        0)).to(dev, dt).eval() for dt in (torch.float32, torch.bfloat16))
+    label = key or name
+    make = make or (lambda: create_model(
+        name, generator=torch.Generator().manual_seed(0)))
+    m32, m16 = (make().to(dev, dt).eval()
+                for dt in (torch.float32, torch.bfloat16))
     variants = {"int8": None}
     if name == "deepfuse":
         amax = calibrate(m16, [(a16[:1, :256, :256], b16[:1, :256, :256])])
@@ -4507,7 +4708,7 @@ def int8_quality(torch, dev, name, a16, b16, y_int8, chunk=4):
         for lo in range(0, a16.shape[0], chunk):
             sl = slice(lo, lo + chunk)
             x1, x2 = a16[sl].float(), b16[sl].float()
-            with fast_training(False):
+            with plain_route(label):
                 ys = {"f32": m32(x1, x2)}
             ys["bf16"] = m16(a16[sl], b16[sl]).float()
             for key, flag in variants.items():
@@ -4531,7 +4732,49 @@ def int8_quality(torch, dev, name, a16, b16, y_int8, chunk=4):
             rec[f"{key}_vs_{ref}"] = {
                 "d_ssim": abs(means[key][0] - means[ref][0]),
                 "d_qabf": abs(means[key][1] - means[ref][1])}
-    print(f"int8 quality {name}: {json.dumps(rec)}")
+    print(f"int8 quality {label}: {json.dumps(rec)}")
+    return rec
+
+
+def int8_vs_plain(torch, model, pairs, amax):
+    """(largest max, largest mean) over `pairs` of |kernels - plain| / max
+    |plain| of `model`'s int8 forward under quantized_inference(amax), the
+    plain int8 path (`plain_int8`) the reference."""
+    from multi_modal_image_fusion_tpu_torch.ops.quant import \
+        quantized_inference
+    worst_max = worst_mean = 0.0
+    with torch.no_grad(), quantized_inference(amax):
+        for a, b in pairs:
+            y = model(a, b).float()
+            with plain_int8():
+                yp = model(a, b).float()
+            scale = float(yp.abs().max())
+            d = (y - yp).abs()
+            worst_max = max(worst_max, float(d.max()) / scale)
+            worst_mean = max(worst_mean, float(d.mean()) / scale)
+    return worst_max, worst_mean
+
+
+def int8_plain_check(torch, dev, key, net, a16, b16):
+    """The int8 kernels against the plain int8 path (`plain_int8`: the
+    exact integer conv and the same f32 epilogue) on the card, the bf16
+    model `net` on the first two pairs of an int8 bench's last batch,
+    calibrated as the bench calibrates (the first pair's 256x256 crop),
+    within tests/test_int8.py:121-128's model tolerance (max <= 2e-2,
+    mean <= 1e-4 of max|y|). Returns the record."""
+    from multi_modal_image_fusion_tpu_torch.ops.quant import calibrate
+    pairs = 2
+    model = net.to(dev, torch.bfloat16).eval()
+    amax = calibrate(model, [(a16[:1, :256, :256].contiguous(),
+                              b16[:1, :256, :256].contiguous())])
+    worst_max, worst_mean = int8_vs_plain(
+        torch, model, [(a16[i:i + 1], b16[i:i + 1]) for i in range(pairs)],
+        amax)
+    if not (worst_max <= 2e-2 and worst_mean <= 1e-4):
+        raise AssertionError(f"{key} --int8: kernels vs plain int8 max "
+                             f"{worst_max}, mean {worst_mean} of max|y|")
+    rec = {"pairs": pairs, "max_rel": worst_max, "mean_rel": worst_mean}
+    print(f"int8 kernels vs plain ({key}): {json.dumps(rec)}")
     return rec
 
 
@@ -4569,8 +4812,7 @@ def int8_cli_path(torch, build, test_cli, root, dev, float_ssim):
     from multi_modal_image_fusion_tpu_torch.data.dataset import \
         FusionDataset
     from multi_modal_image_fusion_tpu_torch.models import create_model
-    from multi_modal_image_fusion_tpu_torch.ops.quant import (
-        calibrate, quantized_inference)
+    from multi_modal_image_fusion_tpu_torch.ops.quant import calibrate
     from multi_modal_image_fusion_tpu_torch.train.checkpoint import restore
     build.LAUNCHES.clear()
     out = io.StringIO()
@@ -4602,17 +4844,8 @@ def int8_cli_path(torch, build, test_cli, root, dev, float_ssim):
                        "ir")
     pairs = [tuple(torch.from_numpy(v)[None, ..., None].to(dev)
                    for v in ds[i]) for i in range(INT8_CLI_PLAIN_PAIRS)]
-    amax = calibrate(model, pairs[:4])
-    worst_max = worst_mean = 0.0
-    with torch.no_grad(), quantized_inference(amax):
-        for a, b in pairs:
-            y = model(a, b)
-            with plain_int8():
-                yp = model(a, b)
-            scale = float(yp.abs().max())
-            d = (y - yp).abs()
-            worst_max = max(worst_max, float(d.max()) / scale)
-            worst_mean = max(worst_mean, float(d.mean()) / scale)
+    worst_max, worst_mean = int8_vs_plain(torch, model, pairs,
+                                          calibrate(model, pairs[:4]))
     if not (np.isfinite(ssim) and worst_max <= 2e-2
             and worst_mean <= 1e-4):
         raise AssertionError(f"test CLI --int8: SSIM {ssim}; kernel vs "
@@ -5054,6 +5287,8 @@ def main():
     for key, cfg in MYF_FORMERS.items():
         seeds[key] = live_seed(torch, dev, "myfusion", key=key,
                                min_spread=1e-3, **cfg)
+    seeds["myfusion_sep_batch"] = live_seed(
+        torch, dev, "myfusion", key="myfusion_sep_batch", **MYF_SEP_BATCH)
     torch.cuda.empty_cache()
 
     # phase 4: main path, counts from 0
@@ -5286,6 +5521,31 @@ def main():
         del a16, b16, y8
         torch.cuda.empty_cache()
         stamp(f"{name} int8 bench and quality done")
+    # --int8 of every other model and configuration that serves, on its
+    # float bench's weights (the live seed), counts from 0 before each;
+    # its quality gap (reported, not gated) and its int8 kernels against
+    # the plain int8 path on the bench's last batch
+    int8_plain = {}
+    for key, name, cfg, batch in INT8_MODELS:
+        seed = seeds[key]
+
+        def make(name=name, seed=seed, cfg=cfg):
+            return seeded_model(torch, name, seed, **cfg)
+        net = make()
+        int8_benches[key], (a16, b16, y8), counts = int8_bench_path(
+            torch, build, bench, name, key, net=net, batch=batch)
+        int8_benches[key].update(
+            weight_seed=seed, model_cfg=cfg,
+            bf16_pairs_per_sec=benches.get(key, {}).get("value"))
+        main_counts.update(counts)
+        torch.cuda.empty_cache()
+        int8_gap[key] = int8_quality(torch, dev, name, a16, b16, y8,
+                                     chunk=2 if name == "mafusion" else 4,
+                                     make=make, key=key)
+        int8_plain[key] = int8_plain_check(torch, dev, key, net, a16, b16)
+        del a16, b16, y8, net
+        torch.cuda.empty_cache()
+        stamp(f"{key} int8 bench, quality and plain check done")
 
     # DeepFuse's opt-in routes (rows 9's s2d mode, 10, 13, 14): the bench
     # under each set of switches, counts from 0, beside the default bench
@@ -5349,8 +5609,11 @@ def main():
                   f"kernels vs F.conv2d: loss parts "
                   f"{c['loss_parts']}, max grad err "
                   f"{c['max_grad_rel_err']:.3g} of the largest gradient, "
-                  f"against float64 {c['max_grad_rel_err_f64']:.3g} of the "
-                  f"largest (F.conv2d f32 "
+                  f"against the float64 replay "
+                  f"{c['max_grad_rel_err_f64']:.3g} of the largest (plain "
+                  f"float64 {c['max_grad_rel_err_plain_f64']:.3g}, flips "
+                  f"[calls, decided, differ] {c['flips_vs_f64']}; F.conv2d "
+                  f"f32 "
                   f"{c['f32_conv2d_rel_err_f64']:.3g}) and "
                   f"{c['max_grad_rel_err_own_f64']:.3g} of a "
                   f"gradient's own largest (F.conv2d f32: "
@@ -5365,6 +5628,9 @@ def main():
                   f"F.conv2d {c['step_ms']['conv2d']:.3f}")
         stamp("train step checks done")
         bn_cli = bn_cli_path(torch, build, test_cli, root, dev)
+        stamp("ifcnn train CLI, test CLI and test CLI --int8 done")
+        jax_cli = jax_ckpt_cli_path(torch, build, test_cli, root, dev)
+        stamp("test CLI on the JAX checkpoint done")
         train_shapes = train_shape_times(torch, F, dev, timer)
         busy = {key: profile_steps(torch, dev, key) for key in PROFILED_STEPS}
         stamp("training done")
@@ -5583,6 +5849,7 @@ def main():
                       **{f"test_cli_{k}": v for k, v in wide_cli.items()},
                       "int8_benches": int8_benches,
                       "int8_quality": int8_gap,
+                      "int8_vs_plain": int8_plain,
                       "test_cli_int8": int8_cli,
                       "variant_benches": variant_benches,
                       "int8_bench_pair": int8_pair,
@@ -5593,6 +5860,7 @@ def main():
                                    "step_check": step_check,
                                    "test_cli_ssim": train_ssim,
                                    "batch_norm_cli": bn_cli,
+                                   "jax_checkpoint_cli": jax_cli,
                                    "shapes": train_shapes}}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ call, and one `eval_metrics` chunk.
         [--int8] [--profile densefuse] [--valid] [--metrics]
         [--dw [--against <checkout>]] [--myfusion]
         [--dw_split deepfuse,densefuse,... [--dw_split_bs 4]]
+        [--flip_split unfusion,mafusion,... [--dw_split_bs 4]]
 
 `--root` is the checkout whose `multi_modal_image_fusion_tpu_torch` is
 imported (and built, into its own `_build/`); the layers are called through
@@ -66,7 +67,10 @@ of each checkout has built its kernels, so the first forward is the one
 a user's test CLI pays; no bench by default. With `--dw_split`, instead of
 the conv layers, the f32 train step's dw and dx losses against float64,
 split between the 3xTF32 products and the kernels' sums (`dw_split`); no
-bench by default. A bench named `myfusion_<configuration>` is MyFusion in
+bench by default. With `--flip_split`, instead of the conv layers, the
+f32 train step's branch flips against float64 and its losses outside the
+conv kernels (`flip_split`); no bench by default. A bench named
+`myfusion_<configuration>` is MyFusion in
 chip_smoke.py's MYF_FORMERS configuration of that name, weights from
 torch.manual_seed(0), at the bench's 16 pairs.
 Random centred inputs from a
@@ -81,6 +85,7 @@ benches' pairs/s (and the profile, and row 8's rounds). Needs a CUDA card.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -519,31 +524,26 @@ def _tf32_rna(torch, x):
     return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
 
 
-def _step_split(torch, chip_smoke, model, x1, x2):
-    """The step's worst gradient error over the largest float64 gradient
-    (chip_smoke.py's `_step_grads`, each route on a copy of `model`): the
-    f32 F.conv2d route, the kernels route, and the kernels route with its
-    forward, dx or dw (or all three) computed in float64 and rounded to
-    f32: which of the three carries the kernels' loss."""
-    import copy
+@contextlib.contextmanager
+def _swapped(subs):
+    """Module attributes {(module, name): value} set inside the block and
+    restored after it."""
+    kept = {k: getattr(*k) for k in subs}
+    for (mod, attr), f in subs.items():
+        setattr(mod, attr, f)
+    try:
+        yield
+    finally:
+        for (mod, attr), f in kept.items():
+            setattr(mod, attr, f)
+
+
+def _float64_convs():
+    """conv_vjp's conv_valid, conv_valid_dx and conv_valid_dw computed by
+    their plain versions in float64 and rounded to f32, as `_swapped`
+    takes them: {(conv_vjp, name): function}."""
     from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_valid as cv
     from multi_modal_image_fusion_tpu_torch.ops.cuda import conv_vjp
-    g64 = chip_smoke._step_grads(torch, copy.deepcopy(model).double(),
-                                 x1.double(), x2.double(), False, True)[1]
-    largest = max(float(g.abs().max()) for g in g64)
-
-    def worst(fast, **subs):
-        kept = {n: getattr(conv_vjp, n) for n in subs}
-        for n, f in subs.items():
-            setattr(conv_vjp, n, f)
-        try:
-            g = chip_smoke._step_grads(torch, copy.deepcopy(model), x1, x2,
-                                       fast, not fast)[1]
-        finally:
-            for n, f in kept.items():
-                setattr(conv_vjp, n, f)
-        return max(float((a - c).abs().max()) for a, c in zip(g, g64)) \
-            / largest
 
     def fw(xp, wt, **_):
         return cv.conv_valid_plain(xp.double(), wt.double()).to(xp.dtype)
@@ -553,12 +553,34 @@ def _step_split(torch, chip_smoke, model, x1, x2):
 
     def dw(xp, dy):
         return cv.conv_valid_dw_plain(xp.double(), dy.double()).float()
+    return {(conv_vjp, "conv_valid"): fw, (conv_vjp, "conv_valid_dx"): dx,
+            (conv_vjp, "conv_valid_dw"): dw}
+
+
+def _step_split(torch, chip_smoke, model, x1, x2):
+    """The step's worst gradient error over the largest float64 gradient
+    (chip_smoke.py's `_step_grads`, each route on a copy of `model`): the
+    f32 F.conv2d route, the kernels route, and the kernels route with its
+    forward, dx or dw (or all three) computed in float64 and rounded to
+    f32: which of the three carries the kernels' loss."""
+    import copy
+    g64 = chip_smoke._step_grads(torch, copy.deepcopy(model).double(),
+                                 x1.double(), x2.double(), False, True)[1]
+    largest = max(float(g.abs().max()) for g in g64)
+    f64 = {k[1]: (k, f) for k, f in _float64_convs().items()}
+
+    def worst(fast, *names):
+        with _swapped(dict(f64[n] for n in names)):
+            g = chip_smoke._step_grads(torch, copy.deepcopy(model), x1, x2,
+                                       fast, not fast)[1]
+        return max(float((a - c).abs().max()) for a, c in zip(g, g64)) \
+            / largest
     return {"largest": largest, "conv2d_f32": worst(False),
-            "kernels": worst(True), "float64_forward": worst(
-                True, conv_valid=fw), "float64_dx": worst(
-                True, conv_valid_dx=dx), "float64_dw": worst(
-                True, conv_valid_dw=dw), "float64_all": worst(
-                True, conv_valid=fw, conv_valid_dx=dx, conv_valid_dw=dw)}
+            "kernels": worst(True),
+            "float64_forward": worst(True, "conv_valid"),
+            "float64_dx": worst(True, "conv_valid_dx"),
+            "float64_dw": worst(True, "conv_valid_dw"),
+            "float64_all": worst(True, *f64)}
 
 
 def dw_split(torch, dev, models, bs):
@@ -617,17 +639,14 @@ def dw_split(torch, dev, models, bs):
         def rec_dx(dy, wt):
             dxs.append((dy.clone(), wt.clone()))
             return real_dx(dy, wt)
-        conv_vjp.conv_valid = rec_fw
-        conv_vjp.conv_valid_dw, conv_vjp.conv_valid_dx = rec_dw, rec_dx
-        try:
-            with fast_training(True):
-                m = copy.deepcopy(model)
-                total, _ = make_loss_bundle()(x1, x2, m(x1, x2))
-                torch.autograd.grad(total, list(m.parameters()),
-                                    allow_unused=True)
-        finally:
-            conv_vjp.conv_valid = real_fw
-            conv_vjp.conv_valid_dw, conv_vjp.conv_valid_dx = real_dw, real_dx
+        with _swapped({(conv_vjp, "conv_valid"): rec_fw,
+                       (conv_vjp, "conv_valid_dw"): rec_dw,
+                       (conv_vjp, "conv_valid_dx"): rec_dx}), \
+                fast_training(True):
+            m = copy.deepcopy(model)
+            total, _ = make_loss_bundle()(x1, x2, m(x1, x2))
+            torch.autograd.grad(total, list(m.parameters()),
+                                allow_unused=True)
 
         def err(a, ref, scale):
             return float((a.double() - ref).abs().max()) / scale
@@ -675,6 +694,146 @@ def dw_split(torch, dev, models, bs):
         if hasattr(chip_smoke, "_step_grads"):
             out[key]["step"] = _step_split(torch, chip_smoke, model, x1, x2)
         del model, fws, dws, dxs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grads_with(torch, chip_smoke, model, a, b, fast, nl_plain, replay=None):
+    """chip_smoke.py's `_step_grads` with the forward and the loss inside a
+    `Decisions` mode (train/branches.py): (record, gradients as float64,
+    fused std). `replay` (another run's record) takes its branches."""
+    from multi_modal_image_fusion_tpu_torch.train.branches import Decisions
+    rec = Decisions(replay)
+    _, grads, _, std = chip_smoke._step_grads(torch, model, a, b, fast,
+                                              nl_plain, rec)
+    return rec.log, grads, std
+
+
+def _upsample_backward(torch, calls):
+    """Each recorded bilinear upsample's backward (input, cotangent,
+    kwargs) on its own: the f32 autograd backward against float64 (largest
+    error over the largest float64 value), whether two f32 runs agree bit
+    for bit (torch sums it with f32 atomics), and its device time (CUDA
+    events, mean of 5 after one warmup)."""
+    import torch.nn.functional as F
+    out = []
+    for x, g, kw in calls:
+        def back(dt, x=x, g=g, kw=kw):
+            xx = x.to(dt).requires_grad_()
+            return torch.autograd.grad(F.interpolate(xx, **kw), xx,
+                                       g.to(dt))[0]
+        ref = back(torch.float64)
+        a, b = back(torch.float32), back(torch.float32)
+        back(torch.float32)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            back(torch.float32)
+        end.record()
+        end.synchronize()
+        scale = float(ref.abs().max()) or 1.0
+        out.append({"shape": f"{tuple(x.shape)} x{kw.get('scale_factor')}",
+                    "err": float((a.double() - ref).abs().max()) / scale,
+                    "repeatable": bool(torch.equal(a, b)),
+                    "ms": start.elapsed_time(end) / 5})
+    return out
+
+
+def flip_split(torch, dev, models, bs):
+    """`--flip_split`: what loses a train step's f32 gradients against
+    float64 outside the conv kernels. For each model (its first weight
+    seed from 5 whose float64 step is live, as tests/
+    test_torch_train_card.py draws it; `bs` uniform pairs of 64x64 from
+    numpy seed 0; TF32 off) the step runs in float64, through the kernels
+    (f32) and through F.conv2d (f32), each recording its piecewise
+    decisions (train/branches.py: activation kinks, max-pool choices, the
+    losses' abs and maximum signs, SSIM's clamp). Reported: the flips of
+    each f32 route against float64 by kind; each route's worst gradient
+    error over the largest float64 gradient; the float64 step replayed
+    with each f32 route's decisions, and that route's error against its
+    replay; the kernels route with every bilinear upsample in float64
+    (forward and backward rounded to f32), with that and conv_valid's
+    forward, dx and dw in float64 too, and (Res2Fusion) with the nl
+    Function's forward in float64; each bilinear upsample's backward on
+    its own against float64, its repeatability and its time."""
+    import copy
+
+    import chip_smoke
+    import numpy as np
+    import torch.nn.functional as F
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import nl_attention
+    from multi_modal_image_fusion_tpu_torch.train.branches import flips
+    r = np.random.RandomState(0)
+    x1, x2 = (torch.from_numpy(r.rand(bs, 64, 64, 1).astype(np.float32))
+              .to(dev) for _ in range(2))
+    checks = {k: (n, c) for k, n, c in chip_smoke.TRAIN_CHECKS}
+    real_interp = F.interpolate
+    out = {}
+    for key in models:
+        name, cfg = checks.get(key, (key, {}))
+        for seed in chip_smoke.TRAIN_SEEDS:
+            model = chip_smoke.train_weights(torch, chip_smoke.seeded_model(
+                torch, name, seed, **cfg), key).to(dev)
+            log64, g64, std = _grads_with(torch, chip_smoke,
+                                          copy.deepcopy(model).double(),
+                                          x1.double(), x2.double(), False,
+                                          True)
+            largest = max(float(g.abs().max()) for g in g64)
+            if std > 1e-3 and largest > 0:
+                break
+        names = [n for n, _ in model.named_parameters()]
+
+        def worst(g, ref):
+            big = max(float(c.abs().max()) for c in ref)
+            errs = [float((a - c).abs().max()) for a, c in zip(g, ref)]
+            i = int(np.argmax(errs))
+            return {"err": errs[i] / big, "param": names[i]}
+        logk, gk, _ = _grads_with(torch, chip_smoke, copy.deepcopy(model),
+                                  x1, x2, True, False)
+        logc, gc, _ = _grads_with(torch, chip_smoke, copy.deepcopy(model),
+                                  x1, x2, False, True)
+        rec = {"weight_seed": seed, "largest": largest,
+               "kernels": worst(gk, g64), "conv2d_f32": worst(gc, g64),
+               "flips_kernels_vs_f64": flips(logk, log64),
+               "flips_conv2d_vs_f64": flips(logc, log64)}
+        for tag, log, g in (("kernels", logk, gk), ("conv2d_f32", logc, gc)):
+            _, grep, _ = _grads_with(torch, chip_smoke,
+                                     copy.deepcopy(model).double(),
+                                     x1.double(), x2.double(), False, True,
+                                     replay=log)
+            rec[f"{tag}_vs_its_replay"] = worst(g, grep)
+            rec[f"replay_of_{tag}_vs_f64"] = worst(grep, g64)
+        calls = []
+
+        def interp64(x, *a, **kw):
+            return real_interp(x.double(), *a, **kw).to(x.dtype)
+
+        def interp_rec(x, *a, **kw):
+            y = real_interp(x, *a, **kw)
+            if kw.get("mode") == "bilinear" and y.requires_grad:
+                y.register_hook(lambda g, x=x.detach(), kw=kw: calls.append(
+                    (x.clone(), g.detach().clone(), kw)))
+            return y
+
+        def nl64(q, k):
+            return nl_attention.nl_spatial_plain(q.double(), k.double()).to(
+                q.dtype)
+        variants = [("kernels_upsample_f64", {(F, "interpolate"): interp64}),
+                    ("kernels_upsample_and_convs_f64", {
+                        (F, "interpolate"): interp64, **_float64_convs()}),
+                    ("kernels_recorded", {(F, "interpolate"): interp_rec})]
+        if name == "res2fusion":
+            variants.append(("kernels_nl_forward_f64", {
+                (nl_attention, "nl_spatial_flash"): nl64}))
+        for tag, subs in variants:
+            with _swapped(subs):
+                _, g, _ = _grads_with(torch, chip_smoke, copy.deepcopy(model),
+                                      x1, x2, True, False)
+            rec[tag] = worst(g, g64)
+        rec["upsample_backward"] = _upsample_backward(torch, calls)
+        out[key] = rec
+        del model, logk, logc, log64, calls
         torch.cuda.empty_cache()
     return out
 
@@ -807,12 +966,18 @@ def main(argv=None):
                         "are split, instead of the conv layers")
     p.add_argument("--dw_split_bs", default=4, type=int,
                    help="the --dw_split step's pairs")
+    p.add_argument("--flip_split", default="",
+                   help="models (chip_smoke.TRAIN_CHECKS keys) whose train "
+                        "step's branch flips and upsample backward are "
+                        "split against float64 (at --dw_split_bs pairs), "
+                        "instead of the conv layers")
     p.add_argument("--against", default=None,
                    help="with --dw, a checkout whose conv_dw outputs are "
                         "compared with this one's")
     args = p.parse_args(argv)
     if args.benches is None:
         args.benches = ("" if args.metrics or args.myfusion or args.dw_split
+                        or args.flip_split
                         else "res2fusion" if args.dw
                         else "deepfuse,densefuse,unfusion" if args.int8
                         else "deepfuse,densefuse,vifnet,res2fusion")
@@ -861,7 +1026,7 @@ def main(argv=None):
             del fn
             torch.cuda.empty_cache()
         convs = not (args.int8 or args.metrics or args.dw or args.myfusion
-                     or args.dw_split)
+                     or args.dw_split or args.flip_split)
         for case in gray_cases() + pair_cases() if convs else []:
             fn = (gray_layer if case in gray_cases() else pair_layer)(
                 torch, case, gen, dev)
@@ -901,6 +1066,10 @@ def main(argv=None):
     if args.dw_split:
         split = dw_split(torch, dev, args.dw_split.split(","),
                          args.dw_split_bs)
+    flipped = None
+    if args.flip_split:
+        flipped = flip_split(torch, dev, args.flip_split.split(","),
+                             args.dw_split_bs)
     benches = {}
     for name in filter(None, args.benches.split(",")):
         batch = 2 if name == "res2fusion" else bench.BATCH
@@ -932,6 +1101,8 @@ def main(argv=None):
         out["myfusion_f32"] = myfusion
     if split is not None:
         out["dw_split"] = {"bs": args.dw_split_bs, "models": split}
+    if flipped is not None:
+        out["flip_split"] = {"bs": args.dw_split_bs, "models": flipped}
     if args.profile:
         out["profile"] = {args.profile: int8_profile(torch, args.profile)}
     print(json.dumps(out))

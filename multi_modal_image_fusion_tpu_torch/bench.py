@@ -86,7 +86,8 @@ def run(seed=0, device="cuda", model_name="deepfuse", batch=BATCH,
     a, b = pairs(), pairs()
     qctx = contextlib.nullcontext()
     if int8:
-        amax = calibrate(model, [(a[:1, :256, :256], b[:1, :256, :256])])
+        amax = calibrate(model, [(a[:1, :256, :256].contiguous(),
+                                  b[:1, :256, :256].contiguous())])
         qctx = quantized_inference(amax, skip=default_skip(model_name))
     with torch.no_grad(), qctx:
         _, s = bench_loop(model, a, b, 1)           # warmup (builds kernels)

@@ -7,7 +7,9 @@ images as NN.bmp into <ckpt_root>/<ckpt>/<data>/ (default root
 to train.log when it exists. With --int8 it first calibrates the model's
 conv layers on the first min(4, N) pairs (batch 1, the model's dtype; JAX
 cli/test.py:229-243), prints `int8: calibrated N conv layers on M image
-pairs`, then serves under ops/quant.quantized_inference.
+pairs`, then serves under ops/quant.quantized_inference. The checkpoint
+folder may be the port's (`.pth`) or the JAX package's (`.ckpt`, read
+without flax: train/checkpoint.py).
 
 Runs on the CUDA card (conv and SSIM kernels of ops/cuda/) unless asked
 for the CPU:
@@ -103,7 +105,7 @@ def main(argv=None):
     dataset = FusionDataset(data_dir, set_name=set_name_test,
                             set_type="test", img_type=img_type)
 
-    missing, unexpected = restore(model, ckpt_path)
+    missing, unexpected = restore(model, ckpt_path, model_name)
     if missing:
         print(f"partial checkpoint: {len(missing)} leaves kept at init "
               f"(e.g. {missing[0]}), {len(unexpected)} checkpoint-only "

@@ -17,6 +17,10 @@ pixel-max 0.01 + grad-max 0.1, Adam(1e-4, 0.9, 0.999), global-norm clip 5,
 MultiStep at 2/3 E and 8/9 E. `--fast_train` runs every conv of the train
 and valid steps through the conv_valid kernel (ops/layers.py); without it
 they run F.conv2d. TF32 is off, so f32 convs and matmuls are f32.
+`--resume` and `--init_from` also take a JAX package run's folder (its
+flax msgpack `.ckpt` files, read without flax: train/checkpoint.py):
+`--resume` its whole TrainState and epoch, `--init_from` its parameters
+and batch statistics with a fresh optimizer, as the JAX CLI does.
 """
 
 import contextlib
@@ -32,10 +36,12 @@ from ..data.io import imwrite
 from ..data.pipeline import Feeder
 from ..device import resolve_device
 from ..models import create_model
-from ..train.checkpoint import (checkpoint_path, load_checkpoint_meta,
-                                load_train_state, restore, save_checkpoint)
+from ..train.checkpoint import (checkpoint_path, jax_tree,
+                                load_checkpoint_meta, load_train_state,
+                                restore, save_checkpoint)
 from ..train.schedules import make_lr_schedule
 from ..train.trainer import Trainer, make_loss_bundle
+from ..utils.jax_convert import jax_train_state_to_torch
 from ..utils.logger import Logger, close_logger
 from ..utils.meters import AverageMeter
 from ..utils.scalars import ScalarWriter
@@ -159,6 +165,25 @@ def _snapshot(model, trainer):
              for k, v in model.state_dict().items()}, trainer.state_dict())
 
 
+def resume(run_dir, model, trainer, model_name):
+    """Load a run's last state into `model` and `trainer`: the port's
+    epoch_last.pth with its .optim or, where the folder holds none, the
+    JAX package's epoch_last.ckpt (its whole TrainState: params,
+    statistics, the optax state and step, `jax_train_state_to_torch`). Returns (the path
+    read, the epoch its metadata records)."""
+    path = os.path.join(run_dir, "epoch_last.pth")
+    if not os.path.isfile(path) and os.path.isfile(path[:-4] + ".ckpt"):
+        path = path[:-4] + ".ckpt"
+        tree, name, cfg = jax_tree(path, model, model_name)
+        state, train_state = jax_train_state_to_torch(tree, name, **cfg)
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        train_state = load_train_state(path)
+    model.load_state_dict(state)
+    trainer.load_state_dict(train_state)
+    return path, int(load_checkpoint_meta(path).get("epoch", 0))
+
+
 def main(argv=None):
     args = get_train_parser().parse_args(argv)
     if args.multihost or args.spatial > 1:
@@ -246,15 +271,12 @@ def main(argv=None):
     if args.init_from:
         # stage-2 init: the parameters of another run, a fresh optimizer
         init_path = checkpoint_path(os.path.join(root, args.init_from))
-        missing, _ = restore(model, init_path)
+        missing, _ = restore(model, init_path, args.model)
         logger.info(f"initialized params from {init_path}"
                     + (f" ({len(missing)} kept at init)" if missing else ""))
     if args.resume:
-        resume_path = os.path.join(root, args.resume, "epoch_last.pth")
-        model.load_state_dict(torch.load(resume_path, map_location=device,
-                                         weights_only=True))
-        trainer.load_state_dict(load_train_state(resume_path))
-        start_epoch = int(load_checkpoint_meta(resume_path).get("epoch", 0))
+        resume_path, start_epoch = resume(os.path.join(root, args.resume),
+                                          model, trainer, args.model)
         logger.info(f"resumed from {resume_path} at epoch {start_epoch}")
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"params: {n_params / 1e6:.3f}M")

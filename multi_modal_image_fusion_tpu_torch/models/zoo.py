@@ -744,17 +744,21 @@ class PFNetv2(nn.Module):
         """The channels-into-batch fold (JAX zoo.py:226-235): each channel's
         (f1, f2) pair an image of the shared 2 -> 2 -> 2 -> 1 net, on the
         training route's F.conv2d (a trainer's scope is kept; outside one,
-        fast_training(False))."""
+        fast_training(False)); under int8 a layer that the gate admits runs
+        conv_int8 on the folded batch, as the JAX package's fold runs its
+        int8 route."""
         f1, f2 = f[:n], f[n:]
         b, h, w, c = f1.shape
         z = torch.stack([f1, f2], dim=-1).permute(0, 3, 1, 2, 4).reshape(
-            b * c, h, w, 2)
-        scope = (contextlib.nullcontext() if in_training_scope()
-                 else fast_training(False))
-        with scope:
-            for layer in self.fuse:
+            b * c, h, w, 2).contiguous()     # a view at b == 1
+        for layer in self.fuse:
+            scope = (contextlib.nullcontext() if in_training_scope()
+                     or layer._int8_route() is not None
+                     else fast_training(False))
+            with scope:
                 z = layer(z)
-        return z.reshape(b, c, h, w).permute(0, 2, 3, 1) + f1 + f2
+        return (z.reshape(b, c, h, w).permute(0, 2, 3, 1) + f1
+                + f2).contiguous()
 
     def forward(self, img1, img2=None):
         conv_in, dense = self.encode
@@ -874,8 +878,9 @@ class PMGI(nn.Module):
     epilogue; then out / 2 + 0.5 in torch. Reference quirks kept:
     `f1_conv2` is transfer2[1] of f1, and transfer1[1] holds parameters but
     its output is never used (model.py:591); when the batch norms take
-    batch statistics it runs all the same, as the JAX package's eager
-    route runs it, so its running statistics move as there. `norm` and
+    batch statistics, and in calibration, it runs all the same, as the JAX
+    package's eager route runs it, so its running statistics move and its
+    amax is recorded as there. `norm` and
     `act` are the JAX fields. The model takes two images only, as in the
     JAX package."""
 
@@ -905,10 +910,11 @@ class PMGI(nn.Module):
         f1_1, f1_2 = gr[1](f0_1), it[1](f0_2)
         f1_conv1 = self.transfer1[0](_legs(f1_1, f1_2))
         f1_conv2 = self.transfer2[1](_legs(f1_1, f1_2))   # quirk
-        if batch_stats_route(self, img1, img2):
+        if batch_stats_route(self, img1, img2) or calibrating():
             # the JAX package's eager route runs the dead transfer1[1] (to
             # create its parameters), which moves its running statistics
-            # in training; its output is unused
+            # in training and records its input in calibration; its output
+            # is unused
             self.transfer1[1](_legs(f1_1, f1_2))
         f2_1 = gr[2](_legs(f0_1, f1_1, f1_conv1))
         f2_2 = it[2](_legs(f0_2, f1_2, f1_conv2))

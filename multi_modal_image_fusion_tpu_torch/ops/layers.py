@@ -29,8 +29,11 @@ activation, then `batch_norm`, then the activation (the JAX package's
 eager route, ops/layers.py:785-790): with the norm's module in train mode
 on the batch statistics, which also move its running statistics (the JAX
 `train=True`), in eval mode on the running statistics (`train=False`, the
-valid step). Its int8 route is not ported (ROADMAP.md queue 1 item 5b) and
-raises NotImplementedError.
+valid step). On the int8 route the eval-mode norm rides conv_int8's f32
+epilogue (`_int8`): the dequant scale sw * g and the bias (b - mean) * g +
+beta, then the activation, with g = scale / sqrt(var + 1e-5) as `folded()`
+computes it; the weights are quantized unfolded, as the JAX package
+quantizes the raw kernel (ops/layers.py:650-654), so the int8 grid is its.
 
 A group norm (`norm="group"`, the JAX package's `make_norm('group')`,
 ops/layers.py:299: torch GroupNorm(C, C), eps 1e-5, an instance norm with
@@ -38,8 +41,9 @@ statistics per image and channel) cannot fold: every route runs the conv
 and its bias (a kernel with no activation), then `group_norm` (torch ops,
 statistics in f32, in batch chunks), then the activation, as the JAX
 package runs the norm on XLA after its conv. It has no running statistics,
-so its training route computes the serving route's function. Its int8
-route is not ported and raises NotImplementedError.
+so its training route computes the serving route's function. On the int8
+route the kernel writes the conv and its bias in the layer's dtype, then
+`_normed` runs the norm and the activation.
 
 A channel layer norm (`norm="layer"`, the JAX package's `make_norm('layer')`,
 `ChannelLayerNorm`, ops/layers.py:260: over the channels of each pixel, eps
@@ -92,16 +96,18 @@ Routes of a conv:
   fuses, follow the conv over the whole batch (a batch norm's statistics
   are the batch's);
 - int8 (inside ops/quant.quantized_inference, outside a `fast_training`
-  scope): a stride-1 dense layer that the skip set does not name runs
-  `conv_int8` (the JAX package's `ops/layers.py:624-691`): its effective
+  scope): a reflect-SAME stride-1 dense layer, not transposed, that the
+  skip set does not name (the JAX package's gate, `ops/layers.py:628-634`)
+  runs `conv_int8` (`ops/layers.py:624-691`), with a batch norm in its
+  epilogue or a group or layer norm after it: its effective
   input (a list of legs concatenated, a fuse_n sum taken in the input's
   dtype) is quantized on the fold of its calibrated amax, or of the
   dynamic per-channel max of that input when the layer was not
   calibrated. A calibrated layer hands conv_int8 its legs and fuse_n,
   which the kernel reads in place (the same function); the dynamic max
   needs the whole input, so an uncalibrated layer builds it first.
-  Depthwise and stride-2 layers keep their float routes. The route is
-  forward-only: it raises when a gradient is needed.
+  Depthwise, strided, VALID and transpose layers keep their float routes.
+  The route is forward-only: it raises when a gradient is needed.
 
 During ops/quant.calibrate every layer records the per-channel max |x| of
 its effective input under its flax path (`qpath`, set by
@@ -152,7 +158,6 @@ ACTS = (*ACT_CODES, *_TORCH_ACTS)
 # 1 and 2, the Attention pool's 16 // (C // 16) at MyFusion's widths
 VALID_DW_KSIZES = (1, 2, 4, 8, 16)
 GN_CHUNK_ELEMS = 2 ** 28    # elements a batch chunk of group_norm (1 GB f32)
-_NORM_QUEUE = "ROADMAP.md queue 1 item 5b"
 
 # None: no trainer scope (serving); False / True: the trainer's steps, on
 # F.conv2d / on the conv_valid kernels
@@ -454,19 +459,18 @@ class ConvLayer(nn.Module):
         w, b = self.weight, self.bias
         if self.norm != "batch":
             return w.to(dtype), None if b is None else b.to(dtype)
-        bn = self.layers[1]
-        g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
-        b0 = 0.0 if b is None else b.float()
-        bf = (b0 - bn.running_mean.float()) * g + bn.bias.float()
+        g, bf = self._bn_affine()
         return ((w.float() * g[:, None, None, None]).to(dtype),
                 bf.to(dtype))
 
-    def _no_norm(self, route):
-        if self.norm is not None:
-            raise NotImplementedError(
-                f"the {route} route of a conv with a {self.norm} norm is not "
-                f"ported ({_NORM_QUEUE}); its serving route "
-                f"{'folds' if self.norm == 'batch' else 'applies'} the norm")
+    def _bn_affine(self):
+        """(g, shift) in f32 of the eval-mode batch norm over the conv and
+        its bias: g = scale / sqrt(var + 1e-5), shift = (b - mean) * g +
+        beta."""
+        bn = self.layers[1]
+        g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
+        b0 = 0.0 if self.bias is None else self.bias.float()
+        return g, (b0 - bn.running_mean.float()) * g + bn.bias.float()
 
     def _kernel_act(self):
         """The activation a kernel fuses: the layer's, or None where a group
@@ -515,8 +519,10 @@ class ConvLayer(nn.Module):
         xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode="reflect")
         kact = self._train_act()
         if not (_FAST_TRAINING.get() and self._valid_eligible()):
+            # the activation on the NHWC view, as the kernels' route applies
+            # it (train/branches.py compares the two routes call by call)
             y = F.conv2d(xp, self.weight, self.bias, groups=self.groups)
-            return apply_act(y, kact).permute(0, 2, 3, 1)
+            return apply_act(y.permute(0, 2, 3, 1), kact)
         xp = xp.permute(0, 2, 3, 1).contiguous()
         if self._needs_grad(xp):
             y = conv_valid_fast(xp, self.weight)
@@ -583,6 +589,10 @@ class ConvLayer(nn.Module):
             raise ValueError(f"enter_stacked: {len(imgs)} images with two "
                              f"distinct ones for {self.in_ch} input channels")
         cast = [u.to(self.weight.dtype) for u in uniq]
+        qc = self._int8_in_place()
+        if qc is not None:
+            # the concat's channels as legs, read in place by conv_int8
+            return self._int8([(cast[i], 0) for i in which], qc)
         if self._training_route(*cast) or self._whole_input():
             return self(torch.cat([cast[i] for i in which], dim=-1))
         w, b = self.folded(torch.float32)
@@ -675,11 +685,20 @@ class ConvLayer(nn.Module):
         package's `chain_defer_in_ch` (ops/layers.py:443-452)."""
         return (*self.folded(), self.ksize, self.act)
 
+    def _int8_eligible(self):
+        """The layers the JAX package's int8 gate admits (ops/layers.py:
+        628-634): stride 1, groups 1, not transposed, padded k // 2 (the
+        port has no dilation). Depthwise convs, strided and VALID downs,
+        the Attention's pools and transpose convs stay float."""
+        return (self.stride == 1 and self.groups == 1 and not self.transpose
+                and (self.padding is None
+                     or self.padding == self.ksize // 2))
+
     def _int8_route(self):
         """The quantized_inference this layer runs int8 under now, or None:
-        a stride-1 dense layer that the skip set does not name."""
+        an `_int8_eligible` layer that the skip set does not name."""
         qc = int8_ctx()
-        if (qc is None or self.stride != 1 or self.groups != 1
+        if (qc is None or not self._int8_eligible()
                 or quant_skipped(self.qpath)):
             return None
         return qc
@@ -696,13 +715,26 @@ class ConvLayer(nn.Module):
                 "int8 inference is forward-only: run the model under "
                 "torch.no_grad() inside quantized_inference")
 
+    def int8_epilogue(self, sw):
+        """(dequant scale, bias) of conv_int8's f32 epilogue for the weight
+        scale sw: sw and the conv's bias; with a batch norm, its eval-mode
+        affine folded in, sw * g and (b - mean) * g + beta with g = scale /
+        sqrt(var + 1e-5), in f32 as `folded()` computes it (the activation
+        then follows the norm in the same epilogue)."""
+        if self.norm != "batch":
+            return sw, self.bias
+        g, shift = self._bn_affine()
+        return (sw * g).detach(), shift.detach()
+
     def _int8(self, x, qc, fuse_n=0):
         """The int8 route: the fold of the calibrated (else the dynamic)
-        per-channel amax, the folded weights quantized per output channel,
-        then conv_int8 (JAX ops/layers.py:644-691) on x, a tensor or, for a
-        calibrated layer, a list of legs, with fuse_n. The weights are
-        packed for the kernel once per context (Int8Weights)."""
-        self._no_norm("int8")
+        per-channel amax, the raw weights times the fold quantized per
+        output channel, then conv_int8 (JAX ops/layers.py:644-691) on x, a
+        tensor or, for a calibrated layer, a list of legs, with fuse_n; a
+        batch norm in its epilogue (`int8_epilogue`), a group or layer norm
+        and an activation no kernel fuses after it (`_normed`). The
+        weights are packed for the kernel once per context
+        (Int8Weights)."""
         self._forward_only(*([t for t, _ in x] if isinstance(x, list)
                              else [x]))
         amax = qc.amax.get(self.qpath)
@@ -711,15 +743,16 @@ class ConvLayer(nn.Module):
             f = choose_fold(a_in, self.weight,
                             mode=os.environ.get("MMIF_INT8_FOLD", "smooth"))
             qw, sw = quantize_weights(fold_weights(self.weight, f))
-            return f, qw, sw, Int8Weights(qw, sw, self.bias, f)
+            dq, bias = self.int8_epilogue(sw)
+            return f, qw, dq, bias, Int8Weights(qw, dq, bias, f)
         if amax is None:
-            f, qw, sw, wts = prepare(x.abs().amax(dim=(0, 1, 2)).float())
+            f, qw, dq, bias, wts = prepare(
+                x.abs().amax(dim=(0, 1, 2)).float())
         else:
-            f, qw, sw, wts = qc.cached((id(self), "conv_int8"),
-                                       lambda: prepare(amax))
-        return self._normed(conv_int8(x, qw, sw, f, self.bias,
-                                      self._kernel_act(), fuse_n,
-                                      weights=wts))
+            f, qw, dq, bias, wts = qc.cached((id(self), "conv_int8"),
+                                             lambda: prepare(amax))
+        return self._normed(conv_int8(x, qw, dq, f, bias, self._kernel_act(),
+                                      fuse_n, weights=wts))
 
     def chain_int8(self, x, amax, fuse_n=0, out_to=None, out_amax=None):
         """DeepFuse's int8 chain leg (JAX ops/pallas/hiw_int8.py:260-365):
@@ -730,7 +763,9 @@ class ConvLayer(nn.Module):
         divided by its fold in f32 before the kernel. Otherwise the output
         is in the chain dtype (the parameters')."""
         qc = quant_ctx()
-        self._no_norm("int8")
+        if self.norm is not None:
+            raise ValueError(f"chain_int8: DeepFuse's chain legs have no "
+                             f"norm, this layer has a {self.norm} norm")
         self._forward_only(x)
 
         def prepare():

@@ -278,13 +278,18 @@ def _iohw(kernel_hwio):
     return np.ascontiguousarray(np.transpose(kernel_hwio, (2, 3, 0, 1)))
 
 
-def jax_to_state_dict(variables, model_name="deepfuse", **cfg):
+def jax_to_state_dict(variables, model_name="deepfuse", strict=True, **cfg):
     """JAX variables (nested numpy dict) -> port state dict (torch); `cfg`
-    MyFusion's configuration (`MyFusion.layout_cfg`)."""
+    MyFusion's configuration (`MyFusion.layout_cfg`). strict=False (a
+    checkpoint restore's merge): a layer the variables lack is left out
+    and the flax paths the layout does not take are returned beside the
+    state dict, (state dict, [path, ...]), where strict raises."""
     name = model_name.lower()
     layout, optional, norm_kind = _layout(name, cfg)
+    if not strict:
+        optional = set(layout)
     return _convert(variables, layout, optional, norm_kind,
-                    _TRANSPOSED.get(name, ()))
+                    _TRANSPOSED.get(name, ()), strict)
 
 
 def jax_block_to_state_dict(variables, kind):
@@ -298,7 +303,7 @@ def jax_block_to_state_dict(variables, kind):
     return _convert(variables, layout, optional, None, ())
 
 
-def _convert(variables, layout, optional, norm_kind, transposed):
+def _convert(variables, layout, optional, norm_kind, transposed, strict=True):
     params = _copy_tree(variables["params"])
     stats = _copy_tree(variables.get("batch_stats", {}))
     sd = {}
@@ -332,6 +337,8 @@ def _convert(variables, layout, optional, norm_kind, transposed):
             raise ValueError(f"unconverted leaves under {flax_name}: "
                              f"{sorted(leaf)}")
     left = _leaf_paths(params)
+    if not strict:
+        return sd, left + [f"batch_stats/{p}" for p in _leaf_paths(stats)]
     if left:
         raise ValueError(f"unconverted JAX params: {left}")
     left = _leaf_paths(stats)

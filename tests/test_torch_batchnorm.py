@@ -31,6 +31,8 @@ from multi_modal_image_fusion_tpu.ops.layers import ConvLayer as JConvLayer
 from multi_modal_image_fusion_tpu_torch.models import create_model
 from multi_modal_image_fusion_tpu_torch.ops import layers, quant
 from multi_modal_image_fusion_tpu_torch.ops.blocks import ResBlock
+from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import \
+    int_conv_plain
 from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_chain import (
     apply_act, conv_gray_enter, conv_gray_enter_plain, conv_gray_exit,
     conv_gray_exit_plain, pack_gray_enter)
@@ -230,16 +232,45 @@ def test_training_routes_raise():
 
 
 def test_int8_route_raises():
+    """The int8 route of a batch-normed conv (the name is the test's first
+    one, when the route refused): conv_int8 with the eval-mode norm in its
+    f32 epilogue equals the integer conv dequantized, plus the bias, then
+    F.batch_norm and the activation, within 2e-5 of max|y|; IFCNN serves
+    under int8 with every stride-1 conv on conv_int8."""
     layer = _normed(8, 16, seed=15)
     layer.qpath = "conv"
     x = _x((1, 9, 9, 8), 16)
     with torch.no_grad(), quant.quantized_inference({}):
-        with pytest.raises(NotImplementedError, match="int8"):
-            layer(x)
-    model = create_model("ifcnn")
-    with torch.no_grad(), quant.quantized_inference({}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            model(_x((1, 16, 16, 1), 17) + 0.5)
+        got = layer(x)
+        ref = _reference(layer, x)
+    with torch.no_grad():
+        f = quant.choose_fold(x.abs().amax(dim=(0, 1, 2)), layer.weight)
+        qw, sw = quant.quantize_weights(quant.fold_weights(layer.weight, f))
+        acc = int_conv_plain(quant.quantize_input_scaled(x, f), qw)
+        bn = layer.layers[1]
+        y = F.batch_norm((acc * sw + layer.bias).permute(0, 3, 1, 2),
+                         bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         training=False, eps=1e-5)
+        want = apply_act(y, "relu").permute(0, 2, 3, 1)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= ATOL * scale
+    assert float((got - ref).abs().max()) > 1e-3 * scale
+    model = random_norms(create_model("ifcnn"), 3).eval()
+    calls = []
+    real = layers.conv_int8
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    layers.conv_int8 = spy
+    try:
+        with torch.no_grad(), quant.quantized_inference({}):
+            y = model(_x((1, 16, 16, 1), 17) + 0.5, _x((1, 16, 16, 1), 18)
+                      + 0.5)
+    finally:
+        layers.conv_int8 = real
+    assert torch.isfinite(y).all() and y.shape == (1, 16, 16, 1)
+    assert len(calls) == 4
 
 
 @pytest.mark.parametrize("norm", ["none", "spectral", "instance"])

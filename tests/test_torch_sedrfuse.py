@@ -139,15 +139,43 @@ def test_serving_routes(monkeypatch):
 
 
 def test_int8_route_raises():
-    """SEDRFuse's int8 is queued (ROADMAP.md queue 1 item 5): its first
-    group-normed layer refuses the int8 route."""
-    from multi_modal_image_fusion_tpu_torch.ops.quant import \
-        quantized_inference
-    model = create_model(NAME).eval()
+    """SEDRFuse's int8 route (the name is the test's first one, when the
+    route refused): the four stride-1 convs (enc0, the ResBlock's two,
+    dec2) run conv_int8, the stride-2 and transpose convs stay float (the
+    JAX package's gate); enc0's output is its integer conv dequantized
+    plus the bias, then the group norm and relu, within 2e-5 of max|y|."""
+    from multi_modal_image_fusion_tpu_torch.ops import quant
+    from multi_modal_image_fusion_tpu_torch.ops.cuda.conv_int8 import \
+        int_conv_plain
+    model = common.random_norms(create_model(NAME), 2).eval()
     x = torch.rand(1, 16, 16, 1)
-    with torch.no_grad(), quantized_inference({}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            model(x, x)
+    calls = []
+    real = layers.conv_int8
+
+    def spy(xx, qw, *a, **kw):
+        calls.append(tuple(qw.shape))
+        return real(xx, qw, *a, **kw)
+    layers.conv_int8 = spy
+    try:
+        with torch.no_grad(), quant.quantized_inference({}):
+            y = model(x, x)
+            got = model.encode[0](x)
+    finally:
+        layers.conv_int8 = real
+    assert torch.isfinite(y).all() and y.shape == (1, 16, 16, 1)
+    assert calls == [(64, 1, 3, 3), (256, 256, 3, 3), (256, 256, 3, 3),
+                     (1, 64, 3, 3), (64, 1, 3, 3)]
+    enc0 = model.encode[0]
+    with torch.no_grad():
+        f = quant.choose_fold(x.abs().amax(dim=(0, 1, 2)), enc0.weight)
+        qw, sw = quant.quantize_weights(quant.fold_weights(enc0.weight, f))
+        acc = int_conv_plain(quant.quantize_input_scaled(x, f), qw)
+        gn = enc0.layers[1]
+        want = F.group_norm((acc * sw + enc0.bias).permute(0, 3, 1, 2), 64,
+                            gn.weight, gn.bias, eps=1e-5).relu().permute(
+                                0, 2, 3, 1)
+    assert float((got - want).abs().max()) <= 2e-5 * float(
+        want.abs().max())
 
 
 def test_fast_training_route(monkeypatch):
