@@ -353,6 +353,38 @@ ops), their contracts (f32 plain path: the kernels' plain versions, the
 attention on SDPA), and the test CLI of mixformer_ls_concat (3 pairs),
 weights at a `live_seed` of each.
 
+Phase "parallel" (after phase 6, its seconds stamped; `parallel_phase`),
+every count set to 0 before each path: height tiling (parallel/
+tiling.py) of DeepFuse (whole-model slabs), MAFusion, UNFusion and
+Res2Fusion (two phases) on one H x W pair reflect-padded to 1248 rows, f32
+and bf16: `tiled_forward(4)` against the whole forward (f32 within 1e-5
+of max|y|, bf16 within 1e-3 of max|y| beyond one bf16 ulp, UNFusion's
+bf16, whose cuDNN stride-2 convs pick their algorithm per shape, no
+farther from the f32 forward than its whole bf16 output: TILE_CUDNN; the
+largest difference printed), an enter and an exit a slab and every kernel of the
+whole forward at least as often, peak device memory and ms a pair both
+ways, and in f32 the controls halo 0 and MAFusion without the bilinear
+tile context, which must miss by 10x; MAFusion's and UNFusion's bf16
+forwards profiled tiled and whole (the slabs' bilinear span against the
+conv kernels); DeepFuse under --int8 tiled against whole (the int8 chain
+a slab); the test CLI with --tiles 4
+(UNFusion, 3 pairs: the note, the launches, its SSIM equal to the
+untiled CLI's on the same padded input within 1e-6); the train CLI with
+--multihost at WORLD_SIZE=1 over NCCL (DeepFuse, --fast_train, an epoch
+of one step) against the plain CLI, on cuDNN's deterministic
+algorithms: equal bit for bit, or within 1e-6 where the plain one does not repeat itself
+(the reflect pad's atomic backward, named); a step's time with and
+without the world-1 group; two gloo ranks sharing the card (`run_ranks`,
+`dist_rank`): one step of DeepFuse through conv_valid and of IFCNN on
+F.conv2d and through conv_valid (DIST_CASES, the CPU test's) at a global
+batch of 16 64x64 pairs against the one-process step on the card
+replaying the ranks' piecewise decisions, whose flips against its own
+`excess` bounds (`dist_errors`, `dist_within`; beside it the error
+against the plain one-process step and the reversed batch's noise),
+conv_valid launched on each rank where fast, both
+ranks' parameters equal, the controls (no gradient all-reduce, per-rank
+batch statistics) missing by 10x, 10 more steps timed on each rank.
+
 Progress lines `[N s] what (M GiB held)` stamp the phases with the device
 memory live tensors hold. Prints the `kernels` JSON line, the card line,
 and last
@@ -1857,6 +1889,16 @@ def train_weights(torch, model, key):
     return model
 
 
+def biases_under_norm(model):
+    """The names of the conv biases a group or batch norm follows: their
+    gradient is zero in exact arithmetic (the norm subtracts the mean),
+    so what a step computes for them is rounding noise."""
+    from multi_modal_image_fusion_tpu_torch.ops.layers import ConvLayer
+    return {f"{n}.layers.0.bias" for n, m in model.named_modules()
+            if isinstance(m, ConvLayer) and m.norm in ("group", "batch")
+            and m.bias is not None}
+
+
 def _step_grads(torch, model, a, b, fast, nl_plain, branches=None):
     """The loss parts and gradients of one step of `model` (train mode) on
     (a, b): inside fast_training(fast), with the 'nl' attention's plain
@@ -1977,9 +2019,7 @@ def train_step_check(torch, dev, key="deepfuse", name=None, cfg=None):
     x1 = _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 12, dev, torch.float32)
     x2 = _rand(torch, (TRAIN_BS, PATCH, PATCH, 1), 13, dev, torch.float32)
     seed, model = train_seed(torch, dev, key, name, cfg, x1, x2)
-    under_norm = {f"{n}.layers.0.bias" for n, m in model.named_modules()
-                  if isinstance(m, ConvLayer) and m.norm in ("group", "batch")
-                  and m.bias is not None}
+    under_norm = biases_under_norm(model)
     valid = any(isinstance(m, ConvLayer) and m._valid_eligible()
                 and m.stride == 1 and not m.transpose
                 for m in model.modules())
@@ -3857,7 +3897,7 @@ KERNEL_GROUPS = {"nl": ("nl_",), "conv": ("conv_",),
                  "sdpa": ("flash_", "fmha_")}
 
 
-def profile_forward(torch, model, a, b):
+def profile_forward(torch, model, a, b, spans=()):
     """Where one fused forward's device time goes: torch.profiler over the
     forward (after one unprofiled warmup), the kernels' time summed by group
     (the nl kernels, the conv kernels, the rest: torch's own ops such as
@@ -3866,7 +3906,9 @@ def profile_forward(torch, model, a, b):
     profiler (the device's busy share). `cudnn_conv_ms` is the part of the
     rest under aten::convolution (the stride-2 and transpose convs on
     cuDNN), `torch_ops_ms` the rest without it (norms, fusion, adds,
-    copies)."""
+    copies); `<span>_ms` the device time under each profiler span named
+    in `spans` (`record_function`), `upsample_ms` that of torch's bilinear
+    upsample kernels. `model` may be any function of (a, b)."""
     from torch.autograd import DeviceType
     with torch.no_grad():
         model(a, b)
@@ -3891,9 +3933,10 @@ def profile_forward(torch, model, a, b):
         split[key] += e.device_time_total / 1e3
     total = sum(split.values())
     # the device time of a CPU op counts its kernels and its children's
-    cudnn = sum(e.device_time_total for e in prof.events()
-                if e.name == "aten::convolution"
-                and e.device_type == DeviceType.CPU) / 1e3
+    def under(op):
+        return sum(e.device_time_total for e in prof.events()
+                   if e.name == op and e.device_type == DeviceType.CPU) / 1e3
+    cudnn = under("aten::convolution")
     # the torch ops by name: the aten ops' own device time (their kernels,
     # not their children's), the largest 8
     by_op = sorted(((getattr(a, "self_device_time_total", 0.0) / 1e3,
@@ -3904,6 +3947,8 @@ def profile_forward(torch, model, a, b):
             **{f"{k}_ms": v for k, v in split.items()},
             "cudnn_conv_ms": cudnn, "torch_ops_ms": split["other"] - cudnn,
             "top_aten_ms": {k: v for v, k in by_op[:8] if v > 0},
+            "upsample_ms": under("aten::upsample_bilinear2d"),
+            **{f"{k}_ms": under(k) for k in spans},
             "source": "torch.profiler"}
 
 
@@ -5203,6 +5248,724 @@ def switches(env):
                 os.environ[k] = v
 
 
+# ---------------------------------------------------------------------------
+# phase "parallel": data parallelism (parallel/mesh.py, the Trainer's
+# collectives, the batch norms' global statistics) and single-card height
+# tiling (parallel/tiling.py)
+# ---------------------------------------------------------------------------
+
+DIST_SCHED = (1e-4, 10, 12)
+# a rank's step against the one-process step on the global batch (JAX
+# tests/test_parallel.py:29-50; on the card the one-process step replays
+# the ranks' piecewise decisions: `ddp_two_rank_path`): the loss within
+# DIST_LOSS_TOL, the
+# averaged gradients within DIST_GRAD_TOL of the largest gradient, the
+# parameters after the update within DIST_PARAM_TOL where their gradient
+# passes DIST_GRAD_TOL of the largest and within 2 lr where it is rounding
+# noise (Adam's first step moves a parameter by lr g / (|g| + eps), either
+# way for a gradient that is zero in exact arithmetic: a conv bias under a
+# batch norm; tests/test_torch_step_common.py's rule), the running
+# statistics within DIST_STATS_TOL of their largest magnitude; the
+# controls (no gradient all-reduce, per-rank batch statistics) must miss
+# by 10x
+DIST_LOSS_TOL, DIST_GRAD_TOL, DIST_PARAM_TOL, DIST_STATS_TOL = (
+    1e-6, 1e-5, 1e-5, 1e-5)
+DIST_CONTROLS = {"no_grad_sync": "all-reduce of the gradients removed",
+                 "local_stats": "each rank's batch statistics its own"}
+# height tiling on the card: f32 within TILE_TOL of max|y|; bf16 the chain
+# standard (CHAIN_TOL, beyond one bf16 ulp of each output). The models of
+# TILE_CUDNN run stride-2 convs on cuDNN, which picks its algorithm per
+# shape: in bf16 UNFusion's encode.down2 (96 channels to scale 8) summed a
+# slab in another order than the whole image and rounded 5.7e-5 of its
+# outputs to the neighbouring bf16 value (every layer before it bit for
+# bit; measured on one H100), which its deeper layers carry to 7.4e-3
+# of max|y|. Their bf16 tiled output is held against the f32 whole
+# forward instead: no farther from it than the bf16 whole output, its
+# largest difference within CHAIN_TOL of max|y| more and its mean within
+# 5 % more.
+TILES, TILE_TOL = 4, 1e-5
+TILE_MODELS = ("deepfuse", "mafusion", "unfusion", "res2fusion")
+TILE_CUDNN = ("unfusion",)
+# the models whose bf16 tiled forward is profiled beside the whole one:
+# the slabs' bilinear upsamples (the span "tiled_bilinear", each a whole-
+# height F.interpolate a channel chunk) against the conv kernels
+TILE_PROFILED = ("mafusion", "unfusion")
+TILE_CLI_MODEL, TILE_CLI_PAIRS = "unfusion", 3
+
+
+def free_port():
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_rank(spec_path):
+    """One rank of the data-parallel step check, in a process of its own
+    under the env contract (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT):
+    joins the gloo process group (`init_multihost(backend="gloo")`; two
+    ranks may share one card), and for each case of the spec loads the
+    model's state, broadcasts rank 0's, takes its slice of the global
+    batch (`shard_batch`) and runs one Trainer step, recording the loss
+    parts, the gradients as the step hands them to its update (averaged
+    over the ranks), the parameters and buffers after it and the kernel
+    launches, and where the case asks (`branches`) the piecewise decisions
+    of its forward and loss (train/branches.py); then `timed_steps` more
+    steps, each timed on the host clock between barriers. A case's
+    `control` removes the gradient all-reduce or the global batch
+    statistics. Writes <out>/<key>.rank<r>.pt."""
+    import statistics
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.ops import layers
+    from multi_modal_image_fusion_tpu_torch.ops.cuda import build
+    from multi_modal_image_fusion_tpu_torch.parallel import mesh
+    from multi_modal_image_fusion_tpu_torch.train import trainer as tmod
+    from multi_modal_image_fusion_tpu_torch.train.branches import Decisions
+    from multi_modal_image_fusion_tpu_torch.train.schedules import \
+        make_lr_schedule
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    dev = mesh.init_multihost(spec["device"], backend="gloo")
+    r = mesh.rank()
+    data = np.load(spec["batch"])
+    batch = tuple(torch.from_numpy(mesh.shard_batch(data[k])).to(dev)
+                  for k in ("x1", "x2"))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+    controls = {
+        "no_grad_sync": lambda: mock.patch.object(
+            tmod, "all_reduce_mean", lambda ts: list(ts)),
+        "local_stats": lambda: mock.patch.object(
+            layers, "_batch_moments",
+            lambda xf: torch.var_mean(xf, dim=(0, 1, 2), correction=0))}
+    try:
+        for case in spec["cases"]:
+            model = create_model(case["model"])
+            model.load_state_dict(torch.load(case["state"],
+                                             weights_only=True))
+            model.to(dev)
+            trainer = tmod.Trainer(model, make_lr_schedule(*DIST_SCHED),
+                                   fast=case["fast"])
+            mesh.broadcast_module(model)
+            seen = {}
+            update = trainer._update
+
+            def spy(grads, trainer=trainer, seen=seen, update=update):
+                seen.update(zip(trainer.params,
+                                (g.detach().cpu() for g in grads)))
+                return update(grads)
+            trainer._update = spy
+            ctl = case.get("control")
+            branches = Decisions() if case.get("branches") else None
+            with (controls[ctl]() if ctl else contextlib.nullcontext()):
+                build.LAUNCHES.clear()
+                with open_branches(trainer, branches):
+                    parts, _ = trainer.train_step(batch)
+                sync()
+                rec = {
+                    "parts": {k: float(v) for k, v in parts.items()},
+                    "grads": dict(seen),
+                    "params": {n: p.detach().cpu().clone() for n, p in
+                               trainer.params.items()},
+                    "buffers": {n: b.detach().cpu().clone() for n, b in
+                                model.state_dict().items() if n.endswith(
+                                    ("running_mean", "running_var"))},
+                    "launches": dict(build.LAUNCHES),
+                    "branches": [(k, d.cpu()) for k, d in
+                                 (branches.log if branches else ())]}
+                step_ms = []
+                for _ in range(0 if ctl else spec.get("timed_steps", 0)):
+                    t0 = time.perf_counter()
+                    trainer.train_step(batch)
+                    sync()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+            rec["step_ms"] = statistics.median(step_ms) if step_ms else None
+            torch.save(rec, os.path.join(spec["out"],
+                                         f"{case['key']}.rank{r}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(spec, world=2, timeout=600):
+    """Run `dist_rank` in `world` processes of this interpreter (the
+    checkout's root as their working directory), each under the env
+    contract with a free port; waits for all and raises with their
+    output's tail if one fails. Every process it starts has ended when
+    it returns."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port = str(free_port())
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port, OMP_NUM_THREADS="1")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.dist_rank(sys.argv[1])", path],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, out[-4000:])
+              for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"data-parallel ranks failed: {failed}")
+
+
+@contextlib.contextmanager
+def open_branches(trainer, branches):
+    """The Decisions mode `branches` (None: nothing) open around each
+    forward and loss of `trainer`'s steps, not around their backward."""
+    if branches is None:
+        yield
+        return
+    apply, loss = trainer._apply, trainer.loss_bundle
+
+    def inside(fn):
+        def run(*args, **kwargs):
+            with branches:
+                return fn(*args, **kwargs)
+        return run
+    trainer._apply, trainer.loss_bundle = inside(apply), inside(loss)
+    try:
+        yield
+    finally:
+        trainer._apply, trainer.loss_bundle = apply, loss
+
+
+def one_rank_step(torch, name, state, fast, x1, x2, dev, branches=None):
+    """The step `dist_rank` records, with no process group: one Trainer
+    step on the whole global batch; `branches` (a Decisions mode) records
+    its piecewise decisions or replays another step's."""
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.train.schedules import \
+        make_lr_schedule
+    from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
+    model = create_model(name)
+    model.load_state_dict(state)
+    model.to(dev)
+    trainer = Trainer(model, make_lr_schedule(*DIST_SCHED), fast=fast)
+    seen = {}
+    update = trainer._update
+
+    def spy(grads):
+        seen.update(zip(trainer.params, (g.detach().cpu() for g in grads)))
+        return update(grads)
+    trainer._update = spy
+    with open_branches(trainer, branches):
+        parts, _ = trainer.train_step((torch.from_numpy(x1).to(dev),
+                                       torch.from_numpy(x2).to(dev)))
+    return {"parts": {k: float(v) for k, v in parts.items()},
+            "grads": seen,
+            "params": {n: p.detach().cpu()
+                       for n, p in trainer.params.items()},
+            "buffers": {n: b.detach().cpu()
+                        for n, b in model.state_dict().items()
+                        if n.endswith(("running_mean", "running_var"))}}
+
+
+def dist_errors(got, want, under_norm=()):
+    """How far a rank's step lies from the one-process step: the loss's
+    absolute difference; the gradients' largest difference over the
+    largest gradient ("grads", the parameter it is at "grads_worst"; of
+    them the conv biases a norm follows, named in `under_norm`,
+    "grads_under_norm", the others "grads_rest"); the parameters' largest
+    difference where the gradient passes DIST_GRAD_TOL of the largest
+    ("params") and where it does not ("params_noise"); the running
+    statistics' largest difference over their largest magnitude."""
+    gmax = max(float(g.abs().max()) for g in want["grads"].values())
+    gerr = {n: float((got["grads"][n] - g).abs().max()) / gmax
+            for n, g in want["grads"].items()}
+    worst = max(gerr, key=gerr.get)
+    smax = max([float(b.abs().max()) for b in want["buffers"].values()]
+               + [1e-30])
+    params, noise = 0.0, 0.0
+    for n, p in want["params"].items():
+        d = (got["params"][n] - p).abs()
+        live = want["grads"][n].abs() > DIST_GRAD_TOL * gmax
+        params = max(params, float(d[live].max()) if live.any() else 0.0)
+        noise = max(noise, float(d[~live].max()) if (~live).any() else 0.0)
+    return {
+        "loss": abs(got["parts"]["loss"] - want["parts"]["loss"]),
+        "grads": gerr[worst], "grads_worst": worst,
+        "grads_under_norm": max([gerr[n] for n in gerr if n in under_norm]
+                                + [0.0]),
+        "grads_rest": max([gerr[n] for n in gerr if n not in under_norm]
+                          + [0.0]),
+        "params": params, "params_noise": noise,
+        "stats": max([float((got["buffers"][n] - b).abs().max())
+                      for n, b in want["buffers"].items()] + [0.0]) / smax}
+
+
+def dist_within(err):
+    """True when every error of `dist_errors` is within its tolerance."""
+    return (err["loss"] <= DIST_LOSS_TOL and err["grads"] <= DIST_GRAD_TOL
+            and err["params"] <= DIST_PARAM_TOL
+            and err["params_noise"] <= 2 * DIST_SCHED[0]
+            and err["stats"] <= DIST_STATS_TOL)
+
+
+def dist_missed_by(err, factor=10.0):
+    """True when an error of `dist_errors` passes `factor` times its
+    tolerance (a control)."""
+    return (err["loss"] > factor * DIST_LOSS_TOL
+            or err["grads"] > factor * DIST_GRAD_TOL
+            or err["params"] > factor * DIST_PARAM_TOL
+            or err["stats"] > factor * DIST_STATS_TOL)
+
+
+# the 2-rank check's cases: (key, model, --fast_train, control), the CPU
+# test's (tests/test_torch_dist.py): DeepFuse through the conv_valid
+# kernels, IFCNN (batch norms) on F.conv2d and through the conv_valid
+# kernels (--fast_train, the reference's own training mode)
+DIST_CASES = (("deepfuse", "deepfuse", True, None),
+              ("ifcnn", "ifcnn", False, None),
+              ("ifcnn_fast", "ifcnn", True, None),
+              ("deepfuse_no_grad_sync", "deepfuse", True, "no_grad_sync"),
+              ("ifcnn_local_stats", "ifcnn", False, "local_stats"))
+
+
+def ranks_branches(torch, got, b):
+    """The global batch's piecewise decisions from the ranks' records of
+    their slices of b images each: every decision of these steps has the
+    batch first, m groups of it (m = 2 where a model's encoder runs on the
+    two modalities' images concatenated), so a rank's (m b, ...) becomes
+    (m, b, ...), the ranks join on the second axis, and the result is
+    (m B, ...) again."""
+    out = []
+    for i, (kind, d) in enumerate(got[0]["branches"]):
+        m = d.shape[0] // b
+        parts = [g["branches"][i][1].reshape(m, b, *d.shape[1:])
+                 for g in got]
+        out.append((kind, torch.cat(parts, dim=1).reshape(
+            m * b * len(got), *d.shape[1:])))
+    return out
+
+
+def ddp_two_rank_path(torch, dev, seeds, root):
+    """Two gloo ranks on the one card (`run_ranks`), global batch TRAIN_BS
+    pairs of PATCH x PATCH from a numpy seed: one step of each DIST_CASES
+    model, each rank within the DIST tolerances of the one-process step on
+    the card replaying the ranks' piecewise decisions (train/branches.py:
+    relu masks, the fusion's and the losses' maximum, abs and clamp
+    branches), where the ranks' decisions differ from the one-process
+    step's in no kind by more than `excess` allows (with no flip the
+    replay is the plain one-process step); both ranks' parameters equal;
+    conv_valid launched on each rank where the case is --fast_train; the
+    two controls missing the plain one-process step by 10x; 10 more steps
+    each, timed. Reported beside each: the error against the plain
+    one-process step, and the one-process step on the batch with its
+    images in reverse order against the forward order (the same step
+    summed in another order: the f32 noise the check sits in). IFCNN on
+    --fast_train flips a relu output and a fusion maximum of 16.9 million
+    against the one-process step, which move encode.1's gradient by
+    3.3e-5 of the largest; against the replay 3.5e-7 (measured on one
+    H100). Returns the record."""
+    from multi_modal_image_fusion_tpu_torch.train.branches import (
+        Decisions, excess, flips)
+    rng = np.random.RandomState(21)
+    x1, x2 = (rng.rand(TRAIN_BS, PATCH, PATCH, 1).astype(np.float32)
+              for _ in range(2))
+    np.savez(os.path.join(root, "batch.npz"), x1=x1, x2=x2)
+    states, under_norm, cases = {}, {}, []
+    for key, name, fast, ctl in DIST_CASES:
+        if name not in states:
+            model = seeded_model(torch, name, seeds.get(name, 0))
+            states[name] = model.state_dict()
+            under_norm[name] = biases_under_norm(model)
+            torch.save(states[name], os.path.join(root, f"{name}.pth"))
+        cases.append({"key": key, "model": name, "fast": fast,
+                      "state": os.path.join(root, f"{name}.pth"),
+                      **({"control": ctl} if ctl else {"branches": True})})
+    run_ranks({"out": root, "device": dev.type, "batch":
+               os.path.join(root, "batch.npz"), "cases": cases,
+               "timed_steps": 10})
+    rec = {}
+    for case in cases:
+        key, name, fast = case["key"], case["model"], case["fast"]
+        own = Decisions()
+        want = one_rank_step(torch, name, states[name], fast, x1, x2, dev,
+                             branches=None if "control" in case else own)
+        got = [torch.load(os.path.join(root, f"{key}.rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+        errs = [dist_errors(g, want, under_norm[name]) for g in got]
+        same = max(float((got[0]["params"][n] - p).abs().max())
+                   for n, p in got[1]["params"].items())
+        r = rec[key] = {"errors": errs, "ranks_param_max_diff": same,
+                        "launches": [g["launches"] for g in got],
+                        "step_ms": [g["step_ms"] for g in got]}
+        if "control" in case:
+            r["control"] = DIST_CONTROLS[case["control"]]
+            if not all(dist_missed_by(e) for e in errs):
+                raise AssertionError(f"control {key} held: {errs}")
+            continue
+        r["reversed_batch_noise"] = dist_errors(one_rank_step(
+            torch, name, states[name], fast, x1[::-1].copy(),
+            x2[::-1].copy(), dev), want, under_norm[name])
+        theirs = ranks_branches(torch, got, TRAIN_BS // len(got))
+        r["flips"] = flips(theirs, own.log)
+        replayed = one_rank_step(
+            torch, name, states[name], fast, x1, x2, dev,
+            branches=Decisions(replay=[(k, d.to(dev)) for k, d in theirs]))
+        r["errors_vs_replay"] = [dist_errors(g, replayed, under_norm[name])
+                                 for g in got]
+        print(f"ddp 2 ranks {key}: {json.dumps(r)}")
+        over = excess(r["flips"])
+        if (not all(dist_within(e) for e in r["errors_vs_replay"]) or over
+                or same != 0.0):
+            raise AssertionError(f"2-rank step {key}: against the replay "
+                                 f"{r['errors_vs_replay']}, flips "
+                                 f"{r['flips']} (excess {over}), ranks' "
+                                 f"parameters differ by {same}; against "
+                                 f"the plain step {errs}; the reversed "
+                                 f"batch's noise "
+                                 f"{r['reversed_batch_noise']}")
+        if fast and not all(g["launches"].get("conv_valid", 0) for g in got):
+            raise AssertionError(f"2-rank step {key}: conv_valid launches "
+                                 f"{r['launches']}")
+    return rec
+
+
+def _step_ms(torch, trainer, batch, steps=20, warmup=3):
+    """Median host-clock ms of a train step, synchronised before and after
+    each."""
+    for _ in range(warmup):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def ddp_world1_path(torch, build, dev, root):
+    """The train CLI under --multihost at WORLD_SIZE=1 over NCCL (DeepFuse,
+    --fast_train, 1 epoch of one step on a fixture of 5 pairs of 128x128),
+    its counts from 0, against the same CLI without it, and the plain CLI
+    again, all on cuDNN's deterministic algorithms: the checkpoints equal
+    bit for bit, or within 1e-6 where the plain run does not repeat itself
+    either (the step's reflect pad sums its gradient with atomic adds: the
+    cause is recorded with both differences). Then a DeepFuse step's time
+    with no group, in a world-1 NCCL group, with no group again, in a
+    world-1 gloo group and with no group again (no collective runs in a
+    world-1 group: mesh.spans_ranks)."""
+    from multi_modal_image_fusion_tpu_torch.cli import train as train_cli
+    from multi_modal_image_fusion_tpu_torch.models import create_model
+    from multi_modal_image_fusion_tpu_torch.parallel import mesh
+    from multi_modal_image_fusion_tpu_torch.train.schedules import \
+        make_lr_schedule
+    from multi_modal_image_fusion_tpu_torch.train.trainer import Trainer
+    data = os.path.join(root, "one_step")
+    write_train_fixture(torch, data, n_pairs=5, n_test=1, size=128)
+    args = ["--data", "synthtrain", "--data_root", data, "--fast_train",
+            "--epoch", "1"]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1"}
+
+    def max_diff(a, b):
+        if set(a) != set(b):
+            raise AssertionError(f"world-1 checkpoint keys {sorted(b)}")
+        return max(float((a[k].double() - b[k].double()).abs().max())
+                   for k in a)
+    runs, counts = {}, None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, extra in (("plain", []), ("multihost", ["--multihost"]),
+                           ("plain_again", [])):
+            build.LAUNCHES.clear()
+            with switches(dict(env, MASTER_PORT=str(free_port()))
+                          if extra else {}), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                runs[key] = train_cli.main(args + extra + [
+                    "--ckpt_root", os.path.join(root, f"ckpt_{key}")])
+            if extra:
+                counts = dict(build.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ck = {k: torch.load(os.path.join(d, "epoch_last.pth"), weights_only=True)
+          for k, d in runs.items()}
+    rec = {"checkpoint_max_abs_diff": max_diff(ck["plain"], ck["multihost"]),
+           "checkpoint_plain_again_max_abs_diff": max_diff(
+               ck["plain"], ck["plain_again"]),
+           "cudnn_deterministic": True, "cause": None}
+    diff = rec["checkpoint_max_abs_diff"]
+    again = rec["checkpoint_plain_again_max_abs_diff"]
+    if diff and (diff > 1e-6 or not again):
+        raise AssertionError(f"world-1 NCCL checkpoint differs from the "
+                             f"plain one's by {diff} (plain against plain: "
+                             f"{again})")
+    if diff:
+        rec["cause"] = ("the plain step does not repeat itself bit for bit: "
+                        "the reflect pad's backward sums with atomic adds "
+                        "(torch's reflection_pad2d_backward on CUDA)")
+    if not counts.get("conv_valid"):
+        raise AssertionError(f"world-1 train CLI launches {counts}")
+    g = torch.Generator().manual_seed(5)
+    batch = tuple(torch.rand((TRAIN_BS, PATCH, PATCH, 1), generator=g).to(dev)
+                  for _ in range(2))
+
+    def trainer():
+        m = create_model("deepfuse",
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+        return Trainer(m, make_lr_schedule(1e-4, 100, 12), fast=True)
+    ms = {"no_group": _step_ms(torch, trainer(), batch)}
+    for key, backend in (("world1_nccl", None), ("world1_gloo", "gloo")):
+        with switches(dict(env, MASTER_PORT=str(free_port()))):
+            mesh.init_multihost(backend=backend)
+        try:
+            ms[key] = _step_ms(torch, trainer(), batch)
+        finally:
+            torch.distributed.destroy_process_group()
+        ms[f"no_group_after_{key}"] = _step_ms(torch, trainer(), batch)
+    return {**rec, "launches": counts, "step_ms": ms}
+
+
+def tiling_path(torch, build, dev, seeds):
+    """Height tiling on the card: DeepFuse (whole-model slabs), MAFusion,
+    UNFusion and Res2Fusion (two phases), f32 and bf16, one H x W pair
+    reflect-padded to a multiple of 8 x TILES rows as the test CLI pads it
+    (1248): `tiled_forward(TILES)` against the whole forward (f32 within
+    TILE_TOL of max|y|, bf16 CHAIN_TOL beyond one ulp; TILE_CUDNN's bf16
+    against the f32 whole forward), the kernels' launches counted (an enter and an exit a slab, every kernel of the
+    whole forward at least as often), peak device memory and ms a pair
+    (host clock, synchronised; the mean of 2 after one) both ways; in f32
+    the controls, which must miss by 10x: halo 0, and MAFusion with the
+    bilinear tile context off."""
+    from unittest import mock
+
+    from multi_modal_image_fusion_tpu_torch.cli.test import _reflect_pad
+    from multi_modal_image_fusion_tpu_torch.parallel import tiling
+    g = torch.Generator(device=dev).manual_seed(9)
+    a, b = (torch.rand((1, H, W, 1), generator=g, device=dev)
+            for _ in range(2))
+    pad = -H % (8 * TILES)
+    a, b = _reflect_pad(a, pad, 0), _reflect_pad(b, pad, 0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        y = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        return y, peak, (time.perf_counter() - t0) * 1e3 / 2
+
+    rec = {}
+    for name in TILE_MODELS:
+        per = FORWARD_LAUNCHES.get(name, {"conv_gray_enter": 1,
+                                          "conv_chain": 3,
+                                          "conv_gray_exit": 1})
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model = seeded_model(torch, name, seeds.get(name, 0)).to(
+                dev, dtype).eval()
+            with torch.no_grad():
+                y, peak_whole, ms_whole = timed(lambda: model(a, b))
+                del y
+                torch.cuda.empty_cache()
+                build.LAUNCHES.clear()
+                yt, peak_tiled, ms_tiled = timed(
+                    lambda: tiling.tiled_forward(model, a, b, TILES))
+                counts = {k: v // 3 for k, v in build.LAUNCHES.items()}
+                y = model(a, b)
+                vs_f32 = None
+                if dt == "f32":
+                    err, rel = _err(torch, yt, y, "f32")
+                    rel = err / float(y.abs().max())
+                    if rel > TILE_TOL:
+                        raise AssertionError(f"tiled {name} f32: {rel}")
+                    y32 = y.float()
+                elif name in TILE_CUDNN:
+                    err, rel = _wide_rel(torch, yt, y, dt)
+                    scale = float(y32.abs().max())
+                    d_t, d_w = ((v.float() - y32).abs() for v in (yt, y))
+                    vs_f32 = {"tiled_max": float(d_t.max()) / scale,
+                              "whole_max": float(d_w.max()) / scale,
+                              "tiled_mean": float(d_t.mean()) / scale,
+                              "whole_mean": float(d_w.mean()) / scale}
+                    if (vs_f32["tiled_max"] > vs_f32["whole_max"]
+                            + CHAIN_TOL[dt] or vs_f32["tiled_mean"]
+                            > 1.05 * vs_f32["whole_mean"]):
+                        raise AssertionError(f"tiled {name} {dt} against "
+                                             f"f32: {vs_f32}")
+                else:
+                    err, rel = _chain_err(torch, yt, y, dt)
+                if (counts.get("conv_gray_enter") != TILES
+                        or counts.get("conv_gray_exit") != TILES
+                        or any(counts.get(k, 0) < v for k, v in per.items())):
+                    raise AssertionError(f"tiled {name} {dt} launches "
+                                         f"{counts}")
+                r = rec[f"{name} {dt}"] = {
+                    "max_abs_diff": err, "rel": rel,
+                    **({"against_f32": vs_f32} if vs_f32 else {}),
+                    "peak_gb_whole": peak_whole, "peak_gb_tiled": peak_tiled,
+                    "ms_whole": ms_whole, "ms_tiled": ms_tiled,
+                    "launches_tiled": counts}
+                if dt == "bf16" and name in TILE_PROFILED:
+                    r["profile"] = {
+                        "whole": profile_forward(torch, model, a, b),
+                        "tiled": profile_forward(
+                            torch, lambda x, z: tiling.tiled_forward(
+                                model, x, z, TILES), a, b,
+                            spans=("tiled_bilinear",))}
+                if dt == "f32":
+                    ctl = {"halo_0": tiling.tiled_forward(model, a, b, TILES,
+                                                          halo=0)}
+                    if name == "mafusion":
+                        with mock.patch.object(
+                                tiling, "tile_rows_ctx",
+                                lambda *_: contextlib.nullcontext()):
+                            ctl["no_tile_context"] = tiling.tiled_forward(
+                                model, a, b, TILES)
+                    scale = float(y.abs().max())
+                    r["controls"] = {
+                        k: float((v.float() - y.float()).abs().max()) / scale
+                        for k, v in ctl.items()}
+                    if min(r["controls"].values()) <= 10 * TILE_TOL:
+                        raise AssertionError(f"tiling control held: {name} "
+                                             f"{r['controls']}")
+                del y, yt
+            del model
+            torch.cuda.empty_cache()
+            print(f"tiled {name} {dt}: {json.dumps(r)}")
+    rec["deepfuse int8"] = tiled_int8(torch, build, dev, a, b)
+    print(f"tiled deepfuse int8: {json.dumps(rec['deepfuse int8'])}")
+    return rec
+
+
+def tiled_int8(torch, build, dev, a, b):
+    """DeepFuse under --int8 (bf16, one calibration on a 256 x 256 crop of
+    the pair, as the bench calibrates) tiled against whole, as the test
+    CLI's --int8 --tiles runs it: equal within CHAIN_TOL beyond one bf16
+    ulp (expected bit for bit: the same per-pixel arithmetic with the same
+    scales), each slab on the int8 chain (INT8_FORWARD_LAUNCHES a slab),
+    ms a pair both ways."""
+    from multi_modal_image_fusion_tpu_torch.ops.quant import (
+        calibrate, quantized_inference)
+    from multi_modal_image_fusion_tpu_torch.parallel import tiling
+    model = seeded_model(torch, "deepfuse", 0).to(dev, torch.bfloat16).eval()
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    amax = calibrate(model, [(a16[:, :256, :256].contiguous(),
+                              b16[:, :256, :256].contiguous())])
+    ms = {}
+    with torch.no_grad(), quantized_inference(amax):
+        y = model(a16, b16)
+        build.LAUNCHES.clear()
+        yt = tiling.tiled_forward(model, a16, b16, TILES)
+        counts = dict(build.LAUNCHES)
+        for key, fn in (("whole", lambda: model(a16, b16)),
+                        ("tiled", lambda: tiling.tiled_forward(
+                            model, a16, b16, TILES))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ms[key] = (time.perf_counter() - t0) * 1e3 / 3
+    with torch.no_grad():
+        plain = model(a16, b16)
+    err, rel = _chain_err(torch, yt, y, "bf16")
+    want = {k: v * TILES for k, v in INT8_FORWARD_LAUNCHES["deepfuse"].items()}
+    if counts != want or torch.equal(plain, y):
+        raise AssertionError(f"tiled deepfuse int8: launches {counts} (want "
+                             f"{want}), int8 route ran: "
+                             f"{not torch.equal(plain, y)}")
+    return {"max_abs_diff": err, "rel": rel, "launches_tiled": counts,
+            "ms_whole": ms["whole"], "ms_tiled": ms["tiled"]}
+
+
+def tiled_cli_path(torch, build, test_cli, root, dev, seeds):
+    """The test CLI with --tiles TILES on TILE_CLI_PAIRS synthetic H x W
+    pairs (a seeded TILE_CLI_MODEL checkpoint), counts from 0: it notes
+    the padding once, launches an enter and an exit a slab, and its SSIM
+    equals the untiled CLI's on the same padded input (--pad_bucket 8 x
+    TILES) within 1e-6."""
+    from multi_modal_image_fusion_tpu_torch.train.checkpoint import \
+        save_state_dict
+    write_cli_fixture(torch, root, TILE_CLI_PAIRS)
+    name = TILE_CLI_MODEL
+    save_state_dict(os.path.join(root, "ckpt", "tiled", "epoch_best.pth"),
+                    seeded_model(torch, name, seeds.get(name, 0)).state_dict(),
+                    meta={"model": name})
+    args = ["--data", "synth", "--data_root", os.path.join(root, "data"),
+            "--ckpt_root", os.path.join(root, "ckpt"), "--ckpt", "tiled"]
+    rec = {}
+    for key, extra in (("tiled", ["--tiles", str(TILES)]),
+                       ("whole", ["--pad_bucket", str(8 * TILES)])):
+        build.LAUNCHES.clear()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ssim, avg = test_cli.main(args + extra)
+        rec[key] = {"ssim": ssim, "mean_ms": avg * 1e3,
+                    "launches": dict(build.LAUNCHES),
+                    "noted": out.getvalue().count("note: H=")}
+    t = rec["tiled"]
+    if (abs(t["ssim"] - rec["whole"]["ssim"]) > 1e-6 or t["noted"] != 1
+            or t["launches"].get("conv_gray_enter") != TILES * TILE_CLI_PAIRS
+            or t["launches"].get("ssim_maps") != 2 * TILE_CLI_PAIRS):
+        raise AssertionError(f"test CLI --tiles {TILES}: {rec}")
+    print(f"test CLI {name} --tiles {TILES}: {json.dumps(rec)}")
+    return rec, t["launches"]
+
+
+def parallel_phase(torch, build, test_cli, dev, seeds):
+    """Phase "parallel" (its seconds stamped): height tiling
+    (`tiling_path`, `tiled_cli_path`), the world-1 NCCL train CLI
+    (`ddp_world1_path`) and two gloo ranks on the card
+    (`ddp_two_rank_path`). Returns (record, launch counts of the tiled CLI
+    and the world-1 train CLI)."""
+    t0 = time.perf_counter()
+    # the first live weight seed of each tiled model that has none yet
+    seeds = {**{n: live_seed(torch, dev, n) for n in (*TILE_MODELS, "ifcnn")
+                if n not in seeds and n != "deepfuse"}, **seeds}
+    rec = {"tiling": tiling_path(torch, build, dev, seeds)}
+    torch.cuda.empty_cache()
+    stamp("parallel: tiled forwards checked")
+    counts = collections.Counter()
+    with tempfile.TemporaryDirectory() as root:
+        rec["test_cli_tiles"], c = tiled_cli_path(torch, build, test_cli,
+                                                  root, dev, seeds)
+        counts.update(c)
+        stamp("parallel: test CLI --tiles done")
+        rec["ddp_world1"] = ddp_world1_path(torch, build, dev, root)
+        counts.update(rec["ddp_world1"]["launches"])
+        print(f"ddp world 1: {json.dumps(rec['ddp_world1'])}")
+        stamp("parallel: world-1 NCCL train CLI done")
+        rec["ddp_two_ranks"] = ddp_two_rank_path(torch, dev, seeds, root)
+        print(f"ddp 2 ranks: {json.dumps(rec['ddp_two_ranks'])}")
+    rec["seconds"] = time.perf_counter() - t0
+    stamp(f"parallel phase done in {rec['seconds']:.1f} s")
+    return rec, counts
+
+
 def main():
     import torch
 
@@ -5646,6 +6409,12 @@ def main():
                                  f"SSIM {train_ssim}")
         print(f"test CLI on the trained checkpoint: ssim {train_ssim:.6f}")
 
+    # phase "parallel": height tiling and data parallelism, counts from 0
+    # before each path
+    torch.cuda.empty_cache()
+    parallel, counts = parallel_phase(torch, build, test_cli, dev, seeds)
+    main_counts.update(counts)
+
     replaces = {
         "conv_gray_enter": "multi_modal_image_fusion_tpu/ops/pallas/"
                            "conv_kernel.py:357",
@@ -5856,6 +6625,7 @@ def main():
                       "test_cli_variants": variant_cli,
                       "eval": eval_rec,
                       "main_path_launches": counts,
+                      "parallel": parallel,
                       "training": {"step": step_stats, "profile": busy,
                                    "step_check": step_check,
                                    "test_cli_ssim": train_ssim,

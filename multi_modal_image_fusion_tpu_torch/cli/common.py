@@ -83,10 +83,12 @@ def get_train_parser():
                "hand-written conv_valid kernel (ops/cuda/conv_vjp.py); "
                "without it the steps run F.conv2d")
     _bool_flag(p, "multihost", False,
-               "multi-host training (not ported: ROADMAP.md queue 1 item 7)")
+               "data-parallel training, one process a rank, under the env "
+               "contract RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+               "LOCAL_RANK (parallel/mesh.py); --bs is the global batch")
     p.add_argument("--spatial", default=0, type=int,
                    help="height-shard each image over N devices (not "
-                        "ported: ROADMAP.md queue 1 item 7); 0/1 = off")
+                        "ported: ROADMAP.md queue 1 item 7b); 0/1 = off")
     p.add_argument("--amp", default=None, choices=["bf16", "f32"],
                    help="bf16: f32 master params cast to bf16 at the model "
                         "boundary; loss, gradients and Adam moments stay "
@@ -147,12 +149,22 @@ def get_test_parser():
                "per-layer activation scales on the first min(4, N) test "
                "pairs, then run eligible convs as int8 tensor-core dots "
                "with f32 dequant epilogues (JAX cli/common.py:177)")
+    p.add_argument("--spatial", default=0, type=int,
+                   help="height-shard each image over N devices (not "
+                        "ported: ROADMAP.md queue 1 item 7b); 0/1 = off")
+    p.add_argument("--tiles", default=0, type=int,
+                   help="single-card height tiling: the forward in N "
+                        "sequential height slabs (parallel/tiling.py), so "
+                        "only one slab's activations are live, at the cost "
+                        "of halo recompute; the output equals the whole "
+                        "forward's. Heights reflect-pad to a multiple of "
+                        "8 N (noted once a height). 0/1 = off")
     return p
 
 
 def get_eval_parser():
     """The test parser plus the eval CLI's flags (JAX cli/eval.py:135-140
-    adds --methods and --sheet; --spatial is the JAX test parser's)."""
+    adds --methods and --sheet)."""
     p = get_test_parser()
     p.description = "Evaluation"
     p.add_argument("--methods", default=None, type=str,
@@ -161,9 +173,6 @@ def get_eval_parser():
     p.add_argument("--sheet", default="method", choices=["method", "metric"],
                    help="workbook layout: one sheet per method (metric "
                         "columns) or one sheet per metric (method columns)")
-    p.add_argument("--spatial", default=0, type=int,
-                   help="height-shard each image over N devices (not "
-                        "ported: ROADMAP.md queue 1 item 7); 0/1 = off")
     return p
 
 

@@ -117,8 +117,8 @@ def main(argv=None):
     args = get_eval_parser().parse_args(argv)
     if args.spatial > 1:
         raise NotImplementedError(
-            "--spatial > 1 is not ported yet (ROADMAP.md queue 1 item 7, "
-            "parallelism)")
+            "--spatial > 1 is not ported yet (ROADMAP.md queue 1 item 7b, "
+            "spatial sharding)")
     device = resolve_device(args.device)
 
     data_dir, _ = resolve_data_dir(args)

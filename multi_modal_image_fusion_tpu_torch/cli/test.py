@@ -7,7 +7,11 @@ images as NN.bmp into <ckpt_root>/<ckpt>/<data>/ (default root
 to train.log when it exists. With --int8 it first calibrates the model's
 conv layers on the first min(4, N) pairs (batch 1, the model's dtype; JAX
 cli/test.py:229-243), prints `int8: calibrated N conv layers on M image
-pairs`, then serves under ops/quant.quantized_inference. The checkpoint
+pairs`, then serves under ops/quant.quantized_inference. With --tiles N
+each pair is fused in N height slabs (parallel/tiling.py), its height
+reflect-padded to a multiple of 8 N and the output cropped (a height that
+needs it is noted once; JAX cli/test.py:82-116); --int8 combines with it.
+The checkpoint
 folder may be the port's (`.pth`) or the JAX package's (`.ckpt`, read
 without flax: train/checkpoint.py).
 
@@ -19,6 +23,7 @@ for the CPU:
 """
 
 import contextlib
+import math
 import os
 import time
 
@@ -32,6 +37,7 @@ from ..device import resolve_device
 from ..models import create_model
 from ..ops.metrics import calc_ssim
 from ..ops.quant import calibrate, default_skip, quantized_inference
+from ..parallel.tiling import tiled_forward
 from ..train.checkpoint import checkpoint_path, load_checkpoint_meta, restore
 from ..utils.meters import AverageMeter
 from .common import ckpt_root, dataset_layout, get_test_parser, \
@@ -45,24 +51,36 @@ def _reflect_pad(x, ph, pw):
 
 
 def test_model(model, dataset, device, save_dir=None, log_file=None,
-               pad_bucket=0):
-    """Fuse every pair of `dataset`; returns (mean SSIM, mean seconds per
-    pair without the first)."""
+               pad_bucket=0, tiles=0):
+    """Fuse every pair of `dataset` (in `tiles` height slabs when above 1);
+    returns (mean SSIM, mean seconds per pair without the first)."""
     timer = AverageMeter()
     ssim_meter = AverageMeter()
+    # the slab grid needs H a multiple of 8 x tiles (8-row aligned slabs):
+    # folded into the pad-and-crop bucket (JAX cli/test.py:82-116)
+    h_mult = 8 * tiles if tiles > 1 else 1
+    noted_heights = set()
     for i in range(len(dataset)):
         img1, img2 = dataset[i]
         x1 = torch.from_numpy(img1)[None, ..., None].to(device)
         x2 = torch.from_numpy(img2)[None, ..., None].to(device)
         h, w = x1.shape[1:3]
         xp1, xp2 = x1, x2
-        if pad_bucket:
-            ph, pw = -h % pad_bucket, -w % pad_bucket
+        if pad_bucket or h_mult > 1:
+            ph = -h % math.lcm(pad_bucket or 1, h_mult)
+            pw = -w % pad_bucket if pad_bucket else 0
+            if ph and not pad_bucket and h not in noted_heights:
+                noted_heights.add(h)
+                print(f"note: H={h} not divisible by the --tiles slab grid "
+                      f"multiple {h_mult}; reflect-padding to {h + ph} "
+                      f"(output deviates within the receptive field of "
+                      f"the pad seam, as with --pad_bucket)")
             xp1, xp2 = _reflect_pad(x1, ph, pw), _reflect_pad(x2, ph, pw)
 
         start = time.time()
         with torch.no_grad():
-            imgf = model(xp1, xp2)
+            imgf = (tiled_forward(model, xp1, xp2, tiles) if tiles > 1
+                    else model(xp1, xp2))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         elapsed = time.time() - start
@@ -88,6 +106,10 @@ def test_model(model, dataset, device, save_dir=None, log_file=None,
 
 def main(argv=None):
     args = get_test_parser().parse_args(argv)
+    if args.spatial > 1:
+        raise NotImplementedError(
+            "--spatial > 1 is not ported yet (ROADMAP.md queue 1 item 7b, "
+            "spatial sharding)")
     device = resolve_device(args.device)
 
     ckpt_dir = os.path.join(ckpt_root(args), args.ckpt)
@@ -138,7 +160,8 @@ def main(argv=None):
     try:
         with qctx:
             ssim, avg_time = test_model(model, dataset, device, save_dir,
-                                        log_file, pad_bucket=pad_bucket)
+                                        log_file, pad_bucket=pad_bucket,
+                                        tiles=args.tiles)
         line = (f"ssim: {ssim:.4f}, time: {avg_time * 1000:.3f}ms, "
                 f"fps: {1.0 / avg_time:.3f}")
         print(line)

@@ -1,6 +1,7 @@
 """Training CLI (counterpart of multi_modal_image_fusion_tpu cli/train.py;
-reference train.py) on one device: the CUDA card unless asked for the CPU.
-Output tree as the reference's:
+reference train.py) on one device, the CUDA card unless asked for the CPU,
+or data-parallel over ranks (`--multihost`). Output tree as the
+reference's:
 
     <ckpt_root>/<YYYY-MM-DD_HH-MM>/
         train.log  scalars.jsonl  events.out.tfevents.*
@@ -11,6 +12,20 @@ Output tree as the reference's:
 
     python -m multi_modal_image_fusion_tpu_torch.cli.train --data roadscene \\
         --bs 16 --epoch 12 [--fast_train] [--amp bf16] [--device cpu]
+
+`--multihost` trains data-parallel, one process a rank, under the
+reference launcher's env contract (RANK, WORLD_SIZE, MASTER_ADDR,
+MASTER_PORT; LOCAL_RANK picks the card): NCCL between cards, gloo with
+`--device cpu` (parallel/mesh.py). `--bs` stays the global batch and must
+divide by the world size; every rank reads the same global batches and
+steps on its slice, the gradients and the batch norms' statistics cover
+the global batch, and only rank 0 writes under --ckpt_root (the others
+write into a temporary folder, removed at the end). Two ranks on one
+machine's CPU:
+
+    for r in 0 1; do RANK=$r WORLD_SIZE=2 MASTER_ADDR=127.0.0.1 \\
+        MASTER_PORT=29512 python -m multi_modal_image_fusion_tpu_torch.cli.train \\
+        --multihost --device cpu --bs 4 --epoch 1 & done; wait
 
 Defaults are the reference recipe: bs 16, 64x64 patches, SSIM 1.0 +
 pixel-max 0.01 + grad-max 0.1, Adam(1e-4, 0.9, 0.999), global-norm clip 5,
@@ -25,17 +40,22 @@ and batch statistics with a fresh optimizer, as the JAX CLI does.
 
 import contextlib
 import os
+import shutil
+import tempfile
 import time
 from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import AEDataset, FusionDataset, FusionPatches
 from ..data.io import imwrite
 from ..data.pipeline import Feeder
 from ..device import resolve_device
 from ..models import create_model
+from ..parallel.mesh import (broadcast_module, init_multihost,
+                             is_main_process, rank, world_size)
 from ..train.checkpoint import (checkpoint_path, jax_tree,
                                 load_checkpoint_meta, load_train_state,
                                 restore, save_checkpoint)
@@ -186,18 +206,29 @@ def resume(run_dir, model, trainer, model_name):
 
 def main(argv=None):
     args = get_train_parser().parse_args(argv)
-    if args.multihost or args.spatial > 1:
+    if args.spatial > 1:
         raise NotImplementedError(
-            "--multihost and --spatial > 1 are not ported yet (ROADMAP.md "
-            "queue 1 item 7, parallelism)")
-    device = resolve_device(args.device)
+            "--spatial > 1 is not ported yet (ROADMAP.md queue 1 item 7b, "
+            "spatial sharding)")
+    if args.multihost:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if args.bs % world:
+            raise ValueError(f"--bs {args.bs} is the global batch and must "
+                             f"divide by the world size {world}")
+        device = init_multihost(args.device)
+    else:
+        device = resolve_device(args.device)
     setup_seed(args.seed)
     # f32 means f32: cuDNN would run the F.conv2d route and the loss filters
     # in TF32 by default
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    root = ckpt_root(args)
+    # rank-0-only persistent outputs (reference train.py:100, 121, 167,
+    # 354): the other ranks run the same steps and write into a folder of
+    # their own, removed at the end
+    root = ckpt_root(args) if is_main_process() else tempfile.mkdtemp(
+        prefix="mmif_rank_scratch_")
     time_str = datetime.strftime(datetime.now(), "%Y-%m-%d_%H-%M")
     ckpt_dir = os.path.join(root, time_str)
     n = 1
@@ -210,6 +241,9 @@ def main(argv=None):
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     logger.info(f"device: {device} ({name})")
+    if args.multihost:
+        logger.info(f"data parallel: rank {rank()} of {world_size()} "
+                    f"({dist.get_backend()}), global batch {args.bs}")
     logger.info(f"model: {args.model}")
 
     data_dir, is_sample = resolve_data_dir(args)
@@ -242,10 +276,13 @@ def main(argv=None):
 
     # train drops the final partial batch (one step shape); valid keeps it,
     # as the reference DataLoader does
+    shard = (rank(), world_size()) if args.multihost else None
     train_feeder = Feeder(train_set, args.bs, shuffle=True, drop_last=True,
-                          device=device, seed=args.seed, workers=args.workers)
+                          device=device, seed=args.seed, workers=args.workers,
+                          shard=shard)
     valid_feeder = Feeder(valid_set, args.bs, shuffle=False, drop_last=False,
-                          device=device, with_mask=True, workers=args.workers)
+                          device=device, with_mask=True, workers=args.workers,
+                          shard=shard)
     logger.info(f"train iters/epoch: {len(train_feeder)}, "
                 f"valid iters/epoch: {len(valid_feeder)}")
 
@@ -278,6 +315,9 @@ def main(argv=None):
         resume_path, start_epoch = resume(os.path.join(root, args.resume),
                                           model, trainer, args.model)
         logger.info(f"resumed from {resume_path} at epoch {start_epoch}")
+    # every rank starts from rank 0's state (the reference broadcasts its
+    # init-weight file, train.py:286-294)
+    broadcast_module(model, *trainer.mu.values(), *trainer.nu.values())
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"params: {n_params / 1e6:.3f}M")
 
@@ -341,6 +381,10 @@ def main(argv=None):
         logger.info(f"training model done, best loss: {best_loss:.4f} "
                     f"in epoch: {best_epoch}")
         close_logger(logger)
+        if args.multihost:
+            dist.destroy_process_group()
+            if root != ckpt_root(args):
+                shutil.rmtree(root, ignore_errors=True)
     return ckpt_dir
 
 

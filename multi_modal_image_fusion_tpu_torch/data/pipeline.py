@@ -15,6 +15,8 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_batch
+
 
 def _to_batch(items):
     """items: list of HW arrays or of tuples of HW arrays -> NHWC array(s)."""
@@ -38,11 +40,17 @@ class Feeder:
       workers: item-loading threads per batch (reference DataLoader
         num_workers); 0 loads in the producer thread.
       prefetch: queue depth of batches in flight.
+      shard: (rank, world) under data parallelism (parallel/mesh.py):
+        every rank assembles the identical global batch (the same items in
+        the same order, so the augmentation draws match), wrap-pads a
+        final partial one to a multiple of `world` (torch's
+        DistributedSampler; the mask excludes the repeats) and places its
+        contiguous slice (`shard_batch`); n_true stays the global count.
     """
 
     def __init__(self, dataset, batch_size, shuffle=False, drop_last=False,
                  device="cpu", seed=0, prefetch=2, with_mask=False,
-                 workers=0):
+                 workers=0, shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -51,6 +59,7 @@ class Feeder:
         self.prefetch = prefetch
         self.with_mask = with_mask
         self.workers = workers
+        self.shard = shard
         self._rng = np.random.RandomState(seed)
 
     def __len__(self):
@@ -66,15 +75,24 @@ class Feeder:
             self._rng.shuffle(idx)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last \
             else n
+        world = self.shard[1] if self.shard else 1
         for i in range(0, stop, self.batch_size):
             take = idx[i:i + self.batch_size]
+            n_true = len(take)
+            if n_true % world:
+                # np.resize repeats cyclically, also past len(take)
+                take = np.resize(take, n_true + world - n_true % world)
             if pool is not None:
                 items = list(pool.map(lambda j: self.dataset[int(j)], take))
             else:
                 items = [self.dataset[int(j)] for j in take]
             batch = _to_batch(items)
+            mask = np.zeros((len(take),), np.float32)
+            mask[:n_true] = 1.0
+            if self.shard:
+                batch, mask = shard_batch((batch, mask), *self.shard)
             if self.with_mask:
-                yield batch, np.ones((len(take),), np.float32), len(take)
+                yield batch, mask, n_true
             else:
                 yield batch
 

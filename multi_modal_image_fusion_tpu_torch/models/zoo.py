@@ -335,7 +335,9 @@ class Res2Fusion(nn.Module):
     reference keeps ConvLayer's default activation there). 'elem' fusion
     averages each leg's halves and dec0 reads the three means as legs
     (conv_multi); autoencoder mode (`model(img1)`) decodes one batch's legs
-    the same way. The conv routes are ConvLayer's (ops/layers.py)."""
+    the same way. The conv routes are ConvLayer's (ops/layers.py). forward
+    is `encoder`, `fusion` and `decode_feats`, the parts that
+    parallel/tiling.py runs apart."""
 
     def __init__(self, fusion_method="attn", spatial_mode="nl",
                  channel_mode="nl", generator=None):
@@ -355,25 +357,36 @@ class Res2Fusion(nn.Module):
             ConvLayer(16, 1, generator=g),
         ])
 
-    def forward(self, img1, img2=None):
+    def encoder(self, img1, img2=None):
+        """The legs [x16, r1, r2] of img1, or of the batch-concatenated
+        pair."""
         x16 = self.conv_in.enter(img1, img2)
         r1 = self.RB1(x16)
         r2 = self.RB2([(x16, 0), (r1, 0)])
-        legs = [x16, r1, r2]
+        return [x16, r1, r2]
+
+    def fusion(self, legs, n):
+        """The 2n-image encoder legs fused: 'attn' one 112-channel tensor,
+        'elem' the legs' means."""
+        if self.fusion_method == "elem":
+            return [element_fusion(x[:n], x[n:], "mean") for x in legs]
+        feat = torch.cat(legs, dim=-1)
+        return attention_fusion(feat[:n], feat[n:], "sca", self.spatial_mode,
+                                self.channel_mode)
+
+    def decode_feats(self, feat):
+        """The decoder over one tensor, or over legs that dec0 reads in
+        place."""
         dec0, *rest = self.decode
-        n = img1.shape[0]
-        if img2 is None:
-            t = dec0([(x, 0) for x in legs])
-        elif self.fusion_method == "elem":
-            t = dec0([(element_fusion(x[:n], x[n:], "mean"), 0)
-                      for x in legs])
-        else:
-            feat = torch.cat(legs, dim=-1)
-            t = dec0(attention_fusion(feat[:n], feat[n:], "sca",
-                                      self.spatial_mode, self.channel_mode))
+        t = dec0([(x, 0) for x in feat] if isinstance(feat, list) else feat)
         for layer in rest:
             t = layer(t)
         return t
+
+    def forward(self, img1, img2=None):
+        legs = self.encoder(img1, img2)
+        return self.decode_feats(legs if img2 is None
+                                 else self.fusion(legs, img1.shape[0]))
 
 
 class DBNet(nn.Module):
@@ -446,7 +459,8 @@ class UNFusion(nn.Module):
     conv_tlane_chain call sites, run conv_wide over their legs; conv_out
     (k1, 16 -> 1) runs conv_gray_exit. `down_mode` 'stride' or 'maxpool',
     `up_mode` 'bilinear' or 'nearest'. Autoencoder mode (`model(img1)`)
-    decodes one batch's features."""
+    decodes one batch's features. forward is `encoder`, `fusion` and
+    `decode_feats`, the parts that parallel/tiling.py runs apart."""
 
     enc_ch = (16, 32, 48, 64)
     dec_ch = (16, 64, 256, 1024)
@@ -475,7 +489,9 @@ class UNFusion(nn.Module):
         self.decode = NestDecoder(self.dec_ch, up_mode, g)
         self.conv_out = ConvLayer(self.dec_ch[0], 1, ksize=1, generator=g)
 
-    def forward(self, img1, img2=None):
+    def encoder(self, img1, img2=None):
+        """The four scales' features (x1_0, x2_1, x3_2, x4_3) of img1, or
+        of the batch-concatenated pair."""
         x1_0 = self.CB1_0.enter(img1, img2)
         d1_0 = down(self, 1, x1_0)
         x2_0 = self.CB2_0(d1_0)
@@ -483,12 +499,22 @@ class UNFusion(nn.Module):
         x3_0 = self.CB3_0(d2_0)
         d3_0 = down(self, 3, x3_0)
         x4_0 = self.CB4_0(d3_0)
-        feats = self.encode((x1_0, (x2_0, d1_0), (x3_0, d2_0), (x4_0, d3_0)))
-        if img2 is not None:
-            n = img1.shape[0]
-            feats = [attention_fusion(f[:n], f[n:], self.fusion_mode)
-                     for f in feats]
+        return self.encode((x1_0, (x2_0, d1_0), (x3_0, d2_0), (x4_0, d3_0)))
+
+    def fusion(self, feats, n):
+        """Each scale's halves (the 2n-image encoder batch) fused."""
+        return [attention_fusion(f[:n], f[n:], self.fusion_mode)
+                for f in feats]
+
+    def decode_feats(self, feats):
+        """The nested decoder and conv_out over (fused) features."""
         return self.conv_out(self.decode(feats))
+
+    def forward(self, img1, img2=None):
+        feats = self.encoder(img1, img2)
+        if img2 is not None:
+            feats = self.fusion(feats, img1.shape[0])
+        return self.decode_feats(feats)
 
 
 class NestFuse(nn.Module):
@@ -509,7 +535,9 @@ class NestFuse(nn.Module):
     conv_wide where the output width is 8 mod 16, else conv_chain on one
     tensor and conv_multi on legs. `up_mode` 'nearest' (the default) or
     'bilinear'; `num_ch` the encoder's widths (64, 112, 160, 208).
-    Autoencoder mode (`model(img1)`) decodes one batch's features."""
+    Autoencoder mode (`model(img1)`) decodes one batch's features. forward
+    is `encoder`, `fusion` and `decode_feats`, the parts that
+    parallel/tiling.py runs apart (RFNNest and MAFusion too)."""
 
     num_ch = (64, 112, 160, 208)
     up_mode = "nearest"
@@ -556,11 +584,15 @@ class NestFuse(nn.Module):
         return [attention_fusion(f[:n], f[n:], self.fusion_mode)
                 for f in feats]
 
+    def decode_feats(self, feats):
+        """The decoder and conv_out over (fused) features."""
+        return self.conv_out(self.decode(feats))
+
     def forward(self, img1, img2=None):
         feats = self.encoder(img1, img2)
         if img2 is not None:
             feats = self.fusion(feats, img1.shape[0])
-        return self.conv_out(self.decode(feats))
+        return self.decode_feats(feats)
 
 
 class RFNNest(NestFuse):

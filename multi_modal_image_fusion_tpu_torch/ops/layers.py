@@ -123,6 +123,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import global_sum, spans_ranks, world_size
 from .cuda.conv_chain import (ACT_CODES, apply_act, batch_step, conv_chain,
                               conv_gray_enter, conv_gray_exit, relu6)
 from .cuda.conv_dw import conv_dw
@@ -140,7 +141,7 @@ __all__ = ["ACTS", "ACT_CODES", "BN_EPS", "BatchNormNHWC",
            "ChannelLayerNorm", "ConvLayer", "NORMS", "activation",
            "apply_act", "batch_norm", "batch_stats_route", "fast_training",
            "group_norm", "in_training_scope", "init_conv_", "int8_ctx",
-           "interpolate"]
+           "interpolate", "tile_rows_ctx"]
 
 INT32_ELEMS = 2 ** 31 - 1   # largest output of torch's NHWC bilinear kernel
 NORMS = (None, "batch", "group", "layer")    # the norms ConvLayer ports
@@ -162,6 +163,9 @@ GN_CHUNK_ELEMS = 2 ** 28    # elements a batch chunk of group_norm (1 GB f32)
 # None: no trainer scope (serving); False / True: the trainer's steps, on
 # F.conv2d / on the conv_valid kernels
 _FAST_TRAINING = contextvars.ContextVar("mmif_fast_training", default=None)
+# (abs_start, slab_h, full_h) of the height slab a model runs on now
+# (`tile_rows_ctx`), or None
+_TILE_ROWS = contextvars.ContextVar("mmif_tile_rows", default=None)
 
 
 @contextlib.contextmanager
@@ -246,21 +250,42 @@ def group_norm(x, weight, bias, act=None, eps=BN_EPS):
     return out
 
 
+def _batch_moments(xf):
+    """(biased variance, mean) of xf over (N, H, W). With a process group
+    of more than one rank (parallel/mesh.py) they cover the global batch,
+    as SyncBatchNorm's do (the JAX package's batch-stat reductions span
+    the global batch, parallel/mesh.py:15-16): the sum over the ranks over
+    the global count gives the mean, then the sum of (x - mean)^2 the
+    variance, each summed by a differentiable all-reduce, so the gradient
+    flows back across ranks too. Every rank holds an equal slice of the
+    batch (parallel/mesh.shard_batch), so the global count is the local
+    one times the world size. Centred in two passes, as `var_mean` is
+    locally: E[x^2] - E[x]^2 loses what `group_norm`'s docstring records."""
+    if not spans_ranks():
+        return torch.var_mean(xf, dim=(0, 1, 2), correction=0)
+    count = float(xf.numel() // xf.shape[-1] * world_size())
+    mean = global_sum(xf.sum(dim=(0, 1, 2))) / count
+    var = global_sum(((xf - mean) ** 2).sum(dim=(0, 1, 2))) / count
+    return var, mean
+
+
 def batch_norm(x, bn, act=None, batch_stats=False):
     """A batch norm `bn` (nn.BatchNorm2d) then `act` on an NHWC tensor, the
     training routes' norm (the JAX package's `apply_norm`, flax BatchNorm,
     ops/layers.py:284-312), in f32 (float64 for a float64 x) and cast back
     to x's dtype. With `batch_stats` (the JAX `train=True`) the mean and
-    the biased variance of x over (N, H, W) normalize it, and in place the
-    running statistics become 0.9 r + 0.1 stat and num_batches_tracked
-    counts one: flax's update, with the biased variance, where
-    F.batch_norm(training=True) would store the unbiased one (n / (n - 1)
-    of it). Otherwise the running statistics normalize it and nothing
-    changes. The buffers keep their dtype (f32 under a bf16 forward)."""
+    the biased variance of x over (N, H, W) normalize it (over the global
+    batch when a process group spans ranks: `_batch_moments`), and in
+    place the running statistics become 0.9 r + 0.1 stat and
+    num_batches_tracked counts one: flax's update, with the biased
+    variance, where F.batch_norm(training=True) would store the unbiased
+    one (n / (n - 1) of it). Otherwise the running statistics normalize it
+    and nothing changes. The buffers keep their dtype (f32 under a bf16
+    forward)."""
     ct = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(ct)
     if batch_stats:
-        var, mean = torch.var_mean(xf, dim=(0, 1, 2), correction=0)
+        var, mean = _batch_moments(xf)
         with torch.no_grad():
             for buf, stat in ((bn.running_mean, mean), (bn.running_var, var)):
                 buf.mul_(1.0 - bn.momentum).add_(stat.to(buf.dtype),
@@ -863,22 +888,91 @@ class ConvLayer(nn.Module):
                 f"norm={self.norm!r}")
 
 
+@contextlib.contextmanager
+def tile_rows_ctx(abs_start, slab_h, full_h):
+    """Height-tile scope of parallel/tiling.py (JAX ops/layers.py:815-840):
+    while a model runs on a height slab, a bilinear upsample takes its row
+    weights from the full image's geometry, as `interpolate` says. All three
+    in full-resolution rows: the slab's first row, its height and the
+    image's; a tensor of height h in the slab is at scale slab_h // h."""
+    token = _TILE_ROWS.set((int(abs_start), int(slab_h), int(full_h)))
+    try:
+        yield
+    finally:
+        _TILE_ROWS.reset(token)
+
+
+def _bilinear_whole(x, scale_factor):
+    """F.interpolate(bilinear, align_corners=True) of an NHWC tensor on
+    its channels-last view. torch's NHWC bilinear kernel takes outputs
+    under 2^31 elements: batch chunks (DBNet's x8 upsample of 32 images is
+    2.6e9)."""
+    b, h, w, c = x.shape
+    step = max(1, INT32_ELEMS // (h * w * c * scale_factor ** 2))
+    outs = [F.interpolate(x[i:i + step].permute(0, 3, 1, 2),
+                          scale_factor=scale_factor, mode="bilinear",
+                          align_corners=True).permute(0, 2, 3, 1)
+            for i in range(0, b, step)]
+    return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
+
+
+def _bilinear_slab(x, scale_factor, geometry):
+    """The bilinear align_corners upsample of a height slab `x` (NHWC) with
+    the whole image's geometry (JAX ops/layers.py:869-892): the slab's rows
+    of the whole image's upsample. Its weights depend on the whole image's
+    height and on each row's absolute position, which F.interpolate reads
+    from its input's and output's sizes alone; so the slab sits at its rows
+    of a zero-filled whole-height input, a channel chunk at a time (64, 32
+    or 16 channels where they divide C, so torch picks the kernel it picks
+    for the whole tensor), F.interpolate upsamples it, and the slab's
+    output rows are kept. Their sources are the slab's rows, but at the
+    slab's edges, whose rows the tiling discards as halo. The arithmetic
+    is F.interpolate's own, so the rows equal the whole-image route's bit
+    for bit on every device (torch ops computing the same weights round
+    apart from its kernels, and in bf16 the flips grew through MAFusion's
+    decoder to 2.9e-3 of max|y|). The whole-height upsample costs the
+    whole image's work a chunk; its memory is one chunk's. Its device time
+    is the profiler span "tiled_bilinear"."""
+    with torch.profiler.record_function("tiled_bilinear"):
+        return _bilinear_slab_rows(x, scale_factor, geometry)
+
+
+def _bilinear_slab_rows(x, scale_factor, geometry):
+    abs_start, slab_h, full_h = geometry
+    b, h, w, c = x.shape
+    if slab_h % h:
+        raise ValueError(f"tiled bilinear: slab height {slab_h} not a "
+                         f"multiple of feature height {h}")
+    s_in = slab_h // h
+    if s_in % scale_factor:
+        raise ValueError(f"tiled bilinear: input scale {s_in} not divisible "
+                         f"by scale_factor {scale_factor}")
+    s_out = s_in // scale_factor
+    a_in, a_out = abs_start // s_in, abs_start // s_out
+    oh = h * scale_factor
+    step = next((k for k in (64, 32, 16) if c % k == 0), c)
+    out = x.new_empty((b, oh, w * scale_factor, c))
+    for c0 in range(0, c, step):
+        whole = x.new_zeros((b, full_h // s_in, w, step))
+        whole[:, a_in:a_in + h] = x[..., c0:c0 + step]
+        out[..., c0:c0 + step] = _bilinear_whole(
+            whole, scale_factor)[:, a_out:a_out + oh]
+        del whole
+    return out
+
+
 def interpolate(x, scale_factor, mode="nearest"):
     """torch nn.Upsample on NHWC: 'nearest' (each pixel repeated) or
     'bilinear' with align_corners=True (JAX ops/layers.py:842-898, reference
     core/block.py:965-973). The bilinear weights stay f32 whatever x's dtype
-    (the JAX package rounds them to it)."""
+    (the JAX package rounds them to it): F.interpolate. Inside
+    `tile_rows_ctx` a bilinear upsample of a height slab takes the whole
+    image's geometry (`_bilinear_slab`)."""
     if mode == "nearest":
         return x.repeat_interleave(scale_factor, dim=1).repeat_interleave(
             scale_factor, dim=2)
+    if mode == "bilinear" and _TILE_ROWS.get() is not None:
+        return _bilinear_slab(x, scale_factor, _TILE_ROWS.get())
     if mode == "bilinear":
-        # torch's NHWC bilinear kernel takes outputs under 2^31 elements:
-        # batch chunks (DBNet's x8 upsample of 32 images is 2.6e9)
-        b, h, w, c = x.shape
-        step = max(1, INT32_ELEMS // (h * w * c * scale_factor ** 2))
-        outs = [F.interpolate(x[i:i + step].permute(0, 3, 1, 2),
-                              scale_factor=scale_factor, mode="bilinear",
-                              align_corners=True).permute(0, 2, 3, 1)
-                for i in range(0, b, step)]
-        return (torch.cat(outs) if len(outs) > 1 else outs[0]).contiguous()
+        return _bilinear_whole(x, scale_factor)
     raise ValueError(f"unknown interpolate mode {mode!r}")

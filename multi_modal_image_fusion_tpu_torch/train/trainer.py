@@ -18,6 +18,14 @@ The trainer owns the state: the model's parameters, the Adam moments `mu`,
 `nu` and `step` (optax's count and the JAX TrainState's step, which move
 together). `state_dict()` / `load_state_dict()` carry the optimizer part
 for resume.
+
+Under data parallelism (a torch.distributed process group,
+parallel/mesh.py) each rank steps on its slice of the global batch: the
+gradients and the loss parts are averaged over the ranks before the clip,
+in one all-reduce, the valid step's masked means become the global
+batch's, and the batch norms take the global batch's statistics
+(ops/layers.batch_norm). Without a group of more than one rank
+(mesh.spans_ranks) no collective runs.
 """
 
 import contextlib
@@ -28,6 +36,7 @@ from torch.profiler import record_function
 
 from ..ops.layers import fast_training
 from ..ops.losses import GradLoss, PixelLoss, SSIMLoss
+from ..parallel.mesh import all_reduce_mean, spans_ranks
 
 __all__ = ["Trainer", "clip_by_global_norm", "make_loss_bundle"]
 
@@ -162,8 +171,16 @@ class Trainer:
             grads = torch.autograd.grad(total, list(self.params.values()),
                                         materialize_grads=True)
         with torch.no_grad(), record_function("optimizer"):
-            self._update(grads)
-        return {k: v.detach() for k, v in parts.items()}, imgf.detach()
+            # data parallelism (parallel/mesh.py): the mean over the ranks
+            # of their batch slices' gradients is the global batch's, and
+            # the clip in `_update` sees it, as the JAX step clips the
+            # global gradient; the loss parts ride in the same all-reduce
+            n = len(grads)
+            reduced = all_reduce_mean([*grads, *(v.detach().to(grads[0].dtype)
+                                                 for v in parts.values())])
+            self._update(reduced[:n])
+            parts = dict(zip(parts, reduced[n:]))
+        return parts, imgf.detach()
 
     def _update(self, grads):
         if self.clip_grad:
@@ -193,11 +210,28 @@ class Trainer:
 
     def valid_step(self, batch, mask=None):
         """Loss parts and fused output without an update, f32. mask: optional
-        (N,) 0/1 tensor excluding samples from the loss average."""
+        (N,) 0/1 tensor excluding samples from the loss average. Under data
+        parallelism each part is the global batch's masked mean: the ranks'
+        masked sums over the global count."""
         img1, img2 = self._unpack(batch)
         tgt2 = img1 if img2 is None else img2
         with torch.no_grad(), fast_training(self.fast), \
                 _mode(self.model, False):
             imgf = self._apply(img1, img2, train=False)
             _, parts = self.loss_bundle(img1, tgt2, imgf, mask=mask)
+            if spans_ranks():
+                parts = self._global_mean(parts, img1.shape[0], mask)
         return parts, imgf
+
+    @staticmethod
+    def _global_mean(parts, n, mask):
+        """Masked batch means of each rank -> the global one: each part
+        times its rank's count (the mask's sum, or n), summed over the
+        ranks with the counts, over the global count."""
+        loss = parts["loss"]
+        count = (loss.new_full((), float(n)) if mask is None
+                 else mask.sum().to(loss.dtype))
+        sums = all_reduce_mean([*(p * count for p in parts.values()),
+                                count])
+        return {k: s / torch.clamp(sums[-1], min=1e-30)
+                for k, s in zip(parts, sums[:-1])}
